@@ -1,0 +1,61 @@
+"""Fine hints-to-objects matcher (counterpart of
+``text2pos_tpu/models/matcher.py``): the serving half of ``SuperGlueMatch``
+(hint encoding, matching against pre-encoded cell objects, the offset head)
+and ``get_pos_in_cell``. The object encoder comes with the offline-encoder
+slice; serving reads its output from the fine bank."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from text2pos_torch.models.blocks import HeadMLP, l2_normalize
+from text2pos_torch.models.language import LanguageEncoder
+from text2pos_torch.models.superglue import SuperGlue
+
+
+class SuperGlueMatch(nn.Module):
+    def __init__(self, vocab_size: int, embed_dim: int, num_layers: int = 6,
+                 sinkhorn_iters: int = 50, match_threshold: float = 0.2,
+                 dtype: Optional[torch.dtype] = None, stat_groups: int = 2):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
+        self.superglue = SuperGlue(embed_dim, num_layers, sinkhorn_iters,
+                                   match_threshold, dtype, stat_groups)
+        self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
+
+    def encode_hints(self, hint_tokens: torch.Tensor,
+                     hint_lengths: torch.Tensor) -> torch.Tensor:
+        """[B, H, T] tokens → [B, H, E] L2-normalized hint encodings."""
+        B, H, T = hint_tokens.shape
+        enc = self.language_encoder(hint_tokens.reshape(B * H, T),
+                                    hint_lengths.reshape(B * H))
+        return l2_normalize(enc.reshape(B, H, self.embed_dim))
+
+    def match_encoded(self, obj_enc: torch.Tensor, hint_enc: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """GNN + Sinkhorn + offset head on encodings: obj_enc [B, O, E],
+        hint_enc [B, H, E]."""
+        out = self.superglue(obj_enc, hint_enc)
+        out["offsets"] = self.mlp_offsets(hint_enc)      # [B, H, 2]
+        return out
+
+
+def get_pos_in_cell(centers: torch.Tensor, matches0: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    """Mean of matched objects' center + matched hint's offset, [..., 2];
+    (0.5, 0.5) when nothing matched.
+
+    centers [..., O, 2], matches0 [..., O] (-1 unmatched), offsets [..., H, 2].
+    """
+    valid = matches0 >= 0
+    safe = matches0.clamp_min(0)[..., None].expand(*matches0.shape, 2)
+    preds = centers + torch.gather(offsets, -2, safe)
+    vf = valid[..., None].to(preds.dtype)
+    total = (preds * vf).sum(-2)
+    count = vf.sum(-2)
+    mean = total / count.clamp_min(1.0)
+    return torch.where(count > 0, mean, torch.full_like(mean, 0.5))

@@ -1,0 +1,130 @@
+"""Log-domain Sinkhorn with learned dustbins (counterpart of
+``text2pos_tpu/ops/sinkhorn.py``).
+
+``log_optimal_transport`` adds the dustbin row and column, the marginals and
+the ``- norm`` scaling around ``log_sinkhorn``, whose ``iters`` alternating
+row/column updates are the hand-written CUDA kernel ``csrc/sinkhorn.cu``
+(replacing the Pallas kernel ``text2pos_tpu/ops/sinkhorn_pallas.py:51``).
+``extract_matches`` is plain PyTorch: mutual max, threshold, first index on
+argmax ties. All f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from text2pos_torch.ops import _build
+
+
+def log_sinkhorn_plain(Z: torch.Tensor, log_mu: torch.Tensor,
+                       log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain PyTorch Sinkhorn: Z [B, M, N], log_mu [B, M], log_nu [B, N]."""
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(Z + u[:, :, None], dim=1)
+    return Z + u[:, :, None] + v[:, None, :]
+
+
+def _sinkhorn_kernel(Z, log_mu, log_nu, iters):
+    B, M, N = Z.shape
+    if not (Z.dtype == log_mu.dtype == log_nu.dtype == torch.float32):
+        raise TypeError("the Sinkhorn kernel takes float32 inputs")
+    if M > 32 or N > 16:
+        raise ValueError(f"Sinkhorn kernel: [{M}, {N}] coupling exceeds "
+                         "32 rows x 16 columns")
+    if tuple(log_mu.shape) != (B, M) or tuple(log_nu.shape) != (B, N):
+        raise ValueError("Sinkhorn kernel: marginal shapes do not match Z")
+    if not log_mu.device == log_nu.device == Z.device:
+        raise ValueError("Sinkhorn kernel: inputs on different devices")
+    Z, log_mu, log_nu = Z.contiguous(), log_mu.contiguous(), log_nu.contiguous()
+    out = torch.empty_like(Z)
+    fn = _build.entry("sinkhorn", "t2p_log_sinkhorn",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+    _build.check(fn(Z.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(),
+                    out.data_ptr(), B, M, N, int(iters),
+                    _build.stream_ptr(Z.device)), "log_sinkhorn")
+    _build.LAUNCHES["sinkhorn"] += 1
+    return out
+
+
+def log_sinkhorn(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                 iters: int) -> torch.Tensor:
+    """Sinkhorn normalization in log space; the CUDA kernel on the card,
+    the plain version on the CPU."""
+    if Z.is_cuda:
+        return _sinkhorn_kernel(Z, log_mu, log_nu, iters)
+    return log_sinkhorn_plain(Z, log_mu, log_nu, iters)
+
+
+def dustbin_couplings(scores: torch.Tensor, alpha: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 float]:
+    """Sinkhorn's inputs for [B, M, N] scores: the [B, M+1, N+1] couplings
+    with dustbin score ``alpha``, the log marginals [B, M+1] and [B, N+1],
+    and ``norm`` = -log(M+N)."""
+    B, M, N = scores.shape
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=scores.device)
+    couplings = alpha.expand(B, M + 1, N + 1).clone()
+    couplings[:, :M, :N] = scores.float()
+    norm = -math.log(M + N)
+    log_mu = torch.full((M + 1,), norm, device=scores.device)
+    log_mu[M] = math.log(N) + norm
+    log_nu = torch.full((N + 1,), norm, device=scores.device)
+    log_nu[N] = math.log(M) + norm
+    return (couplings, log_mu.expand(B, M + 1).contiguous(),
+            log_nu.expand(B, N + 1).contiguous(), norm)
+
+
+def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor,
+                          iters: int) -> torch.Tensor:
+    """[B, M, N] scores → [B, M+1, N+1] log transport (dustbins included),
+    scaled by M+N."""
+    Z, log_mu, log_nu, norm = dustbin_couplings(scores, alpha)
+    return log_sinkhorn(Z, log_mu, log_nu, iters) - norm
+
+
+def extract_matches(Z: torch.Tensor, match_threshold: float = 0.2
+                    ) -> Dict[str, torch.Tensor]:
+    """Mutual-max + threshold match extraction from [B, M+1, N+1] log
+    transport: matches0 [B, M], matches1 [B, N] (-1 unmatched) and
+    matching_scores0/1."""
+    z = Z[:, :-1, :-1]
+    M, N = z.shape[1], z.shape[2]
+    # torch.max(dim) does not promise the first index on ties; argmax of
+    # the row maximum's first occurrence does.
+    max0 = z.amax(dim=2)
+    idx0 = _first_argmax(z, dim=2)                       # [B, M]
+    idx1 = _first_argmax(z, dim=1)                       # [B, N]
+    ar_m = torch.arange(M, device=z.device)[None]
+    ar_n = torch.arange(N, device=z.device)[None]
+    mutual0 = torch.gather(idx1, 1, idx0) == ar_m
+    mutual1 = torch.gather(idx0, 1, idx1) == ar_n
+    zero = z.new_zeros(())
+    ms0 = torch.where(mutual0, max0.exp(), zero)
+    ms1 = torch.where(mutual1, torch.gather(ms0, 1, idx1), zero)
+    valid0 = mutual0 & (ms0 > match_threshold)
+    valid1 = mutual1 & torch.gather(valid0, 1, idx1)
+    neg1 = torch.full_like(idx0, -1)
+    return {
+        "matches0": torch.where(valid0, idx0, neg1),
+        "matches1": torch.where(valid1, idx1, torch.full_like(idx1, -1)),
+        "matching_scores0": ms0,
+        "matching_scores1": ms1,
+    }
+
+
+def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the first maximum along ``dim`` (``jnp.argmax``'s rule)."""
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    ar = torch.arange(n, device=x.device).view(shape)
+    is_max = x == x.amax(dim=dim, keepdim=True)
+    return torch.where(is_max, ar, n).amin(dim=dim)

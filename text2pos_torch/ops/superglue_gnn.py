@@ -1,0 +1,179 @@
+"""Fused SuperGlue attention GNN in eval mode (counterpart of
+``text2pos_tpu/ops/superglue_gnn_pallas.py``).
+
+``fold_gnn_params`` stacks the 2·num_layers blocks' weights and folds the
+calibrated per-set BatchNorm (``bn_stat_groups=2``) into per-set affines
+``s0``/``t0``; ``pack_gnn_params`` lays them out for the kernel. The kernel
+``csrc/superglue_gnn.cu`` (replacing the Pallas kernel
+``superglue_gnn_pallas.py:253``) runs every self/cross block, the final
+projection and the ``[N, 16, 6]`` score matrix scaled by 1/√E in one launch.
+``gnn_scores_plain`` repeats its arithmetic, rounding included, in PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from text2pos_torch.ops import _build
+
+HEADS = 4
+KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
+
+
+def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
+                    eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """Stacked block weights and per-set folded BN affines, f32 numpy.
+
+    ``params``/``batch_stats`` are JAX-layout trees holding ``superglue``;
+    the GNN BN statistics must be the calibrated ``[2, 2E]`` rows.
+    """
+    sg = params["superglue"]
+    gnn = sg["gnn"]
+    L = 2 * num_layers
+
+    def stack(getter, tree=gnn):
+        return np.stack([np.asarray(getter(tree[f"layer_{i}"]), np.float32)
+                         for i in range(L)])
+
+    out = {name: stack(lambda l, n=name: l["attn"][f"proj_{n[1]}"][
+        "kernel" if n[0] == "w" else "bias"])
+        for name in ("wq", "bq", "wk", "bk", "wv", "bv")}
+    out.update(
+        wm=stack(lambda l: l["attn"]["merge"]["kernel"]),
+        bm=stack(lambda l: l["attn"]["merge"]["bias"]),
+        w0=stack(lambda l: l["mlp"]["dense_0"]["kernel"]),
+        w1=stack(lambda l: l["mlp"]["dense_1"]["kernel"]),
+        b1=stack(lambda l: l["mlp"]["dense_1"]["bias"]),
+        wf=np.asarray(sg["final_proj"]["kernel"], np.float32),
+        bf=np.asarray(sg["final_proj"]["bias"], np.float32),
+    )
+    # Per set g: (x·W0 + b0 − mean_g)·scale/√(var_g+eps) + bias
+    #          = (x·W0)·s_g + t_g
+    scale = stack(lambda l: l["mlp"]["bn_0"]["scale"])           # [L, 2E]
+    bias = stack(lambda l: l["mlp"]["bn_0"]["bias"])
+    b0 = stack(lambda l: l["mlp"]["dense_0"]["bias"])
+    bs = batch_stats["superglue"]["gnn"]
+    mean = stack(lambda l: l["mlp"]["bn_0"]["mean"], bs)          # [L, 2, 2E]
+    var = stack(lambda l: l["mlp"]["bn_0"]["var"], bs)
+    if mean.ndim != 3:
+        raise ValueError("fold_gnn_params needs bn_stat_groups=2 calibrated "
+                         f"stats, got mean shape {mean.shape}")
+    inv = scale[:, None, :] / np.sqrt(var + eps)
+    out["s0"] = inv
+    out["t0"] = bias[:, None, :] + (b0[:, None, :] - mean) * inv
+    return out
+
+
+def pack_gnn_params(folded: Dict[str, np.ndarray], dtype: torch.dtype,
+                    device) -> Dict[str, torch.Tensor]:
+    """Kernel layout: q|k|v fused to ``wqkv`` [L, E, 3E]; matmul weights in
+    the compute dtype, biases and BN affines in f32."""
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                           dtype=dt)
+
+    return {
+        "wqkv": t(np.concatenate([folded["wq"], folded["wk"], folded["wv"]],
+                                 axis=2), dtype),
+        "bqkv": t(np.concatenate([folded["bq"], folded["bk"], folded["bv"]],
+                                 axis=1)),
+        "wm": t(folded["wm"], dtype), "bm": t(folded["bm"]),
+        "w0": t(folded["w0"], dtype), "s0": t(folded["s0"]),
+        "t0": t(folded["t0"]),
+        "w1": t(folded["w1"], dtype), "b1": t(folded["b1"]),
+        "wf": t(folded["wf"], dtype), "bf": t(folded["bf"]),
+    }
+
+
+def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
+                     packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: desc0 [N, T0, E], desc1 [N, T1, E]
+    → scores [N, T0, T1] f32. The residual stream is f32; values the JAX
+    eval path rounds to the compute dtype are rounded here too."""
+    dt = packed["wqkv"].dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    def w(name, l=None):
+        return (packed[name] if l is None else packed[name][l]).float()
+
+    N, T0, E = desc0.shape
+    D = E // HEADS
+    res = torch.cat([desc0, desc1], dim=1).float()     # [N, T0+T1, E]
+    set1 = torch.arange(res.shape[1], device=res.device) >= T0
+    L = packed["wqkv"].shape[0]
+    for l in range(L):
+        cross = l % 2 == 1
+        a = rnd(res)
+        qkv = rnd(a @ w("wqkv", l) + w("bqkv", l))
+        q, k, v = (x.unflatten(-1, (HEADS, D)) for x in qkv.split(E, -1))
+        sets = ((slice(0, T0), slice(T0, None)), (slice(T0, None),
+                                                  slice(0, T0)))
+        msg = torch.empty_like(q)
+        for own, other in sets:
+            src = other if cross else own
+            s = torch.einsum("bnhd,bmhd->bhnm", q[:, own], k[:, src])
+            p = rnd(torch.softmax(s / math.sqrt(D), dim=-1))
+            msg[:, own] = torch.einsum("bhnm,bmhd->bnhd", p, v[:, src])
+        m = rnd(rnd(msg.flatten(2)) @ w("wm", l) + w("bm", l))
+        h = torch.cat([a, m], dim=-1) @ w("w0", l)
+        s0 = torch.where(set1[:, None], w("s0", l)[1], w("s0", l)[0])
+        t0 = torch.where(set1[:, None], w("t0", l)[1], w("t0", l)[0])
+        h1 = rnd(torch.relu(h * s0 + t0))
+        res = res + rnd(h1 @ w("w1", l) + w("b1", l))
+    md = rnd(rnd(res) @ w("wf") + w("bf"))
+    return md[:, :T0] @ md[:, T0:].transpose(1, 2) / math.sqrt(E)
+
+
+def _gnn_kernel(desc0, desc1, packed):
+    N, T0, E = desc0.shape
+    T1 = desc1.shape[1]
+    if (E, T0, T1) != KERNEL_SHAPE or tuple(desc1.shape) != (N, T1, E):
+        raise ValueError(f"GNN kernel is built for [N, {KERNEL_SHAPE[1]}, "
+                         f"{KERNEL_SHAPE[0]}] x [N, {KERNEL_SHAPE[2]}, "
+                         f"{KERNEL_SHAPE[0]}], got {tuple(desc0.shape)} x "
+                         f"{tuple(desc1.shape)}")
+    dt = packed["wqkv"].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
+    for name, x in packed.items():
+        if x.device != desc0.device or not x.is_contiguous():
+            raise ValueError(f"GNN kernel: weight {name} must be contiguous "
+                             "on the descriptors' device")
+    if desc1.device != desc0.device:
+        raise ValueError("GNN kernel: desc0 and desc1 on different devices")
+    desc0 = desc0.float().contiguous()
+    desc1 = desc1.float().contiguous()
+    out = torch.empty(N, T0, T1, device=desc0.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    fn = _build.entry("superglue_gnn", "t2p_superglue_gnn",
+                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] * 2)
+    p = packed
+    _build.check(fn(desc0.data_ptr(), desc1.data_ptr(),
+                    p["wqkv"].data_ptr(), p["bqkv"].data_ptr(),
+                    p["wm"].data_ptr(), p["bm"].data_ptr(),
+                    p["w0"].data_ptr(), p["s0"].data_ptr(),
+                    p["t0"].data_ptr(), p["w1"].data_ptr(),
+                    p["b1"].data_ptr(), p["wf"].data_ptr(),
+                    p["bf"].data_ptr(), p["wqkv"].shape[0], N,
+                    int(dt == torch.bfloat16), out.data_ptr(),
+                    _build.stream_ptr(desc0.device)), "superglue_gnn")
+    _build.LAUNCHES["superglue_gnn"] += 1
+    return out
+
+
+def gnn_scores(desc0: torch.Tensor, desc1: torch.Tensor,
+               packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """All GNN blocks + final projection + score matrix; the CUDA kernel on
+    the card, the plain version on the CPU."""
+    if desc0.is_cuda:
+        return _gnn_kernel(desc0, desc1, packed)
+    return gnn_scores_plain(desc0, desc1, packed)
