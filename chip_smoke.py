@@ -13,20 +13,34 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    bench queries): max abs error with its tolerance, median times (CUDA
    events) of kernel, plain version and, where one exists, a one-call
    PyTorch equivalent, and the least time the card could take (bound).
+   The PointConv kernel is checked at the three set-abstraction levels of
+   both object towers on the bench map's first DB-encode step of 64 cells
+   (JAX's draws from ``fixtures/bench_db_subset.npz``): the fine tower's
+   1024 objects and the coarse tower's valid objects, in f32 and bf16; these
+   are the six launches of the DB encode's first step.
 4. End to end: ``LocalizationPipeline.serve_batch`` on the 2048 committed
    bench queries at top_k=10, bf16 bodies (the headline, whose kernel launch
    counts are read) and f32, then one rerank@128 batch (λ=4, γ=6);
    throughput, accuracies and agreement with the JAX outputs stored in the
    fixture.
-5. A ``{"kernels": [...]}`` line, the card's name and power limit, and
+5. Offline DB encode: the bench map rebuilt by the port's copy of the
+   generator (checked against the fixture's cell boxes, sizes and scenes);
+   its first 64 cells encoded with JAX's draws and held against JAX's f32
+   and bf16 encodings; all 2048 cells encoded, coarse and fine, in bf16
+   (``LocalizationPipeline.encode_database``, whose PointConv launches are
+   read; wall time of three calls, cells/s, each tower apart, a profile by
+   stage); then the 2048 queries served from the rebuilt database, and from
+   one rebuilt with other draws (resampling noise between two databases).
+6. A ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
-fixture) and a CUDA device; imports nothing of JAX.
+fixtures) and a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -44,6 +58,8 @@ CKPT_FINE = os.path.join(ROOT, "checkpoints", "bench_fine.msgpack")
 DB_CACHE = os.path.join(ROOT, "checkpoints", "bench_db_cache.npz")
 FIXTURE = os.path.join(ROOT, "text2pos_torch", "fixtures",
                        "bench_queries.npz")
+DB_FIXTURE = os.path.join(ROOT, "text2pos_torch", "fixtures",
+                          "bench_db_subset.npz")
 TOP_K = 10
 
 # Published H100 SXM peaks (dense): f32 outside the tensor cores, bf16
@@ -60,6 +76,17 @@ PEAK_BYTES = 3.35e12
 TOL = {"lstm": 1e-4, "sinkhorn": 1e-4}
 GNN_REL_TOL = {"f32": 1e-5, "bf16": 1e-2}
 ACC_SLACK = 0.01   # headline top-10@15m within 1 point of the JAX value
+# PointConv kernel vs plain, relative to the largest output: f32 sums in
+# another order; in bf16 that can move a value by one bf16 step.
+POINTCONV_REL_TOL = {"f32": 1e-5, "bf16": 1e-2}
+# Offline DB encode of the fixture's 64 cells against JAX's CPU outputs on
+# the same draws: f32 max abs error on the L2-normalized encodings; bf16
+# cosine of every row (the frameworks round bf16 at other places). Serving
+# from the rebuilt database (the port's own draws, not JAX's) must keep
+# top-10@15m within 2 points of JAX's.
+DB_F32_TOL = 1e-4
+DB_BF16_MIN_COS = 0.999
+DB_ACC_SLACK = 0.02
 
 KERNEL_SOURCES = {
     "lstm": ("text2pos_torch/csrc/lstm.cu",
@@ -68,6 +95,8 @@ KERNEL_SOURCES = {
                  "text2pos_tpu/ops/sinkhorn_pallas.py:51"),
     "superglue_gnn": ("text2pos_torch/csrc/superglue_gnn.cu",
                       "text2pos_tpu/ops/superglue_gnn_pallas.py:253"),
+    "pointconv": ("text2pos_torch/csrc/pointconv.cu",
+                  "text2pos_tpu/ops/pointconv_pallas.py:91"),
 }
 
 
@@ -308,16 +337,323 @@ def profile_serve(pipe, fx) -> None:
     torch.cuda.synchronize()
 
 
+def subset_points(bt, dbx, dev):
+    """The fine tower's input for the bench map's first cells, built from
+    JAX's draws in the DB fixture."""
+    from text2pos_torch.evaluation.pipeline import fine_cell_points
+
+    n, pad = dbx["fine_u"].shape[:2]
+    return fine_cell_points(
+        bt, torch.arange(n, device=dev), pad,
+        u=torch.as_tensor(dbx["fine_u"], device=dev),
+        pad_pts=torch.as_tensor(dbx["fine_pad_pts"], device=dev))
+
+
+def pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
+    """Kernel vs plain at the three SA levels of both towers on the
+    fixture's 64 cells, the DB encode's first step (fine: 1024 objects;
+    coarse: the cells' valid objects), each level fed by the kernel's output
+    of the level before, bf16 then f32. Times are summed over the six
+    levels: one step of the main path."""
+    from text2pos_torch.evaluation.pipeline import coarse_cell_points
+    from text2pos_torch.models.pointnet2 import K_CAP
+    from text2pos_torch.ops.neighbors import pairwise_sqdist
+    from text2pos_torch.ops.pointconv import (_pointconv_kernel,
+                                              pointconv_max_plain)
+
+    dev = pipe_bf16.device
+    n = dbx["fine_u"].shape[0]
+    xyz, rgb, _, _ = subset_points(bt, dbx, dev)
+    with torch.inference_mode():
+        cxyz, crgb = coarse_cell_points(
+            bt, torch.arange(n, device=dev),
+            u=torch.as_tensor(dbx["coarse_u"], device=dev))[:2]
+    towers = (("fine", lambda p: p.fine, rgb.flatten(0, 1),
+               xyz.flatten(0, 1)),
+              ("coarse", lambda p: p.coarse, crgb, cxyz))
+    results = {}
+    for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
+        res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": None, "max_abs_err": 0.0, "detail": []}
+        for tower, model, x, pos in towers:
+            pn = model(pipe).object_encoder.pointnet
+            for name in ("sa1", "sa2", "sa3"):
+                lvl = pointconv_level(getattr(pn, name), x, pos, label,
+                                      f"{tower} {name}", K_CAP,
+                                      pairwise_sqdist, _pointconv_kernel,
+                                      pointconv_max_plain, failures)
+                x, pos = lvl.pop("out")
+                for k in ("ms", "plain_ms", "bound_ms"):
+                    res[k] += lvl[k]
+                res["max_abs_err"] = max(res["max_abs_err"],
+                                         lvl["max_abs_err"])
+                res["detail"].append(lvl)
+        results[label] = res
+    return dict(results["bf16"], f32=results["f32"])
+
+
+def pointconv_level(sa, x, pos, label, where, k_cap, pairwise_sqdist,
+                    kernel, plain, failures):
+    """One SA level's kernel against its plain version: error, times and
+    bound; ``out`` is the kernel's output and the level's centroids."""
+    r = sa.radius
+    with torch.inference_mode():
+        args = sa.pointconv_args(x, pos)
+        got = kernel(*args, r, k_cap)
+        want = plain(*args, r, k_cap)
+        torch.cuda.synchronize()
+        a, p, c, cent, _, w2, _, _ = args
+        in_ball = pairwise_sqdist(cent, p) <= r * r
+        before = torch.cumsum(in_ball, -1) - in_ball.int()
+        rows = float((in_ball & (before < k_cap)).sum())
+    B, N, C1 = a.shape
+    S, C2 = cent.shape[1], w2.shape[1]
+    err = max_err(got, want)
+    scale = float(want.float().abs().max())
+    check(f"pointconv {label} {where} B={B} N={N} S={S} C1={C1} C2={C2} "
+          f"r={r} (|out| max {scale:.2f})", err,
+          POINTCONV_REL_TOL[label] * scale, failures)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: kernel(*args, r, k_cap))
+        plain_ms = cuda_ms(lambda: plain(*args, r, k_cap), reps=3, warmup=1)
+    # The second layer on the selected rows (compute dtype), building each
+    # row (subtract, BN, ReLU: 4 f32 operations a channel) and its epilogue
+    # (bias, BN, ReLU, max: 5 a column); bytes: a, pos, c, cent, W2, the
+    # five f32 vectors and out.
+    es = a.element_size()
+    rate = PEAK_BF16 if label == "bf16" else PEAK_F32
+    nbytes = (es * (B * N * C1 + B * S * C1 + C1 * C2 + B * S * C2)
+              + 4 * (3 * B * N + 3 * B * S + 2 * C1 + 3 * C2))
+    bnd = bound_ms([(2.0 * rows * C1 * C2, rate),
+                    (rows * (4.0 * C1 + 5.0 * C2), PEAK_F32)], nbytes)
+    log(f"  pointconv {label} {where}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({rows:.0f} neighbour rows, "
+        f"{rows / (B * S):.1f} per centroid)")
+    return {"level": where, "B": B, "N": N, "S": S, "C1": C1, "C2": C2,
+            "rows": rows, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "max_abs_err": err, "out": (got, cent)}
+
+
+def db_subset_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
+    """The fixture's 64 cells encoded on JAX's draws against JAX's CPU
+    outputs: f32 max abs error, bf16 cosine of every row."""
+    from text2pos_torch.evaluation.pipeline import (encode_coarse_cells,
+                                                    fine_cell_points)
+
+    dev = pipe_bf16.device
+    n = dbx["fine_u"].shape[0]
+    idx = torch.arange(n, device=dev)
+    xyz, rgb, centers, colors = subset_points(bt, dbx, dev)
+    u = torch.as_tensor(dbx["coarse_u"], device=dev)
+    for label, pipe in (("f32", pipe_f32), ("bf16", pipe_bf16)):
+        with torch.inference_mode():
+            got = {"fine_bank_enc": pipe.fine.encode_cell_objects(
+                       xyz, rgb, centers, colors),
+                   "fine_bank_centers": centers[..., 0:2],
+                   "cell_enc": encode_coarse_cells(pipe.coarse, bt, idx,
+                                                   u=u)}
+        for name, g in got.items():
+            want = torch.as_tensor(dbx[f"{label}_{name}"], device=dev)
+            g = g.float()
+            if not bool(torch.isfinite(g).all()) or g.shape != want.shape:
+                failures.append(f"db subset {label} {name}: malformed")
+                continue
+            if label == "f32" or name == "fine_bank_centers":
+                check(f"db subset {label} {name} {tuple(g.shape)} vs JAX",
+                      max_err(g, want), DB_F32_TOL, failures)
+                continue
+            cos = torch.nn.functional.cosine_similarity(g, want, dim=-1)
+            worst = float(cos.min())
+            ok = worst >= DB_BF16_MIN_COS
+            log(f"  db subset bf16 {name} {tuple(g.shape)} vs JAX: row "
+                f"cosine min {worst:.6f} median {float(cos.median()):.6f} "
+                f"(gate {DB_BF16_MIN_COS}) {'ok' if ok else 'FAIL'}; max "
+                f"abs err {max_err(g, want):.3e}")
+            if not ok:
+                failures.append(f"db subset bf16 {name}: row cosine {worst}")
+
+
+def encode_split(pipe, bt, seed: int):
+    """Synchronized wall time of the coarse and the fine encode of every
+    cell, apart (the loops ``encode_database`` runs)."""
+    from text2pos_torch.evaluation.pipeline import (encode_all_coarse,
+                                                    encode_all_fine)
+
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    out = {}
+    with torch.inference_mode():
+        for label, fn in (
+                ("coarse", lambda: encode_all_coarse(pipe.coarse, bt, gen)),
+                ("fine", lambda: encode_all_fine(pipe.fine, bt,
+                                                 pipe.cfg.pad_size, gen))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[label] = time.perf_counter() - t0
+    return out
+
+
+def profile_db(pipe, bt) -> None:
+    """Where one step's coarse and fine encode spends its time: per
+    PointNet++ stage (the ``pointnet.*`` profiler ranges; "other" is the
+    rest: resampling, the object encoder's MLPs, EdgeConv), the host's time
+    in the ranges and the device time of the kernels launched inside them;
+    the top kernels; the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text2pos_torch.evaluation.pipeline import (DB_CHUNK,
+                                                    encode_coarse_cells,
+                                                    encode_fine_cells)
+
+    chunk = min(DB_CHUNK, bt["mask"].shape[0])
+    idx = torch.arange(chunk, device=pipe.device)
+    gen = torch.Generator(device=pipe.device).manual_seed(2)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_coarse_cells(pipe.coarse, bt, idx, gen)
+        encode_fine_cells(pipe.fine, bt, idx, pipe.cfg.pad_size, gen)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # The profiler puts each range on the device's timeline too; a kernel
+    # belongs to the stage whose device span holds its start.
+    spans, kernels = [], []
+    host = collections.defaultdict(float)
+    for e in prof.events():
+        on_device = "CUDA" in str(getattr(e, "device_type", ""))
+        if e.name.startswith("pointnet."):
+            if on_device:
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            else:
+                host[e.name] += e.cpu_time_total / 1e3
+        elif on_device:
+            kernels.append(e)
+    if not kernels:
+        log("  db profile: the profiler recorded no device time (not "
+            "measured)")
+        return
+    dev = collections.defaultdict(float)
+    count = collections.Counter()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        t = k.time_range.elapsed_us() / 1e3
+        stage = next((n for a, b, n in spans if a <= k.time_range.start < b),
+                     "other")
+        dev[stage] += t
+        count[stage] += 1
+        by_name[k.name][0] += t
+        by_name[k.name][1] += 1
+    busy = sum(dev.values())
+    log(f"  db profile, coarse + fine encode of {chunk} cells "
+        f"(torch.profiler): wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {len(kernels)} launches of "
+        f"{len(by_name)} kernels")
+    for stage in sorted(set(dev) | set(host)):
+        log(f"    stage {stage}: host {host.get(stage, 0.0):.3f} ms, "
+            f"{count[stage]} launches, {dev.get(stage, 0.0):.3f} ms on the "
+            "device")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :8]:
+        log(f"    {t:9.3f} ms  {n:5d}x  {name[:90]}")
+
+
+def timed_encode(pipe, bank, seed):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = pipe.encode_database(bank, seed=seed)
+    torch.cuda.synchronize()
+    return db, time.perf_counter() - t0
+
+
+def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
+    """Phase 5's main path: every cell encoded in bf16, then the bench
+    queries served from that database. Returns the PointConv launches."""
+    from text2pos_torch.evaluation.metrics import served_accuracies
+    from text2pos_torch.ops import _build
+
+    C = bank.num_cells
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    (cell_enc, fb_enc, fb_ctr), wall = timed_encode(pipe_bf16, bank, 0)
+    launches = dict(_build.LAUNCHES)
+    log(f"  encode_database bf16: {C} cells (coarse + fine) in {wall:.3f} s "
+        f"= {C / wall:.1f} cells/s; kernel launches {launches}")
+    if launches.get("pointconv", 0) < 1:
+        failures.append("kernel pointconv was not launched by the DB encode")
+    # Two more calls with other draws: the spread of the wall time, and a
+    # second database for the resampling noise below.
+    walls = [wall]
+    other = None
+    for seed in (1, 2):
+        db, w = timed_encode(pipe_bf16, bank, seed)
+        walls.append(w)
+        other = other or db
+    log("  encode_database bf16, three calls (seeds 0, 1, 2): "
+        + ", ".join(f"{w:.3f} s" for w in walls))
+    for seed in (3, 4):
+        split = encode_split(pipe_bf16, bt, seed)
+        log(f"  apart (seed {seed}): coarse {split['coarse']:.3f} s = "
+            f"{C / split['coarse']:.1f} cells/s; fine {split['fine']:.3f} s "
+            f"= {C / split['fine']:.1f} cells/s")
+    profile_db(pipe_bf16, bt)
+
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (cell_enc, fb_enc, fb_ctr))
+    if not finite or cell_enc.shape != pipe_bf16.cell_enc.shape or \
+            fb_enc.shape != pipe_bf16.fine_bank_enc.shape:
+        failures.append("encode_database: malformed output")
+        return launches.get("pointconv", 0)
+
+    def cosines(label, ref):
+        cos = {n: torch.nn.functional.cosine_similarity(a, b, dim=-1)
+               for n, a, b in (("cell_enc", cell_enc, ref[0]),
+                               ("fine_bank_enc", fb_enc, ref[1]))}
+        log(f"  rebuilt (seed 0) vs {label}: row cosine "
+            + ", ".join(f"{n} median {float(c.median()):.5f} min "
+                        f"{float(c.min()):.5f} 1st percentile "
+                        f"{float(c.flatten().quantile(0.01)):.5f}"
+                        for n, c in cos.items())
+            + f"; fine_bank_centers max abs diff {max_err(fb_ctr, ref[2]):.3g}")
+
+    cosines("the committed DB cache (JAX's draws)",
+            (pipe_bf16.cell_enc, pipe_bf16.fine_bank_enc,
+             pipe_bf16.fine_bank_centers))
+    cosines("the port's seed-1 database", other)
+    ti, po, sec = serve_all(pipe_bf16.with_database(cell_enc, fb_enc, fb_ctr),
+                            fx, TOP_K, reps=3)
+    ti1, _, _ = serve_all(pipe_bf16.with_database(*other), fx, TOP_K)
+    accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+    jax_t10 = float(fx["jax_top10_at_15m"])
+    log(f"  serve bf16 from the rebuilt database: {len(ti)} queries in "
+        f"{sec * 1e3:.2f} ms; top-10@15m {accs[TOP_K][15]:.4f} (JAX "
+        f"{jax_t10:.4f}, gate +-{DB_ACC_SLACK}), top-1@15m "
+        f"{accs[1][15]:.4f}; top_idx identical to the cache-served run "
+        f"{float((ti == cache_top_idx).mean()):.4f}, to the run served "
+        f"from the seed-1 database {float((ti == ti1).mean()):.4f}")
+    if not np.isfinite(po).all():
+        failures.append("serve from the rebuilt database: non-finite")
+    if abs(accs[TOP_K][15] - jax_t10) > DB_ACC_SLACK:
+        failures.append(f"serve from the rebuilt database: top-10@15m "
+                        f"{accs[TOP_K][15]} vs JAX {jax_t10}")
+    return launches.get("pointconv", 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 2
-    missing = [p for p in (CKPT_COARSE, CKPT_FINE, DB_CACHE, FIXTURE)
-               if not os.path.isfile(p)]
+    missing = [p for p in (CKPT_COARSE, CKPT_FINE, DB_CACHE, FIXTURE,
+                           DB_FIXTURE) if not os.path.isfile(p)]
     try:
+        from text2pos_torch.data.bench import (bench_cell_bank,
+                                               make_bench_dataset)
         from text2pos_torch.evaluation.metrics import served_accuracies
-        from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+        from text2pos_torch.evaluation.pipeline import (LocalizationPipeline,
+                                                        bank_tensors)
         from text2pos_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the text2pos_torch package is missing ({e}); "
@@ -355,10 +691,24 @@ def main() -> int:
         CKPT_COARSE, CKPT_FINE, DB_CACHE, dtype="float32", device="cuda")
     log(f"checkpoints loaded by the port's reader in "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    bank = bench_cell_bank(make_bench_dataset()[0])
+    scenes = np.array([c.split("_")[0] for c in bank.cell_ids])
+    same_map = (np.array_equal(bank.bbox_w[:, 0:2], fx["cell_bbox_xy"])
+                and np.array_equal(bank.cell_size, fx["cell_size"])
+                and np.array_equal(scenes, fx["cell_scene"]))
+    log(f"bench map rebuilt by the port's generator in {time.time() - t0:.1f}"
+        f" s: {bank.num_cells} cells, {int(bank.mask.sum())} objects; cell "
+        f"boxes, sizes and scenes equal the fixture's: {same_map}")
+    if not same_map:
+        failures.append("the rebuilt bench map differs from the fixture's")
+    bt = bank_tensors(bank, pipe_bf16.device)
+    dbx = dict(np.load(DB_FIXTURE))
 
-    log("phase 3 kernels vs plain (the serving path's inputs)")
+    log("phase 3 kernels vs plain (the serving and DB-encode paths' inputs)")
     lstm = lstm_checks(pipe_bf16, fx, failures)
     gs = gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures)
+    pointconv = pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures)
 
     log("phase 4 end to end: serve_batch on the committed bench queries")
     Q = fx["tokens"].shape[0]
@@ -368,7 +718,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     log(f"  kernel launches in one headline serve_batch: {launches}")
     profile_serve(pipe_bf16, fx)
-    for name in KERNEL_SOURCES:
+    for name in ("lstm", "sinkhorn", "superglue_gnn"):
         if launches.get(name, 0) < 1:
             failures.append(f"kernel {name} was not launched on the main "
                             "path")
@@ -408,9 +758,14 @@ def main() -> int:
         failures.append(f"rerank: top-10@15m {accs[TOP_K][15]} vs JAX "
                         f"{jax_rr}")
 
+    log("phase 5 offline DB encode")
+    db_subset_checks(pipe_bf16, pipe_f32, bt, dbx, failures)
+    launches["pointconv"] = db_encode_and_serve(pipe_bf16, bank, bt, fx,
+                                                top_idx, failures)
+
     gnn = dict(gs["bf16"], f32=gs["f32"])
     per_kernel = {"lstm": lstm, "sinkhorn": gs["sinkhorn"],
-                  "superglue_gnn": gnn}
+                  "superglue_gnn": gnn, "pointconv": pointconv}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,

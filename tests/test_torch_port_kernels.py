@@ -13,6 +13,7 @@ import torch
 
 from text2pos_torch.ops import _build
 from text2pos_torch.ops import lstm as tlstm
+from text2pos_torch.ops import pointconv as tpc
 from text2pos_torch.ops import sinkhorn as tsink
 from text2pos_torch.ops import superglue_gnn as tgnn
 
@@ -109,3 +110,70 @@ def test_gnn_kernel_keeps_exact_ties(cuda):
     d1[:, 4] = d1[:, 1]
     s = tgnn.gnn_scores(d0, d1, packed)
     torch.testing.assert_close(s[:, :, 4], s[:, :, 1], atol=0, rtol=0)
+
+
+def _pointconv_case(device, dtype, B, N, S, C1, C2, spread, seed):
+    """One SA level's inputs: points uniform in [-spread, spread]³, the
+    first S points as centroids, random projections and BN affines."""
+    g = torch.Generator().manual_seed(seed)
+    pos = (torch.rand(B, N, 3, generator=g) * 2 - 1) * spread
+    cent = pos[:, :S].clone()
+    a = torch.randn(B, N, C1, generator=g)
+    c = 0.3 * torch.randn(B, S, C1, generator=g)
+    w2 = torch.randn(C1, C2, generator=g) / C1 ** 0.5
+    vecs = [torch.rand(n, generator=g) + o for n, o in
+            ((C1, 0.5), (C1, -0.5), (C2, -0.5), (C2, 0.5), (C2, -0.5))]
+    s0, t0, b2, s1, t1 = (v.to(device) for v in vecs)
+    return (a.to(device, dtype), pos.to(device), c.to(device, dtype),
+            cent.to(device), (s0, t0), w2.to(device, dtype), b2, (s1, t1))
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("B,N,S,C1,C2,radius,spread", [
+    (37, 256, 128, 32, 64, 0.2, 1.0),    # sa1 widths, odd object count
+    (5, 128, 64, 128, 128, 0.3, 1.0),    # sa2
+    (3, 64, 32, 256, 256, 0.4, 1.0),     # sa3
+    (7, 40, 5, 32, 64, 0.2, 1.0),        # S smaller than a CTA's tile
+    (4, 200, 16, 32, 64, 0.05, 1.0),     # fewer than K in most balls
+    (3, 300, 24, 128, 128, 0.9, 0.3),    # more than K in every ball
+])
+def test_pointconv_kernel_matches_plain(cuda, dtype, rel_tol, B, N, S, C1, C2,
+                                        radius, spread):
+    """Tolerance relative to the largest output: both sides sum the second
+    layer in f32 in different orders; in bf16 that can move a value by one
+    bf16 step (2^-8 relative)."""
+    args = _pointconv_case(cuda, dtype, B, N, S, C1, C2, spread, B * N)
+    got = _launches("pointconv", lambda: tpc.pointconv_max(*args, radius, 32))
+    want = tpc.pointconv_max_plain(*args, radius, 32)
+    assert got.dtype == dtype and got.shape == (B, S, C2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel_tol * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pointconv_kernel_all_duplicate_points(cuda, dtype):
+    """Every point of an object at one place (a padding object resampled):
+    every ball holds all N points and the first K by index are taken."""
+    args = list(_pointconv_case(cuda, dtype, 9, 256, 128, 32, 64, 1.0, 7))
+    args[1] = torch.full_like(args[1], 0.25)
+    args[3] = torch.full_like(args[3], 0.25)
+    idx, valid = tpc.ball_neighbors(args[1], args[3], 0.2, 32)
+    assert bool(valid.all())
+    assert bool((idx == torch.arange(32, device=cuda)).all())
+    got = _launches("pointconv", lambda: tpc.pointconv_max(*args, 0.2, 32))
+    want = tpc.pointconv_max_plain(*args, 0.2, 32)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+def test_pointconv_kernel_rejects_bad_input(cuda):
+    args = list(_pointconv_case(cuda, torch.float32, 2, 64, 32, 30, 64, 1.0,
+                                1))
+    with pytest.raises(ValueError):       # C1 not a multiple of 4
+        tpc.pointconv_max(*args, 0.2, 32)
+    args = list(_pointconv_case(cuda, torch.float32, 2, 64, 32, 32, 64, 1.0,
+                                1))
+    args[2] = args[2].to(torch.bfloat16)
+    with pytest.raises(TypeError):        # mixed compute dtypes
+        tpc.pointconv_max(*args, 0.2, 32)

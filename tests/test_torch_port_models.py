@@ -123,18 +123,21 @@ class TestConvert:
             stats = msgpack_restore(z["batch_stats"].tobytes())
         model = SuperGlueMatch(32, 128, num_layers=6)
         unused = load_jax_params(model, ck["params"], stats)
-        assert all(u.startswith(("params/object_encoder",
-                                 "batch_stats/object_encoder"))
-                   for u in unused)
+        # Only PointNet's class and colour heads, which encoding never
+        # reads, stay behind.
+        heads = ("class_classifier", "color_classifier")
+        assert unused and all(u.split("/")[-2] in heads for u in unused)
         params, back_stats = module_to_jax(model)
         want = {k: ck["params"][k] for k in params}
+        pointnet = want["object_encoder"]["pointnet"]
+        want["object_encoder"] = dict(want["object_encoder"], pointnet={
+            k: v for k, v in pointnet.items() if k not in heads})
         assert _count(params) == _count(want) == sum(
             p.numel() for p in model.parameters())
         assert _shapes(params) == _shapes(want)
         _assert_tree_equal(params, jax.tree.map(
             lambda a: np.asarray(a, np.float32), want))
-        assert _shapes(back_stats) == _shapes(
-            {"superglue": stats["superglue"]})
+        assert _shapes(back_stats) == _shapes(stats)
 
     def test_coarse_round_trip(self):
         ck = load_checkpoint(COARSE)
@@ -180,7 +183,9 @@ class TestModules:
                                    jnp.asarray(lengths),
                                    method=JCell.encode_text))
         tm = CellRetrievalNetwork(self.VOCAB, self.E)
-        load_jax_params(tm, jax.device_get(variables["params"]))
+        # The flax tree of encode_text holds the text tower only.
+        load_jax_params(tm.language_encoder,
+                        jax.device_get(variables["params"])["language_encoder"])
         got = tm.encode_text(torch.from_numpy(tokens),
                              torch.from_numpy(lengths)).detach().numpy()
         np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
@@ -225,7 +230,11 @@ class TestModules:
             .shape[0], obj.shape[-1], num_layers=jm.num_layers,
             sinkhorn_iters=jm.sinkhorn_iters,
             dtype=None if dtype is None else torch.bfloat16)
-        load_jax_params(tm, params, stats)
+        # The flax trees of encode_hints and match_encoded hold no object
+        # tower.
+        for name in ("language_encoder", "superglue", "mlp_offsets"):
+            load_jax_params(getattr(tm, name), params[name],
+                            stats.get(name))
         with torch.no_grad():
             t_hint = tm.encode_hints(torch.from_numpy(tokens),
                                      torch.from_numpy(lengths))
@@ -281,25 +290,26 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "text2pos_tpu"}
 
 
 def test_package_imports_no_jax():
-    """No import statement of the package names JAX or the JAX package, and
-    the whole package imports with ``jax`` made unimportable."""
-    modules = []
+    """No import statement of the package or of ``chip_smoke.py`` names JAX
+    or the JAX package, and the whole package and ``chip_smoke`` import with
+    ``jax`` made unimportable."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for fn in files:
-            if not fn.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, fn)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                names = ([a.name for a in node.names]
-                         if isinstance(node, ast.Import) else
-                         [node.module or ""]
-                         if isinstance(node, ast.ImportFrom) else [])
-                for n in names:
-                    assert n.split(".")[0] not in FORBIDDEN, (path, n)
-            rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
-            modules.append(rel.removesuffix(".__init__"))
+        paths += [os.path.join(dirpath, fn) for fn in files
+                  if fn.endswith(".py")]
+    modules = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, (path, n)
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        modules.append(rel.removesuffix(".__init__"))
     code = ("import sys\n"
             "for m in %r: sys.modules[m] = None\n"
             "import importlib\n"
@@ -318,10 +328,15 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from text2pos_torch import resolve_device
-    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+    from text2pos_torch.data.bench import bench_cell_bank, make_bench_dataset
+    from text2pos_torch.evaluation.pipeline import (LocalizationPipeline,
+                                                    encode_database)
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         LocalizationPipeline.from_checkpoints(COARSE, FINE, DB)
+    bank = bench_cell_bank(make_bench_dataset(num_scenes=1, grid=2)[0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        encode_database(COARSE, FINE, DB, bank)
     assert resolve_device("cpu") == torch.device("cpu")

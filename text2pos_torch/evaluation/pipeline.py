@@ -1,5 +1,6 @@
 """Calibrated serving: text query → cell and in-cell position (counterpart of
-``text2pos_tpu/evaluation/pipeline.py``, ``serve_batch`` and its helpers).
+``text2pos_tpu/evaluation/pipeline.py``, ``serve_batch`` and its helpers),
+and the offline DB encode that produces what serving reads.
 
 Stages of ``serve_batch``: text encode (LSTM kernel) → top-k retrieval over
 the precomputed cell embeddings → hint encode (LSTM kernel) → gather from
@@ -7,6 +8,20 @@ the fine bank → the fused GNN kernel → Sinkhorn kernel and match
 extraction → offset head and in-cell positions → optional stable re-rank.
 The cascade (``prune_m``, the int8 cheap bank, ``prune_soft``) is not
 ported yet.
+
+The offline DB encode (``encode_database``, ``LocalizationPipeline.
+encode_database``) turns a ``CellBank`` into ``cell_enc`` [C, 256] through
+the coarse object tower (``encode_coarse_cells``, as ``train/coarse.py``'s
+``encode_all_cells``) and ``fine_bank_enc`` [C, 16, 128] with
+``fine_bank_centers`` [C, 16, 2] through the fine one
+(``encode_fine_cells``, as ``precompute_fine_bank``), ``DB_CHUNK`` cells
+at a time (``encode_all_coarse``, ``encode_all_fine``). Both run PointNet++
+in the pipeline's dtype, the set-abstraction levels through the PointConv
+kernel. The coarse tower uses its checkpoint's BN statistics, the fine
+tower the calibrated ones of the DB cache. Point resampling and padding
+objects draw from a ``torch.Generator`` seeded by ``seed``, so a rebuilt
+database matches one built by JAX only statistically; the ``u`` and
+``pad_pts`` arguments take given draws instead.
 """
 
 from __future__ import annotations
@@ -17,16 +32,147 @@ import numpy as np
 import torch
 
 from text2pos_torch.config import ServeConfig
+from text2pos_torch.data.dense import CellBank
 from text2pos_torch.data.hints import Vocabulary
 from text2pos_torch.device import resolve_device
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
 from text2pos_torch.models.matcher import SuperGlueMatch, get_pos_in_cell
+from text2pos_torch.models.object_encoder import FEATURES
 from text2pos_torch.ops.retrieval import topk_retrieval
+from text2pos_torch.ops.transforms import prepare_object_points, sum_points
 from text2pos_torch.train.state import load_checkpoint
 from text2pos_torch.utils.convert_jax import load_jax_params
 from text2pos_torch.utils.msgpack_io import msgpack_restore
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+NUM_POINTS = 256        # pointnet_numpoints: points per resampled object
+PAD_POINTS = 8          # points of a padding object, uniform in [0, 0.001)³
+DB_CHUNK = 64           # cells per DB-encode step (precompute_fine_bank's)
+BANK_FIELDS = ("points_xyz", "points_rgb", "point_count", "centers", "colors",
+               "mask")
+# JAX leaves that encoding never reads (PointNet's class and colour heads).
+_UNREAD = ("class_classifier", "color_classifier")
+
+
+def bank_tensors(bank: CellBank, device) -> Dict[str, torch.Tensor]:
+    """The bank's dense per-cell arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(getattr(bank, k))).to(device)
+            for k in BANK_FIELDS}
+
+
+def _pad_filled_cell_tensors(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
+                             pad: int, pad_pts: torch.Tensor):
+    """Cells ``idx`` cut to ``pad`` slots, empty slots filled with padding
+    objects: ``PAD_POINTS`` points ``pad_pts`` [n, pad, 8, 3], black, their
+    centre the points' mean."""
+    xyz, rgb, count, centers, colors, mask = (
+        bt[k][idx][:, :pad] for k in BANK_FIELDS)
+    pad_xyz = torch.zeros_like(xyz)
+    pad_xyz[:, :, :PAD_POINTS] = pad_pts
+    m4 = mask[:, :, None, None]
+    xyz = torch.where(m4, xyz, pad_xyz)
+    rgb = torch.where(m4, rgb, torch.zeros_like(rgb))
+    count = torch.where(mask, count, torch.full_like(count, PAD_POINTS))
+    pad_ctr = sum_points(pad_pts) / PAD_POINTS
+    centers = torch.where(mask[..., None], centers, pad_ctr)
+    colors = torch.where(mask[..., None], colors, torch.zeros_like(colors))
+    return xyz, rgb, count, centers, colors
+
+
+def fine_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
+                     pad: int, generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None,
+                     pad_pts: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The fine tower's input for cells ``idx``: (xyz, rgb [n, pad, 256, 3]
+    resampled and normalize-scaled, centers, colors [n, pad, 3]), empty
+    slots filled with padding objects. ``pad_pts`` [n, pad, 8, 3] and ``u``
+    [n, pad, 256] are the padding points and resampling draws (drawn from
+    ``generator``, in that order, when None)."""
+    dev = bt["points_xyz"].device
+    if pad_pts is None:
+        pad_pts = torch.rand((len(idx), pad, PAD_POINTS, 3),
+                             generator=generator, device=dev) * 0.001
+    xyz, rgb, count, centers, colors = _pad_filled_cell_tensors(
+        bt, idx, pad, pad_pts.to(dev, torch.float32))
+    xyz, rgb = prepare_object_points(xyz, rgb, count, NUM_POINTS, generator, u)
+    return xyz, rgb, centers, colors
+
+
+def encode_fine_cells(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
+                      idx: torch.Tensor, pad: int,
+                      generator: Optional[torch.Generator] = None,
+                      u: Optional[torch.Tensor] = None,
+                      pad_pts: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fine object encodings of cells ``idx`` (as JAX's
+    ``_encode_cells_chunk``): (enc [n, pad, E] f32, centers_xy [n, pad, 2]
+    f32); the draws as in ``fine_cell_points``."""
+    xyz, rgb, centers, colors = fine_cell_points(bt, idx, pad, generator, u,
+                                                 pad_pts)
+    enc = fine.encode_cell_objects(xyz, rgb, centers, colors)
+    return enc, centers[..., 0:2]
+
+
+def coarse_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       u: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The coarse tower's input for cells ``idx``: the valid objects, cell by
+    cell in slot order (the order of JAX's flat buffer), as (xyz, rgb
+    [F, 256, 3] resampled and normalize-scaled, centers, colors [F, 3],
+    cell, slot [F]); ``u`` [F, 256] gives their resampling draws (drawn from
+    ``generator`` when None)."""
+    mask = bt["mask"][idx]
+    cell, slot = mask.nonzero(as_tuple=True)
+    flat = idx[cell]
+    xyz, rgb = prepare_object_points(
+        bt["points_xyz"][flat, slot], bt["points_rgb"][flat, slot],
+        bt["point_count"][flat, slot], NUM_POINTS, generator, u)
+    return (xyz, rgb, bt["centers"][flat, slot], bt["colors"][flat, slot],
+            cell, slot)
+
+
+def encode_coarse_cells(coarse: CellRetrievalNetwork,
+                        bt: Dict[str, torch.Tensor], idx: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Coarse embeddings [n, E] of cells ``idx`` (as JAX's
+    ``encode_cells_step``). PointNet++ runs on the valid objects only; the
+    draws as in ``coarse_cell_points``."""
+    return coarse.encode_objects(*coarse_cell_points(bt, idx, generator, u),
+                                 len(idx), bt["mask"].shape[1])
+
+
+def _db_chunks(bt: Dict[str, torch.Tensor]):
+    C, dev = bt["mask"].shape[0], bt["mask"].device
+    return [torch.arange(i, min(i + DB_CHUNK, C), device=dev)
+            for i in range(0, C, DB_CHUNK)]
+
+
+def encode_all_coarse(coarse: CellRetrievalNetwork,
+                      bt: Dict[str, torch.Tensor],
+                      generator: torch.Generator) -> torch.Tensor:
+    """``cell_enc`` [C, E] of every cell of ``bt``, ``DB_CHUNK`` at a time."""
+    return torch.cat([encode_coarse_cells(coarse, bt, idx, generator)
+                      for idx in _db_chunks(bt)])
+
+
+def encode_all_fine(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
+                    pad: int, generator: torch.Generator
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``fine_bank_enc`` [C, pad, E], ``fine_bank_centers`` [C, pad, 2]) of
+    every cell of ``bt``, ``DB_CHUNK`` at a time."""
+    out = [encode_fine_cells(fine, bt, idx, pad, generator)
+           for idx in _db_chunks(bt)]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def _check_unread(unused: Sequence[str], what: str) -> None:
+    """Every checkpoint leaf but the PointNet heads must have been loaded."""
+    extra = [u for u in unused if u.split("/")[-2] not in _UNREAD]
+    if extra:
+        raise ValueError(f"{what}: checkpoint leaves not loaded: {extra}")
 
 
 def _match_confidence_scores(matches0: torch.Tensor,
@@ -101,10 +247,13 @@ class LocalizationPipeline:
                          device: Union[str, torch.device] = "cuda",
                          cfg: ServeConfig = ServeConfig()
                          ) -> "LocalizationPipeline":
-        """Restore both stages from flax msgpack checkpoints and the
-        calibrated DB cache (``cell_enc``, ``fine_bank_enc``,
-        ``fine_bank_centers`` and the ``bn_stat_groups=2`` ``batch_stats``).
-        ``dtype`` is the fine model bodies' compute dtype."""
+        """Restore both stages, object towers included, from flax msgpack
+        checkpoints and the calibrated DB cache (``cell_enc``,
+        ``fine_bank_enc``, ``fine_bank_centers`` and the ``bn_stat_groups=2``
+        ``batch_stats``). ``dtype`` is the compute dtype of the fine model
+        bodies and of both object towers. To serve from a database the
+        pipeline encodes itself: ``pipe.with_database(*pipe.
+        encode_database(bank))``."""
         dev = resolve_device(device)
         if dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {dtype!r}")
@@ -117,9 +266,16 @@ class LocalizationPipeline:
             return params["language_encoder"]["word_embedding"][
                 "embedding"].shape[0]
 
-        coarse_model = CellRetrievalNetwork(vocab_rows(cp["params"]),
-                                            cx.get("embed_dim", 256))
-        load_jax_params(coarse_model, cp["params"], cp["batch_stats"])
+        for path, x in ((coarse, cx), (fine, fx)):
+            if tuple(x.get("use_features", FEATURES)) != FEATURES:
+                raise ValueError(f"{path}: use_features "
+                                 f"{x['use_features']} (the port runs "
+                                 f"{FEATURES})")
+        coarse_model = CellRetrievalNetwork(
+            vocab_rows(cp["params"]), cx.get("embed_dim", 256),
+            dtype=_DTYPES[dtype])
+        _check_unread(load_jax_params(coarse_model, cp["params"],
+                                      cp["batch_stats"]), coarse)
         with np.load(db_cache) as z:
             cell_enc = z["cell_enc"].astype(np.float32)
             fb_enc = z["fine_bank_enc"].astype(np.float32)
@@ -133,13 +289,34 @@ class LocalizationPipeline:
             num_layers=fx.get("num_layers", 6),
             sinkhorn_iters=fx.get("sinkhorn_iters", 50),
             dtype=_DTYPES[dtype], stat_groups=2)
-        load_jax_params(fine_model, fp["params"], stats)
+        _check_unread(load_jax_params(fine_model, fp["params"], stats), fine)
 
         def t(a):
             return torch.from_numpy(a).to(dev)
 
         return cls(coarse_model.to(dev), fine_model.to(dev), vocab,
                    fine_vocab, t(cell_enc), t(fb_enc), t(fb_ctr), cfg)
+
+    def with_database(self, cell_enc: torch.Tensor,
+                      fine_bank_enc: torch.Tensor,
+                      fine_bank_centers: torch.Tensor
+                      ) -> "LocalizationPipeline":
+        """The same models serving from another database."""
+        return LocalizationPipeline(self.coarse, self.fine, self.vocab,
+                                    self.fine_vocab, cell_enc, fine_bank_enc,
+                                    fine_bank_centers, self.cfg)
+
+    @torch.inference_mode()
+    def encode_database(self, bank: CellBank, seed: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Offline DB encode of every cell of ``bank``: (cell_enc
+        [C, E_coarse], fine_bank_enc [C, pad, E_fine], fine_bank_centers
+        [C, pad, 2]), f32 on the pipeline's device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        bt = bank_tensors(bank, self.device)
+        cell_enc = encode_all_coarse(self.coarse, bt, gen)
+        return (cell_enc,
+                *encode_all_fine(self.fine, bt, self.cfg.pad_size, gen))
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
@@ -224,3 +401,14 @@ class LocalizationPipeline:
         return {"top_idx": top_idx.cpu().numpy().astype(np.int64),
                 "pos_in_cell": pos.float().cpu().numpy(),
                 "confidences": conf.cpu().numpy()}
+
+
+def encode_database(coarse: str, fine: str, db_cache: str, bank: CellBank,
+                    dtype: Optional[str] = "bfloat16",
+                    device: Union[str, torch.device] = "cuda", seed: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Offline DB encode from checkpoints: (cell_enc, fine_bank_enc,
+    fine_bank_centers) of ``bank``, with the coarse checkpoint's BN
+    statistics and the DB cache's calibrated fine ones."""
+    return LocalizationPipeline.from_checkpoints(
+        coarse, fine, db_cache, dtype, device).encode_database(bank, seed)

@@ -1,23 +1,76 @@
 """Coarse cell-retrieval network (counterpart of
-``text2pos_tpu/models/cell_retrieval.py``): the text tower only. Serving
-reads the cell embeddings from the precomputed DB cache; the object tower
-(ObjectEncoder, EdgeConv) comes with the offline-encoder slice."""
+``text2pos_tpu/models/cell_retrieval.py``) in eval mode: the text tower
+(``encode_text``, used by serving) and the object tower (``encode_objects``,
+used by the offline DB encode): per-object ``ObjectEncoder`` embeddings,
+L2-normalized, scattered into [cells, max_objects, E], an ``EdgeConv`` over
+each cell's kNN graph (k=8, max aggregation: ``variation=0``, the bench
+checkpoint's), a masked max over the cell's objects, ``lin`` and an L2 norm.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from text2pos_torch.models.blocks import l2_normalize
+from text2pos_torch.models.blocks import MLP, l2_normalize
 from text2pos_torch.models.language import LanguageEncoder
+from text2pos_torch.models.object_encoder import ObjectEncoder
+from text2pos_torch.ops.neighbors import masked_knn
+from text2pos_torch.ops.pooling import gather_neighbors, masked_max
+
+
+class EdgeConv(nn.Module):
+    """DynamicEdgeConv: MLP([x_i, x_j − x_i]) over the k nearest valid
+    objects (self included), max over the valid edges."""
+
+    def __init__(self, embed_dim: int, k: int = 8,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.k = k
+        self.edge_mlp = MLP(2 * embed_dim, (embed_dim, embed_dim), dtype)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [B, O, E] f32, mask [B, O] → [B, O, E] (compute dtype)."""
+        idx, edge_valid = masked_knn(x, mask, self.k)
+        x_j = gather_neighbors(x, idx)
+        x_i = x[:, :, None, :].expand_as(x_j)
+        h = self.edge_mlp(torch.cat([x_i, x_j - x_i], dim=-1))
+        return masked_max(h, edge_valid[..., None], dim=2)
 
 
 class CellRetrievalNetwork(nn.Module):
-    def __init__(self, vocab_size: int, embed_dim: int):
+    """``dtype`` is the object tower's compute dtype (the text tower is
+    always f32)."""
+
+    def __init__(self, vocab_size: int, embed_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
+        self.object_encoder = ObjectEncoder(embed_dim, dtype)
+        self.graph1 = EdgeConv(embed_dim, dtype=dtype)
+        self.lin = MLP(embed_dim, (embed_dim, embed_dim), dtype)
 
     def encode_text(self, tokens: torch.Tensor, lengths: torch.Tensor
                     ) -> torch.Tensor:
         """[B, T] tokens → [B, E] L2-normalized text embeddings."""
         return l2_normalize(self.language_encoder(tokens, lengths))
+
+    def encode_objects(self, points_xyz, points_rgb, centers, colors,
+                       cell_idx: torch.Tensor, slot_idx: torch.Tensor,
+                       num_cells: int, max_objects: int) -> torch.Tensor:
+        """Flat valid objects [F, ...] of ``num_cells`` cells, object f in
+        slot ``slot_idx[f]`` of cell ``cell_idx[f]`` → [num_cells, E]
+        L2-normalized cell embeddings."""
+        emb = l2_normalize(self.object_encoder(points_xyz, points_rgb,
+                                               centers, colors))
+        dense = emb.new_zeros(num_cells, max_objects, self.embed_dim)
+        dense[cell_idx, slot_idx] = emb
+        mask = torch.zeros(num_cells, max_objects, dtype=torch.bool,
+                           device=emb.device)
+        mask[cell_idx, slot_idx] = True
+        x = self.graph1(dense, mask)
+        pooled = masked_max(x, mask[..., None], dim=1)
+        return l2_normalize(self.lin(pooled).float())

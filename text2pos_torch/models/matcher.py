@@ -1,8 +1,9 @@
 """Fine hints-to-objects matcher (counterpart of
-``text2pos_tpu/models/matcher.py``): the serving half of ``SuperGlueMatch``
-(hint encoding, matching against pre-encoded cell objects, the offset head)
-and ``get_pos_in_cell``. The object encoder comes with the offline-encoder
-slice; serving reads its output from the fine bank."""
+``text2pos_tpu/models/matcher.py``): ``SuperGlueMatch`` in calibrated eval
+mode (hint encoding, matching against pre-encoded cell objects, the offset
+head, and the object encoder that the offline DB encode runs:
+``encode_cell_objects``) and ``get_pos_in_cell``. Serving reads
+the object encodings from the fine bank."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 
 from text2pos_torch.models.blocks import HeadMLP, l2_normalize
 from text2pos_torch.models.language import LanguageEncoder
+from text2pos_torch.models.object_encoder import ObjectEncoder
 from text2pos_torch.models.superglue import SuperGlue
 
 
@@ -23,6 +25,7 @@ class SuperGlueMatch(nn.Module):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
+        self.object_encoder = ObjectEncoder(embed_dim, dtype)
         self.superglue = SuperGlue(embed_dim, num_layers, sinkhorn_iters,
                                    match_threshold, dtype, stat_groups)
         self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
@@ -34,6 +37,17 @@ class SuperGlueMatch(nn.Module):
         enc = self.language_encoder(hint_tokens.reshape(B * H, T),
                                     hint_lengths.reshape(B * H))
         return l2_normalize(enc.reshape(B, H, self.embed_dim))
+
+    def encode_cell_objects(self, points_xyz, points_rgb, centers, colors
+                            ) -> torch.Tensor:
+        """[B, O, ...] padded cell objects (every slot a real or padding
+        object) → [B, O, E] L2-normalized encodings, f32."""
+        B, O, P, _ = points_xyz.shape
+        enc = self.object_encoder(points_xyz.reshape(B * O, P, 3),
+                                  points_rgb.reshape(B * O, P, 3),
+                                  centers.reshape(B * O, 3),
+                                  colors.reshape(B * O, 3))
+        return l2_normalize(enc.reshape(B, O, self.embed_dim))
 
     def match_encoded(self, obj_enc: torch.Tensor, hint_enc: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:

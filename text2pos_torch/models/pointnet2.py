@@ -1,0 +1,118 @@
+"""PointNet++ object encoder in eval mode (counterpart of
+``text2pos_tpu/models/pointnet2.py`` and ``models/pointnet2_fast.py``).
+
+Three set-abstraction levels (FPS ratio 0.5, ball radii 0.2/0.3/0.4, at
+most 32 neighbours, first by index), a global abstraction MLP with a max
+over points, then ``lin1`` and ``lin2``. In each level FPS picks the
+centroids, the separable first layer is two matmuls (``a = [x, pos]·W1 +
+b1`` per point, ``c = cent·W1[-3:]`` per centroid), and the rest of the
+level (ball query, ``a_n − c_s``, BN0, ReLU, the second layer, BN1, ReLU,
+max over neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on
+the card. The class/colour heads are not built; encoding never reads them.
+
+Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
+``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps``,
+``pointnet.first_layer``, ``pointnet.pointconv`` and ``pointnet.head``
+(global abstraction MLP, ``lin1``, ``lin2``) let a trace attribute time.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from text2pos_torch.models.blocks import MLP, MaskedBatchNorm, bn_affine, dense
+from text2pos_torch.ops.fps import farthest_point_sampling
+from text2pos_torch.ops.pointconv import pointconv_max
+
+K_CAP = 32
+
+
+class ConvMLP(nn.Module):
+    """The PointConv MLP's parameters: dense_0 (the separable first
+    layer), bn_0, dense_1, bn_1."""
+
+    def __init__(self, in_features: int, c1: int, c2: int):
+        super().__init__()
+        self.dense_0 = nn.Linear(in_features, c1)
+        self.bn_0 = MaskedBatchNorm(c1)
+        self.dense_1 = nn.Linear(c1, c2)
+        self.bn_1 = MaskedBatchNorm(c2)
+
+
+class SetAbstraction(nn.Module):
+    def __init__(self, in_features: int, ratio: float, radius: float,
+                 channels: Tuple[int, int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.ratio, self.radius, self.dtype = ratio, radius, dtype
+        self.conv_mlp = ConvMLP(in_features + 3, *channels)
+
+    def pointconv_args(self, x: torch.Tensor, pos: torch.Tensor) -> tuple:
+        """FPS and the separable first layer: the arguments of
+        ``pointconv_max`` (all but the radius and the cap) for x [B, N, C],
+        pos [B, N, 3] f32; their fourth, ``cent`` [B, S, 3], is the level's
+        output positions, S = N·ratio."""
+        B, N, _ = pos.shape
+        S = max(1, int(N * self.ratio))
+        with record_function("pointnet.fps"):
+            idx = farthest_point_sampling(pos, S)
+            cent = torch.gather(pos, 1, idx[..., None].expand(B, S, 3))
+        m = self.conv_mlp
+        xpos = torch.cat([x.float(), pos], dim=-1)
+        dt = self.dtype or xpos.dtype
+        with record_function("pointnet.first_layer"):
+            a = dense(m.dense_0, xpos, dt).to(dt)
+            c = torch.matmul(cent.to(dt), m.dense_0.weight[:, -3:].t().to(dt))
+        return (a, pos, c, cent, bn_affine(m.bn_0),
+                m.dense_1.weight.t().to(dt), m.dense_1.bias.to(dt).float(),
+                bn_affine(m.bn_1))
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, N, C], pos [B, N, 3] f32 → (x' [B, S, C2], cent [B, S, 3])
+        with S = N·ratio."""
+        args = self.pointconv_args(x, pos)
+        with record_function("pointnet.pointconv"):
+            out = pointconv_max(*args, self.radius, K_CAP)
+        return out, args[3]
+
+
+class GlobalAbstraction(nn.Module):
+    """concat(x, pos) → MLP → max over points."""
+
+    def __init__(self, in_features: int, channels: Tuple[int, int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.mlp = MLP(in_features + 3, channels, dtype)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        h = self.mlp(torch.cat([x.float(), pos], dim=-1))
+        return h.amax(dim=1)
+
+
+class PointNet2(nn.Module):
+    """[B, P, 3] points and colours → ``features2`` [B, 256] f32."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = None, dim0: int = 1024,
+                 dim1: int = 512, dim2: int = 256):
+        super().__init__()
+        self.dtype = dtype
+        self.sa1 = SetAbstraction(3, 0.5, 0.2, (32, 64), dtype)
+        self.sa2 = SetAbstraction(64, 0.5, 0.3, (128, 128), dtype)
+        self.sa3 = SetAbstraction(128, 0.5, 0.4, (256, 256), dtype)
+        self.ga = GlobalAbstraction(256, (512, dim0), dtype)
+        self.lin1 = nn.Linear(dim0, dim1)
+        self.lin2 = nn.Linear(dim1, dim2)
+
+    def forward(self, xyz: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+        x, pos = rgb, xyz.float()
+        for sa in (self.sa1, self.sa2, self.sa3):
+            x, pos = sa(x, pos)
+        with record_function("pointnet.head"):
+            f0 = self.ga(x, pos)
+            f1 = torch.relu(dense(self.lin1, f0, self.dtype))
+            return torch.relu(dense(self.lin2, f1, self.dtype))

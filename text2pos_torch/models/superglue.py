@@ -34,9 +34,10 @@ class MultiHeadedAttention(nn.Module):
 
     def forward(self, query, key, value):
         dim = query.shape[-1] // self.num_heads
+        dt = self.dtype or torch.float32
 
         def proj(layer, x):
-            return dense(layer, x, self.dtype).unflatten(
+            return dense(layer, x, dt).to(dt).unflatten(
                 -1, (self.num_heads, dim))
 
         q, k, v = (proj(self.proj_q, query), proj(self.proj_k, key),
@@ -45,7 +46,7 @@ class MultiHeadedAttention(nn.Module):
         scores = torch.einsum("bnhd,bmhd->bnmh", q.float(), k.float())
         prob = torch.softmax(scores / math.sqrt(dim), dim=2).to(v.dtype)
         out = torch.einsum("bnmh,bmhd->bnhd", prob, v).flatten(2)
-        return dense(self.merge, out, self.dtype)
+        return dense(self.merge, out, dt).to(dt)
 
 
 class AttentionalPropagation(nn.Module):
@@ -135,8 +136,9 @@ class SuperGlue(nn.Module):
             return gnn_scores(desc0, desc1, self.packed_kernel_params())
         if self.num_layers > 0:
             desc0, desc1 = self.gnn(desc0, desc1)
-        md0 = dense(self.final_proj, desc0, self.dtype)
-        md1 = dense(self.final_proj, desc1, self.dtype)
+        dt = self.dtype or torch.float32
+        md0 = dense(self.final_proj, desc0, dt).to(dt)
+        md1 = dense(self.final_proj, desc1, dt).to(dt)
         s = torch.einsum("bmd,bnd->bmn", md0.float(), md1.float())
         return s / math.sqrt(self.descriptor_dim)
 

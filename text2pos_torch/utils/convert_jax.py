@@ -96,7 +96,8 @@ def jax_to_state_dict(module: nn.Module, params: Dict,
 def load_jax_params(module: nn.Module, params: Dict,
                     batch_stats: Dict = None) -> List[str]:
     """Load the JAX trees into ``module``; returns the JAX leaves it did not
-    use (e.g. the object tower, which this port does not run yet)."""
+    use (e.g. PointNet's class and colour heads, which encoding never
+    reads)."""
     sd = jax_to_state_dict(module, params, batch_stats)
     module.load_state_dict(sd, strict=True)
     used = {(coll, path) for _, coll, path, _ in _entries(module)}
