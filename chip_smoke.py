@@ -7,12 +7,17 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every hand-written kernel under ``text2pos_torch/csrc`` with
-   ``nvcc``, all at once.
+   ``nvcc``, all at once; fails if ``ptxas`` reports register spills for the
+   GNN kernels.
 3. Kernels vs plain: each kernel's wrapper against its plain PyTorch version
    on the inputs the serving path gives it (the committed checkpoints and
    bench queries): max abs error with its tolerance, median times (CUDA
    events) of kernel, plain version and, where one exists, a one-call
    PyTorch equivalent, and the least time the card could take (bound).
+   For the GNN also: the bf16 (tensor cores) and f32 (CUDA cores) kernels'
+   times side by side with their ratio, ragged pair counts around a CTA's
+   load against the plain version, and bit-identical score columns for every
+   headline pair whose query holds duplicate hints.
    The PointConv kernel is checked at the three set-abstraction levels of
    both object towers on the bench map's first DB-encode step of 64 cells
    (JAX's draws from ``fixtures/bench_db_subset.npz``): the fine tower's
@@ -129,10 +134,23 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops_by_rate, nbytes: float) -> float:
-    """max(bytes / HBM rate, Σ operations / peak rate of their type)."""
+def bound_ms(flops_by_rate, nbytes: float):
+    """``(ms, by)``: max(bytes / HBM rate, Σ operations / peak rate of their
+    type) and which of the two it is, "bytes" or "operations"."""
     t_ops = sum(f / rate for f, rate in flops_by_rate)
-    return 1e3 * max(nbytes / PEAK_BYTES, t_ops)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes > t_ops else "operations"
+
+
+def sum_bound(res: dict, bnd: float, by: str) -> None:
+    """Adds one launch's bound to a kernel's entry that sums several
+    (``bound_ms_by``: the sum split by what bounds each launch); the entry
+    is bound by what bounds the larger part of the sum."""
+    res["bound_ms"] += bnd
+    part = res.setdefault("bound_ms_by", {"bytes": 0.0, "operations": 0.0})
+    part[by] += bnd
+    res["bound_by"] = max(part, key=part.get)
 
 
 def max_err(a, b) -> float:
@@ -187,21 +205,21 @@ def lstm_checks(pipe, fx, failures):
                 steps = float(lengths.clamp(0, T).sum())
                 # Recurrent matmul FLOPs of the valid steps; bytes: the
                 # valid steps' projections, W_hh, lengths and h.
-                bnd = bound_ms([(2.0 * steps * H * 4 * H, PEAK_F32)],
-                               steps * 4 * H * 4 + H * 4 * H * 4 + B * 4
-                               + B * H * 4)
+                bnd, by = bound_ms([(2.0 * steps * H * 4 * H, PEAK_F32)],
+                                   steps * 4 * H * 4 + H * 4 * H * 4 + B * 4
+                                   + B * H * 4)
                 log(f"  lstm {label} {d}: kernel {ms:.3f} ms, plain "
                     f"{plain_ms:.3f} ms, cuDNN nn.LSTM (1 dir, packed) "
                     f"{lib_ms:.3f} ms, bound {bnd:.4f} ms")
                 out["ms"] += ms
                 out["plain_ms"] += plain_ms
-                out["bound_ms"] += bnd
+                sum_bound(out, bnd, by)
                 out["library_ms"] += lib_ms
                 out["max_abs_err"] = max(out["max_abs_err"], err)
                 out["detail"].append({"encoder": label, "direction": d,
                                       "T": T, "B": B, "H": H, "ms": ms,
                                       "plain_ms": plain_ms, "bound_ms": bnd,
-                                      "library_ms": lib_ms,
+                                      "bound_by": by, "library_ms": lib_ms,
                                       "max_abs_err": err})
     return out
 
@@ -249,7 +267,8 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
         # Per pair: projections, merge and block MLPs of all rows in every
         # block plus the final projection (matmuls, compute dtype); the
         # attention contractions (QK^T and PV over real tokens: self blocks
-        # 16x16 and 6x6, cross blocks 16x6 twice) and the score matrix, f32.
+        # 16x16 and 6x6, cross blocks 16x6 twice) and the score matrix, whose
+        # operands are rounded to the compute dtype too (f32 accumulation).
         mm = 2.0 * P * (E * 3 * E + E * E + 2 * E * 2 * E + 2 * E * E) * L \
             + 2.0 * P * E * E
         attn = 2 * 2.0 * E * (L // 2) * (T0 * T0 + T1 * T1 + 2 * T0 * T1) \
@@ -257,14 +276,20 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
         wbytes = sum(t.numel() * t.element_size() for t in packed.values())
         nbytes = d0.numel() * 4 + d1.numel() * 4 + wbytes + N * T0 * T1 * 4
         rate = PEAK_BF16 if label == "bf16" else PEAK_F32
-        bnd = bound_ms([(N * mm, rate), (N * attn, PEAK_F32)], nbytes)
+        bnd, by = bound_ms([(N * (mm + attn), rate)], nbytes)
         log(f"  superglue_gnn {label}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bnd:.4f} ms "
             f"({N * (mm + attn) / 1e12:.3f} TFLOP)")
         results[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                          "library_ms": None, "max_abs_err": err}
+                          "bound_by": by, "library_ms": None,
+                          "max_abs_err": err}
+        gnn_edge_checks(label, d0, d1, packed, got, failures)
         if label == "bf16":
             scores_bf16 = got
+    ratio = results["f32"]["ms"] / results["bf16"]["ms"]
+    log(f"  superglue_gnn at N={N}: f32 (CUDA cores) "
+        f"{results['f32']['ms']:.3f} ms, bf16 (tensor cores) "
+        f"{results['bf16']['ms']:.3f} ms, f32 / bf16 = {ratio:.2f}")
 
     # Sinkhorn on the headline's couplings.
     sg = pipe_bf16.fine.superglue
@@ -282,13 +307,55 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
     # Per iteration and element: add, max, subtract, exp, add for the row
     # pass and again for the column pass (10 f32 operations, exp counted
     # as one); bytes: Z and the marginals in, the result out.
-    bnd = bound_ms([(10.0 * iters * N * M * Nn, PEAK_F32)],
-                   4.0 * (2 * N * M * Nn + N * (M + Nn)))
+    bnd, by = bound_ms([(10.0 * iters * N * M * Nn, PEAK_F32)],
+                       4.0 * (2 * N * M * Nn + N * (M + Nn)))
     log(f"  sinkhorn: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bnd:.4f} ms")
     results["sinkhorn"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                           "library_ms": None, "max_abs_err": err}
+                           "bound_by": by, "library_ms": None,
+                           "max_abs_err": err}
     return results
+
+
+def gnn_edge_checks(label, d0, d1, packed, got, failures):
+    """Ragged pair counts around a CTA's load against the plain version, and
+    exact ties: wherever a headline pair's query holds equal hints, their
+    score columns must be bit-identical (match extraction then takes the
+    first, as JAX does), whichever tiles of the kernel's layout they lie
+    in."""
+    from text2pos_torch.ops.superglue_gnn import (TC_PAIRS, _gnn_kernel,
+                                                  gnn_scores_plain)
+
+    for n in (1, TC_PAIRS - 1, TC_PAIRS + 1):
+        with torch.inference_mode():
+            g = _gnn_kernel(d0[:n].contiguous(), d1[:n].contiguous(), packed)
+            w = gnn_scores_plain(d0[:n], d1[:n], packed)
+            torch.cuda.synchronize()
+        check(f"superglue_gnn {label} ragged N={n}", max_err(g, w),
+              GNN_REL_TOL[label] * float(w.abs().max()), failures)
+    # Equal hint rows (i < j) of a pair, over all pairs.
+    T1 = d1.shape[1]
+    i, j = torch.triu_indices(T1, T1, 1, device=d1.device)
+    same = (d1[:, i] == d1[:, j]).all(-1)                     # [N, pairs]
+    col_same = (got[:, :, i] == got[:, :, j]).all(1)          # [N, pairs]
+    broken = int((same & ~col_same).sum())
+    # The 16-row tile of hint j of a pair in the bf16 kernel's CTA: its
+    # hint rows follow the CTA's TC_PAIRS x T0 object rows, pair by pair.
+    T0 = d0.shape[1]
+    pair = torch.arange(d1.shape[0], device=d1.device)[:, None]
+    tiles = (TC_PAIRS * T0 + T1 * (pair % TC_PAIRS)
+             + torch.arange(T1, device=d1.device)) // 16
+    across = int((same & (tiles[:, i] != tiles[:, j])).sum())
+    log(f"  superglue_gnn {label} exact ties: {int(same.sum())} duplicate "
+        f"hint pairs in {int(same.any(-1).sum())} of {d1.shape[0]} pose-cell "
+        f"pairs ({across} across two 16-row tiles), {broken} with differing "
+        f"score columns {'ok' if broken == 0 else 'FAIL'}")
+    if broken:
+        failures.append(f"superglue_gnn {label}: {broken} duplicate hint "
+                        "pairs lost their exact tie")
+    if not int(same.sum()):
+        failures.append(f"superglue_gnn {label}: the headline inputs hold "
+                        "no duplicate hints to check ties on")
 
 
 def serve_all(pipe, fx, top_k, *rerank, reps: int = 1):
@@ -383,8 +450,9 @@ def pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
                                       pairwise_sqdist, _pointconv_kernel,
                                       pointconv_max_plain, failures)
                 x, pos = lvl.pop("out")
-                for k in ("ms", "plain_ms", "bound_ms"):
+                for k in ("ms", "plain_ms"):
                     res[k] += lvl[k]
+                sum_bound(res, lvl["bound_ms"], lvl["bound_by"])
                 res["max_abs_err"] = max(res["max_abs_err"],
                                          lvl["max_abs_err"])
                 res["detail"].append(lvl)
@@ -424,14 +492,14 @@ def pointconv_level(sa, x, pos, label, where, k_cap, pairwise_sqdist,
     rate = PEAK_BF16 if label == "bf16" else PEAK_F32
     nbytes = (es * (B * N * C1 + B * S * C1 + C1 * C2 + B * S * C2)
               + 4 * (3 * B * N + 3 * B * S + 2 * C1 + 3 * C2))
-    bnd = bound_ms([(2.0 * rows * C1 * C2, rate),
-                    (rows * (4.0 * C1 + 5.0 * C2), PEAK_F32)], nbytes)
+    bnd, by = bound_ms([(2.0 * rows * C1 * C2, rate),
+                        (rows * (4.0 * C1 + 5.0 * C2), PEAK_F32)], nbytes)
     log(f"  pointconv {label} {where}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({rows:.0f} neighbour rows, "
         f"{rows / (B * S):.1f} per centroid)")
     return {"level": where, "B": B, "N": N, "S": S, "C1": C1, "C2": C2,
             "rows": rows, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-            "max_abs_err": err, "out": (got, cent)}
+            "bound_by": by, "max_abs_err": err, "out": (got, cent)}
 
 
 def db_subset_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
@@ -682,6 +750,10 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+                if name == "superglue_gnn" and "spill" in line and \
+                        "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    failures.append(f"ptxas reports spills in {name}: "
+                                    f"{line.strip()}")
 
     fx = dict(np.load(FIXTURE))
     t0 = time.time()

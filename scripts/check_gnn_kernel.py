@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""What the card's tools cannot say of the bf16 SuperGlue-GNN kernel.
+
+    python3 scripts/check_gnn_kernel.py
+
+Needs one NVIDIA GPU and ``nvcc``; random weights and descriptors from a
+seed, no checkpoint. It builds ``csrc/superglue_gnn.cu`` three times at once
+(as the port builds it, with ``-DT2P_EXACT_SOFTMAX`` and with
+``-DT2P_STAGE_CLOCKS``) and prints two things that neither
+``tests/test_torch_port_kernels.py`` nor ``chip_smoke.py`` gives:
+
+- **Error at full depth.** At 12 blocks, 37 and 512 pairs, the largest
+  difference relative to the largest score between: the kernel and the plain
+  version; the exact-softmax build (``expf``, IEEE division) and the plain
+  version; the two builds; and the plain version on the card and on the CPU,
+  two runs of the same arithmetic that differ only in the order of their
+  f32 sums. With random weights the scores reach several hundred and a sum
+  that lands on the other side of a bf16 rounding boundary is carried on
+  through every later block, so these are readings beside the 1e-2 that the
+  tests hold the kernel to at 2 and 4 blocks and ``chip_smoke.py`` at 12
+  blocks on the trained weights; only the f32 kernel (1e-5) and non-finite
+  values fail the script.
+- **Clocks by stage.** The share of the bf16 kernel's clocks spent in each
+  of its stages at the headline serve's size (20,480 pairs, 12 blocks). The
+  instrumented build adds a barrier after every stage and is a few percent
+  slower; its time is printed beside the plain build's.
+
+About a minute, most of it the builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from text2pos_torch.ops import _build  # noqa: E402
+from text2pos_torch.ops import superglue_gnn as tgnn  # noqa: E402
+
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+STAGES = ("load", "qkv", "attention", "merge", "W0", "W1", "final", "scores")
+WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "w0", "s0", "t0", "w1", "b1", "wf",
+           "bf")
+
+
+def build_variants():
+    """The port's own library and the two diagnostic builds, compiled side
+    by side; returns {define or "": CDLL}."""
+    out_dir = _build.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for define in ("T2P_EXACT_SOFTMAX", "T2P_STAGE_CLOCKS"):
+        so = out_dir / f"libsuperglue_gnn_{define}.so"
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-D{define}",
+               "-o", str(so), str(_build.CSRC / "superglue_gnn.cu")]
+        procs[define] = (so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {"": _build.library("superglue_gnn")}
+    for define, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -D{define} failed:\n{log}")
+        libs[define] = ctypes.CDLL(str(so))
+    return libs
+
+
+def launch(lib, d0, d1, packed):
+    """The kernel of ``lib`` on contiguous f32 descriptors, as the port's
+    wrapper calls it."""
+    fn = lib.t2p_superglue_gnn
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    out = torch.empty(d0.shape[0], 16, 6, device=d0.device)
+    _build.check(fn(d0.data_ptr(), d1.data_ptr(),
+                    *(packed[k].data_ptr() for k in WEIGHTS),
+                    packed["wqkv"].shape[0], d0.shape[0],
+                    int(packed["wqkv"].dtype == torch.bfloat16),
+                    out.data_ptr(), _build.stream_ptr(d0.device)),
+                 "superglue_gnn")
+    return out
+
+
+def descs(n, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, 16, 128, generator=g).to(device),
+            torch.randn(n, 6, 128, generator=g).to(device))
+
+
+def cuda_ms(fn, reps=5, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def depth_readings(libs, dev, blocks=12):
+    """Prints the full-depth differences; returns the failures."""
+    failures = []
+    folded = tgnn.random_folded_params(blocks)
+    for dtype in (torch.bfloat16, torch.float32):
+        packed = tgnn.pack_gnn_params(folded, dtype, dev)
+        on_cpu = {k: v.cpu() for k, v in packed.items()}
+        for n in (37, 512):
+            d0, d1 = descs(n, dev, 100 * blocks + n)
+            plain = tgnn.gnn_scores_plain(d0, d1, packed)
+            runs = {"kernel": launch(libs[""], d0, d1, packed),
+                    "plain on the CPU": tgnn.gnn_scores_plain(
+                        d0.cpu(), d1.cpu(), on_cpu).to(dev)}
+            if dtype == torch.bfloat16:
+                runs["exact-softmax build"] = launch(
+                    libs["T2P_EXACT_SOFTMAX"], d0, d1, packed)
+            torch.cuda.synchronize()
+            scale = float(plain.abs().max())
+            name = str(dtype)[6:]
+            print(f"{name} L={blocks} N={n}: |scores| max {scale:.1f}, "
+                  f"tolerance {REL_TOL[dtype]:g} of it")
+            for what, got in runs.items():
+                rel = float((got - plain).abs().max()) / scale
+                print(f"  {what} vs plain on the card: {rel:.3e} "
+                      f"({rel / REL_TOL[dtype]:.2f} of the tolerance)")
+                bad = not bool(torch.isfinite(got).all()) or (
+                    dtype == torch.float32 and what == "kernel"
+                    and rel > REL_TOL[dtype])
+                if bad:
+                    failures.append((name, n, what, rel))
+            if dtype == torch.bfloat16:
+                rel = float((runs["kernel"] - runs["exact-softmax build"])
+                            .abs().max()) / scale
+                print(f"  kernel vs exact-softmax build: {rel:.3e}")
+    return failures
+
+
+def stage_clocks(libs, dev, pairs=20480, blocks=12):
+    d0, d1 = descs(pairs, dev, 7)
+    packed = tgnn.pack_gnn_params(tgnn.random_folded_params(blocks),
+                                  torch.bfloat16, dev)
+    lib = libs["T2P_STAGE_CLOCKS"]
+    clocks = lib.t2p_superglue_gnn_stage_clocks
+    clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    clocks.restype = ctypes.c_int
+    ms = cuda_ms(lambda: launch(libs[""], d0, d1, packed))
+    ms_i = cuda_ms(lambda: launch(lib, d0, d1, packed))
+    _build.check(clocks(None, 1), "stage clocks reset")
+    launch(lib, d0, d1, packed)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * len(STAGES))()
+    _build.check(clocks(buf, 0), "stage clocks read")
+    total = float(sum(buf))
+    ctas = -(-pairs // tgnn.TC_PAIRS)
+    print(f"bf16 kernel N={pairs} L={blocks}: {ms:.3f} ms, with stage clocks "
+          f"{ms_i:.3f} ms, {total / ctas:.0f} clocks a CTA; "
+          + ", ".join(f"{k} {100 * v / total:.1f}%"
+                      for k, v in zip(STAGES, buf)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("check_gnn_kernel: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    libs = build_variants()
+    failures = depth_readings(libs, dev)
+    stage_clocks(libs, dev)
+    if failures:
+        print("FAILURES:", failures, file=sys.stderr)
+        return 1
+    print("ok")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

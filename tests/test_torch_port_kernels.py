@@ -7,6 +7,8 @@ Imports only torch and numpy, so it also runs on a card machine without JAX:
 Without a CUDA device every test skips (the kernels have no CPU mode).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -72,44 +74,72 @@ def test_sinkhorn_kernel_matches_plain(cuda):
 
 
 def _packed(dtype, device, L=4):
-    rng = np.random.default_rng(1)
-    E = tgnn.KERNEL_SHAPE[0]
-    shapes = {"wq": (L, E, E), "wk": (L, E, E), "wv": (L, E, E),
-              "wm": (L, E, E), "w0": (L, 2 * E, 2 * E), "w1": (L, 2 * E, E),
-              "wf": (E, E), "bq": (L, E), "bk": (L, E), "bv": (L, E),
-              "bm": (L, E), "b1": (L, E), "bf": (E,), "s0": (L, 2, 2 * E),
-              "t0": (L, 2, 2 * E)}
-    folded = {k: (rng.standard_normal(s) / np.sqrt(s[-2]) if k[0] == "w"
-                  else rng.random(s)).astype(np.float32)
-              for k, s in shapes.items()}
-    return tgnn.pack_gnn_params(folded, dtype, device)
+    return tgnn.pack_gnn_params(tgnn.random_folded_params(L), dtype, device)
 
 
 @pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
                                            (torch.bfloat16, 1e-2)])
-def test_gnn_kernel_matches_plain(cuda, dtype, rel_tol):
+@pytest.mark.parametrize("N,L", [
+    (37, 4),                     # ragged: a quarter (bf16) or half (f32) CTA
+    (1, 4), (tgnn.TC_PAIRS - 1, 4), (tgnn.TC_PAIRS, 4),
+    (tgnn.TC_PAIRS + 1, 4),      # around one CTA of the bf16 kernel
+    (37, 2),                     # the cascade's depth
+])
+def test_gnn_kernel_matches_plain(cuda, dtype, rel_tol, N, L):
     """Tolerance relative to the largest score: both sides sum in f32 in
     different orders; in bf16 that can move a value by one bf16 step."""
-    packed = _packed(dtype, cuda)
+    packed = _packed(dtype, cuda, L)
     g = torch.Generator().manual_seed(2)
-    d0 = torch.randn(37, 16, 128, generator=g).to(cuda)   # odd: a half CTA
-    d1 = torch.randn(37, 6, 128, generator=g).to(cuda)
+    d0 = torch.randn(N, 16, 128, generator=g).to(cuda)
+    d1 = torch.randn(N, 6, 128, generator=g).to(cuda)
     got = _launches("superglue_gnn", lambda: tgnn.gnn_scores(d0, d1, packed))
     want = tgnn.gnn_scores_plain(d0, d1, packed)
+    assert got.shape == (N, 16, 6) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0,
                                atol=rel_tol * float(want.abs().max()))
 
 
-def test_gnn_kernel_keeps_exact_ties(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("equal", [
+    (1, 4),       # within one 16-row tile of the bf16 kernel's layout
+    (3, 4),       # in two tiles for a CTA's third pair (pairs 2 and 6 here)
+    (0, 3, 4),    # three equal hints
+])
+def test_gnn_kernel_keeps_exact_ties(cuda, dtype, equal):
     """Identical hints must give bit-identical score columns (mutual-max
-    extraction then takes the first, as JAX does)."""
-    packed = _packed(torch.bfloat16, cuda)
+    extraction then takes the first, as JAX does), wherever their rows lie
+    in the kernel's tiles."""
+    packed = _packed(dtype, cuda)
     g = torch.Generator().manual_seed(3)
     d0 = torch.randn(8, 16, 128, generator=g).to(cuda)
     d1 = torch.randn(8, 6, 128, generator=g).to(cuda)
-    d1[:, 4] = d1[:, 1]
+    for j in equal[1:]:
+        d1[:, j] = d1[:, equal[0]]
     s = tgnn.gnn_scores(d0, d1, packed)
-    torch.testing.assert_close(s[:, :, 4], s[:, :, 1], atol=0, rtol=0)
+    for j in equal[1:]:
+        torch.testing.assert_close(s[:, :, j], s[:, :, equal[0]], atol=0,
+                                   rtol=0)
+
+
+def test_gnn_kernel_layout_constants(cuda):
+    """The wrapper's constants are the kernel's static shape and the pairs
+    a CTA of the bf16 kernel takes."""
+    fn = _build.entry("superglue_gnn", "t2p_superglue_gnn_shape",
+                      [ctypes.POINTER(ctypes.c_int)] * 4)
+    vals = [ctypes.c_int() for _ in range(4)]
+    assert fn(*map(ctypes.byref, vals)) == 0
+    assert tuple(v.value for v in vals) == tgnn.KERNEL_SHAPE + (
+        tgnn.TC_PAIRS,)
+
+
+def test_gnn_kernel_rejects_bad_input(cuda):
+    packed = _packed(torch.bfloat16, cuda)
+    d0 = torch.zeros(2, 16, 128, device=cuda)
+    with pytest.raises(ValueError):           # 8 hints: not the kernel's shape
+        tgnn.gnn_scores(d0, torch.zeros(2, 8, 128, device=cuda), packed)
+    with pytest.raises(ValueError):           # weights on another device
+        tgnn.gnn_scores(d0, torch.zeros(2, 6, 128, device=cuda),
+                        {k: v.cpu() for k, v in packed.items()})
 
 
 def _pointconv_case(device, dtype, B, N, S, C1, C2, spread, seed):

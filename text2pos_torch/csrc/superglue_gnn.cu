@@ -6,9 +6,9 @@
 // (gnn_scores_pallas, body _gnn_kernel :103, parameters from
 // fold_gnn_params :45). The TPU kernel stacks pairs along matrix rows and
 // masks a cross-pair [R, R] score matrix, and pads hints 6 -> 16, to satisfy
-// Mosaic's tiling; none of that is carried over. Here a CTA holds G=2
-// pose-cell pairs (2 × (16 objects + 6 hints) = 44 token rows) in shared
-// memory for all blocks, and attention runs per pair over real tokens only.
+// Mosaic's tiling; none of that is carried over. Here a CTA holds a few
+// pose-cell pairs' token rows in shared memory for all blocks, and attention
+// runs per pair over real tokens only.
 //
 // Per block l and pair, for both sets at once (the weights are shared):
 //   qkv = a·[Wq|Wk|Wv] + b            a = the residual stream, rounded
@@ -23,14 +23,53 @@
 // Precision follows the JAX eval path: the residual stream stays f32;
 // matmul inputs and outputs are rounded to the compute dtype (bf16 or f32)
 // where flax's Dense rounds them; softmax, scores and all accumulation are
-// f32. With BF16 the weights are stored in bf16 and every rounded value is
-// kept in f32 shared memory (rnd() below), so one code path serves both.
+// f32.
 //
-// Bound. About 89 MFLOP per pair (1.8 TFLOP at N=20480), against 14.3 KB of
-// descriptors in and 384 B of scores out per pair: operations bound it.
-// This first version runs the matmuls on the CUDA cores in f32 FMA, with
-// weights streamed from L2 (7.9 MB f32 / 3.9 MB bf16 for 12 blocks) and each
-// weight element reused across the CTA's 44 rows; tensor cores come later.
+// Bound. About 89 MFLOP per pair (1.8 TFLOP at N=20480), 98% of it the five
+// dense products of a block, against 14.3 KB of descriptors in and 384 B of
+// scores out per pair: operations bound it, and in bf16 only the tensor
+// cores reach them. Two kernels, chosen by the weights' dtype:
+//
+// bf16 (namespace tc): tensor cores, mma.sync.m16n8k16 with bf16 inputs and
+// f32 accumulation. mma.sync was taken over wgmma because its fragments are
+// plain registers with a documented layout: the epilogues (bias, per-set BN,
+// ReLU, residual) run on the accumulators with no trip through shared
+// memory, B fragments come straight from global memory, and the logits of
+// the attention feed P·V without leaving the registers.
+//  - A CTA holds G=4 pairs, rows set-major: 64 object rows (m-tiles 0-3),
+//    then 24 hint rows and 8 zero rows (m-tiles 4-5). A tile belongs to one
+//    set, so the BN affine is uniform per tile, and the 16 objects of a pair
+//    are one tile.
+//  - Every value the eval path rounds to bf16 is stored as bf16: per row
+//    [rounded residual | merge output] (256) and q|k|v (384), beside the f32
+//    residual (128): 1856 B a row with pads, 174 KB a CTA, one CTA an SM.
+//    Messages overwrite q in place, h1 and the final projection overwrite
+//    q|k. Row strides are 16 B (bf16) and 32 B (f32) past a multiple of
+//    128 B, so ldmatrix and the epilogue stores are free of bank conflicts.
+//  - 8 warps, each with up to 253 registers, each a strip of output columns
+//    over all six m-tiles (144 accumulators for q|k|v). A weight element is
+//    so read once per CTA (3.9 MB per CTA, 20 GB a launch at N=20480, from
+//    L2). The host stores each weight in the order of the B fragments
+//    (pack_gnn_params), so a warp's load of one n-tile and k-step is 256
+//    contiguous bytes, 8 a lane, into a ring of registers 1-3 k-steps ahead;
+//    a product's first steps are fetched before the barrier that releases
+//    its input. A fragments come by ldmatrix.x4 through a ring of six
+//    results, five m-tiles ahead of their MMAs. No weight is staged in
+//    shared memory.
+//  - Attention runs on the tensor cores too: a warp takes a (pair, head,
+//    query set) as one 16x16 tile (QK^T, softmax in registers, P·V).
+// Every row goes through the same instruction sequence whatever its place
+// in a tile, so duplicate hints keep bit-identical score columns.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) with the stage clocks below,
+// the time splits 24% q|k|v, 10% attention, 10% merge, 28% W0, 24% W1, 3%
+// loading the descriptors. What holds it back: each of the 8 warps reads
+// all of A (8x redundant ldmatrix traffic, which takes the shared-memory
+// pipe about as long as the MMAs take the tensor cores), and five barriers
+// a block with only two warps a scheduler to hide them.
+//
+// f32: f32 FMAs on the CUDA cores, G=2 pairs (44 rows) a CTA, weights
+// streamed from L2 row-major. It is the path whose top-k equals the JAX
+// package's exactly; TF32 would break that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +83,506 @@ constexpr int HEADS = 4;
 constexpr int D = E / HEADS;  // 32
 constexpr int T0 = 16;       // objects per cell
 constexpr int T1 = 6;        // hints per query
+
+// ------------------------------------------------------------------------
+// bf16: tensor cores
+// ------------------------------------------------------------------------
+namespace tc {
+
+constexpr int G = 4;               // pairs per CTA
+constexpr int OBJ = G * T0;        // 64 object rows, m-tiles 0..3
+constexpr int HINT = G * T1;       // 24 hint rows from row OBJ on
+constexpr int ROWS = 96;           // rows 88..95 stay padding
+constexpr int MT = ROWS / 16;      // 6 m-tiles, every warp owns all of them
+constexpr int NT = 256;            // threads per CTA
+constexpr int WARPS = NT / 32;     // 8 strips of output columns
+static_assert(OBJ + HINT <= ROWS && ROWS % 16 == 0 && MT % 2 == 0,
+              "row layout");
+static_assert(2 * G * HEADS % WARPS == 0, "attention units per warp");
+
+constexpr int LDR = E + 8;         // f32 residual stream, 544 B a row
+constexpr int LDA = 2 * E + 8;     // bf16 [rounded residual | merge], 528 B
+constexpr int LDQ = 3 * E + 8;     // bf16 q|k|v, then h1, then md, 784 B
+constexpr size_t SMEM_BYTES =
+    (size_t)ROWS * (LDR * sizeof(float) + (LDA + LDQ) * sizeof(__nv_bfloat16));
+
+// With -DT2P_STAGE_CLOCKS the kernel adds up, over all CTAs, the clocks its
+// first thread spends in each stage (a barrier closes a stage, so a stage
+// ends when its slowest warp does): the card's tools cannot look inside a
+// kernel. scripts/check_gnn_kernel.py --stages builds and reads it.
+#ifdef T2P_STAGE_CLOCKS
+constexpr int N_STAGES = 8;  // load, qkv, attention, merge, W0, W1, final, scores
+__device__ unsigned long long g_stage_clocks[N_STAGES];
+#define STAGE_BEGIN long long stage_t0 = clock64();
+#define STAGE(i)                                                          \
+  {                                                                       \
+    __syncthreads();                                                      \
+    if (threadIdx.x == 0) {                                               \
+      const long long t = clock64();                                      \
+      atomicAdd(&g_stage_clocks[i], (unsigned long long)(t - stage_t0));  \
+      stage_t0 = t;                                                       \
+    }                                                                     \
+  }
+#else
+#define STAGE_BEGIN
+#define STAGE(i)
+#endif
+
+struct Weights {
+  // Matmul weights in fragment order, [.., N/8, K/16, 32 lanes] uint2.
+  const uint2* wqkv;  // [L, 3E/8, E/16, 32]
+  const float* bqkv;  // [L, 3E]
+  const uint2* wm;    // [L, E/8, E/16, 32]
+  const float* bm;    // [L, E]
+  const uint2* w0;    // [L, 2E/8, 2E/16, 32]
+  const float* s0;    // [L, 2, 2E]
+  const float* t0;    // [L, 2, 2E]
+  const uint2* w1;    // [L, E/8, 2E/16, 32]
+  const float* b1;    // [L, E]
+  const uint2* wf;    // [E/8, E/16, 32]
+  const float* bf;    // [E]
+};
+
+__device__ __forceinline__ float rnd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Eight bf16 values to f32 (a bf16 is the upper half of its f32).
+__device__ __forceinline__ void unpack8(const uint4 v, float* f) {
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+  f[4] = __uint_as_float(v.z << 16);
+  f[5] = __uint_as_float(v.z & 0xffff0000u);
+  f[6] = __uint_as_float(v.w << 16);
+  f[7] = __uint_as_float(v.w & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// c[16, 8] += a[16, 16] · b[16, 8], bf16 inputs, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's B fragments of its NTW n-tiles: a ring of RB k-steps (16 k-values
+// each), so that RB − 1 steps of weights are in flight from L2 while one
+// multiplies.
+template <int NTW, int RB>
+struct BRing {
+  uint2 b[RB][NTW];
+};
+
+template <int NTW, int K>
+__device__ __forceinline__ void load_b(const uint2* __restrict__ W, int ks,
+                                       uint2 (&b)[NTW]) {
+  const uint2* wp =
+      W + (size_t)((threadIdx.x >> 5) * NTW) * (K / 16) * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) b[j] = __ldg(wp + (j * (K / 16) + ks) * 32);
+}
+
+// The first RB − 1 steps, fetched before the barrier that precedes the
+// product so that their latency overlaps the stage before.
+template <int NTW, int K, int RB>
+__device__ __forceinline__ void prefetch_b(const uint2* __restrict__ W,
+                                           BRing<NTW, RB>& ring) {
+#pragma unroll
+  for (int ks = 0; ks < RB - 1; ++ks) load_b<NTW, K>(W, ks, ring.b[ks]);
+}
+
+// out[ROWS, 8·NTW·WARPS] = X[ROWS, K] (shared bf16, row stride ldx) · W
+// (global, fragment order). Warp w owns all six m-tiles of n-tiles
+// NTW·w .. NTW·w + NTW − 1, so each weight element is read once per CTA.
+// The A fragments go through a ring of six ldmatrix results, written five
+// m-tiles ahead of the MMAs that use them; ptxas makes its own order of
+// these loads (deeper rings, and a burst one k-step ahead, compiled to the
+// same times). epi(row, col, v0, v1) takes the accumulators of (row, col)
+// and (row, col + 1).
+template <int NTW, int K, int RB, typename Epi>
+__device__ __forceinline__ void gemm(const __nv_bfloat16* X, int ldx,
+                                     const uint2* __restrict__ W,
+                                     BRing<NTW, RB>& ring, Epi epi) {
+  constexpr int KS = K / 16, RA = MT;
+  static_assert(RB >= 2 && RB <= KS, "B ring depth");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // ldmatrix.x4: lanes 0-15 address rows 0-15 at k, lanes 16-31 at k + 8.
+  const uint32_t xaddr = smem_addr(X + (lane & 15) * ldx + ((lane >> 4) << 3));
+
+  float acc[MT][NTW][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+
+  // Step t = ks·MT + m multiplies m-tile m at k-step ks from slot t % RA.
+  uint32_t a[RA][4];
+#pragma unroll
+  for (int t = 0; t < RA - 1; ++t)
+    ldmatrix_x4(a[t], xaddr + 2u * ((t % MT) * 16 * ldx + (t / MT) * 16));
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    if (ks + RB - 1 < KS)
+      load_b<NTW, K>(W, ks + RB - 1, ring.b[(ks + RB - 1) % RB]);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      // Refill the slot whose MMAs were issued last.
+      const int t = ks * MT + m, tn = t + RA - 1;
+      if (tn < KS * MT)
+        ldmatrix_x4(a[tn % RA],
+                    xaddr + 2u * ((tn % MT) * 16 * ldx + (tn / MT) * 16));
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        mma_bf16(acc[m][j], a[t % RA], ring.b[ks % RB][j].x,
+                 ring.b[ks % RB][j].y);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int r = m * 16 + gid, c = (warp * NTW + j) * 8 + tig * 2;
+      epi(r, c, acc[m][j][0], acc[m][j][1]);
+      epi(r + 8, c, acc[m][j][2], acc[m][j][3]);
+    }
+}
+
+// Attention on the warp: its UNITS (pair, head, query set) units in lock
+// step, phase by phase, so that the units' MMAs, shuffles and ex2s can
+// overlap (alone, a unit is one dependent chain). A unit is the nq query
+// rows from qbase on against the nk rows of the source set from kbase on,
+// as a 16x16
+// tile whose spare rows and keys repeat the last real one (spare keys are
+// masked, spare rows never stored; no branch depends on nq or nk). Logits
+// QK^T (2 n-tiles x 2 k-steps), softmax in f32 in registers (a row's 16
+// logits lie in the 4 lanes of a quad), probabilities rounded to bf16 and
+// fed as the A operand of P·V (the accumulator layout of QK^T is the A
+// layout), messages rounded and written over the rows' q. The scale is a
+// multiplication by 1/sqrt(D), the exponential ex2.approx and the
+// normalisation one approximate reciprocal a row: their error (about 2^-21
+// relative) is far below the bf16 step the probabilities are rounded to.
+// With -DT2P_EXACT_SOFTMAX the build divides by sqrt(D), calls expf and
+// divides by the sum as the plain version does;
+// scripts/check_gnn_kernel.py holds the two builds against each other.
+constexpr int UNITS = 2 * G * HEADS / WARPS;   // 4
+
+#ifdef T2P_EXACT_SOFTMAX
+__device__ __forceinline__ float scaled(float s) {
+  return s / sqrtf((float)D);
+}
+__device__ __forceinline__ float soft_exp(float x) { return expf(x); }
+__device__ __forceinline__ float soft_den(float sum) { return sum; }
+__device__ __forceinline__ float soft_norm(float e, float den) {
+  return e / den;
+}
+#else
+__device__ __forceinline__ float scaled(float s) {
+  return s * (1.0f / sqrtf((float)D));
+}
+__device__ __forceinline__ float soft_exp(float x) { return __expf(x); }
+__device__ __forceinline__ float soft_den(float sum) {
+  return __fdividef(1.0f, sum);
+}
+__device__ __forceinline__ float soft_norm(float e, float den) {
+  return e * den;
+}
+#endif
+
+__device__ __forceinline__ void attend(__nv_bfloat16* Q, bool cross) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  int qbase[UNITS], nq[UNITS], kbase[UNITS], nk[UNITS], col[UNITS];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = (threadIdx.x >> 5) * UNITS + i;
+    const int p = u / (2 * HEADS), ob = p * T0, hb = OBJ + p * T1;
+    const bool hints = (u & 1) != 0;     // the query set
+    const bool khints = hints != cross;  // the source set
+    qbase[i] = hints ? hb : ob;
+    nq[i] = hints ? T1 : T0;
+    kbase[i] = khints ? hb : ob;
+    nk[i] = khints ? T1 : T0;
+    col[i] = ((u >> 1) % HEADS) * D;     // the head's channels
+  }
+
+  // Logits. K as the B operand: matrix i of an x4 load is keys 8t.. x
+  // channels 8i...
+  float sc[UNITS][2][4];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    uint32_t qa[2][4];
+    const uint32_t addr =
+        smem_addr(Q + (qbase[i] + min(lane & 15, nq[i] - 1)) * LDQ + col[i] +
+                  ((lane >> 4) << 3));
+    ldmatrix_x4(qa[0], addr);
+    ldmatrix_x4(qa[1], addr + 32u);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int key = min(8 * t + (lane & 7), nk[i] - 1);
+      uint32_t kb[4];
+      ldmatrix_x4(kb, smem_addr(Q + (kbase[i] + key) * LDQ + E + col[i] +
+                                ((lane >> 3) << 3)));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][t][j] = 0.0f;
+      mma_bf16(sc[i][t], qa[0], kb[0], kb[1]);
+      mma_bf16(sc[i][t], qa[1], kb[2], kb[3]);
+    }
+  }
+  // Softmax of rows gid (j = 0, 1) and gid + 8 (j = 2, 3).
+  uint32_t pa[UNITS][4];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sc[i][t][j] = 8 * t + tig * 2 + (j & 1) < nk[i] ? scaled(sc[i][t][j])
+                                                         : -INFINITY;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * half;
+      float mx = fmaxf(fmaxf(sc[i][0][j], sc[i][0][j + 1]),
+                       fmaxf(sc[i][1][j], sc[i][1][j + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float e0 = soft_exp(sc[i][0][j] - mx);
+      const float e1 = soft_exp(sc[i][0][j + 1] - mx);
+      const float e2 = soft_exp(sc[i][1][j] - mx);
+      const float e3 = soft_exp(sc[i][1][j + 1] - mx);
+      float sum = (e0 + e1) + (e2 + e3);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float den = soft_den(sum);
+      pa[i][half] = pack2(soft_norm(e0, den), soft_norm(e1, den));
+      pa[i][2 + half] = pack2(soft_norm(e2, den), soft_norm(e3, den));
+    }
+  }
+  // Messages. V as the B operand, transposed on the way: matrices of an x4
+  // load are (keys 0-7 | keys 8-15) x (channels c.. | channels c + 8..).
+  float o[UNITS][D / 8][4];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int vkey = min(lane & 15, nk[i] - 1);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, smem_addr(Q + (kbase[i] + vkey) * LDQ + 2 * E +
+                                      col[i] + 16 * c + ((lane >> 4) << 3)));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][2 * c][j] = o[i][2 * c + 1][j] = 0.0f;
+      mma_bf16(o[i][2 * c], pa[i], vb[0], vb[1]);
+      mma_bf16(o[i][2 * c + 1], pa[i], vb[2], vb[3]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      __nv_bfloat16* out = Q + (qbase[i] + gid) * LDQ + col[i] + n * 8 + tig * 2;
+      if (gid < nq[i])
+        *reinterpret_cast<uint32_t*>(out) = pack2(o[i][n][0], o[i][n][1]);
+      if (gid + 8 < nq[i])
+        *reinterpret_cast<uint32_t*>(out + 8 * LDQ) =
+            pack2(o[i][n][2], o[i][n][3]);
+    }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+superglue_gnn_tc_kernel(const float* __restrict__ desc0,  // [N, T0, E]
+                        const float* __restrict__ desc1,  // [N, T1, E]
+                        Weights wt, int num_blocks,
+                        float* __restrict__ scores,       // [N, T0, T1]
+                        int n_pairs) {
+  extern __shared__ uint4 smem_tc[];
+  float* res = reinterpret_cast<float*>(smem_tc);
+  __nv_bfloat16* A = reinterpret_cast<__nv_bfloat16*>(res + ROWS * LDR);
+  __nv_bfloat16* Q = A + ROWS * LDA;
+  const int tid = threadIdx.x;
+  const int pair0 = blockIdx.x * G;
+  STAGE_BEGIN
+
+  // Both descriptor sets of the CTA's pairs, set-major; zeros in the
+  // padding rows and past the last pair.
+  for (int i = tid; i < ROWS * (E / 4); i += NT) {
+    const int r = i / (E / 4), c = (i % (E / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < OBJ) {
+      if (pair0 + r / T0 < n_pairs)
+        x = __ldg(reinterpret_cast<const float4*>(
+            desc0 + ((size_t)pair0 * T0 + r) * E + c));
+    } else if (r < OBJ + HINT) {
+      const int u = r - OBJ;
+      if (pair0 + u / T1 < n_pairs)
+        x = __ldg(reinterpret_cast<const float4*>(
+            desc1 + ((size_t)pair0 * T1 + u) * E + c));
+    }
+    *reinterpret_cast<float4*>(res + r * LDR + c) = x;
+    *reinterpret_cast<uint2*>(A + r * LDA + c) =
+        make_uint2(pack2(x.x, x.y), pack2(x.z, x.w));
+  }
+
+  STAGE(0)
+
+  // Each product's first weight fragments are fetched before the barrier
+  // that releases its input.
+  for (int l = 0; l < num_blocks; ++l) {
+    const bool cross = (l & 1) == 1;
+    const size_t wl = (size_t)l;
+
+    // q|k|v of every row.
+    {
+      const uint2* w = wt.wqkv + wl * (E * 3 * E / 4);
+      BRing<6, 2> ring;
+      prefetch_b<6, E>(w, ring);
+      __syncthreads();
+      gemm<6, E>(A, LDA, w, ring, [&](int r, int c, float v0, float v1) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(wt.bqkv + wl * 3 * E + c));
+        *reinterpret_cast<uint32_t*>(Q + r * LDQ + c) =
+            pack2(v0 + b.x, v1 + b.y);
+      });
+    }
+    STAGE(1)
+
+    // Attention and m = msg·Wm + bm, into the right half of A. A warp takes
+    // four of the CTA's 32 (pair, head, query set) units.
+    {
+      const uint2* w = wt.wm + wl * (E * E / 4);
+      BRing<2, 4> ring;
+      prefetch_b<2, E>(w, ring);
+      __syncthreads();
+      attend(Q, cross);
+      __syncthreads();
+      STAGE(2)
+      gemm<2, E>(Q, LDQ, w, ring, [&](int r, int c, float v0, float v1) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(wt.bm + wl * E + c));
+        *reinterpret_cast<uint32_t*>(A + r * LDA + E + c) =
+            pack2(v0 + b.x, v1 + b.y);
+      });
+    }
+    STAGE(3)
+
+    // h1 = relu(([a | m]·W0) * s0[set] + t0[set]), over q|k.
+    {
+      const uint2* w = wt.w0 + wl * (4 * E * E / 4);
+      BRing<4, 3> ring;
+      prefetch_b<4, 2 * E>(w, ring);
+      __syncthreads();
+      gemm<4, 2 * E>(A, LDA, w, ring, [&](int r, int c, float v0, float v1) {
+        const int set = r >= OBJ ? 1 : 0;
+        const float2 s = __ldg(reinterpret_cast<const float2*>(wt.s0 + wl * 4 * E + set * 2 * E + c));
+        const float2 t = __ldg(reinterpret_cast<const float2*>(wt.t0 + wl * 4 * E + set * 2 * E + c));
+        *reinterpret_cast<uint32_t*>(Q + r * LDQ + c) =
+            pack2(fmaxf(fmaf(v0, s.x, t.x), 0.0f),
+                  fmaxf(fmaf(v1, s.y, t.y), 0.0f));
+      });
+    }
+    STAGE(4)
+
+    // res += h1·W1 + b1; A's left half gets the rounded residual.
+    {
+      const uint2* w = wt.w1 + wl * (2 * E * E / 4);
+      BRing<2, 4> ring;
+      prefetch_b<2, 2 * E>(w, ring);
+      __syncthreads();
+      gemm<2, 2 * E>(Q, LDQ, w, ring, [&](int r, int c, float v0, float v1) {
+        const float2 b = __ldg(reinterpret_cast<const float2*>(wt.b1 + wl * E + c));
+        float2* rp = reinterpret_cast<float2*>(res + r * LDR + c);
+        float2 x = *rp;
+        x.x += rnd(v0 + b.x);
+        x.y += rnd(v1 + b.y);
+        *rp = x;
+        *reinterpret_cast<uint32_t*>(A + r * LDA + c) = pack2(x.x, x.y);
+      });
+    }
+    STAGE(5)
+  }
+
+  // Final projection of both sets, over q.
+  {
+    BRing<2, 4> ring;
+    prefetch_b<2, E>(wt.wf, ring);
+    __syncthreads();
+    gemm<2, E>(A, LDA, wt.wf, ring, [&](int r, int c, float v0, float v1) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(wt.bf + c));
+      *reinterpret_cast<uint32_t*>(Q + r * LDQ + c) =
+          pack2(v0 + b.x, v1 + b.y);
+    });
+  }
+  __syncthreads();
+  STAGE(6)
+
+  // scores[n, i, j] = md0_i · md1_j / sqrt(E).
+  for (int it = tid; it < G * T0 * T1; it += NT) {
+    const int p = it / (T0 * T1), i = (it / T1) % T0, j = it % T1;
+    if (pair0 + p >= n_pairs) continue;
+    const uint4* a = reinterpret_cast<const uint4*>(Q + (p * T0 + i) * LDQ);
+    const uint4* b =
+        reinterpret_cast<const uint4*>(Q + (OBJ + p * T1 + j) * LDQ);
+    float dot = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < E / 8; ++c) {
+      float x[8], y[8];
+      unpack8(a[c], x);
+      unpack8(b[c], y);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) dot = fmaf(x[d], y[d], dot);
+    }
+    scores[(size_t)pair0 * T0 * T1 + it] = dot / sqrtf((float)E);
+  }
+  STAGE(7)
+}
+
+int launch(const float* desc0, const float* desc1, const Weights& wt,
+           int num_blocks, float* scores, int n_pairs, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      superglue_gnn_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (n_pairs + G - 1) / G;
+  superglue_gnn_tc_kernel<<<grid, NT, SMEM_BYTES, stream>>>(
+      desc0, desc1, wt, num_blocks, scores, n_pairs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------------------
+// f32: CUDA cores
+// ------------------------------------------------------------------------
+namespace f32 {
+
 constexpr int P = T0 + T1;   // token rows per pair
 constexpr int G = 2;         // pairs per CTA
 constexpr int R = G * P;     // token rows per CTA (44)
@@ -56,50 +595,32 @@ static_assert(R % ROW_GROUPS == 0, "rows must split evenly");
 // Shared-memory row strides (floats). A pad of 4 keeps rows 16-byte aligned
 // and puts consecutive rows 4 banks apart, so per-row float4 reads in the
 // attention step are free of bank conflicts.
-constexpr int LDRES = E;          // residual stream, f32
-constexpr int LDA = 2 * E + 4;    // [rounded residual | merge output]
+constexpr int LDRES = E;          // residual stream
+constexpr int LDA = 2 * E + 4;    // [residual | merge output]
 constexpr int LDB = 3 * E + 4;    // q|k|v, then h1, then the final projection
 constexpr int LDC = E + 4;        // attention messages
 constexpr int SMEM_FLOATS = R * (LDRES + LDA + LDB + LDC);
 
 struct Weights {
-  const void* wqkv;   // [L, E, 3E]  compute dtype
+  const float* wqkv;  // [L, E, 3E]
   const float* bqkv;  // [L, 3E]
-  const void* wm;     // [L, E, E]
+  const float* wm;    // [L, E, E]
   const float* bm;    // [L, E]
-  const void* w0;     // [L, 2E, 2E]
+  const float* w0;    // [L, 2E, 2E]
   const float* s0;    // [L, 2, 2E]
   const float* t0;    // [L, 2, 2E]
-  const void* w1;     // [L, 2E, E]
+  const float* w1;    // [L, 2E, E]
   const float* b1;    // [L, E]
-  const void* wf;     // [E, E]
+  const float* wf;    // [E, E]
   const float* bf;    // [E]
 };
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-template <bool BF16>
-__device__ __forceinline__ float ldw(const void* w, size_t i) {
-  if constexpr (BF16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(w)[i]);
-  } else {
-    return __ldg(reinterpret_cast<const float*>(w) + i);
-  }
-}
 
 // acc = X[R, K] (shared, row stride ldx) · W[K, N] (global, row-major),
 // N = COLS·128; thread (row group rg, column thread tc) owns rows
 // rg·ROWS … and columns tc + 128·cc; epi(row, col, acc) stores.
-template <bool BF16, int COLS, typename Epi>
+template <int COLS, typename Epi>
 __device__ __forceinline__ void matmul(const float* X, int ldx, int K,
-                                       const void* W, Epi epi) {
+                                       const float* W, Epi epi) {
   constexpr int N = COLS * COL_THREADS;
   const int tc = threadIdx.x % COL_THREADS;
   const int r0 = (threadIdx.x / COL_THREADS) * ROWS;
@@ -115,7 +636,7 @@ __device__ __forceinline__ void matmul(const float* X, int ldx, int K,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int cc = 0; cc < COLS; ++cc)
-        w[kk][cc] = ldw<BF16>(W, (size_t)(k + kk) * N + tc + COL_THREADS * cc);
+        w[kk][cc] = __ldg(W + (size_t)(k + kk) * N + tc + COL_THREADS * cc);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const float4 x = *reinterpret_cast<const float4*>(X + (r0 + r) * ldx + k);
@@ -137,13 +658,12 @@ __device__ __forceinline__ void matmul(const float* X, int ldx, int K,
       epi(r0 + r, tc + COL_THREADS * cc, acc[r][cc]);
 }
 
-template <bool BF16>
 __global__ void __launch_bounds__(NT, 1)
-superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
-                     const float* __restrict__ desc1,  // [N, T1, E]
-                     Weights wt, int num_blocks,
-                     float* __restrict__ scores,       // [N, T0, T1]
-                     int n_pairs) {
+superglue_gnn_f32_kernel(const float* __restrict__ desc0,  // [N, T0, E]
+                         const float* __restrict__ desc1,  // [N, T1, E]
+                         Weights wt, int num_blocks,
+                         float* __restrict__ scores,       // [N, T0, T1]
+                         int n_pairs) {
   extern __shared__ float4 smem4[];
   float* res = reinterpret_cast<float*>(smem4);
   float* A = res + R * LDRES;
@@ -161,7 +681,7 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
       x = loc < T0 ? desc0[((size_t)n * T0 + loc) * E + c]
                    : desc1[((size_t)n * T1 + (loc - T0)) * E + c];
     res[r * LDRES + c] = x;
-    A[r * LDA + c] = rnd<BF16>(x);
+    A[r * LDA + c] = x;
   }
   __syncthreads();
 
@@ -172,10 +692,9 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
     // q|k|v of every row.
     {
       const float* bqkv = wt.bqkv + wl * 3 * E;
-      const void* w = BF16 ? (const void*)((const __nv_bfloat16*)wt.wqkv + wl * E * 3 * E)
-                           : (const void*)((const float*)wt.wqkv + wl * E * 3 * E);
-      matmul<BF16, 3>(A, LDA, E, w, [&](int r, int c, float acc) {
-        Bq[r * LDB + c] = rnd<BF16>(acc + __ldg(bqkv + c));
+      matmul<3>(A, LDA, E, wt.wqkv + wl * E * 3 * E,
+                [&](int r, int c, float acc) {
+        Bq[r * LDB + c] = acc + __ldg(bqkv + c);
       });
     }
     __syncthreads();
@@ -222,7 +741,7 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
 #pragma unroll
       for (int j = 0; j < T0; ++j) {
         if (j < nk) {
-          const float pj = rnd<BF16>(s[j] / sum);
+          const float pj = s[j] / sum;
           const float* vr = Bq + (kbase + j) * LDB + 2 * E + h * D;
 #pragma unroll
           for (int d = 0; d < D; d += 4) {
@@ -238,8 +757,7 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         *reinterpret_cast<float4*>(out + d) =
-            make_float4(rnd<BF16>(msg[d]), rnd<BF16>(msg[d + 1]),
-                        rnd<BF16>(msg[d + 2]), rnd<BF16>(msg[d + 3]));
+            make_float4(msg[d], msg[d + 1], msg[d + 2], msg[d + 3]);
       }
     }
     __syncthreads();
@@ -247,10 +765,8 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
     // m = msg·Wm + bm, into the right half of A.
     {
       const float* bm = wt.bm + wl * E;
-      const void* w = BF16 ? (const void*)((const __nv_bfloat16*)wt.wm + wl * E * E)
-                           : (const void*)((const float*)wt.wm + wl * E * E);
-      matmul<BF16, 1>(C, LDC, E, w, [&](int r, int c, float acc) {
-        A[r * LDA + E + c] = rnd<BF16>(acc + __ldg(bm + c));
+      matmul<1>(C, LDC, E, wt.wm + wl * E * E, [&](int r, int c, float acc) {
+        A[r * LDA + E + c] = acc + __ldg(bm + c);
       });
     }
     __syncthreads();
@@ -259,33 +775,31 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
     {
       const float* s0 = wt.s0 + wl * 2 * 2 * E;
       const float* t0 = wt.t0 + wl * 2 * 2 * E;
-      const void* w = BF16 ? (const void*)((const __nv_bfloat16*)wt.w0 + wl * 4 * E * E)
-                           : (const void*)((const float*)wt.w0 + wl * 4 * E * E);
-      matmul<BF16, 2>(A, LDA, 2 * E, w, [&](int r, int c, float acc) {
+      matmul<2>(A, LDA, 2 * E, wt.w0 + wl * 4 * E * E,
+                [&](int r, int c, float acc) {
         const int g = (r % P) >= T0 ? 1 : 0;
         const float y = fmaf(acc, __ldg(s0 + g * 2 * E + c), __ldg(t0 + g * 2 * E + c));
-        Bq[r * LDB + c] = rnd<BF16>(fmaxf(y, 0.0f));
+        Bq[r * LDB + c] = fmaxf(y, 0.0f);
       });
     }
     __syncthreads();
 
-    // res += h1·W1 + b1; A's left half gets the rounded residual.
+    // res += h1·W1 + b1; A's left half follows the residual.
     {
       const float* b1 = wt.b1 + wl * E;
-      const void* w = BF16 ? (const void*)((const __nv_bfloat16*)wt.w1 + wl * 2 * E * E)
-                           : (const void*)((const float*)wt.w1 + wl * 2 * E * E);
-      matmul<BF16, 1>(Bq, LDB, 2 * E, w, [&](int r, int c, float acc) {
-        const float x = res[r * LDRES + c] + rnd<BF16>(acc + __ldg(b1 + c));
+      matmul<1>(Bq, LDB, 2 * E, wt.w1 + wl * 2 * E * E,
+                [&](int r, int c, float acc) {
+        const float x = res[r * LDRES + c] + (acc + __ldg(b1 + c));
         res[r * LDRES + c] = x;
-        A[r * LDA + c] = rnd<BF16>(x);
+        A[r * LDA + c] = x;
       });
     }
     __syncthreads();
   }
 
   // Final projection of both sets.
-  matmul<BF16, 1>(A, LDA, E, wt.wf, [&](int r, int c, float acc) {
-    Bq[r * LDB + c] = rnd<BF16>(acc + __ldg(wt.bf + c));
+  matmul<1>(A, LDA, E, wt.wf, [&](int r, int c, float acc) {
+    Bq[r * LDB + c] = acc + __ldg(wt.bf + c);
   });
   __syncthreads();
 
@@ -310,24 +824,26 @@ superglue_gnn_kernel(const float* __restrict__ desc0,  // [N, T0, E]
   }
 }
 
-template <bool BF16>
 int launch(const float* desc0, const float* desc1, const Weights& wt,
            int num_blocks, float* scores, int n_pairs, cudaStream_t stream) {
   const size_t smem = (size_t)SMEM_FLOATS * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      superglue_gnn_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      superglue_gnn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (n_pairs + G - 1) / G;
-  superglue_gnn_kernel<BF16><<<grid, NT, smem, stream>>>(
+  superglue_gnn_f32_kernel<<<grid, NT, smem, stream>>>(
       desc0, desc1, wt, num_blocks, scores, n_pairs);
   return (int)cudaGetLastError();
 }
 
+}  // namespace f32
+
 }  // namespace
 
 // desc0 [N, 16, 128] f32, desc1 [N, 6, 128] f32, scores [N, 16, 6] f32.
-// Matmul weights are bf16 when bf16 != 0, else f32; vectors are f32.
+// bf16 != 0: matmul weights are bf16 in fragment order (tensor-core kernel);
+// else f32 row-major (CUDA-core kernel). Vectors are f32 either way.
 // Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int t2p_superglue_gnn(const void* desc0, const void* desc1,
                                  const void* wqkv, const void* bqkv,
@@ -338,22 +854,44 @@ extern "C" int t2p_superglue_gnn(const void* desc0, const void* desc1,
                                  const void* bf, int num_blocks, int n_pairs,
                                  int bf16, void* scores, void* stream) {
   if (n_pairs < 1 || num_blocks < 0) return (int)cudaErrorInvalidValue;
-  Weights wt{wqkv, (const float*)bqkv, wm, (const float*)bm,
-             w0, (const float*)s0, (const float*)t0,
-             w1, (const float*)b1, wf, (const float*)bf};
-  if (bf16)
-    return launch<true>((const float*)desc0, (const float*)desc1, wt,
-                        num_blocks, (float*)scores, n_pairs,
-                        (cudaStream_t)stream);
-  return launch<false>((const float*)desc0, (const float*)desc1, wt,
-                       num_blocks, (float*)scores, n_pairs,
-                       (cudaStream_t)stream);
+  if (bf16) {
+    tc::Weights wt{(const uint2*)wqkv, (const float*)bqkv, (const uint2*)wm,
+                   (const float*)bm, (const uint2*)w0, (const float*)s0,
+                   (const float*)t0, (const uint2*)w1, (const float*)b1,
+                   (const uint2*)wf, (const float*)bf};
+    return tc::launch((const float*)desc0, (const float*)desc1, wt,
+                      num_blocks, (float*)scores, n_pairs,
+                      (cudaStream_t)stream);
+  }
+  f32::Weights wt{(const float*)wqkv, (const float*)bqkv, (const float*)wm,
+                  (const float*)bm, (const float*)w0, (const float*)s0,
+                  (const float*)t0, (const float*)w1, (const float*)b1,
+                  (const float*)wf, (const float*)bf};
+  return f32::launch((const float*)desc0, (const float*)desc1, wt, num_blocks,
+                     (float*)scores, n_pairs, (cudaStream_t)stream);
 }
 
-// Static shape of the kernel, for the Python wrapper's checks.
-extern "C" int t2p_superglue_gnn_shape(int* e, int* t0, int* t1) {
+// Static shape of the kernels, for the Python wrapper's checks: descriptor
+// width, objects and hints per pair, and the tensor-core kernel's pairs per
+// CTA.
+extern "C" int t2p_superglue_gnn_shape(int* e, int* t0, int* t1, int* g) {
   *e = E;
   *t0 = T0;
   *t1 = T1;
+  *g = tc::G;
   return 0;
 }
+
+#ifdef T2P_STAGE_CLOCKS
+// Copies the bf16 kernel's summed stage clocks to out[8] (reset == 0) or
+// sets them to zero. Synchronizes the device.
+extern "C" int t2p_superglue_gnn_stage_clocks(unsigned long long* out,
+                                              int reset) {
+  if (reset) {
+    const unsigned long long zero[tc::N_STAGES] = {};
+    return (int)cudaMemcpyToSymbol(tc::g_stage_clocks, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, tc::g_stage_clocks,
+                                   tc::N_STAGES * sizeof(unsigned long long));
+}
+#endif

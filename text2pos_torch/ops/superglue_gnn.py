@@ -8,6 +8,23 @@ calibrated per-set BatchNorm (``bn_stat_groups=2``) into per-set affines
 ``superglue_gnn_pallas.py:253``) runs every self/cross block, the final
 projection and the ``[N, 16, 6]`` score matrix scaled by 1/√E in one launch.
 ``gnn_scores_plain`` repeats its arithmetic, rounding included, in PyTorch.
+
+Operations bound the function on the H100 (about 89 MFLOP a pair against
+14.7 KB moved), so the bf16 kernel runs its dense products on the tensor
+cores (``mma.sync`` m16n8k16, f32 accumulation). Two things of its design
+live here, in index code that runs anywhere:
+
+- bf16 matmul weights are stored in the order of the instruction's B
+  fragments (``to_fragment_order``), so that a warp reads its operand from
+  global memory as one contiguous 8-byte load per lane and keeps no weight
+  in shared memory; ``from_fragment_order`` is the inverse, which the plain
+  version uses.
+- a CTA holds ``TC_PAIRS`` pairs' rows set-major: all object rows, then all
+  hint rows, then zero rows up to a multiple of 16, so that a 16-row tile
+  belongs to one set. The kernel computes that layout itself; the wrapper
+  only needs the pair count a CTA takes to say what "ragged" means.
+
+The f32 kernel (f32 FMAs on the CUDA cores) keeps row-major weights.
 """
 
 from __future__ import annotations
@@ -23,6 +40,8 @@ from text2pos_torch.ops import _build
 
 HEADS = 4
 KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
+TC_PAIRS = 4                  # pairs per CTA of the bf16 kernel
+MATMUL_WEIGHTS = ("wqkv", "wm", "w0", "w1", "wf")
 
 
 def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
@@ -69,25 +88,83 @@ def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
     return out
 
 
+def _fragment_index(K: int, N: int):
+    """Index arrays (k [K/16, 32, 4], n [N/8, 32]) of the B operand of
+    ``mma.sync.m16n8k16``: lane ``4·g + t`` of a tile of 16 k-values and 8
+    columns holds column ``g`` at k = 8·u + 2·t + v for its two registers u
+    and the two halves v of a register, in that order."""
+    if K % 16 or N % 8:
+        raise ValueError(f"fragment order needs K % 16 == 0 and N % 8 == 0, "
+                         f"got [{K}, {N}]")
+    lane, e = np.arange(32), np.arange(4)
+    k_in = (8 * (e // 2) + e % 2)[None, :] + 2 * (lane % 4)[:, None]  # [32, 4]
+    k = 16 * np.arange(K // 16)[:, None, None] + k_in[None]     # [K/16, 32, 4]
+    n = 8 * np.arange(N // 8)[:, None] + (lane // 4)[None, :]   # [N/8, 32]
+    return k, n
+
+
+def to_fragment_order(w: np.ndarray) -> np.ndarray:
+    """Row-major ``[..., K, N]`` → ``[..., N/8, K/16, 32, 4]``."""
+    k, n = _fragment_index(*w.shape[-2:])
+    return w[..., k[None], n[:, None, :, None]]
+
+
+def from_fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """``[..., N/8, K/16, 32, 4]`` → row-major ``[..., K, N]``."""
+    K, N = 16 * w.shape[-3], 8 * w.shape[-4]
+    k, n = (torch.as_tensor(i, device=w.device)
+            for i in _fragment_index(K, N))
+    out = w.new_empty(*w.shape[:-4], K, N)
+    out[..., k[None], n[:, None, :, None]] = w
+    return out
+
+
+def random_folded_params(num_blocks: int, seed: int = 1,
+                         width: int = KERNEL_SHAPE[0]
+                         ) -> Dict[str, np.ndarray]:
+    """Folded weights of ``num_blocks`` blocks drawn from a seed, in the
+    layout ``fold_gnn_params`` gives: what checks of the kernel use where no
+    checkpoint is at hand."""
+    rng = np.random.default_rng(seed)
+    L, E = num_blocks, width
+    shapes = {"wq": (L, E, E), "wk": (L, E, E), "wv": (L, E, E),
+              "wm": (L, E, E), "w0": (L, 2 * E, 2 * E), "w1": (L, 2 * E, E),
+              "wf": (E, E), "bq": (L, E), "bk": (L, E), "bv": (L, E),
+              "bm": (L, E), "b1": (L, E), "bf": (E,), "s0": (L, 2, 2 * E),
+              "t0": (L, 2, 2 * E)}
+    return {k: (rng.standard_normal(s) / np.sqrt(s[-2]) if k[0] == "w"
+                else rng.random(s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
 def pack_gnn_params(folded: Dict[str, np.ndarray], dtype: torch.dtype,
                     device) -> Dict[str, torch.Tensor]:
-    """Kernel layout: q|k|v fused to ``wqkv`` [L, E, 3E]; matmul weights in
-    the compute dtype, biases and BN affines in f32."""
+    """Kernel layout: q|k|v fused to ``wqkv`` ([L, E, 3E] before ordering);
+    matmul weights in the compute dtype, row-major ``[.., K, N]`` in f32 and
+    in fragment order ``[.., N/8, K/16, 32, 4]`` in bf16; biases and BN
+    affines in f32."""
     def t(a, dt=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
                                                            dtype=dt)
 
-    return {
-        "wqkv": t(np.concatenate([folded["wq"], folded["wk"], folded["wv"]],
-                                 axis=2), dtype),
-        "bqkv": t(np.concatenate([folded["bq"], folded["bk"], folded["bv"]],
-                                 axis=1)),
-        "wm": t(folded["wm"], dtype), "bm": t(folded["bm"]),
-        "w0": t(folded["w0"], dtype), "s0": t(folded["s0"]),
-        "t0": t(folded["t0"]),
-        "w1": t(folded["w1"], dtype), "b1": t(folded["b1"]),
-        "wf": t(folded["wf"], dtype), "bf": t(folded["bf"]),
-    }
+    order = to_fragment_order if dtype == torch.bfloat16 else (lambda a: a)
+    out = {
+        "wqkv": np.concatenate([folded["wq"], folded["wk"], folded["wv"]],
+                               axis=2),
+        "bqkv": np.concatenate([folded["bq"], folded["bk"], folded["bv"]],
+                               axis=1),
+        **{k: folded[k] for k in ("wm", "bm", "w0", "s0", "t0", "w1", "b1",
+                                  "wf", "bf")}}
+    return {k: t(order(a), dtype) if k in MATMUL_WEIGHTS else t(a)
+            for k, a in out.items()}
+
+
+def matmul_weights(packed: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The packed matmul weights as row-major ``[.., K, N]`` f32."""
+    bf16 = packed["wqkv"].dtype == torch.bfloat16
+    return {k: (from_fragment_order(packed[k]) if bf16 else packed[k]).float()
+            for k in MATMUL_WEIGHTS}
 
 
 def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
@@ -100,8 +177,11 @@ def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
     def rnd(x):
         return x.to(dt).float()
 
+    mats = matmul_weights(packed)
+
     def w(name, l=None):
-        return (packed[name] if l is None else packed[name][l]).float()
+        x = mats[name] if name in mats else packed[name].float()
+        return x if l is None else x[l]
 
     N, T0, E = desc0.shape
     D = E // HEADS
@@ -142,6 +222,16 @@ def _gnn_kernel(desc0, desc1, packed):
     dt = packed["wqkv"].dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
+    L = packed["wqkv"].shape[0]
+    kn = {"wqkv": (E, 3 * E), "wm": (E, E), "w0": (2 * E, 2 * E),
+          "w1": (2 * E, E), "wf": (E, E)}
+    for name, (k, n) in kn.items():
+        want = (n // 8, k // 16, 32, 4) if dt == torch.bfloat16 else (k, n)
+        want = want if name == "wf" else (L, *want)
+        if packed[name].dtype != dt or tuple(packed[name].shape) != want:
+            raise ValueError(f"GNN kernel: weight {name} must be {dt} "
+                             f"{want}, got {packed[name].dtype} "
+                             f"{tuple(packed[name].shape)}")
     for name, x in packed.items():
         if x.device != desc0.device or not x.is_contiguous():
             raise ValueError(f"GNN kernel: weight {name} must be contiguous "
@@ -163,7 +253,7 @@ def _gnn_kernel(desc0, desc1, packed):
                     p["w0"].data_ptr(), p["s0"].data_ptr(),
                     p["t0"].data_ptr(), p["w1"].data_ptr(),
                     p["b1"].data_ptr(), p["wf"].data_ptr(),
-                    p["bf"].data_ptr(), p["wqkv"].shape[0], N,
+                    p["bf"].data_ptr(), L, N,
                     int(dt == torch.bfloat16), out.data_ptr(),
                     _build.stream_ptr(desc0.device)), "superglue_gnn")
     _build.LAUNCHES["superglue_gnn"] += 1
