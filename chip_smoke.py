@@ -7,13 +7,18 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every hand-written kernel under ``text2pos_torch/csrc`` with
-   ``nvcc``, all at once; fails if ``ptxas`` reports register spills for the
-   GNN kernels.
+   ``nvcc``, all at once; fails if ``ptxas`` reports register spills in the
+   LSTM, Sinkhorn or GNN kernels.
 3. Kernels vs plain: each kernel's wrapper against its plain PyTorch version
    on the inputs the serving path gives it (the committed checkpoints and
    bench queries): max abs error with its tolerance, median times (CUDA
    events) of kernel, plain version and, where one exists, a one-call
    PyTorch equivalent, and the least time the card could take (bound).
+   The LSTM: one launch per encoder (both directions), its time beside the
+   encoder stage's (token tables + kernel) and cuDNN's packed bidirectional
+   ``nn.LSTM`` with its projections. Sinkhorn: the fused dustbin kernel on
+   the headline scores, its bound at the special-function units' rate
+   beside the earlier all-f32 formula.
    For the GNN also: the bf16 (tensor cores) and f32 (CUDA cores) kernels'
    times side by side with their ratio, ragged pair counts around a CTA's
    load against the plain version, and bit-identical score columns for every
@@ -25,9 +30,10 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    are the six launches of the DB encode's first step.
 4. End to end: ``LocalizationPipeline.serve_batch`` on the 2048 committed
    bench queries at top_k=10, bf16 bodies (the headline, whose kernel launch
-   counts are read) and f32, then one rerank@128 batch (λ=4, γ=6);
+   counts are read) and f32, then the rerank@128 batch (λ=4, γ=6);
    throughput, accuracies and agreement with the JAX outputs stored in the
-   fixture.
+   fixture. Wall times are medians of synchronized calls (5 for the
+   headline, 3 for rerank).
 5. Offline DB encode: the bench map rebuilt by the port's copy of the
    generator (checked against the fixture's cell boxes, sizes and scenes);
    its first 64 cells encoded with JAX's draws and held against JAX's f32
@@ -71,7 +77,13 @@ TOP_K = 10
 # tensor cores, HBM bandwidth.
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# exp2/log2 on the special-function units: 16 a clock an SM on compute
+# capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput), at the 1.98 GHz that the f32 peak implies (67e12 / (132 SMs x
+# 128 FMA lanes x 2)): 132 x 16 x 1.98e9.
+PEAK_SFU = 132 * 16 * 1.98e9
 
 # Tolerances, kernel vs plain version on the same card and inputs. Both run
 # f32 arithmetic in different summation orders. The GNN's tolerances are
@@ -134,10 +146,13 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops_by_rate, nbytes: float):
+def bound_ms(flops_by_rate, nbytes: float, overlap: bool = False):
     """``(ms, by)``: max(bytes / HBM rate, Σ operations / peak rate of their
-    type) and which of the two it is, "bytes" or "operations"."""
-    t_ops = sum(f / rate for f, rate in flops_by_rate)
+    type) and which of the two it is, "bytes" or "operations". With
+    ``overlap`` the operation classes run on separate units at once (SFU
+    beside the FMA pipe): the largest of their times instead of the sum."""
+    times = [f / rate for f, rate in flops_by_rate]
+    t_ops = max(times) if overlap else sum(times)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes > t_ops else "operations"
@@ -166,13 +181,15 @@ def check(name: str, err: float, tol: float, failures: list) -> None:
 
 
 def lstm_checks(pipe, fx, failures):
-    """Kernel vs plain for the four LSTM launches of one serve_batch."""
-    from text2pos_torch.ops.lstm import (_lstm_kernel,
-                                         lstm_final_hidden_plain)
+    """Kernel vs plain for the two LSTM launches of one serve_batch (coarse
+    text and fine hints, both directions a launch); the encoder stage
+    (token tables + kernel + mean) beside cuDNN's packed bidirectional
+    nn.LSTM on the embedded tokens, input projections included."""
+    from text2pos_torch.ops.lstm import _lstm_kernel, lstm_final_hidden_plain
 
     dev = pipe.device
     out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "max_abs_err": 0.0, "detail": []}
+           "max_abs_err": 0.0, "stage_ms": 0.0, "detail": []}
     encoders = (
         ("coarse", pipe.coarse.language_encoder,
          torch.as_tensor(fx["tokens"]), torch.as_tensor(fx["lengths"])),
@@ -181,55 +198,66 @@ def lstm_checks(pipe, fx, failures):
          torch.as_tensor(fx["hint_lengths"]).flatten()))
     for label, enc, tokens, lengths in encoders:
         tokens, lengths = tokens.to(dev), lengths.to(dev)
+        B, T = tokens.shape
         with torch.inference_mode():
+            tables = enc.token_tables()
+            w_hh = [enc._params(d).w_hh for d in ("fwd", "bwd")]
+            V, H4 = tables[0].shape
+            H, E = H4 // 4, enc.word_embedding.weight.shape[1]
+            got = _lstm_kernel(tables, w_hh, tokens, lengths)
+            want = lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(f"lstm {label} T={T} B={B} H={H} V={V} (both directions)",
+                  err, TOL["lstm"], failures)
+            ms = cuda_ms(lambda: _lstm_kernel(tables, w_hh, tokens, lengths))
+            stage_ms = cuda_ms(lambda: enc(tokens, lengths))
+            plain_ms = cuda_ms(lambda: lstm_final_hidden_plain(
+                tables, w_hh, tokens, lengths), reps=3)
             x = enc.word_embedding(tokens) * (tokens != 0)[..., None]
-            xt = x.transpose(0, 1).float()
-            T, B, E = xt.shape
-            H = E
-            lib = torch.nn.LSTM(E, H).to(dev)
+            lib = torch.nn.LSTM(E, H, bidirectional=True).to(dev)
             packed = torch.nn.utils.rnn.pack_padded_sequence(
-                xt, lengths.clamp_min(1).cpu(), enforce_sorted=False)
+                x.transpose(0, 1).float(), lengths.clamp(1, T).cpu(),
+                enforce_sorted=False)
             lib_ms = cuda_ms(lambda: lib(packed))
-            for d, rev in (("fwd", False), ("bwd", True)):
-                p = enc._params(d)
-                xp = torch.matmul(xt, p.w_ih) + p.b
-                got = _lstm_kernel(xp, p.w_hh, lengths, rev)
-                want = lstm_final_hidden_plain(xp, p.w_hh, lengths, rev)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                check(f"lstm {label} {d} T={T} B={B} H={H}", err,
-                      TOL["lstm"], failures)
-                ms = cuda_ms(lambda: _lstm_kernel(xp, p.w_hh, lengths, rev))
-                plain_ms = cuda_ms(lambda: lstm_final_hidden_plain(
-                    xp, p.w_hh, lengths, rev), reps=3)
-                steps = float(lengths.clamp(0, T).sum())
-                # Recurrent matmul FLOPs of the valid steps; bytes: the
-                # valid steps' projections, W_hh, lengths and h.
-                bnd, by = bound_ms([(2.0 * steps * H * 4 * H, PEAK_F32)],
-                                   steps * 4 * H * 4 + H * 4 * H * 4 + B * 4
-                                   + B * H * 4)
-                log(f"  lstm {label} {d}: kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms, cuDNN nn.LSTM (1 dir, packed) "
-                    f"{lib_ms:.3f} ms, bound {bnd:.4f} ms")
-                out["ms"] += ms
-                out["plain_ms"] += plain_ms
-                sum_bound(out, bnd, by)
-                out["library_ms"] += lib_ms
-                out["max_abs_err"] = max(out["max_abs_err"], err)
-                out["detail"].append({"encoder": label, "direction": d,
-                                      "T": T, "B": B, "H": H, "ms": ms,
-                                      "plain_ms": plain_ms, "bound_ms": bnd,
-                                      "bound_by": by, "library_ms": lib_ms,
-                                      "max_abs_err": err})
+        steps = float(lengths.clamp(0, T).sum())
+        # The kernel: the recurrent products of the valid steps, both
+        # directions, in the arithmetic it uses, 3xTF32 (three TF32 passes
+        # at the tensor cores' rate); the table products of the stage (V x
+        # E x 4H each) in f32. Bytes: tokens, lengths, both tables and W_hh,
+        # the [2, B, H] output; the stage adds embedding, W_ih and bias.
+        flops = 2 * 2.0 * steps * H * H4
+        nbytes = 4.0 * (B * T + B + 2 * V * H4 + 2 * H * H4 + 2 * B * H)
+        bnd, by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
+        stage_bnd, _ = bound_ms([(3 * flops, PEAK_TF32),
+                                 (2 * 2.0 * V * E * H4, PEAK_F32)],
+                                nbytes + 4.0 * 2 * (V * E + E * H4 + H4))
+        f32_bnd, _ = bound_ms([(flops, PEAK_F32)], nbytes)
+        log(f"  lstm {label}: kernel {ms:.3f} ms (bound {bnd:.4f} ms: 3 TF32 "
+            f"passes at {PEAK_TF32 / 1e12:.0f} TFLOP/s; one f32 pass at "
+            f"{PEAK_F32 / 1e12:.0f} TFLOP/s {f32_bnd:.4f} ms), stage (tables "
+            f"+ kernel + mean) {stage_ms:.3f} ms (bound {stage_bnd:.4f} ms), "
+            f"cuDNN nn.LSTM (bidirectional, packed, projections included) "
+            f"{lib_ms:.3f} ms, plain {plain_ms:.3f} ms; {steps:.0f} valid "
+            "steps")
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["stage_ms"] += stage_ms
+        sum_bound(out, bnd, by)
+        out["library_ms"] += lib_ms
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["detail"].append({"encoder": label, "T": T, "B": B, "H": H,
+                              "V": V, "ms": ms, "stage_ms": stage_ms,
+                              "plain_ms": plain_ms, "bound_ms": bnd,
+                              "stage_bound_ms": stage_bnd,
+                              "bound_ms_f32_fma": f32_bnd, "bound_by": by,
+                              "library_ms": lib_ms, "max_abs_err": err})
     return out
 
 
 def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
     """Kernel vs plain for the GNN (bf16 and f32) and Sinkhorn at the
     headline serve's pose-cell pairs (the JAX top-10 cells)."""
-    from text2pos_torch.ops.sinkhorn import (_sinkhorn_kernel,
-                                             dustbin_couplings,
-                                             log_sinkhorn_plain)
     from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
                                                   gnn_scores_plain)
 
@@ -291,30 +319,49 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
         f"{results['f32']['ms']:.3f} ms, bf16 (tensor cores) "
         f"{results['bf16']['ms']:.3f} ms, f32 / bf16 = {ratio:.2f}")
 
-    # Sinkhorn on the headline's couplings.
-    sg = pipe_bf16.fine.superglue
-    Z, mu, nu, _ = dustbin_couplings(scores_bf16, sg.bin_score.detach())
-    M, Nn = Z.shape[1:]
-    iters = sg.sinkhorn_iterations
-    got = _sinkhorn_kernel(Z, mu, nu, iters)
-    want = log_sinkhorn_plain(Z, mu, nu, iters)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    check(f"sinkhorn B={N} {M}x{Nn} iters={iters}", err, TOL["sinkhorn"],
-          failures)
-    ms = cuda_ms(lambda: _sinkhorn_kernel(Z, mu, nu, iters), reps=20)
-    plain_ms = cuda_ms(lambda: log_sinkhorn_plain(Z, mu, nu, iters), reps=5)
-    # Per iteration and element: add, max, subtract, exp, add for the row
-    # pass and again for the column pass (10 f32 operations, exp counted
-    # as one); bytes: Z and the marginals in, the result out.
-    bnd, by = bound_ms([(10.0 * iters * N * M * Nn, PEAK_F32)],
-                       4.0 * (2 * N * M * Nn + N * (M + Nn)))
-    log(f"  sinkhorn: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bnd:.4f} ms")
-    results["sinkhorn"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                           "bound_by": by, "library_ms": None,
-                           "max_abs_err": err}
+    results["sinkhorn"] = sinkhorn_checks(pipe_bf16, scores_bf16, failures)
     return results
+
+
+def sinkhorn_checks(pipe, scores, failures):
+    """The fused dustbin kernel on the headline's scores against its plain
+    version; bound by the new (SFU) and the earlier (all f32) formula."""
+    from text2pos_torch.ops.sinkhorn import (_lot_kernel,
+                                             log_optimal_transport_plain)
+
+    sg = pipe.fine.superglue
+    alpha = sg.bin_score.detach()
+    iters = sg.sinkhorn_iterations
+    B, M, N = scores.shape[0], scores.shape[1] + 1, scores.shape[2] + 1
+    with torch.inference_mode():
+        want = log_optimal_transport_plain(scores, alpha, iters)
+        got = _lot_kernel(scores, alpha, iters)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(f"sinkhorn B={B} {M}x{N} iters={iters} dustbins in the kernel",
+              err, TOL["sinkhorn"], failures)
+        ms = cuda_ms(lambda: _lot_kernel(scores, alpha, iters), reps=20)
+        plain_ms = cuda_ms(lambda: log_optimal_transport_plain(
+            scores, alpha, iters), reps=5)
+    # exp2 of 2·M·N values and log2 of M + N sums an iteration on the SFUs;
+    # on the FMA pipe add, max, subtract, scale and sum per value and pass
+    # (10 f32 operations); the two units run at once. Bytes: the scores in,
+    # the [B, M, N] log transport out.
+    sfu = float(iters) * B * (2 * M * N + M + N)
+    nbytes = 4.0 * (B * (M - 1) * (N - 1) + B * M * N)
+    bnd, by = bound_ms([(sfu, PEAK_SFU),
+                        (10.0 * iters * B * M * N, PEAK_F32)], nbytes,
+                       overlap=True)
+    # The formula before this slice: exp as one f32 operation, all at the
+    # f32 rate, couplings and marginals in.
+    old, _ = bound_ms([(10.0 * iters * B * M * N, PEAK_F32)],
+                      4.0 * (2 * B * M * N + B * (M + N)))
+    log(f"  sinkhorn (fused dustbins): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({sfu:.3g} SFU "
+        f"operations at {PEAK_SFU / 1e12:.2f}e12/s; by the earlier all-f32 "
+        f"formula {old:.4f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "max_abs_err": err, "bound_ms_all_f32": old}
 
 
 def gnn_edge_checks(label, d0, d1, packed, got, failures):
@@ -401,6 +448,9 @@ def profile_serve(pipe, fx) -> None:
         f"({100 * busy / (wall * 1e3):.1f}%), {len(rows)} device ops")
     for ms, n, key in sorted(rows, reverse=True)[:12]:
         log(f"    {ms:9.3f} ms  {n:4d}x  {key[:90]}")
+    gemms = [(ms, n, key) for ms, n, key in rows if "gemm" in key.lower()]
+    log(f"  GEMM kernels in the profile: {len(gemms)}; "
+        + "; ".join(f"{ms:.3f} ms {n}x {key[:70]}" for ms, n, key in gemms))
     torch.cuda.synchronize()
 
 
@@ -750,7 +800,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-                if name == "superglue_gnn" and "spill" in line and \
+                if name in ("lstm", "sinkhorn", "superglue_gnn") and \
+                        "spill" in line and \
                         "0 bytes spill stores, 0 bytes spill loads" not in line:
                     failures.append(f"ptxas reports spills in {name}: "
                                     f"{line.strip()}")
@@ -794,6 +845,9 @@ def main() -> int:
         if launches.get(name, 0) < 1:
             failures.append(f"kernel {name} was not launched on the main "
                             "path")
+    if launches.get("lstm", 0) != 2:
+        failures.append(f"the LSTM kernel ran {launches.get('lstm', 0)} "
+                        "times in a headline batch, not 2 (one per encoder)")
     jax_t10 = float(fx["jax_top10_at_15m"])
     for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
         ti, po, sec = serve_all(pipe, fx, TOP_K, reps=5)
@@ -819,7 +873,7 @@ def main() -> int:
 
     rk, lam, gam = fx["rerank"]
     ti, po, sec = serve_all(pipe_bf16, fx, TOP_K, int(rk), float(lam),
-                            float(gam))
+                            float(gam), reps=3)
     accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
     jax_rr = float(fx["jax_rerank_top10_at_15m"])
     log(f"  serve bf16 rerank@{int(rk)} (lambda={lam:g}, gamma={gam:g}): "

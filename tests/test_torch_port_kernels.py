@@ -39,38 +39,134 @@ def _launches(name, fn):
     return out
 
 
-@pytest.mark.parametrize("T,B,H", [(9, 37, 32), (64, 40, 256), (16, 19, 128)])
+def _lstm_case(T, B, H, V=29, seed=0):
+    """Tables with a nonzero row 0, tokens holding unk (0) inside the
+    valid length, lengths 1 … T (1 and T always present)."""
+    g = torch.Generator().manual_seed(seed)
+    tables = [torch.randn(V, 4 * H, generator=g) for _ in range(2)]
+    w_hh = [(torch.rand(H, 4 * H, generator=g) - 0.5) / H ** 0.5
+            for _ in range(2)]
+    tokens = torch.randint(0, V, (B, T), generator=g, dtype=torch.int32)
+    tokens[::3, 0] = 0
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0], lengths[-1] = 1, T
+    return tables, w_hh, tokens, lengths
+
+
+@pytest.mark.parametrize("T,B,H", [
+    (9, 37, 32),        # ragged B: one full tile and a partial one
+    (64, 40, 256),      # the coarse encoder's width, a cluster of 8
+    (16, 19, 128),      # the fine encoder's width, fewer than a tile
+    (5, 70, 96),        # a cluster of 3
+])
 def test_lstm_kernel_matches_plain(cuda, T, B, H):
-    g = torch.Generator().manual_seed(T)
-    xp = torch.randn(T, B, 4 * H, generator=g).to(cuda)
-    w_hh = ((torch.rand(H, 4 * H, generator=g) - 0.5) / H ** 0.5).to(cuda)
-    lengths = torch.randint(1, T + 1, (B,), generator=g).to(cuda)
-    for rev in (False, True):
-        got = _launches("lstm", lambda: tlstm.lstm_final_hidden(
-            xp, w_hh, lengths, rev))
-        want = tlstm.lstm_final_hidden_plain(xp, w_hh, lengths, rev)
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    """Both directions in one launch against the plain version (f32 on
+    both sides, other summation order)."""
+    tables, w_hh, tokens, lengths = _lstm_case(T, B, H, seed=T)
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    want = tlstm.lstm_final_hidden_plain(*args)
+    assert got.shape == (2, B, H)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_lstm_kernel_generic_path(cuda):
+    """``bilstm_final_hidden`` on any input runs the same kernel over a
+    table of T·B rows; against the plain version on the CPU."""
+    g = torch.Generator().manual_seed(4)
+    B, T, E = 45, 12, 64
+    x = torch.randn(B, T, E, generator=g)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    params = [tlstm.LSTMParams(torch.randn(E, 4 * E, generator=g) / E ** 0.5,
+                               torch.randn(E, 4 * E, generator=g) / E ** 0.5,
+                               torch.randn(4 * E, generator=g))
+              for _ in range(2)]
+    want = tlstm.bilstm_final_hidden(x, lengths, *params)
+    on_card = [tlstm.LSTMParams(*(t.to(cuda) for t in p)) for p in params]
+    got = _launches("lstm", lambda: tlstm.bilstm_final_hidden(
+        x.to(cuda), lengths.to(cuda), *on_card))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
 
 
 def test_lstm_kernel_rejects_unsupported_width(cuda):
-    xp = torch.zeros(3, 2, 4 * 48, device=cuda)
-    with pytest.raises(ValueError):
-        tlstm.lstm_final_hidden(xp, torch.zeros(48, 192, device=cuda),
-                                torch.ones(2, device=cuda))
+    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 48)
+    with pytest.raises(ValueError):        # H = 48: not a multiple of 32
+        tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
+                                [w.to(cuda) for w in w_hh], tokens.to(cuda),
+                                lengths.to(cuda))
+    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 288)
+    with pytest.raises(ValueError):        # H = 288: over 256
+        tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
+                                [w.to(cuda) for w in w_hh], tokens.to(cuda),
+                                lengths.to(cuda))
 
 
-def test_sinkhorn_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    B, M, N = 1000, 17, 7
-    Z = torch.tensor(3 * rng.standard_normal((B, M, N)), dtype=torch.float32)
-    mu = torch.tensor(np.log(rng.dirichlet(np.ones(M), B)),
-                      dtype=torch.float32)
-    nu = torch.tensor(np.log(rng.dirichlet(np.ones(N), B)),
-                      dtype=torch.float32)
-    args = [a.to(cuda) for a in (Z, mu, nu)]
-    got = _launches("sinkhorn", lambda: tsink.log_sinkhorn(*args, 50))
-    want = tsink.log_sinkhorn_plain(*args, 50)
+def test_lstm_kernel_rejects_bad_input(cuda):
+    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 32)
+    tables = [t.to(cuda) for t in tables]
+    w_hh = [w.to(cuda) for w in w_hh]
+    tokens, lengths = tokens.to(cuda), lengths.to(cuda)
+    with pytest.raises(TypeError):         # bf16 tables
+        tlstm.lstm_final_hidden([t.bfloat16() for t in tables], w_hh,
+                                tokens, lengths)
+    with pytest.raises(ValueError):        # w_hh on the CPU
+        tlstm.lstm_final_hidden(tables, [w.cpu() for w in w_hh], tokens,
+                                lengths)
+    with pytest.raises(ValueError):        # float tokens
+        tlstm.lstm_final_hidden(tables, w_hh, tokens.float(), lengths)
+
+
+def _sinkhorn_inputs(B, M, N, scale, seed):
+    rng = np.random.default_rng(seed)
+    Z = np.clip(scale / 3 * rng.standard_normal((B, M, N)), -scale, scale)
+    Z[0, 0, 0] = scale
+    mu = np.log(rng.dirichlet(np.ones(M), B))
+    nu = np.log(rng.dirichlet(np.ones(N), B))
+    return [torch.tensor(a, dtype=torch.float32) for a in (Z, mu, nu)]
+
+
+@pytest.mark.parametrize("B,M,N", [
+    (1000, 17, 7),                          # the serving coupling
+    (45, 17, 8), (45, 16, 7),               # around it: the generic one
+    (33, 1, 1), (77, 32, 16), (5, 9, 13)])
+@pytest.mark.parametrize("iters", [0, 1, 50])
+def test_sinkhorn_kernel_matches_plain(cuda, B, M, N, iters):
+    """Given couplings (scores up to +-60) and marginals, ragged B."""
+    args = [a.to(cuda) for a in _sinkhorn_inputs(B, M, N, 60.0, M * N)]
+    got = _launches("sinkhorn", lambda: tsink.log_sinkhorn(*args, iters))
+    want = tsink.log_sinkhorn_plain(*args, iters)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,M,N", [
+    (20480 // 7, 16, 6),                    # the serving coupling
+    (33, 16, 7), (41, 1, 1), (37, 31, 15)])
+@pytest.mark.parametrize("iters", [0, 1, 50])
+def test_sinkhorn_kernel_fused_dustbins(cuda, B, M, N, iters):
+    """Scores → log transport with the dustbins built in the kernel,
+    against the plain dustbin couplings + Sinkhorn - norm."""
+    scores = _sinkhorn_inputs(B, M, N, 60.0, B)[0].to(cuda)
+    alpha = torch.tensor(1.3, device=cuda)
+    got = _launches("sinkhorn", lambda: tsink.log_optimal_transport(
+        scores, alpha, iters))
+    want = tsink.log_optimal_transport_plain(scores, alpha, iters)
+    assert got.shape == (B, M + 1, N + 1)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_sinkhorn_kernel_rejects_bad_input(cuda):
+    z = torch.zeros(3, 33, 7, device=cuda)
+    with pytest.raises(ValueError):        # 33 rows
+        tsink.log_sinkhorn(z, torch.zeros(3, 33, device=cuda),
+                           torch.zeros(3, 7, device=cuda), 5)
+    with pytest.raises(ValueError):        # 16 x 16 scores: 17 columns
+        tsink.log_optimal_transport(torch.zeros(3, 16, 16, device=cuda),
+                                    torch.tensor(1.0, device=cuda), 5)
+    with pytest.raises(TypeError):         # f64 marginals
+        tsink.log_sinkhorn(torch.zeros(3, 17, 7, device=cuda),
+                           torch.zeros(3, 17, device=cuda).double(),
+                           torch.zeros(3, 7, device=cuda), 5)
 
 
 def _packed(dtype, device, L=4):

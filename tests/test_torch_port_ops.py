@@ -14,6 +14,7 @@ import torch
 
 from text2pos_tpu.ops.lstm import LSTMParams as JLSTMParams
 from text2pos_tpu.ops.lstm import _bilstm_xla
+from text2pos_tpu.ops.lstm import bilstm_final_hidden as jbilstm
 from text2pos_tpu.ops.lstm_pallas import (bilstm_final_hidden_pallas,
                                           lstm_final_hidden_pallas)
 from text2pos_tpu.ops.retrieval import topk_retrieval as jtopk
@@ -31,6 +32,8 @@ from text2pos_torch.ops.retrieval import topk_retrieval
 torch.set_num_threads(2)
 
 F32_TOL = 1e-4   # f32 on both sides, different summation order
+TABLE_TOL = 1e-5  # f32 token-table gather vs the projected input: the same
+                  # products, reassociated (values of h lie in (-1, 1))
 
 
 def _t(a):
@@ -68,8 +71,9 @@ class TestLSTM:
     @pytest.mark.parametrize("reverse", [False, True])
     def test_one_direction_masking(self, reverse):
         """Each direction against the Pallas recurrence on the same
-        projections; the backward one runs over the reversed sequence with
-        reversed validity."""
+        projections (a table of T·B rows read by running indices); the
+        backward one runs over the reversed sequence with reversed
+        validity."""
         rng = np.random.default_rng(5)
         T, B, H = 6, 7, 8
         xp = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
@@ -80,22 +84,83 @@ class TestLSTM:
         want = np.asarray(lstm_final_hidden_pallas(
             jnp.asarray(jx.copy()), jnp.asarray(w_hh), jnp.asarray(jv.copy()),
             block_b=8, interpret=True))
-        got = tlstm.lstm_final_hidden(_t(xp), _t(w_hh), _t(lengths),
-                                      reverse=reverse).numpy()
+        table, tokens = _running_table(xp)
+        got = tlstm.lstm_final_hidden([table, table], [_t(w_hh)] * 2, tokens,
+                                      _t(lengths))[int(reverse)].numpy()
         np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
     def test_steps_past_length_are_ignored(self):
         rng = np.random.default_rng(6)
         T, B, H = 5, 4, 8
         xp = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
-        w_hh = _lstm_params(rng, H, H)[1]
+        w_hh = [_t(_lstm_params(rng, H, H)[1])] * 2
         lengths = torch.tensor([1, 3, 5, 2])
         garbage = rng.standard_normal((T, B, 4 * H)).astype(np.float32)
         long = np.concatenate([xp, garbage])
-        for rev in (False, True):
-            a = tlstm.lstm_final_hidden(_t(xp), _t(w_hh), lengths, rev)
-            b = tlstm.lstm_final_hidden(_t(long), _t(w_hh), lengths, rev)
-            torch.testing.assert_close(a, b, atol=0, rtol=0)
+        a = tlstm.lstm_final_hidden([_running_table(xp)[0]] * 2, w_hh,
+                                    _running_table(xp)[1], lengths)
+        table, tokens = _running_table(long)
+        b = tlstm.lstm_final_hidden([table] * 2, w_hh, tokens, lengths)
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _running_table(xp):
+    """x_proj [T, B, 4H] as a table of B·T rows and the [B, T] indices
+    that read it back."""
+    T, B, H4 = xp.shape
+    table = _t(np.ascontiguousarray(xp.transpose(1, 0, 2)).reshape(B * T, H4))
+    return table, torch.arange(B * T, dtype=torch.int32).view(B, T)
+
+
+class TestTokenTableLSTM:
+    """The encoder's path: token ids gather rows of emb·W_ih + b (row 0
+    from the zeroed unk/pad embedding), against JAX's bilstm_final_hidden
+    on the embedded tokens and the port's generic path (tolerance
+    TABLE_TOL)."""
+
+    @pytest.mark.parametrize("H,B,T", [(32, 37, 9), (128, 19, 16)])
+    def test_token_table_matches_jax_and_generic(self, H, B, T):
+        rng = np.random.default_rng(H + B)
+        V = 23
+        emb = rng.standard_normal((V, H)).astype(np.float32)   # row 0 != 0
+        fwd, bwd = _lstm_params(rng, H, H), _lstm_params(rng, H, H)
+        tokens = rng.integers(0, V, (B, T)).astype(np.int32)
+        tokens[:, 0] = 0                      # unk inside the valid length
+        tokens[3, :] = 0                      # a sequence of unk only
+        lengths = rng.integers(1, T + 1, B).astype(np.int32)
+        lengths[:3] = (1, T, 2)               # length 1 and length T
+        tokens[2, 1] = 0                      # unk as the last valid token
+        x = emb[tokens] * (tokens != 0)[..., None]
+        want = np.asarray(jbilstm(jnp.asarray(x), jnp.asarray(lengths),
+                                  JLSTMParams(*fwd), JLSTMParams(*bwd)))
+        tf, tb = (tlstm.LSTMParams(*map(_t, p)) for p in (fwd, bwd))
+        tables = tlstm.token_tables(_t(emb), tf, tb)
+        np.testing.assert_array_equal(tables[0][0].numpy(), fwd[2])
+        np.testing.assert_array_equal(tables[1][0].numpy(), bwd[2])
+        got = tlstm.bilstm_tokens(tables, tf, tb, _t(tokens),
+                                  _t(lengths)).numpy()
+        generic = tlstm.bilstm_final_hidden(_t(x), _t(lengths), tf,
+                                            tb).numpy()
+        np.testing.assert_allclose(got, want, atol=TABLE_TOL, rtol=TABLE_TOL)
+        np.testing.assert_allclose(got, generic, atol=TABLE_TOL,
+                                   rtol=TABLE_TOL)
+
+    def test_padding_tokens_are_never_read(self):
+        """Steps past a sequence's length may hold any id, even one outside
+        the table: the plain version, like the kernel, never looks them
+        up."""
+        rng = np.random.default_rng(9)
+        H, V, B, T = 32, 7, 5, 6
+        tables = [_t(rng.standard_normal((V, 4 * H)).astype(np.float32))
+                  for _ in range(2)]
+        w_hh = [_t(_lstm_params(rng, H, H)[1]) for _ in range(2)]
+        tokens = torch.as_tensor(rng.integers(0, V, (B, T)), dtype=torch.int32)
+        lengths = torch.tensor([1, 6, 3, 2, 4])
+        bad = tokens.clone()
+        bad[torch.arange(T)[None] >= lengths[:, None]] = 10 ** 6
+        a = tlstm.lstm_final_hidden(tables, w_hh, tokens, lengths)
+        b = tlstm.lstm_final_hidden(tables, w_hh, bad, lengths)
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 class TestSinkhorn:
@@ -122,6 +187,25 @@ class TestSinkhorn:
                                impl="xla"))
         got = tsink.log_optimal_transport(_t(scores), torch.tensor(1.3),
                                           50).numpy()
+        np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+    @pytest.mark.parametrize("B,M,N,iters,scale", [
+        (33, 16, 6, 50, 60.0),     # the serving coupling, scores to +-60
+        (4, 1, 1, 50, 5.0),        # the smallest
+        (3, 31, 15, 50, 10.0),     # the largest the kernel takes
+        (6, 16, 6, 0, 5.0), (6, 16, 6, 1, 5.0)])
+    def test_fused_dustbin_plain_matches_jax(self, B, M, N, iters, scale):
+        """The fused kernel's plain twin (dustbins, marginals and - norm
+        around the plain Sinkhorn) against JAX's log_optimal_transport."""
+        rng = np.random.default_rng(M * N + iters)
+        scores = np.clip(scale / 3 * rng.standard_normal((B, M, N)), -scale,
+                         scale).astype(np.float32)
+        scores[0, 0, 0] = scale
+        want = np.asarray(jlot(jnp.asarray(scores), jnp.asarray(0.7), iters,
+                               impl="xla"))
+        got = tsink.log_optimal_transport_plain(
+            _t(scores), torch.tensor(0.7), iters).numpy()
+        assert got.shape == (B, M + 1, N + 1)
         np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
     def test_extract_matches_matches_jax_with_ties(self):

@@ -1,156 +1,421 @@
-// Length-masked LSTM recurrence: the final hidden state of one direction.
+// Length-masked bidirectional LSTM: the final hidden state of each
+// direction, with the input projections folded in as a token-table gather.
 //
 // Replaces the TPU kernel text2pos_tpu/ops/lstm_pallas.py:60
-// (lstm_final_hidden_pallas, body _lstm_kernel :29). The input projections
-// x·W_ih + b for all steps are one matmul outside (ops/lstm.py); this kernel
-// runs the T-step recurrence gates = xp[t] + h·W_hh with h and c on chip.
+// (lstm_final_hidden_pallas, body _lstm_kernel :29; both directions as in
+// bilstm_final_hidden_pallas :117). The input of step t of sequence b is
+// row tokens[b, t] of a per-direction table [V, 4H] = emb·W_ih + b, built
+// outside by one small matmul (ops/lstm.py): for a token embedding,
+// emb[tok]·W_ih + b equals (emb·W_ih + b)[tok], so no [T, B, 4H] projection
+// is ever written. The generic caller (x arbitrary) passes x·W_ih + b as a
+// table of T·B rows with running indices: one kernel, two callers.
 //
-// Design. One CTA per tile of BT=16 sequences, one thread per hidden unit j
-// (blockDim = H <= 256, so up to 255 registers a thread for the 64 gate
-// accumulators and 16 cell states). Thread j computes the four gate columns j, H+j, 2H+j, 3H+j
-// for all 16 sequences, so the cell update needs no exchange between
-// threads: c stays in registers, h is double-buffered in shared memory
-// (every thread reads all of h for the next step; one barrier per step).
-// W_hh streams from L2 each step (1 MB f32 for the coarse encoder, more than
-// shared memory holds); its loads are coalesced across j. Accumulation is
-// f32, as in JAX, whose LanguageEncoder has no compute dtype.
+// Design.
+// - One launch for both directions: blockIdx.z is the direction, blockIdx.y
+//   a tile of BT = 32 sequences, blockIdx.x the CTA's rank in a thread-block
+//   cluster of CS = H / 32 CTAs (8 for the coarse encoder's H = 256, 4 for
+//   the fine one's H = 128). B = 2048 coarse sequences: 64 tiles x 2
+//   directions x 8 = 1024 CTAs, one an SM.
+// - W_hh on chip for the whole recurrence. The 4H gate columns are split
+//   by hidden unit: CTA r owns units 32r … 32r+31 and keeps their i|f|g|o
+//   columns of W_hh in shared memory (128 KiB at H = 256, 64 KiB at
+//   H = 128), read once from L2 instead of at every step. A cluster holds
+//   all of W_hh, one slice an SM; BT = 32 keeps slice + h (double-buffered,
+//   64 KiB at H = 256) within an SM's shared memory.
+// - The step's product gates^T [128 columns, 32 sequences] += W^T · h^T
+//   runs on the tensor cores as mma.sync.m16n8k8 in 3xTF32, which keeps
+//   f32 accuracy: each operand x is split as big = x with its low 13
+//   mantissa bits cleared (one integer AND; the tensor cores read 10
+//   mantissa bits), small = x - big (exact), and the kernel adds
+//   small·big, big·small and big·big in three accumulator chains, then
+//   sums them. Plain TF32 would not hold f32 serving's top-k. Warp w takes units 8·(w % 4) … +7 (m-tile 0:
+//   their i and f rows, m-tile 1: g and o) and sequences 16·(w / 4) … +15
+//   (two n-tiles), so each lane's accumulators hold all four gates of one
+//   unit for 4 sequences: the cell update needs no exchange inside the CTA,
+//   and c and h stay in registers. W is stored in A-fragment order (one
+//   float4 a lane per m-tile and k-step) and h as [H/8][BT][8] with a
+//   lane's b0, b1 adjacent (one float2).
+// - h is exchanged through distributed shared memory. A CTA's 32 units are
+//   4 k-steps of h, one contiguous 4 KiB block per buffer: after the cell
+//   update each CTA writes its block locally and one thread sends it by
+//   cp.async.bulk to the other CTAs of the cluster, completing on the
+//   receiver's mbarrier of that buffer; every thread then waits on its own
+//   mbarrier (no cluster-wide barrier a step). Double buffering is safe: a
+//   CTA can only send step s+1's block after receiving every other CTA's
+//   step-s block, which each sends after it has finished reading the buffer
+//   that the block overwrites. A wait that never completes traps instead
+//   of hanging.
+// - The gate inputs of step s+1 (16 table values a thread) are loaded while
+//   step s computes. At most 128 registers a thread, so two CTAs share an
+//   SM where their shared memory fits (H = 128: 96 KiB each).
 //
-// Bound. 2·T·B·H·4H FLOPs of f32 FMA per direction (68.7 GFLOP for the
-// coarse encoder at T=64, B=2048, H=256): operations, not bytes, bound it.
-// Steps past the longest sequence of a tile are skipped (they leave every
-// state unchanged), so the work done follows the data's lengths.
+// Bound. 2·H·4H FLOPs per valid step of each sequence and direction, in
+// three TF32 passes at the tensor cores' rate: operations, not bytes, bound
+// it. Steps past the
+// longest sequence of a tile are skipped (they leave every state
+// unchanged), so the work done follows the data's lengths.
 //
-// Masking. Step t updates sequence b only if t < len[b]. With reverse=1
-// the kernel visits t = T-1 … 0, which equals the reference's scan over
+// Masking. Step t updates sequence b only if t < len[b] (lengths clamped to
+// [0, T]); only valid steps read the table, so padding tokens are never
+// looked up. A token outside [0, V) gives NaN gates. The backward
+// direction visits t = maxlen-1 … 0, which equals the reference's scan over
 // the reversed padded sequence with reversed validity.
+//
+// Ablation builds for scripts/check_lstm_kernel.py (wrong results, timing
+// only): -DT2P_LSTM_NO_EXCHANGE sends no h between CTAs,
+// -DT2P_LSTM_NO_PRODUCT skips the recurrent product.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BT = 16;  // sequences per CTA
+constexpr int UNITS = 32;                 // hidden units per CTA
+constexpr int BT = 32;                    // sequences per cluster tile
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+
+struct Args {
+  const float* table[2];   // per direction [V, 4H] (gate order i, f, g, o)
+  const float* whh[2];     // per direction [H, 4H]
+  const int* tokens;       // [B, T]
+  const int* lengths;      // [B]
+  float* out;              // [2, B, H]
+  int V, T, B, H;
+};
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void __launch_bounds__(256)
-lstm_final_hidden_kernel(const float* __restrict__ xp,       // [T, B, 4H]
-                         const float* __restrict__ whh,      // [H, 4H]
-                         const int* __restrict__ lengths,    // [B]
-                         float* __restrict__ h_out,          // [B, H]
-                         int T, int B, int H, int reverse) {
-  extern __shared__ float hbuf[];  // [2][BT][H]
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Waits for the phase of parity `parity` of an mbarrier; traps (a launch
+// failure) instead of hanging if it never completes.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (unsigned n = 0;; ++n) {
+    unsigned done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1u << 26)) __trap();
+  }
+}
+
+// x = big + small, big a TF32 value (truncated), small exact in f32.
+__device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Position of hidden unit u's h within its k-step of 8 (b0 and b1 of a
+// lane adjacent).
+__device__ __forceinline__ int hpos(int u) {
+  return ((u >> 3) * BT) * 8 + 2 * (u & 3) + ((u >> 2) & 1);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
   __shared__ int len_s[BT];
-  __shared__ int maxlen_s;
+  // full[b] completes when the other CTAs' blocks of buffer b have arrived.
+  __shared__ __align__(8) unsigned long long full[2];
+  cg::cluster_group cluster = cg::this_cluster();
 
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * BT;
-  const int H4 = 4 * H;
+  const int H = a.H, T = a.T, B = a.B;
+  const int CS = H / UNITS;
+  const int rank = (int)cluster.block_rank();
+  const int dir = blockIdx.z;
+  const int b0 = blockIdx.y * BT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tid = lane & 3;
+  const int ug = warp & 3, sh = warp >> 2;
+  const int unit = rank * UNITS + ug * 8 + gid;
 
-  if (j < BT) {
-    const int b = b0 + j;
-    len_s[j] = b < B ? min(lengths[b], T) : 0;
+  float* wf = reinterpret_cast<float*>(smem4);           // [H/8][2][4][32][4]
+  float* hbuf = wf + (size_t)H * UNITS * 4;              // [2][H/8][BT][8]
+  const int HB = H * BT;                                  // floats a buffer
+
+  const float* whh = dir ? a.whh[1] : a.whh[0];
+  // Read in global order (u fastest: coalesced), store in A-fragment order
+  // [k/8][mt][u/8][lane][4]: lane = 4·(row & 7) + (k & 3), element
+  // 2·((k & 7) >> 2) + (row >> 3), row = 8·(gate & 1) + (u & 7).
+  for (int i = threadIdx.x; i < H * 4 * UNITS; i += THREADS) {
+    const int u = i % UNITS, gate = (i / UNITS) & 3, k = i / (4 * UNITS);
+    const int row = 8 * (gate & 1) + (u & 7);
+    const int ln = 4 * (row & 7) + (k & 3);
+    const int j = 2 * ((k & 7) >> 2) + (row >> 3);
+    wf[((((k >> 3) * 2 + (gate >> 1)) * 4 + (u >> 3)) * 32 + ln) * 4 + j] =
+        whh[(size_t)k * 4 * H + gate * H + rank * UNITS + u];
   }
-  for (int i = j; i < BT * H; i += blockDim.x) hbuf[i] = 0.0f;
-  __syncthreads();
-  if (j == 0) {
-    int m = 0;
-    for (int i = 0; i < BT; ++i) m = max(m, len_s[i]);
-    maxlen_s = m;
+  for (int i = threadIdx.x; i < 2 * HB; i += THREADS) hbuf[i] = 0.0f;
+  if (threadIdx.x < BT) {
+    const int b = b0 + threadIdx.x;
+    len_s[threadIdx.x] = b < B ? min(max(a.lengths[b], 0), T) : 0;
   }
-  __syncthreads();
-  const int maxlen = maxlen_s;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&full[i])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();
+  unsigned phase = 0;   // bit b: parity of buffer b's next completion
 
-  float c[BT];
+  int maxlen = 0;
 #pragma unroll
-  for (int i = 0; i < BT; ++i) c[i] = 0.0f;
+  for (int q = 0; q < BT; ++q) maxlen = max(maxlen, len_s[q]);
 
-  // Forward: t = 0 … maxlen-1. Reverse: t = T-1 … 0, of which the steps
-  // with t >= maxlen are invalid for every sequence of the tile.
-  const int steps = maxlen;
-  int cur = 0;
-  for (int s = 0; s < steps; ++s) {
-    const int t = reverse ? maxlen - 1 - s : s;
-    const float* hs = hbuf + cur * BT * H;
-    float* hn = hbuf + (cur ^ 1) * BT * H;
-
-    float acc[4][BT];
+  // This thread's sequences: seq[nt][e] = sh*16 + nt*8 + 2*tid + e.
+  int len[2][2];
+  const int* tok[2][2];
 #pragma unroll
-    for (int i = 0; i < BT; ++i) {
-      const int b = b0 + i;
-      const float* x = xp + ((size_t)t * B + (b < B ? b : 0)) * H4 + j;
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) acc[g][i] = b < B ? x[g * H] : 0.0f;
+    for (int e = 0; e < 2; ++e) {
+      const int q = sh * 16 + nt * 8 + 2 * tid + e;
+      len[nt][e] = len_s[q];
+      tok[nt][e] = a.tokens + (size_t)min(b0 + q, B - 1) * T;
     }
+  const float* table = (dir ? a.table[1] : a.table[0]) + unit;
+  const int H4 = 4 * H, V = a.V;
+  const bool rev = dir == 1;
 
-    for (int k = 0; k < H; k += 4) {
-      float w[4][4];
+  float xin[2][2][4];   // [nt][e][gate]
+  auto gather = [&](int t) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* wr = whh + (size_t)(k + kk) * H4 + j;
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) w[kk][g] = __ldg(wr + g * H);
-      }
+      for (int e = 0; e < 2; ++e) {
+        if (t < len[nt][e]) {
+          const int tk = __ldg(tok[nt][e] + t);
+          if ((unsigned)tk < (unsigned)V) {
+            const float* row = table + (size_t)tk * H4;
 #pragma unroll
-      for (int i = 0; i < BT; ++i) {
-        const float4 hv = *reinterpret_cast<const float4*>(hs + i * H + k);
+            for (int g = 0; g < 4; ++g) xin[nt][e][g] = __ldg(row + g * H);
+          } else {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          float a = acc[g][i];
-          a = fmaf(hv.x, w[0][g], a);
-          a = fmaf(hv.y, w[1][g], a);
-          a = fmaf(hv.z, w[2][g], a);
-          a = fmaf(hv.w, w[3][g], a);
-          acc[g][i] = a;
+            for (int g = 0; g < 4; ++g) xin[nt][e][g] = __int_as_float(0x7fc00000);
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) xin[nt][e][g] = 0.0f;
         }
       }
+  };
+
+  float c[2][2], h[2][2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) c[nt][e] = h[nt][e] = 0.0f;
+  if (maxlen > 0) gather(rev ? maxlen - 1 : 0);
+
+  const float4* wa = reinterpret_cast<const float4*>(wf) + ug * 32 + lane;
+  int cur = 0;
+  for (int s = 0; s < maxlen; ++s) {
+    const int t = rev ? maxlen - 1 - s : s;
+    // acc[mt][nt]: rows gid / gid+8 = gates (i, f) for mt 0, (g, o) for
+    // mt 1; columns 2*tid, 2*tid+1 = sequences e = 0, 1.
+    float acc[2][2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[0][nt][e] = xin[nt][e][0];
+        acc[0][nt][2 + e] = xin[nt][e][1];
+        acc[1][nt][e] = xin[nt][e][2];
+        acc[1][nt][2 + e] = xin[nt][e][3];
+      }
+    float acc2[2][2][4] = {}, acc3[2][2][4] = {};
+    if (s + 1 < maxlen) gather(rev ? t - 1 : t + 1);
+
+    const float* hs = hbuf + cur * HB + (sh * 16 + gid) * 8 + 2 * tid;
+#ifndef T2P_LSTM_NO_PRODUCT
+#pragma unroll 4
+    for (int kk = 0; kk < H / 8; ++kk) {
+      unsigned abig[2][4], asml[2][4], bbig[2][2], bsml[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float4 w = wa[(kk * 2 + mt) * 4 * 32];
+        split(w.x, abig[mt][0], asml[mt][0]);
+        split(w.y, abig[mt][1], asml[mt][1]);
+        split(w.z, abig[mt][2], asml[mt][2]);
+        split(w.w, abig[mt][3], asml[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 hv = *reinterpret_cast<const float2*>(hs + (kk * BT + nt * 8) * 8);
+        split(hv.x, bbig[nt][0], bsml[nt][0]);
+        split(hv.y, bbig[nt][1], bsml[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma(acc2[mt][nt], asml[mt], bbig[nt][0], bbig[nt][1]);
+          mma(acc3[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
+          mma(acc[mt][nt], abig[mt], bbig[nt][0], bbig[nt][1]);
+        }
     }
+#endif
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[mt][nt][q] += acc2[mt][nt][q] + acc3[mt][nt][q];
+
+    float* hn = hbuf + (cur ^ 1) * HB;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ig = sigmoid_f(acc[0][nt][e]);
+        const float fg = sigmoid_f(acc[0][nt][2 + e]);
+        const float gg = tanhf(acc[1][nt][e]);
+        const float og = sigmoid_f(acc[1][nt][2 + e]);
+        const float cn = fg * c[nt][e] + ig * gg;
+        const float hv = og * tanhf(cn);
+        const bool v = t < len[nt][e];
+        c[nt][e] = v ? cn : c[nt][e];
+        h[nt][e] = v ? hv : h[nt][e];
+        hn[hpos(unit) + (sh * 16 + nt * 8 + 2 * tid + e) * 8] = h[nt][e];
+      }
+    // This CTA's units are k-steps 4·rank … 4·rank+3 of h: one contiguous
+    // block of 4·BT·8 floats, sent by bulk copy to every other CTA of the
+    // cluster, completing on the receiver's mbarrier of that buffer.
+    const int nxt = cur ^ 1;
+    if (s + 1 < maxlen) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+#ifdef T2P_LSTM_NO_EXCHANGE
+      if (false) {
+#else
+      if (threadIdx.x == 0 && CS > 1) {
+#endif
+        const unsigned bar = smem_addr(&full[nxt]);
+        const unsigned bytes = 4 * BT * 8 * 4;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(bar), "r"(bytes * (CS - 1)) : "memory");
+        const unsigned src = smem_addr(hn + rank * 4 * BT * 8);
+        for (int r = 0; r < CS; ++r) {
+          if (r == rank) continue;
+          unsigned dst, rbar;
+          asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(dst) : "r"(src), "r"(r));
+          asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(r));
+          asm volatile(
+              "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+              :: "r"(dst), "r"(src), "r"(bytes), "r"(rbar) : "memory");
+        }
+      }
+#ifdef T2P_LSTM_NO_EXCHANGE
+      if (false) {
+#else
+      if (CS > 1) {
+#endif
+        mbar_wait(smem_addr(&full[nxt]), (phase >> nxt) & 1);
+        phase ^= 1u << nxt;
+      } else {
+        __syncthreads();
+      }
+    }
+    cur = nxt;
+  }
+  // No CTA leaves while a copy from or into its shared memory may run.
+  cluster.sync();
 
 #pragma unroll
-    for (int i = 0; i < BT; ++i) {
-      const float ig = sigmoid_f(acc[0][i]);
-      const float fg = sigmoid_f(acc[1][i]);
-      const float gg = tanhf(acc[2][i]);
-      const float og = sigmoid_f(acc[3][i]);
-      const float cn = fg * c[i] + ig * gg;
-      const float hnew = og * tanhf(cn);
-      const bool v = t < len_s[i];
-      c[i] = v ? cn : c[i];
-      hn[i * H + j] = v ? hnew : hs[i * H + j];
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const float* hs = hbuf + cur * BT * H;
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-  for (int i = 0; i < BT; ++i) {
-    const int b = b0 + i;
-    if (b < B) h_out[(size_t)b * H + j] = hs[i * H + j];
-  }
+    for (int e = 0; e < 2; ++e) {
+      const int b = b0 + sh * 16 + nt * 8 + 2 * tid + e;
+      if (b < B) a.out[((size_t)dir * B + b) * H + unit] = h[nt][e];
+    }
 }
 
 }  // namespace
 
-// Returns a cudaError_t; 0 means the launch was accepted.
-extern "C" int t2p_lstm_final_hidden(const void* xp, const void* whh,
-                                     const void* lengths, void* h_out,
-                                     int T, int B, int H, int reverse,
+namespace {
+
+// Shared memory a CTA takes at width H: its W_hh slice and two h buffers.
+int smem_bytes(int H) { return H * UNITS * 16 + 2 * H * BT * 4; }
+
+cudaLaunchConfig_t config(int H, int B, cudaStream_t stream,
+                          cudaLaunchAttribute (&attr)[1]) {
+  const unsigned cs = (unsigned)(H / UNITS);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (unsigned)((B + BT - 1) / BT), 2);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes(H);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// How many clusters of the kernel at width H the card holds at once.
+extern "C" int t2p_lstm_max_active_clusters(int H, int B, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(H));
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(H, B, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, lstm_kernel, &cfg);
+}
+
+// Both directions in one launch. Returns a cudaError_t; 0 means the launch
+// was accepted.
+extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
+                                     const void* whh_f, const void* whh_b,
+                                     const void* tokens, const void* lengths,
+                                     void* out, int V, int T, int B, int H,
                                      void* stream) {
-  if (H < 32 || H > 256 || H % 32 != 0 || T < 1 || B < 1)
+  if (H < UNITS || H > 8 * UNITS || H % UNITS != 0 || T < 1 || B < 1 ||
+      V < 1 || (B + BT - 1) / BT > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)BT * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_final_hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (B + BT - 1) / BT;
-  lstm_final_hidden_kernel<<<grid, H, smem, (cudaStream_t)stream>>>(
-      (const float*)xp, (const float*)whh, (const int*)lengths, (float*)h_out,
-      T, B, H, reverse);
+  const int smem = smem_bytes(H);
+  cudaError_t e = cudaFuncSetAttribute(
+      lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+
+  Args args;
+  args.table[0] = (const float*)table_f;
+  args.table[1] = (const float*)table_b;
+  args.whh[0] = (const float*)whh_f;
+  args.whh[1] = (const float*)whh_b;
+  args.tokens = (const int*)tokens;
+  args.lengths = (const int*)lengths;
+  args.out = (float*)out;
+  args.V = V;
+  args.T = T;
+  args.B = B;
+  args.H = H;
+
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(H, B, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, lstm_kernel, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,107 +1,214 @@
 // Log-domain Sinkhorn: `iters` alternating row/column dual updates, then
-// Z + u + v.
+// Z + u + v; optionally with SuperGlue's dustbins built in the kernel.
 //
 // Replaces the TPU kernel text2pos_tpu/ops/sinkhorn_pallas.py:51
-// (log_sinkhorn_pallas, body _sinkhorn_kernel :26). The TPU version lays the
-// batch along vector lanes; here one warp owns one batch element.
+// (log_sinkhorn_pallas, body _sinkhorn_kernel :26), and the dustbin
+// couplings and marginals around it (text2pos_tpu/ops/sinkhorn.py:44,
+// log_optimal_transport).
 //
-// Design. Lane i holds row i of the coupling (N <= 16 values) in registers
-// for all iterations: one read of Z, one write of the result. The row
-// log-sum-exp is a loop inside the lane; the column log-sum-exp is a warp
-// reduction (max, then sum of exp) with shuffles. Lanes i >= M hold -inf,
-// so they add exp(-inf) = 0 to every column sum and never win a max.
-// All f32, with full-precision expf/logf as in the reference.
+// Design. The Pallas kernel puts the batch on the vector lanes; here the
+// batch is on the threads: one thread (R = 4 neighbouring lanes, each a band
+// of rows, for couplings larger than the serving one) owns one [M, N]
+// coupling, its row duals u and column duals v, in registers for all
+// iterations. The row log-sum-exp is a loop inside the thread; the column
+// one too, plus log2(R) shuffles when R > 1 (at the serving 20,480
+// couplings a second thread a coupling did not pay on the H100). No shuffle, no idle lane at R = 1: the warp-per-coupling kernel this
+// replaces spent 15 of 32 lanes and 10 dependent shuffles a column on a
+// 17x7 coupling. A CTA takes 32 couplings; their inputs are staged through
+// shared memory (odd stride: conflict-free) so global loads and stores stay
+// coalesced. Exponentials and logarithms use ex2/lg2 on log2(e)-scaled
+// differences (x - max), which keeps the natural-log duals of the
+// reference; everything else is f32.
 //
-// Bound. 2·M·N exponentials per iteration per batch element (about 2.4e8
-// for B=20480, 17×7, 50 iterations) against 2·B·M·N·4 bytes of traffic:
-// operations bound it.
+// Dustbins (bins = 1). The kernel reads the [B, M-1, N-1] scores and the
+// scalar alpha (a device pointer), forms the dustbin row and column, the
+// marginals (norm = -log(M-1 + N-1); the dustbin's log(N-1) + norm and
+// log(M-1) + norm) in registers, and writes Z + u + v - norm: no coupling
+// tensor is built in device memory.
+//
+// Shapes. Two instantiations: the serving 17x7 coupling at R = 1 (exact
+// unrolled loops) and a generic one for any coupling up to 32 x 16 (R = 4,
+// 8 rows a thread, masked). Padding rows and columns hold -inf and never
+// contribute.
+//
+// Bound. Per iteration and coupling 2·M·N exponentials and M + N
+// logarithms on the special-function units (16 a clock an SM on compute
+// capability 9.0), against 2·B·M·N·4 bytes of traffic: the SFU rate bounds
+// it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int MAXN = 16;
-constexpr int WARPS_PER_CTA = 8;
+constexpr int CPC = 32;                    // couplings per CTA
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+struct Args {
+  const float* z;        // bins ? scores [B, M-1, N-1] : couplings [B, M, N]
+  const float* log_mu;   // [B, M] (bins = 0)
+  const float* log_nu;   // [B, N] (bins = 0)
+  const float* alpha;    // device scalar (bins = 1)
+  float* out;            // [B, M, N]
+  int B, M, N, iters, bins;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(WARPS_PER_CTA * 32)
-log_sinkhorn_kernel(const float* __restrict__ Z,       // [B, M, N]
-                    const float* __restrict__ log_mu,  // [B, M]
-                    const float* __restrict__ log_nu,  // [B, N]
-                    float* __restrict__ out,           // [B, M, N]
-                    int B, int M, int N, int iters) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS_PER_CTA + (threadIdx.x >> 5);
-  if (b >= B) return;  // uniform across the warp
-  const bool row = lane < M;
+// RPT rows a thread, NP columns, R threads a coupling; EXACT: the coupling
+// is exactly (RPT·R) x NP, so no masking is compiled in.
+template <int RPT, int NP, int R, bool EXACT>
+__global__ void __launch_bounds__(CPC * R)
+sinkhorn_kernel(const Args a) {
+  extern __shared__ float stage[];
+  const int M = EXACT ? RPT * R : a.M;
+  const int N = EXACT ? NP : a.N;
+  const int g = threadIdx.x % R;            // row band within the coupling
+  const int cl = threadIdx.x / R;           // coupling within the CTA
+  const int b0 = blockIdx.x * CPC;
+  const int nb = min(CPC, a.B - b0);
+  const bool bins = a.bins != 0;
+  const int Mi = bins ? M - 1 : M, Ni = bins ? N - 1 : N;
+  const int in_cnt = Mi * Ni, out_cnt = M * N;
+  const int stride = out_cnt | 1;
   const float neg_inf = -INFINITY;
 
-  const float* zb = Z + (size_t)b * M * N + (size_t)lane * N;
-  float z[MAXN], nu[MAXN], v[MAXN];
+  const float* src = a.z + (size_t)b0 * in_cnt;
+  for (int i = threadIdx.x; i < nb * in_cnt; i += CPC * R)
+    stage[(i / in_cnt) * stride + i % in_cnt] = src[i];
+  __syncthreads();
+
+  const bool live = cl < nb;
+  const float* zs = stage + cl * stride;
+  const float alpha = bins ? __ldg(a.alpha) : 0.0f;
+  const float norm = bins ? -logf((float)(Mi + Ni)) : 0.0f;
+
+  float z[RPT][NP], u[RPT], v[NP], mu[RPT], nu[NP];
 #pragma unroll
-  for (int j = 0; j < MAXN; ++j) {
-    z[j] = (row && j < N) ? zb[j] : neg_inf;
-    nu[j] = j < N ? log_nu[(size_t)b * N + j] : 0.0f;
+  for (int r = 0; r < RPT; ++r) {
+    const int row = g * RPT + r;
+    const bool rv = EXACT || row < M;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      float x = neg_inf;
+      if (rv && (EXACT || j < N)) {
+        if (bins && (row == M - 1 || j == N - 1)) x = alpha;
+        else x = live ? zs[row * Ni + j] : 0.0f;
+      }
+      z[r][j] = x;
+    }
+    if (bins) mu[r] = row == M - 1 ? logf((float)Ni) + norm : norm;
+    else mu[r] = (live && rv) ? __ldg(a.log_mu + (size_t)(b0 + cl) * M + row) : 0.0f;
+    u[r] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    if (bins) nu[j] = j == N - 1 ? logf((float)Mi) + norm : norm;
+    else nu[j] = (live && (EXACT || j < N)) ? __ldg(a.log_nu + (size_t)(b0 + cl) * N + j) : 0.0f;
     v[j] = 0.0f;
   }
-  const float mu = row ? log_mu[(size_t)b * M + lane] : 0.0f;
-  float u = 0.0f;
 
-  for (int it = 0; it < iters; ++it) {
+  for (int it = 0; it < a.iters; ++it) {
     // u_i = log_mu_i - logsumexp_j(z_ij + v_j)
-    float m = neg_inf;
 #pragma unroll
-    for (int j = 0; j < MAXN; ++j)
-      if (j < N) m = fmaxf(m, z[j] + v[j]);
-    float s = 0.0f;
+    for (int r = 0; r < RPT; ++r) {
+      if (EXACT || g * RPT + r < M) {
+        float m = neg_inf;
 #pragma unroll
-    for (int j = 0; j < MAXN; ++j)
-      if (j < N) s += expf(z[j] + v[j] - m);
-    u = row ? mu - (m + logf(s)) : 0.0f;
-
+        for (int j = 0; j < NP; ++j) m = fmaxf(m, z[r][j] + v[j]);
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NP; ++j) s += ex2((z[r][j] + v[j] - m) * LOG2E);
+        u[r] = mu[r] - (m + lg2(s) * LN2);
+      } else {
+        u[r] = neg_inf;
+      }
+    }
     // v_j = log_nu_j - logsumexp_i(z_ij + u_i)
 #pragma unroll
-    for (int j = 0; j < MAXN; ++j) {
-      if (j < N) {
-        const float x = row ? z[j] + u : neg_inf;
-        const float cm = warp_max(x);
-        const float cs = warp_sum(row ? expf(x - cm) : 0.0f);
-        v[j] = nu[j] - (cm + logf(cs));
+    for (int j = 0; j < NP; ++j) {
+      if (EXACT || j < N) {                  // uniform across the warp
+        float m = neg_inf;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) m = fmaxf(m, z[r][j] + u[r]);
+#pragma unroll
+        for (int o = 1; o < R; o <<= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float s = 0.0f;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) s += ex2((z[r][j] + u[r] - m) * LOG2E);
+#pragma unroll
+        for (int o = 1; o < R; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        v[j] = nu[j] - (m + lg2(s) * LN2);
       }
     }
   }
 
-  if (row) {
-    float* ob = out + (size_t)b * M * N + (size_t)lane * N;
+  __syncthreads();                           // every input read from stage
+  if (live) {
+    float* os = stage + cl * stride;
 #pragma unroll
-    for (int j = 0; j < MAXN; ++j)
-      if (j < N) ob[j] = z[j] + u + v[j];
+    for (int r = 0; r < RPT; ++r) {
+      const int row = g * RPT + r;
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if ((EXACT || row < M) && (EXACT || j < N))
+          os[row * N + j] = z[r][j] + u[r] + v[j] - norm;
+    }
   }
+  __syncthreads();
+  float* dst = a.out + (size_t)b0 * out_cnt;
+  for (int i = threadIdx.x; i < nb * out_cnt; i += CPC * R)
+    dst[i] = stage[(i / out_cnt) * stride + i % out_cnt];
+}
+
+template <int RPT, int NP, int R, bool EXACT>
+int launch(const Args& a, cudaStream_t stream) {
+  const int smem = CPC * ((a.M * a.N) | 1) * (int)sizeof(float);
+  auto kern = sinkhorn_kernel<RPT, NP, R, EXACT>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<(a.B + CPC - 1) / CPC, CPC * R, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t; 0 means the launch was accepted.
-extern "C" int t2p_log_sinkhorn(const void* Z, const void* log_mu,
-                                const void* log_nu, void* out, int B, int M,
-                                int N, int iters, void* stream) {
-  if (M < 1 || M > 32 || N < 1 || N > MAXN || B < 1 || iters < 0)
+// M x N is the coupling's shape, dustbins included. Returns a cudaError_t;
+// 0 means the launch was accepted.
+extern "C" int t2p_log_sinkhorn(const void* z, const void* log_mu,
+                                const void* log_nu, const void* alpha,
+                                void* out, int B, int M, int N, int iters,
+                                int bins, void* stream) {
+  if (M < 1 || M > 32 || N < 1 || N > 16 || B < 1 || iters < 0 ||
+      (bins && (M < 2 || N < 2)))
     return (int)cudaErrorInvalidValue;
-  const int grid = (B + WARPS_PER_CTA - 1) / WARPS_PER_CTA;
-  log_sinkhorn_kernel<<<grid, WARPS_PER_CTA * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)Z, (const float*)log_mu, (const float*)log_nu,
-      (float*)out, B, M, N, iters);
-  return (int)cudaGetLastError();
+  Args a;
+  a.z = (const float*)z;
+  a.log_mu = (const float*)log_mu;
+  a.log_nu = (const float*)log_nu;
+  a.alpha = (const float*)alpha;
+  a.out = (float*)out;
+  a.B = B;
+  a.M = M;
+  a.N = N;
+  a.iters = iters;
+  a.bins = bins;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M == 17 && N == 7) return launch<17, 7, 1, true>(a, s);
+  return launch<8, 16, 4, false>(a, s);
 }

@@ -1,14 +1,19 @@
 """Language encoder (counterpart of ``text2pos_tpu/models/language.py``):
 word embedding with token 0 (unk/pad) zeroed, then the length-masked
 bidirectional LSTM of ``ops/lstm.py``; returns the mean of the two final
-hidden states. Always f32, as in JAX (the encoder has no compute dtype)."""
+hidden states. Always f32, as in JAX (the encoder has no compute dtype).
+
+The embedding and the input projections are folded into one gate-input
+table per direction, ``[V, 4H] = emb·W_ih + b`` with row 0 built from the
+zeroed embedding (the bias alone), which the LSTM kernel gathers by token
+id; no ``[T, B, 4H]`` projection is formed."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from text2pos_torch.ops.lstm import LSTMParams, bilstm_final_hidden
+from text2pos_torch.ops.lstm import LSTMParams, bilstm_tokens, token_tables
 
 
 class LanguageEncoder(nn.Module):
@@ -29,9 +34,13 @@ class LanguageEncoder(nn.Module):
                           getattr(self, f"lstm_{d}_w_hh"),
                           getattr(self, f"lstm_{d}_b"))
 
+    def token_tables(self) -> list:
+        """The two directions' gate-input tables [V, 4E] f32."""
+        return token_tables(self.word_embedding.weight, self._params("fwd"),
+                            self._params("bwd"))
+
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> torch.Tensor:
         """tokens [B, T] int, lengths [B] → [B, E] f32 (not normalized)."""
-        x = self.word_embedding(tokens) * (tokens != 0)[..., None]
-        return bilstm_final_hidden(x, lengths, self._params("fwd"),
-                                   self._params("bwd"))
+        return bilstm_tokens(self.token_tables(), self._params("fwd"),
+                             self._params("bwd"), tokens, lengths)

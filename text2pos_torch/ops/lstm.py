@@ -1,21 +1,25 @@
 """Length-masked bidirectional LSTM (counterpart of ``text2pos_tpu/ops/lstm.py``).
 
-The input projections ``x·W_ih + b`` for every step are one ``torch.matmul``
-(hoisted as in JAX); the T-step recurrence is the hand-written CUDA kernel
-``csrc/lstm.cu``, which replaces the Pallas kernel
-``text2pos_tpu/ops/lstm_pallas.py:60``. Each direction's final hidden state
-is that of its true last token (packed-sequence semantics): steps with
-``t >= length`` leave h and c unchanged, and the backward direction runs over
-the reversed padded sequence with reversed validity. All f32, as in JAX.
+The recurrence of both directions is one launch of the hand-written CUDA
+kernel ``csrc/lstm.cu``, which replaces the Pallas kernel
+``text2pos_tpu/ops/lstm_pallas.py:60``. It takes its gate inputs from a
+per-direction table ``[V, 4H]`` by token id: for token embeddings,
+``emb[tok]·W_ih + b`` is ``(emb·W_ih + b)[tok]`` (``token_tables``). The
+generic ``bilstm_final_hidden(x, ...)`` feeds the same kernel ``x·W_ih + b``
+as a table of ``B·T`` rows with running indices. Each direction's final
+hidden state is that of its true last token (packed-sequence semantics):
+steps with ``t >= length`` leave h and c unchanged, and the backward
+direction runs over the reversed padded sequence with reversed validity. All
+f32, as in JAX.
 
-On a CPU tensor ``lstm_final_hidden`` runs its plain PyTorch version; on a
-CUDA tensor it launches the kernel or raises.
+On CPU tensors ``lstm_final_hidden`` runs its plain PyTorch version; on CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -30,9 +34,9 @@ class LSTMParams(NamedTuple):
     b: torch.Tensor     # [4H]
 
 
-def lstm_final_hidden_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                            lengths: torch.Tensor, reverse: bool = False
-                            ) -> torch.Tensor:
+def lstm_recurrence_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                          lengths: torch.Tensor, reverse: bool = False
+                          ) -> torch.Tensor:
     """Plain PyTorch recurrence: x_proj [T, B, 4H] (bias added), w_hh
     [H, 4H], lengths [B] → final h [B, H] f32. ``reverse`` visits
     t = T-1 … 0."""
@@ -52,51 +56,102 @@ def lstm_final_hidden_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return h
 
 
-def _lstm_kernel(x_proj, w_hh, lengths, reverse):
-    T, B, H4 = x_proj.shape
+def lstm_final_hidden_plain(tables: Sequence[torch.Tensor],
+                            w_hh: Sequence[torch.Tensor],
+                            tokens: torch.Tensor, lengths: torch.Tensor
+                            ) -> torch.Tensor:
+    """The kernel's plain version: gate inputs ``tables[d][tokens]``, then
+    the recurrence, forward (d = 0) and backward (d = 1) → [2, B, H].
+    Steps past a sequence's length never read the table."""
+    T = tokens.shape[1]
+    lengths = lengths.to(tokens.device).clamp(0, T)
+    valid = torch.arange(T, device=tokens.device)[None, :] < lengths[:, None]
+    tok = torch.where(valid, tokens.long(), 0).t()                # [T, B]
+    return torch.stack([
+        lstm_recurrence_plain(tables[d][tok], w_hh[d], lengths, d == 1)
+        for d in (0, 1)])
+
+
+def _lstm_kernel(tables, w_hh, tokens, lengths):
+    dev = tokens.device
+    B, T = tokens.shape
+    tables = [t.contiguous() for t in tables]
+    w_hh = [w.contiguous() for w in w_hh]
+    V, H4 = tables[0].shape
     H = H4 // 4
-    if x_proj.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError("the LSTM kernel takes float32 x_proj and w_hh")
-    if w_hh.device != x_proj.device:
-        raise ValueError("LSTM kernel: w_hh is not on x_proj's device")
-    if tuple(w_hh.shape) != (H, H4) or H % 32 or not 32 <= H <= 256:
-        raise ValueError(f"LSTM kernel: unsupported w_hh {tuple(w_hh.shape)}"
-                         f" for x_proj {tuple(x_proj.shape)} (H must be a "
-                         "multiple of 32 in [32, 256])")
-    x_proj = x_proj.contiguous()
-    w_hh = w_hh.contiguous()
-    lengths = lengths.to(device=x_proj.device, dtype=torch.int32).contiguous()
-    out = torch.empty(B, H, device=x_proj.device, dtype=torch.float32)
+    for t in (*tables, *w_hh):
+        if t.dtype != torch.float32:
+            raise TypeError("the LSTM kernel takes float32 tables and w_hh")
+        if t.device != dev:
+            raise ValueError("LSTM kernel: tables, w_hh and tokens lie on "
+                             "different devices")
+    if len(tables) != 2 or len(w_hh) != 2 or tables[1].shape != (V, H4) \
+            or any(tuple(w.shape) != (H, H4) for w in w_hh) or H4 % 4 \
+            or H % 32 or not 32 <= H <= 256:
+        raise ValueError(
+            f"LSTM kernel: unsupported tables {[tuple(t.shape) for t in tables]}"
+            f" / w_hh {[tuple(w.shape) for w in w_hh]} (two directions; H a "
+            "multiple of 32 in [32, 256])")
+    if tokens.dtype not in (torch.int32, torch.int64) or \
+            tuple(lengths.shape) != (B,):
+        raise ValueError("LSTM kernel: tokens must be [B, T] integers and "
+                         "lengths [B]")
+    tokens = tokens.to(torch.int32).contiguous()
+    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty(2, B, H, device=dev, dtype=torch.float32)
     fn = _build.entry("lstm", "t2p_lstm_final_hidden",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
-    _build.check(fn(x_proj.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), T, B, H, int(reverse),
-                    _build.stream_ptr(x_proj.device)), "lstm_final_hidden")
+    _build.check(fn(tables[0].data_ptr(), tables[1].data_ptr(),
+                    w_hh[0].data_ptr(), w_hh[1].data_ptr(),
+                    tokens.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                    V, T, B, H, _build.stream_ptr(dev)), "lstm_final_hidden")
     _build.LAUNCHES["lstm"] += 1
     return out
 
 
-def lstm_final_hidden(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                      lengths: torch.Tensor, reverse: bool = False
-                      ) -> torch.Tensor:
-    """Final hidden state of a length-masked LSTM over precomputed input
-    projections; the CUDA kernel on the card, the plain version on the CPU."""
-    if x_proj.is_cuda:
-        return _lstm_kernel(x_proj, w_hh, lengths, reverse)
-    return lstm_final_hidden_plain(x_proj, w_hh, lengths, reverse)
+def lstm_final_hidden(tables: Sequence[torch.Tensor],
+                      w_hh: Sequence[torch.Tensor], tokens: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """Final hidden states of both directions, [2, B, H] f32, of a
+    length-masked LSTM whose step-t input for sequence b is
+    ``tables[d][tokens[b, t]]`` (the input projection with its bias, [V,
+    4H] per direction d, forward then backward; ``w_hh`` [H, 4H] each). The
+    CUDA kernel on the card, the plain version on the CPU."""
+    if tokens.is_cuda:
+        return _lstm_kernel(tables, w_hh, tokens, lengths)
+    return lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
+
+
+def token_tables(embedding: torch.Tensor, fwd: LSTMParams, bwd: LSTMParams
+                 ) -> list:
+    """Per-direction gate-input tables ``emb·W_ih + b`` [V, 4H] f32, with
+    the embedding's row 0 (unk/pad) taken as zero, as the encoder zeroes
+    token 0's embedding: row 0 of each table is the bias alone."""
+    emb = embedding.float()
+    emb = torch.cat([emb.new_zeros(1, emb.shape[1]), emb[1:]])
+    return [torch.addmm(p.b, emb, p.w_ih) for p in (fwd, bwd)]
+
+
+def bilstm_tokens(tables: Sequence[torch.Tensor], fwd: LSTMParams,
+                  bwd: LSTMParams, tokens: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Mean of the two directions' final hidden states [B, H] over token
+    ids [B, T] and their ``token_tables``."""
+    h = lstm_final_hidden(tables, (fwd.w_hh, bwd.w_hh), tokens, lengths)
+    return 0.5 * (h[0] + h[1])
 
 
 def bilstm_final_hidden(x: torch.Tensor, lengths: torch.Tensor,
                         fwd: LSTMParams, bwd: LSTMParams) -> torch.Tensor:
-    """Mean of the two directions' final hidden states.
+    """Mean of the two directions' final hidden states over any input.
 
-    x: [B, T, E] embedded tokens; lengths: [B] true lengths (≥ 1).
-    Returns [B, H] float32.
+    x: [B, T, E]; lengths: [B] true lengths (≥ 1). Returns [B, H] float32.
+    The projections ``x·W_ih + b`` form tables of B·T rows, read by running
+    indices.
     """
-    xt = x.transpose(0, 1).float()                       # [T, B, E]
-    proj_f = torch.matmul(xt, fwd.w_ih) + fwd.b          # hoisted matmuls
-    proj_b = torch.matmul(xt, bwd.w_ih) + bwd.b
-    h_f = lstm_final_hidden(proj_f, fwd.w_hh, lengths, reverse=False)
-    h_b = lstm_final_hidden(proj_b, bwd.w_hh, lengths, reverse=True)
-    return 0.5 * (h_f + h_b)
+    B, T, E = x.shape
+    xf = x.reshape(B * T, E).float()
+    tables = [torch.addmm(p.b, xf, p.w_ih) for p in (fwd, bwd)]
+    idx = torch.arange(B * T, device=x.device, dtype=torch.int32)
+    return bilstm_tokens(tables, fwd, bwd, idx.view(B, T), lengths)

@@ -2,11 +2,13 @@
 ``text2pos_tpu/ops/sinkhorn.py``).
 
 ``log_optimal_transport`` adds the dustbin row and column, the marginals and
-the ``- norm`` scaling around ``log_sinkhorn``, whose ``iters`` alternating
-row/column updates are the hand-written CUDA kernel ``csrc/sinkhorn.cu``
-(replacing the Pallas kernel ``text2pos_tpu/ops/sinkhorn_pallas.py:51``).
-``extract_matches`` is plain PyTorch: mutual max, threshold, first index on
-argmax ties. All f32.
+the ``- norm`` scaling around ``iters`` alternating row/column updates. On
+the card all of it is one launch of the hand-written CUDA kernel
+``csrc/sinkhorn.cu`` (replacing the Pallas kernel
+``text2pos_tpu/ops/sinkhorn_pallas.py:51``), which reads the scores and
+builds the dustbins in registers; ``log_sinkhorn`` takes given couplings and
+marginals through the same kernel. ``extract_matches`` is plain PyTorch:
+mutual max, threshold, first index on argmax ties. All f32.
 """
 
 from __future__ import annotations
@@ -31,27 +33,50 @@ def log_sinkhorn_plain(Z: torch.Tensor, log_mu: torch.Tensor,
     return Z + u[:, :, None] + v[:, None, :]
 
 
-def _sinkhorn_kernel(Z, log_mu, log_nu, iters):
-    B, M, N = Z.shape
-    if not (Z.dtype == log_mu.dtype == log_nu.dtype == torch.float32):
-        raise TypeError("the Sinkhorn kernel takes float32 inputs")
-    if M > 32 or N > 16:
+def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
+    """One launch on ``z`` ([B, M, N] couplings, or [B, M-1, N-1] scores
+    with ``bins``); returns [B, M, N]."""
+    B = z.shape[0]
+    if not 1 <= M <= 32 or not 1 <= N <= 16:
         raise ValueError(f"Sinkhorn kernel: [{M}, {N}] coupling exceeds "
                          "32 rows x 16 columns")
-    if tuple(log_mu.shape) != (B, M) or tuple(log_nu.shape) != (B, N):
-        raise ValueError("Sinkhorn kernel: marginal shapes do not match Z")
-    if not log_mu.device == log_nu.device == Z.device:
+    if iters < 0:
+        raise ValueError("Sinkhorn kernel: negative iteration count")
+    args = [t for t in (z, log_mu, log_nu, alpha) if t is not None]
+    if any(t.dtype != torch.float32 for t in args):
+        raise TypeError("the Sinkhorn kernel takes float32 inputs")
+    if any(t.device != z.device for t in args):
         raise ValueError("Sinkhorn kernel: inputs on different devices")
-    Z, log_mu, log_nu = Z.contiguous(), log_mu.contiguous(), log_nu.contiguous()
-    out = torch.empty_like(Z)
+    z, log_mu, log_nu, alpha = (t if t is None else t.contiguous()
+                                for t in (z, log_mu, log_nu, alpha))
+    out = torch.empty(B, M, N, device=z.device, dtype=torch.float32)
+    if B == 0:
+        return out
+    ptr = [t if t is None else t.data_ptr() for t in (log_mu, log_nu, alpha)]
     fn = _build.entry("sinkhorn", "t2p_log_sinkhorn",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])
-    _build.check(fn(Z.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(),
-                    out.data_ptr(), B, M, N, int(iters),
-                    _build.stream_ptr(Z.device)), "log_sinkhorn")
+    _build.check(fn(z.data_ptr(), *ptr, out.data_ptr(), B, M, N, int(iters),
+                    int(bins), _build.stream_ptr(z.device)),
+                 "log_sinkhorn")
     _build.LAUNCHES["sinkhorn"] += 1
     return out
+
+
+def _sinkhorn_kernel(Z, log_mu, log_nu, iters):
+    B, M, N = Z.shape
+    if tuple(log_mu.shape) != (B, M) or tuple(log_nu.shape) != (B, N):
+        raise ValueError("Sinkhorn kernel: marginal shapes do not match Z")
+    return _sinkhorn_launch(Z, log_mu, log_nu, None, M, N, iters, False)
+
+
+def _lot_kernel(scores, alpha, iters):
+    """The fused ``log_optimal_transport``: scores [B, M, N] → [B, M+1,
+    N+1], dustbins, marginals and ``- norm`` in the kernel."""
+    M, N = scores.shape[1:]
+    alpha = torch.as_tensor(alpha, device=scores.device).float().reshape(1)
+    return _sinkhorn_launch(scores, None, None, alpha, M + 1, N + 1, iters,
+                            True)
 
 
 def log_sinkhorn(Z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
@@ -82,12 +107,22 @@ def dustbin_couplings(scores: torch.Tensor, alpha: torch.Tensor
             log_nu.expand(B, N + 1).contiguous(), norm)
 
 
+def log_optimal_transport_plain(scores: torch.Tensor, alpha: torch.Tensor,
+                                iters: int) -> torch.Tensor:
+    """The fused kernel's plain version: dustbin couplings, plain Sinkhorn,
+    ``- norm``."""
+    Z, log_mu, log_nu, norm = dustbin_couplings(scores, alpha)
+    return log_sinkhorn_plain(Z, log_mu, log_nu, iters) - norm
+
+
 def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor,
                           iters: int) -> torch.Tensor:
     """[B, M, N] scores → [B, M+1, N+1] log transport (dustbins included),
-    scaled by M+N."""
-    Z, log_mu, log_nu, norm = dustbin_couplings(scores, alpha)
-    return log_sinkhorn(Z, log_mu, log_nu, iters) - norm
+    scaled by M+N; one kernel launch on the card, the plain version on the
+    CPU."""
+    if scores.is_cuda:
+        return _lot_kernel(scores.float(), alpha, iters)
+    return log_optimal_transport_plain(scores, alpha, iters)
 
 
 def extract_matches(Z: torch.Tensor, match_threshold: float = 0.2
