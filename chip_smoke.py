@@ -7,8 +7,8 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every hand-written kernel under ``text2pos_torch/csrc`` with
-   ``nvcc``, all at once; fails if ``ptxas`` reports register spills in the
-   LSTM, Sinkhorn or GNN kernels.
+   ``nvcc``, all at once; fails if ``ptxas`` reports register spills in any
+   of them.
 3. Kernels vs plain: each kernel's wrapper against its plain PyTorch version
    on the inputs the serving path gives it (the committed checkpoints and
    bench queries): max abs error with its tolerance, median times (CUDA
@@ -23,11 +23,14 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    times side by side with their ratio, ragged pair counts around a CTA's
    load against the plain version, and bit-identical score columns for every
    headline pair whose query holds duplicate hints.
-   The PointConv kernel is checked at the three set-abstraction levels of
-   both object towers on the bench map's first DB-encode step of 64 cells
-   (JAX's draws from ``fixtures/bench_db_subset.npz``): the fine tower's
-   1024 objects and the coarse tower's valid objects, in f32 and bf16; these
-   are the six launches of the DB encode's first step.
+   The FPS and PointConv kernels are checked at the three set-abstraction
+   levels of both object towers on the bench map's first DB-encode step of
+   64 cells (JAX's draws from ``fixtures/bench_db_subset.npz``): the fine
+   tower's 1024 objects and the coarse tower's valid objects; these are the
+   six launches of each kernel in the DB encode's first step. FPS: indices
+   and centroids bit-identical to the plain loop, and an object of one
+   repeated point; its bound is latency, so the time per dependent step is
+   printed beside it. PointConv: bf16 (tensor cores) and f32 (CUDA cores).
 4. End to end: ``LocalizationPipeline.serve_batch`` on the 2048 committed
    bench queries at top_k=10, bf16 bodies (the headline, whose kernel launch
    counts are read) and f32, then the rerank@128 batch (λ=4, γ=6);
@@ -38,9 +41,9 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    generator (checked against the fixture's cell boxes, sizes and scenes);
    its first 64 cells encoded with JAX's draws and held against JAX's f32
    and bf16 encodings; all 2048 cells encoded, coarse and fine, in bf16
-   (``LocalizationPipeline.encode_database``, whose PointConv launches are
-   read; wall time of three calls, cells/s, each tower apart, a profile by
-   stage); then the 2048 queries served from the rebuilt database, and from
+   (``LocalizationPipeline.encode_database``, whose FPS and PointConv
+   launches are read; wall time of three calls, cells/s, each tower apart, a
+   profile by stage); then the 2048 queries served from the rebuilt database, and from
    one rebuilt with other draws (resampling noise between two databases).
 6. A ``{"kernels": [...]}`` line, the card's name and power limit, and
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -114,6 +117,8 @@ KERNEL_SOURCES = {
                       "text2pos_tpu/ops/superglue_gnn_pallas.py:253"),
     "pointconv": ("text2pos_torch/csrc/pointconv.cu",
                   "text2pos_tpu/ops/pointconv_pallas.py:91"),
+    "fps": ("text2pos_torch/csrc/fps.cu",
+            "text2pos_tpu/ops/fps.py:21 (lax.fori_loop; no Pallas kernel)"),
 }
 
 
@@ -466,34 +471,111 @@ def subset_points(bt, dbx, dev):
         pad_pts=torch.as_tensor(dbx["fine_pad_pts"], device=dev))
 
 
-def pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
-    """Kernel vs plain at the three SA levels of both towers on the
-    fixture's 64 cells, the DB encode's first step (fine: 1024 objects;
-    coarse: the cells' valid objects), each level fed by the kernel's output
-    of the level before, bf16 then f32. Times are summed over the six
-    levels: one step of the main path."""
+def tower_points(bt, dbx, dev):
+    """(tower, points [B, 256, 3], colours) of the DB encode's first step on
+    JAX's draws: the fine tower's 1024 objects, the coarse tower's valid
+    ones."""
     from text2pos_torch.evaluation.pipeline import coarse_cell_points
-    from text2pos_torch.models.pointnet2 import K_CAP
-    from text2pos_torch.ops.neighbors import pairwise_sqdist
-    from text2pos_torch.ops.pointconv import (_pointconv_kernel,
-                                              pointconv_max_plain)
 
-    dev = pipe_bf16.device
     n = dbx["fine_u"].shape[0]
     xyz, rgb, _, _ = subset_points(bt, dbx, dev)
     with torch.inference_mode():
         cxyz, crgb = coarse_cell_points(
             bt, torch.arange(n, device=dev),
             u=torch.as_tensor(dbx["coarse_u"], device=dev))[:2]
-    towers = (("fine", lambda p: p.fine, rgb.flatten(0, 1),
-               xyz.flatten(0, 1)),
-              ("coarse", lambda p: p.coarse, crgb, cxyz))
+    return (("fine", xyz.flatten(0, 1), rgb.flatten(0, 1)),
+            ("coarse", cxyz, crgb))
+
+
+def fps_checks(bt, dbx, failures):
+    """The FPS kernel against the plain loop at the three levels of both
+    towers (each level on the centroids of the level before): indices and
+    centroids bit for bit, times summed over the six launches of a step:
+    one wrapper call between two events (the host's work in the wrapper
+    included, as for every kernel here) and the device's time a launch over
+    50 launches back to back (preallocated outputs, no wrapper), from which
+    the time per dependent step is read. Then an object of one repeated
+    point (every step ties everywhere)."""
+    from text2pos_torch.ops.fps import (_fps_kernel, _launch,
+                                        farthest_point_sampling_plain)
+
+    dev = torch.device("cuda")
+    res = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": None, "max_abs_err": 0.0, "detail": []}
+    for tower, pos, _ in tower_points(bt, dbx, dev):
+        for level in ("sa1", "sa2", "sa3"):
+            B, N, _ = pos.shape
+            S = N // 2
+            with torch.inference_mode():
+                idx, cent = _fps_kernel(pos, S)
+                widx, wcent = farthest_point_sampling_plain(pos, S)
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: _fps_kernel(pos, S), reps=20)
+                dev_ms = cuda_ms(lambda: [_launch(pos, idx, cent)
+                                          for _ in range(50)], reps=5) / 50
+                plain_ms = cuda_ms(lambda: farthest_point_sampling_plain(
+                    pos, S), reps=3, warmup=1)
+            same = int((idx == widx).all(-1).sum())
+            err = max_err(cent, wcent)
+            ok = same == B and err == 0.0
+            # Bytes: points in, int64 indices and f32 centroids out;
+            # operations: 3 subtractions, a product, 2 FMAs, a min and a
+            # compare per point and step, at the f32 rate.
+            bnd, by = bound_ms([(8.0 * B * N * (S - 1), PEAK_F32)],
+                               4.0 * 3 * B * N + (8 + 12) * B * S)
+            step_us = 1e3 * dev_ms / max(S - 1, 1)
+            log(f"  fps {tower} {level} B={B} N={N} S={S}: {same}/{B} "
+                f"objects with bit-identical indices, centroid max abs err "
+                f"{err:.1e} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms a "
+                f"call, {dev_ms:.4f} ms a launch back to back = "
+                f"{step_us:.3f} us per dependent step, plain {plain_ms:.3f} "
+                f"ms, bound {bnd:.5f} ms ({by})")
+            if not ok:
+                failures.append(f"fps {tower} {level}: {B - same} objects "
+                                f"differ from the plain loop, centroid error "
+                                f"{err}")
+            res["ms"] += ms
+            res["device_ms"] += dev_ms
+            res["plain_ms"] += plain_ms
+            sum_bound(res, bnd, by)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["detail"].append({"level": f"{tower} {level}", "B": B, "N": N,
+                                  "S": S, "ms": ms, "device_ms": dev_ms,
+                                  "us_per_step": step_us,
+                                  "plain_ms": plain_ms, "bound_ms": bnd,
+                                  "bound_by": by, "identical": same})
+            pos = wcent
+    one = torch.full((3, 256, 3), 0.25, device=dev)
+    one[1] = torch.randn(256, 3, device=dev)
+    idx, cent = _fps_kernel(one, 128)
+    widx, wcent = farthest_point_sampling_plain(one, 128)
+    ok = bool((idx == widx).all()) and bool((idx[0] == 0).all()) and \
+        bool((cent == wcent).all())
+    log(f"  fps, an object of one repeated point: every index 0 and equal "
+        f"to the plain loop's {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fps: the all-duplicate object differs")
+    return res
+
+
+def pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
+    """Kernel vs plain at the three SA levels of both towers on the
+    fixture's 64 cells, the DB encode's first step (fine: 1024 objects;
+    coarse: the cells' valid objects), each level fed by the kernel's output
+    of the level before, bf16 then f32. Times are summed over the six
+    levels: one step of the main path."""
+    from text2pos_torch.models.pointnet2 import K_CAP
+    from text2pos_torch.ops.neighbors import pairwise_sqdist
+    from text2pos_torch.ops.pointconv import (_pointconv_kernel,
+                                              pointconv_max_plain)
+
+    towers = tower_points(bt, dbx, pipe_bf16.device)
     results = {}
     for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
         res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "library_ms": None, "max_abs_err": 0.0, "detail": []}
-        for tower, model, x, pos in towers:
-            pn = model(pipe).object_encoder.pointnet
+        for tower, pos, x in towers:
+            pn = getattr(pipe, tower).object_encoder.pointnet
             for name in ("sa1", "sa2", "sa3"):
                 lvl = pointconv_level(getattr(pn, name), x, pos, label,
                                       f"{tower} {name}", K_CAP,
@@ -513,11 +595,13 @@ def pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures):
 def pointconv_level(sa, x, pos, label, where, k_cap, pairwise_sqdist,
                     kernel, plain, failures):
     """One SA level's kernel against its plain version: error, times and
-    bound; ``out`` is the kernel's output and the level's centroids."""
+    bound; ``out`` is the kernel's output and the level's centroids. The
+    kernel is called as the model calls it (bf16: W2 packed once)."""
     r = sa.radius
     with torch.inference_mode():
         args = sa.pointconv_args(x, pos)
-        got = kernel(*args, r, k_cap)
+        w2f = sa.w2_fragments() if label == "bf16" else None
+        got = kernel(*args, r, k_cap, w2f)
         want = plain(*args, r, k_cap)
         torch.cuda.synchronize()
         a, p, c, cent, _, w2, _, _ = args
@@ -532,7 +616,7 @@ def pointconv_level(sa, x, pos, label, where, k_cap, pairwise_sqdist,
           f"r={r} (|out| max {scale:.2f})", err,
           POINTCONV_REL_TOL[label] * scale, failures)
     with torch.inference_mode():
-        ms = cuda_ms(lambda: kernel(*args, r, k_cap))
+        ms = cuda_ms(lambda: kernel(*args, r, k_cap, w2f))
         plain_ms = cuda_ms(lambda: plain(*args, r, k_cap), reps=3, warmup=1)
     # The second layer on the selected rows (compute dtype), building each
     # row (subtract, BN, ReLU: 4 f32 operations a channel) and its epilogue
@@ -688,7 +772,8 @@ def timed_encode(pipe, bank, seed):
 
 def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     """Phase 5's main path: every cell encoded in bf16, then the bench
-    queries served from that database. Returns the PointConv launches."""
+    queries served from that database. Returns the kernel launches of the
+    first encode."""
     from text2pos_torch.evaluation.metrics import served_accuracies
     from text2pos_torch.ops import _build
 
@@ -699,8 +784,10 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     launches = dict(_build.LAUNCHES)
     log(f"  encode_database bf16: {C} cells (coarse + fine) in {wall:.3f} s "
         f"= {C / wall:.1f} cells/s; kernel launches {launches}")
-    if launches.get("pointconv", 0) < 1:
-        failures.append("kernel pointconv was not launched by the DB encode")
+    for name in ("fps", "pointconv"):
+        if launches.get(name, 0) < 1:
+            failures.append(f"kernel {name} was not launched by the DB "
+                            "encode")
     # Two more calls with other draws: the spread of the wall time, and a
     # second database for the resampling noise below.
     walls = [wall]
@@ -723,7 +810,7 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     if not finite or cell_enc.shape != pipe_bf16.cell_enc.shape or \
             fb_enc.shape != pipe_bf16.fine_bank_enc.shape:
         failures.append("encode_database: malformed output")
-        return launches.get("pointconv", 0)
+        return launches
 
     def cosines(label, ref):
         cos = {n: torch.nn.functional.cosine_similarity(a, b, dim=-1)
@@ -756,7 +843,7 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     if abs(accs[TOP_K][15] - jax_t10) > DB_ACC_SLACK:
         failures.append(f"serve from the rebuilt database: top-10@15m "
                         f"{accs[TOP_K][15]} vs JAX {jax_t10}")
-    return launches.get("pointconv", 0)
+    return launches
 
 
 def main() -> int:
@@ -800,8 +887,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-                if name in ("lstm", "sinkhorn", "superglue_gnn") and \
-                        "spill" in line and \
+                if "spill" in line and \
                         "0 bytes spill stores, 0 bytes spill loads" not in line:
                     failures.append(f"ptxas reports spills in {name}: "
                                     f"{line.strip()}")
@@ -831,6 +917,7 @@ def main() -> int:
     log("phase 3 kernels vs plain (the serving and DB-encode paths' inputs)")
     lstm = lstm_checks(pipe_bf16, fx, failures)
     gs = gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures)
+    fps = fps_checks(bt, dbx, failures)
     pointconv = pointconv_checks(pipe_bf16, pipe_f32, bt, dbx, failures)
 
     log("phase 4 end to end: serve_batch on the committed bench queries")
@@ -886,12 +973,13 @@ def main() -> int:
 
     log("phase 5 offline DB encode")
     db_subset_checks(pipe_bf16, pipe_f32, bt, dbx, failures)
-    launches["pointconv"] = db_encode_and_serve(pipe_bf16, bank, bt, fx,
-                                                top_idx, failures)
+    db = db_encode_and_serve(pipe_bf16, bank, bt, fx, top_idx, failures)
+    for name in ("fps", "pointconv"):
+        launches[name] = db.get(name, 0)
 
     gnn = dict(gs["bf16"], f32=gs["f32"])
     per_kernel = {"lstm": lstm, "sinkhorn": gs["sinkhorn"],
-                  "superglue_gnn": gnn, "pointconv": pointconv}
+                  "superglue_gnn": gnn, "pointconv": pointconv, "fps": fps}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from text2pos_torch.ops import _build
+from text2pos_torch.ops import fps as tfps
 from text2pos_torch.ops import lstm as tlstm
 from text2pos_torch.ops import pointconv as tpc
 from text2pos_torch.ops import sinkhorn as tsink
@@ -275,6 +276,23 @@ def test_pointconv_kernel_matches_plain(cuda, dtype, rel_tol, B, N, S, C1, C2,
     assert got.dtype == dtype and got.shape == (B, S, C2)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=rel_tol * float(want.float().abs().max()))
+    if dtype == torch.bfloat16:   # W2 packed once by the caller: the same
+        w2f = tpc.w2_fragments(args[5])
+        assert torch.equal(tpc.pointconv_max(*args, radius, 32, w2f=w2f), got)
+
+
+def test_pointconv_kernel_launch_shapes_per_width(cuda):
+    """The bf16 kernel works out a launch's shape once per (device, C2) and
+    keeps it: a narrow W2 after a wide one, then the wide one again, each
+    still launches (the shared-memory limit is not lowered) and agrees."""
+    for C2 in (1024, 64, 1024, 64):
+        args = _pointconv_case(cuda, torch.bfloat16, 3, 128, 64, 64, C2, 1.0,
+                               C2)
+        got = _launches("pointconv", lambda: tpc.pointconv_max(*args, 0.3,
+                                                               32))
+        want = tpc.pointconv_max_plain(*args, 0.3, 32)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=1e-2 * float(want.float().abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -303,3 +321,133 @@ def test_pointconv_kernel_rejects_bad_input(cuda):
     args[2] = args[2].to(torch.bfloat16)
     with pytest.raises(TypeError):        # mixed compute dtypes
         tpc.pointconv_max(*args, 0.2, 32)
+    for C1, C2 in ((48, 64), (256, 512)):  # not a bf16 instantiation; W2 too big
+        args = _pointconv_case(cuda, torch.bfloat16, 2, 64, 32, C1, C2, 1.0, 1)
+        with pytest.raises(ValueError):
+            tpc.pointconv_max(*args, 0.2, 32)
+
+
+COUNTS = (0, 1, 2, 15, 16, 17, 31, 32, 45)   # neighbours of centroid s % 9
+
+
+def _counted_case(device, dtype, B, S, C1, C2, seed):
+    """Centroid s of every object has exactly COUNTS[s % 9] points in its
+    ball (45: more than the cap), scattered among the others by a random
+    permutation; the rest lie far away. Ragged S. Every third BN1 scale is
+    negative: there the bf16 kernel's max over rows takes the smallest
+    product."""
+    args = list(_pointconv_case(device, dtype, B, 1, S, C1, C2, 1.0, seed))
+    s1, t1 = args[7]
+    flip = torch.ones_like(s1)
+    flip[::3] = -1.0
+    args[7] = (s1 * flip, t1)
+    g = torch.Generator().manual_seed(seed + 1)
+    counts = [COUNTS[s % len(COUNTS)] for s in range(S)]
+    cent = torch.zeros(B, S, 3)
+    cent[..., 0] = torch.arange(S, dtype=torch.float32)[None] * 3.0
+    pos = []
+    for s, k in enumerate(counts):
+        pos.append(cent[:, s:s + 1] + 0.1 * (torch.rand(B, k, 3, generator=g)
+                                             - 0.5))
+    pos.append(torch.full((B, 7, 3), -50.0) + torch.rand(B, 7, 3, generator=g))
+    pos = torch.cat(pos, 1)
+    pos = pos[:, torch.randperm(pos.shape[1], generator=g)]
+    N = pos.shape[1]
+    args[0] = torch.randn(B, N, C1, generator=g).to(device, dtype)
+    args[1], args[3] = pos.to(device), cent.to(device)
+    return args, torch.tensor(counts)
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("B,S,C1,C2", [
+    (6, 13, 32, 64), (3, 11, 128, 128), (5, 9, 256, 256)])
+def test_pointconv_kernel_neighbour_counts(cuda, dtype, rel_tol, B, S, C1,
+                                           C2):
+    """0, 1, 16, 17, exactly 32 and more than 32 neighbours (one or two
+    16-row tiles of the bf16 kernel, a partial and a full last tile) at the
+    model's three widths, S not a multiple of a CTA's warps."""
+    args, counts = _counted_case(cuda, dtype, B, S, C1, C2, B * S)
+    _, valid = tpc.ball_neighbors(args[1], args[3], 0.5, 32)
+    assert valid.sum(-1).cpu().equal(counts.clamp(max=32).expand(B, S))
+    got = _launches("pointconv", lambda: tpc.pointconv_max(*args, 0.5, 32))
+    want = tpc.pointconv_max_plain(*args, 0.5, 32)
+    assert bool((got[:, counts == 0] == 0).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel_tol * float(want.float().abs().max()))
+
+
+def test_pointconv_kernel_takes_rows_off_16_byte_boundaries(cuda):
+    """The bf16 kernel reads rows of a and c and pairs of b2 and BN1
+    columns as vectors: contiguous views that start one element into their
+    storage give the aligned result."""
+    args = list(_pointconv_case(cuda, torch.bfloat16, 3, 64, 32, 128, 128,
+                                1.0, 8))
+    want = tpc.pointconv_max(*args, 0.3, 32)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.is_contiguous() and y.data_ptr() % 8
+        return y
+
+    args[0], args[2], args[6] = (shifted(args[i]) for i in (0, 2, 6))
+    args[7] = tuple(shifted(v) for v in args[7])
+    got = _launches("pointconv", lambda: tpc.pointconv_max(*args, 0.3, 32))
+    assert torch.equal(got, want)
+
+
+def _fps_points(B, N, seed):
+    """Objects as the encoders see them: blobs resampled with replacement
+    from 20-60 distinct points (exact duplicates), one object of a single
+    repeated point and one padding-like object (8 distinct points in
+    [0, 0.001)^3, the rest of it copies of them)."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.randn(B, 60, 3, generator=g) * torch.tensor([2.0, 2.0, 0.5])
+    pick = (torch.rand(B, N, generator=g)
+            * torch.randint(20, 61, (B, 1), generator=g)).long()
+    pts = torch.gather(base, 1, pick[..., None].expand(B, N, 3))
+    pts[0] = 0.25
+    pad = torch.rand(8, 3, generator=g) * 1e-3
+    pts[1] = pad[torch.arange(N) % 8]
+    return pts
+
+
+@pytest.mark.parametrize("N", [256, 128, 64, 200, 33, 1])
+def test_fps_kernel_bit_equal_to_plain(cuda, N):
+    """Indices and centroids bit for bit, at every level's S = N/2 and at
+    S = N, on ties everywhere."""
+    pts = _fps_points(37, N, N).to(cuda)
+    for S in sorted({max(1, N // 2), N}):
+        idx, cent = _launches("fps",
+                              lambda: tfps.farthest_point_sampling(pts, S))
+        widx, wcent = tfps.farthest_point_sampling_plain(pts, S)
+        assert idx.dtype == torch.long and idx.shape == (37, S)
+        assert torch.equal(idx, widx)
+        assert torch.equal(cent, wcent)
+    # All points equal: every step ties everywhere; the first index wins.
+    assert bool((idx[0] == 0).all())
+
+
+def test_fps_kernel_chains_the_three_levels(cuda):
+    """sa1 -> sa2 -> sa3 as the tower runs it: each level's centroids are
+    the next level's points."""
+    pts = _fps_points(300, 256, 5).to(cuda)
+    got = want = pts
+    for S in (128, 64, 32):
+        got = tfps.farthest_point_sampling(got, S)[1]
+        want = tfps.farthest_point_sampling_plain(want, S)[1]
+        assert torch.equal(got, want)
+
+
+def test_fps_kernel_rejects_bad_input(cuda):
+    with pytest.raises(ValueError):       # more points than the kernel keeps
+        tfps.farthest_point_sampling(torch.zeros(2, 257, 3, device=cuda), 8)
+    with pytest.raises(ValueError):       # more samples than points
+        tfps.farthest_point_sampling(torch.zeros(2, 16, 3, device=cuda), 17)
+    with pytest.raises(TypeError):        # f64 points
+        tfps.farthest_point_sampling(
+            torch.zeros(2, 16, 3, device=cuda, dtype=torch.float64), 8)
+    with pytest.raises(ValueError):       # not [B, N, 3]
+        tfps.farthest_point_sampling(torch.zeros(2, 16, 2, device=cuda), 8)

@@ -128,8 +128,10 @@ def test_fps_duplicates_and_pads(S):
     pts[0, 100:] = pts[0, :156]          # exact duplicates of earlier points
     want = np.asarray(jax.jit(lambda p: jfps.farthest_point_sampling(p, S))(
         pts))
-    got = fps.farthest_point_sampling(_t(pts), S).numpy()
-    np.testing.assert_array_equal(got, want)
+    got, cent = fps.farthest_point_sampling_plain(_t(pts), S)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        cent.numpy(), np.take_along_axis(pts, want[..., None], 1))
 
 
 def test_pairwise_sqdist_bit_identical_and_knn_ties():

@@ -76,6 +76,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int E = 128;       // descriptor width
@@ -143,54 +145,12 @@ struct Weights {
   const float* bf;    // [E]
 };
 
-__device__ __forceinline__ float rnd(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Eight bf16 values to f32 (a bf16 is the upper half of its f32).
-__device__ __forceinline__ void unpack8(const uint4 v, float* f) {
-  f[0] = __uint_as_float(v.x << 16);
-  f[1] = __uint_as_float(v.x & 0xffff0000u);
-  f[2] = __uint_as_float(v.y << 16);
-  f[3] = __uint_as_float(v.y & 0xffff0000u);
-  f[4] = __uint_as_float(v.z << 16);
-  f[5] = __uint_as_float(v.z & 0xffff0000u);
-  f[6] = __uint_as_float(v.w << 16);
-  f[7] = __uint_as_float(v.w & 0xffff0000u);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
                                                   uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
-}
-
-// c[16, 8] += a[16, 16] · b[16, 8], bf16 inputs, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A warp's B fragments of its NTW n-tiles: a ring of RB k-steps (16 k-values

@@ -4,11 +4,12 @@
 Three set-abstraction levels (FPS ratio 0.5, ball radii 0.2/0.3/0.4, at
 most 32 neighbours, first by index), a global abstraction MLP with a max
 over points, then ``lin1`` and ``lin2``. In each level FPS picks the
-centroids, the separable first layer is two matmuls (``a = [x, pos]·W1 +
-b1`` per point, ``c = cent·W1[-3:]`` per centroid), and the rest of the
-level (ball query, ``a_n − c_s``, BN0, ReLU, the second layer, BN1, ReLU,
-max over neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on
-the card. The class/colour heads are not built; encoding never reads them.
+centroids (``ops.fps``: one CUDA kernel a level on the card), the
+separable first layer is two matmuls (``a = [x, pos]·W1 + b1`` per point,
+``c = cent·W1[-3:]`` per centroid), and the rest of the level (ball query,
+``a_n − c_s``, BN0, ReLU, the second layer, BN1, ReLU, max over
+neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on the
+card. The class/colour heads are not built; encoding never reads them.
 
 Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
 ``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps``,
@@ -26,7 +27,7 @@ from torch.profiler import record_function
 
 from text2pos_torch.models.blocks import MLP, MaskedBatchNorm, bn_affine, dense
 from text2pos_torch.ops.fps import farthest_point_sampling
-from text2pos_torch.ops.pointconv import pointconv_max
+from text2pos_torch.ops.pointconv import pointconv_max, w2_fragments
 
 K_CAP = 32
 
@@ -50,17 +51,31 @@ class SetAbstraction(nn.Module):
         super().__init__()
         self.ratio, self.radius, self.dtype = ratio, radius, dtype
         self.conv_mlp = ConvMLP(in_features + 3, *channels)
+        self._w2f = None
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._w2f = None   # the packed W2 is stale
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def w2_fragments(self) -> torch.Tensor:
+        """W2 in bf16 in the tensor-core kernel's fragment order
+        (``ops.pointconv.w2_fragments``), packed once and kept until the
+        weights are loaded again or moved."""
+        w = self.conv_mlp.dense_1.weight
+        key = (w.device, w.data_ptr())
+        if self._w2f is None or self._w2f[0] != key:
+            with torch.no_grad():
+                self._w2f = key, w2_fragments(w.t().to(torch.bfloat16))
+        return self._w2f[1]
 
     def pointconv_args(self, x: torch.Tensor, pos: torch.Tensor) -> tuple:
         """FPS and the separable first layer: the arguments of
         ``pointconv_max`` (all but the radius and the cap) for x [B, N, C],
         pos [B, N, 3] f32; their fourth, ``cent`` [B, S, 3], is the level's
         output positions, S = N·ratio."""
-        B, N, _ = pos.shape
-        S = max(1, int(N * self.ratio))
+        S = max(1, int(pos.shape[1] * self.ratio))
         with record_function("pointnet.fps"):
-            idx = farthest_point_sampling(pos, S)
-            cent = torch.gather(pos, 1, idx[..., None].expand(B, S, 3))
+            _, cent = farthest_point_sampling(pos, S)
         m = self.conv_mlp
         xpos = torch.cat([x.float(), pos], dim=-1)
         dt = self.dtype or xpos.dtype
@@ -76,8 +91,11 @@ class SetAbstraction(nn.Module):
         """x [B, N, C], pos [B, N, 3] f32 → (x' [B, S, C2], cent [B, S, 3])
         with S = N·ratio."""
         args = self.pointconv_args(x, pos)
+        a = args[0]
+        w2f = (self.w2_fragments()
+               if a.is_cuda and a.dtype == torch.bfloat16 else None)
         with record_function("pointnet.pointconv"):
-            out = pointconv_max(*args, self.radius, K_CAP)
+            out = pointconv_max(*args, self.radius, K_CAP, w2f=w2f)
         return out, args[3]
 
 

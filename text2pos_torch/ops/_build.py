@@ -29,7 +29,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("lstm", "sinkhorn", "superglue_gnn", "pointconv")
+SOURCES = ("lstm", "sinkhorn", "superglue_gnn", "pointconv", "fps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -112,10 +112,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of library ``name``, returning an int
-    (a ``cudaError_t``)."""
+    (a ``cudaError_t``); its argument types are set on first use (setting
+    them costs the host a few µs a launch)."""
     fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return fn
 
 
