@@ -36,7 +36,21 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    counts are read) and f32, then the rerank@128 batch (λ=4, γ=6);
    throughput, accuracies and agreement with the JAX outputs stored in the
    fixture. Wall times are medians of synchronized calls (5 for the
-   headline, 3 for rerank).
+   headline, 3 for rerank). Then one f32 rerank@128 batch, whose
+   ``top_idx`` must equal JAX's f32 one on every query or differ only by
+   near-ties below 1e-5: where JAX's own scores of two swapped candidates
+   are one (the fixture holds JAX's re-rank score of every candidate), or
+   where a candidate's score moved and taking one of its match-extraction
+   decisions within 1e-5 the other way gives JAX's stored score
+   (``explain_stage``). Then the cascade 128 → 24 (one block pair, 6
+   Sinkhorn iterations, int8 bank, λ=4, γ=6) in bf16 and f32 against JAX's
+   f32 cascade, with the same rule in f32: q/s (median of 3), accuracies,
+   the kernel launches of one batch (GNN, Sinkhorn and LSTM twice each),
+   its profile by stage (``serve.*`` ranges), a soft cheap pass and a
+   0-block one; the cascade's GNN (cheap depth, 0 blocks, full depth) and
+   Sinkhorn kernels against their plain versions on the full batch's
+   inputs of each pass, the cheap pass's kernel times at that width and
+   the device time of its int8 dequantization.
 5. Offline DB encode: the bench map rebuilt by the port's copy of the
    generator (checked against the fixture's cell boxes, sizes and scenes);
    its first 64 cells encoded with JAX's draws and held against JAX's f32
@@ -45,8 +59,19 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    launches are read; wall time of three calls, cells/s, each tower apart, a
    profile by stage); then the 2048 queries served from the rebuilt database, and from
    one rebuilt with other draws (resampling noise between two databases).
-6. A ``{"kernels": [...]}`` line, the card's name and power limit, and
-   ``{"ok": true, "device": {...}}`` as the last line.
+6. Calibrate and serve: ``calibrated_for_serving`` from the checkpoints
+   alone on the rebuilt map (phase 5's cell encodings) with the bench's
+   calibration set (the 2048 queries' hints, the model's own top-10, 128
+   cells): wall time, kernel launches, its statistics against the DB
+   cache's (printed only: other draws), serving from it (headline, gated
+   like phase 5, and the cascade); ``LocalizationServer`` from the bench
+   Cells (build time, ``localize`` in batches of 256 with its accuracy
+   gated, ``localize_stream`` equal to per-batch ``localize``) and the
+   JSON-lines CLI in-process on a small synthetic map, calibrated and not.
+7. A ``{"kernels": [...]}`` line (each entry also with its launches by
+   path: headline, cascade, DB encode, calibration, server), the card's
+   name and power limit, and ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -107,6 +132,14 @@ POINTCONV_REL_TOL = {"f32": 1e-5, "bf16": 1e-2}
 DB_F32_TOL = 1e-4
 DB_BF16_MIN_COS = 0.999
 DB_ACC_SLACK = 0.02
+# A served top_idx that differs from JAX's f32 one passes only where it is a
+# near-tie (relative margin below this) that f32 sums in another order can
+# flip: in JAX's re-rank scores of the two swapped candidates, or in a match
+# extraction decision of a candidate whose score moved, when taking that
+# decision the other way gives JAX's stored score (explain_stage).
+SWAP_REL_TOL = 1e-5
+# The plain GNN on this many pairs at a time (a few GiB of f32 activations).
+CHUNK_PAIRS = 65536
 
 KERNEL_SOURCES = {
     "lstm": ("text2pos_torch/csrc/lstm.cu",
@@ -260,6 +293,41 @@ def lstm_checks(pipe, fx, failures):
     return out
 
 
+def gnn_bound(d0, d1, packed, label: str):
+    """(bound ms, what bounds it, TFLOP) of one GNN kernel launch on
+    d0 [N, T0, E], d1 [N, T1, E] with the blocks of ``packed``."""
+    N, T0, E = d0.shape
+    T1 = d1.shape[1]
+    L = packed["wqkv"].shape[0]
+    P = T0 + T1
+    # Per pair: projections, merge and block MLPs of all rows in every
+    # block plus the final projection (matmuls, compute dtype); the
+    # attention contractions (QK^T and PV over real tokens: self blocks
+    # 16x16 and 6x6, cross blocks 16x6 twice) and the score matrix, whose
+    # operands are rounded to the compute dtype too (f32 accumulation).
+    mm = 2.0 * P * (E * 3 * E + E * E + 2 * E * 2 * E + 2 * E * E) * L \
+        + 2.0 * P * E * E
+    attn = 2 * 2.0 * E * (L // 2) * (T0 * T0 + T1 * T1 + 2 * T0 * T1) \
+        + 2.0 * E * T0 * T1
+    wbytes = sum(t.numel() * t.element_size() for t in packed.values())
+    nbytes = d0.numel() * 4 + d1.numel() * 4 + wbytes + N * T0 * T1 * 4
+    rate = PEAK_BF16 if label == "bf16" else PEAK_F32
+    return (*bound_ms([(N * (mm + attn), rate)], nbytes),
+            N * (mm + attn) / 1e12)
+
+
+def sinkhorn_bound(B: int, M: int, N: int, iters: int):
+    """(bound ms, what bounds it) of one fused Sinkhorn launch on [B, M-1,
+    N-1] scores. exp2 of 2·M·N values and log2 of M + N sums an iteration
+    on the SFUs; on the FMA pipe add, max, subtract, scale and sum per
+    value and pass (10 f32 operations); the two units run at once. Bytes:
+    the scores in, the [B, M, N] log transport out."""
+    sfu = float(iters) * B * (2 * M * N + M + N)
+    nbytes = 4.0 * (B * (M - 1) * (N - 1) + B * M * N)
+    return bound_ms([(sfu, PEAK_SFU), (10.0 * iters * B * M * N, PEAK_F32)],
+                    nbytes, overlap=True)
+
+
 def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
     """Kernel vs plain for the GNN (bf16 and f32) and Sinkhorn at the
     headline serve's pose-cell pairs (the JAX top-10 cells)."""
@@ -295,24 +363,10 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
         with torch.inference_mode():
             plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
                                reps=3, warmup=1)
-        L = packed["wqkv"].shape[0]
-        P = T0 + T1
-        # Per pair: projections, merge and block MLPs of all rows in every
-        # block plus the final projection (matmuls, compute dtype); the
-        # attention contractions (QK^T and PV over real tokens: self blocks
-        # 16x16 and 6x6, cross blocks 16x6 twice) and the score matrix, whose
-        # operands are rounded to the compute dtype too (f32 accumulation).
-        mm = 2.0 * P * (E * 3 * E + E * E + 2 * E * 2 * E + 2 * E * E) * L \
-            + 2.0 * P * E * E
-        attn = 2 * 2.0 * E * (L // 2) * (T0 * T0 + T1 * T1 + 2 * T0 * T1) \
-            + 2.0 * E * T0 * T1
-        wbytes = sum(t.numel() * t.element_size() for t in packed.values())
-        nbytes = d0.numel() * 4 + d1.numel() * 4 + wbytes + N * T0 * T1 * 4
-        rate = PEAK_BF16 if label == "bf16" else PEAK_F32
-        bnd, by = bound_ms([(N * (mm + attn), rate)], nbytes)
+        bnd, by, tflop = gnn_bound(d0, d1, packed, label)
         log(f"  superglue_gnn {label}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bnd:.4f} ms "
-            f"({N * (mm + attn) / 1e12:.3f} TFLOP)")
+            f"({tflop:.3f} TFLOP)")
         results[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                           "bound_by": by, "library_ms": None,
                           "max_abs_err": err}
@@ -348,21 +402,14 @@ def sinkhorn_checks(pipe, scores, failures):
         ms = cuda_ms(lambda: _lot_kernel(scores, alpha, iters), reps=20)
         plain_ms = cuda_ms(lambda: log_optimal_transport_plain(
             scores, alpha, iters), reps=5)
-    # exp2 of 2·M·N values and log2 of M + N sums an iteration on the SFUs;
-    # on the FMA pipe add, max, subtract, scale and sum per value and pass
-    # (10 f32 operations); the two units run at once. Bytes: the scores in,
-    # the [B, M, N] log transport out.
-    sfu = float(iters) * B * (2 * M * N + M + N)
-    nbytes = 4.0 * (B * (M - 1) * (N - 1) + B * M * N)
-    bnd, by = bound_ms([(sfu, PEAK_SFU),
-                        (10.0 * iters * B * M * N, PEAK_F32)], nbytes,
-                       overlap=True)
+    bnd, by = sinkhorn_bound(B, M, N, iters)
     # The formula before this slice: exp as one f32 operation, all at the
     # f32 rate, couplings and marginals in.
     old, _ = bound_ms([(10.0 * iters * B * M * N, PEAK_F32)],
                       4.0 * (2 * B * M * N + B * (M + N)))
     log(f"  sinkhorn (fused dustbins): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({sfu:.3g} SFU "
+        f"{plain_ms:.3f} ms, bound {bnd:.4f} ms "
+        f"({float(iters) * B * (2 * M * N + M + N):.3g} SFU "
         f"operations at {PEAK_SFU / 1e12:.2f}e12/s; by the earlier all-f32 "
         f"formula {old:.4f} ms)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
@@ -410,7 +457,7 @@ def gnn_edge_checks(label, d0, d1, packed, got, failures):
                         "no duplicate hints to check ties on")
 
 
-def serve_all(pipe, fx, top_k, *rerank, reps: int = 1):
+def serve_all(pipe, fx, top_k, *rerank, reps: int = 1, **cascade):
     """Serve every fixture query in one batch; returns numpy results and
     the median wall time of ``reps`` synchronized runs."""
     args = [torch.as_tensor(fx[k]).to(pipe.device)
@@ -419,7 +466,7 @@ def serve_all(pipe, fx, top_k, *rerank, reps: int = 1):
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = pipe.serve_batch(*args, top_k, *rerank)
+        res = pipe.serve_batch(*args, top_k, *rerank, **cascade)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     top_idx, _, pos_offsets, _ = (r.cpu().numpy() for r in res)
@@ -428,35 +475,17 @@ def serve_all(pipe, fx, top_k, *rerank, reps: int = 1):
 
 
 def profile_serve(pipe, fx) -> None:
-    """Device time of one headline serve_batch by kernel (torch.profiler)
-    and the device's busy share of the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        _, _, wall = serve_all(pipe, fx, TOP_K)
-    rows = []
-    for e in prof.key_averages():
-        # Kernels only: an operator's entry repeats its kernels' time.
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        log("  profile: the profiler recorded no device time (not measured)")
-        return
-    log(f"  profile of one headline serve_batch (torch.profiler): wall "
-        f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / (wall * 1e3):.1f}%), {len(rows)} device ops")
-    for ms, n, key in sorted(rows, reverse=True)[:12]:
-        log(f"    {ms:9.3f} ms  {n:4d}x  {key[:90]}")
-    gemms = [(ms, n, key) for ms, n, key in rows if "gemm" in key.lower()]
-    log(f"  GEMM kernels in the profile: {len(gemms)}; "
-        + "; ".join(f"{ms:.3f} ms {n}x {key[:70]}" for ms, n, key in gemms))
-    torch.cuda.synchronize()
+    """Device time of one headline serve_batch by stage (the ``serve.*``
+    profiler ranges) and by kernel (torch.profiler), the device's busy
+    share of the call's wall time, and the GEMMs PyTorch launches."""
+    prof = profile_ranges(lambda: serve_all(pipe, fx, TOP_K), "serve.")
+    log_ranges("profile of one headline serve_batch", prof)
+    if prof is not None:
+        gemms = [(ms, n, key) for key, (ms, n) in prof[2].items()
+                 if "gemm" in key.lower()]
+        log(f"  GEMM kernels in the profile: {len(gemms)}; "
+            + "; ".join(f"{ms:.3f} ms {n}x {key[:70]}"
+                        for ms, n, key in gemms))
 
 
 def subset_points(bt, dbx, dev):
@@ -696,14 +725,75 @@ def encode_split(pipe, bt, seed: int):
     return out
 
 
+def profile_ranges(fn, prefix: str):
+    """Run ``fn()`` under torch.profiler; returns (wall ms, {range: [host
+    ms, launches, device ms]}, {kernel: [device ms, launches]}) for the
+    profiler ranges named ``prefix``*, "other" holding kernels launched
+    outside them, or None when the profiler recorded no device time. The
+    profiler puts each range on the device's timeline too; a kernel belongs
+    to the range whose device span holds its start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans, kernels = [], []
+    stages = collections.defaultdict(lambda: [0.0, 0, 0.0])
+    for e in prof.events():
+        on_device = "CUDA" in str(getattr(e, "device_type", ""))
+        if e.name.startswith(prefix):
+            if on_device:
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            else:
+                stages[e.name][0] += e.cpu_time_total / 1e3
+        elif on_device:
+            kernels.append(e)
+    if not kernels:
+        return None
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        t = k.time_range.elapsed_us() / 1e3
+        stage = next((n for a, b, n in spans if a <= k.time_range.start < b),
+                     "other")
+        stages[stage][1] += 1
+        stages[stage][2] += t
+        by_name[k.name][0] += t
+        by_name[k.name][1] += 1
+    return wall, dict(stages), dict(by_name)
+
+
+def log_ranges(what: str, prof) -> None:
+    if prof is None:
+        log(f"  {what}: the profiler recorded no device time (not "
+            "measured)")
+        return
+    wall, stages, by_name = prof
+    busy = sum(v[2] for v in stages.values())
+    log(f"  {what} (torch.profiler): wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(v[1] for v in stages.values())} launches of {len(by_name)} "
+        "kernels")
+    for stage in sorted(stages):
+        host, n, dev = stages[stage]
+        log(f"    stage {stage}: host {host:.3f} ms, {n} launches, "
+            f"{dev:.3f} ms on the device ({100 * dev / max(busy, 1e-9):.1f}%"
+            " of the device time)")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :8]:
+        log(f"    {t:9.3f} ms  {n:5d}x  {name[:90]}")
+
+
 def profile_db(pipe, bt) -> None:
     """Where one step's coarse and fine encode spends its time: per
     PointNet++ stage (the ``pointnet.*`` profiler ranges; "other" is the
     rest: resampling, the object encoder's MLPs, EdgeConv), the host's time
     in the ranges and the device time of the kernels launched inside them;
     the top kernels; the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from text2pos_torch.evaluation.pipeline import (DB_CHUNK,
                                                     encode_coarse_cells,
                                                     encode_fine_cells)
@@ -711,55 +801,13 @@ def profile_db(pipe, bt) -> None:
     chunk = min(DB_CHUNK, bt["mask"].shape[0])
     idx = torch.arange(chunk, device=pipe.device)
     gen = torch.Generator(device=pipe.device).manual_seed(2)
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            acc_events=True) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+
+    def step():
         encode_coarse_cells(pipe.coarse, bt, idx, gen)
         encode_fine_cells(pipe.fine, bt, idx, pipe.cfg.pad_size, gen)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    # The profiler puts each range on the device's timeline too; a kernel
-    # belongs to the stage whose device span holds its start.
-    spans, kernels = [], []
-    host = collections.defaultdict(float)
-    for e in prof.events():
-        on_device = "CUDA" in str(getattr(e, "device_type", ""))
-        if e.name.startswith("pointnet."):
-            if on_device:
-                spans.append((e.time_range.start, e.time_range.end, e.name))
-            else:
-                host[e.name] += e.cpu_time_total / 1e3
-        elif on_device:
-            kernels.append(e)
-    if not kernels:
-        log("  db profile: the profiler recorded no device time (not "
-            "measured)")
-        return
-    dev = collections.defaultdict(float)
-    count = collections.Counter()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for k in kernels:
-        t = k.time_range.elapsed_us() / 1e3
-        stage = next((n for a, b, n in spans if a <= k.time_range.start < b),
-                     "other")
-        dev[stage] += t
-        count[stage] += 1
-        by_name[k.name][0] += t
-        by_name[k.name][1] += 1
-    busy = sum(dev.values())
-    log(f"  db profile, coarse + fine encode of {chunk} cells "
-        f"(torch.profiler): wall {wall:.2f} ms, device busy {busy:.2f} ms "
-        f"({100 * busy / wall:.1f}%), {len(kernels)} launches of "
-        f"{len(by_name)} kernels")
-    for stage in sorted(set(dev) | set(host)):
-        log(f"    stage {stage}: host {host.get(stage, 0.0):.3f} ms, "
-            f"{count[stage]} launches, {dev.get(stage, 0.0):.3f} ms on the "
-            "device")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :8]:
-        log(f"    {t:9.3f} ms  {n:5d}x  {name[:90]}")
+
+    log_ranges(f"db profile, coarse + fine encode of {chunk} cells",
+               profile_ranges(step, "pointnet."))
 
 
 def timed_encode(pipe, bank, seed):
@@ -773,7 +821,7 @@ def timed_encode(pipe, bank, seed):
 def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     """Phase 5's main path: every cell encoded in bf16, then the bench
     queries served from that database. Returns the kernel launches of the
-    first encode."""
+    first encode and its cell encodings."""
     from text2pos_torch.evaluation.metrics import served_accuracies
     from text2pos_torch.ops import _build
 
@@ -810,7 +858,7 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     if not finite or cell_enc.shape != pipe_bf16.cell_enc.shape or \
             fb_enc.shape != pipe_bf16.fine_bank_enc.shape:
         failures.append("encode_database: malformed output")
-        return launches
+        return launches, cell_enc
 
     def cosines(label, ref):
         cos = {n: torch.nn.functional.cosine_similarity(a, b, dim=-1)
@@ -843,6 +891,583 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     if abs(accs[TOP_K][15] - jax_t10) > DB_ACC_SLACK:
         failures.append(f"serve from the rebuilt database: top-10@15m "
                         f"{accs[TOP_K][15]} vs JAX {jax_t10}")
+    return launches, cell_enc
+
+
+def near_tie_flips(z: torch.Tensor, threshold: float):
+    """Each match-extraction decision of one pair whose relative margin is
+    below SWAP_REL_TOL, taken the other way: yields (what, margin, z') with
+    z' the log transport z [M+1, N+1] (f32) moved by that margin at one
+    entry and at its copies in bit-identical rows and columns (duplicate
+    hints give equal columns, here as in JAX). The decisions are each
+    row's and each column's largest transport against its second largest
+    (the mutual max: raise the second just above the first, or lower the
+    first just below the second) and each row's largest against the
+    threshold (moved just across it)."""
+    p = z[:-1, :-1].exp()
+    M, N = p.shape
+    up, down = torch.tensor(math.inf), torch.tensor(-math.inf)
+
+    def moved(at, value):
+        rows = [k for k in range(M) if torch.equal(z[k], z[at[0]])]
+        cols = [k for k in range(N) if torch.equal(z[:, k], z[:, at[1]])]
+        zz = z.clone()
+        for i in rows:
+            zz[i, cols] = value
+        return zz
+
+    pairs = [(f"row {i}", (i, int(j[0])), (i, int(j[1])))
+             for i, j in enumerate(p.topk(2, dim=1).indices)]
+    pairs += [(f"column {j}", (int(i[0]), j), (int(i[1]), j))
+              for j, i in enumerate(p.topk(2, dim=0).indices.T)]
+    for what, hi, lo in pairs:
+        margin = float((p[hi] - p[lo]) / p[hi])
+        if margin < SWAP_REL_TOL:
+            for at, to, way in ((lo, hi, up), (hi, lo, down)):
+                yield (f"{what}'s {hi} against {lo}", margin,
+                       moved(at, torch.nextafter(z[to], way)))
+    for i, j in enumerate(p.argmax(1).tolist()):
+        margin = abs(float(p[i, j]) - threshold) / threshold
+        if margin < SWAP_REL_TOL:
+            v, above = z[i, j], bool(p[i, j] > threshold)
+            while bool(v.exp() > threshold) == above:
+                v = torch.nextafter(v, down if above else up)
+            yield (f"row {i}'s match against the threshold", margin,
+                   moved((i, j), v))
+
+
+def candidate_score(pipe, z, offsets, ctr, sim, lam, gam) -> float:
+    """``conf + λ·sim − γ·spread`` of one candidate from its log transport
+    z [M+1, N+1], hint offsets [H, 2] and object centers [pad, 2], by
+    ``serve_batch``'s arithmetic."""
+    from text2pos_torch.evaluation.pipeline import (_match_confidence_scores,
+                                                    _match_vote_spread)
+    from text2pos_torch.ops.sinkhorn import extract_matches
+
+    out = extract_matches(z[None], pipe.fine.superglue.match_threshold)
+    conf = _match_confidence_scores(out["matches0"][None],
+                                    out["matching_scores0"][None])
+    spread = _match_vote_spread(out["matches1"][None], offsets[None, None],
+                                ctr[None, None])
+    return float(conf.float() + lam * sim - gam * spread.float())
+
+
+def stage_candidates(pipe, fx, r: int, kept=None, cheap=None):
+    """The port's data of query r's candidates in one stage, as
+    ``serve_batch`` computes them (each pair's kernels do not depend on its
+    batch): over the coarse top-rerank_k, or over ``kept`` [K'] cells; with
+    ``cheap`` = (q, scale, layers, iters) the cascade's cheap pass on the
+    int8 bank. Returns a dict of cells, re-rank scores (numpy), and sims,
+    log transports Z, hint offsets and object centers, one row a cell."""
+    from text2pos_torch.ops.retrieval import topk_retrieval
+
+    rk, lam, gam = fx["rerank"]
+    dev = pipe.device
+    q = [torch.as_tensor(fx[k][r:r + 1], device=dev)
+         for k in ("tokens", "lengths", "hint_tokens", "hint_lengths")]
+    with torch.inference_mode():
+        sims, cells = topk_retrieval(pipe.coarse.encode_text(q[0], q[1]),
+                                     pipe.cell_enc, int(rk))
+        if kept is not None:
+            pos = {int(c): i for i, c in enumerate(cells[0])}
+            sel = torch.as_tensor([pos[int(c)] for c in kept], device=dev)
+            cells, sims = cells[:, sel], sims[:, sel]
+        hint_enc = pipe.fine.encode_hints(q[2], q[3])
+        layers = iters = None
+        if cheap is not None:
+            qb, qs, layers, iters = cheap
+            dt = pipe.fine.superglue.dtype or torch.float32
+            obj = (pipe._gather(cells, qb).to(dt)
+                   * pipe._gather(cells, qs).to(dt))
+        else:
+            obj = pipe._gather(cells, pipe.fine_bank_enc)
+        ctr = pipe._gather(cells, pipe.fine_bank_centers)
+        *_, conf, spread = pipe._match_from_enc(obj, ctr, hint_enc, layers,
+                                                iters)
+        out = pipe.fine.match_encoded(obj[0], hint_enc.expand(
+            obj.shape[1], -1, -1), layers, iters)
+        score = conf.float() + float(lam) * sims.float() \
+            - float(gam) * spread.float()
+    return {"cells": cells[0].cpu().numpy(), "scores": score[0].cpu().numpy(),
+            "sims": sims[0].float().cpu(), "Z": out["log_P"].float().cpu(),
+            "offsets": out["offsets"].float().cpu(),
+            "ctr": ctr[0].float().cpu()}
+
+
+def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
+                  excused=frozenset()):
+    """Whether the port's ranking ``got_row`` of one stage differs from
+    JAX's ``want_row`` only by near-ties; returns (ok, notes). ``st`` is
+    the port's stage (``stage_candidates``), ``jcands``/``jscores`` JAX's
+    candidates and re-rank scores of it. Every candidate at a differing
+    position must have the port's score within SWAP_REL_TOL of JAX's, or a
+    match-extraction decision within SWAP_REL_TOL (``near_tie_flips``)
+    that, taken the other way, gives JAX's score within SWAP_REL_TOL: the
+    witness is JAX's stored score, not the port's transport. With those
+    witnessed scores in place of the port's, the stable re-rank of the
+    port's candidates must give JAX's ranking, but at positions where
+    JAX's own scores of the two candidates differ by less than SWAP_REL_TOL.
+    Cells in ``excused`` (dropped at an earlier, explained stage) are
+    skipped."""
+    _, lam, gam = (float(v) for v in fx["rerank"])
+    jscore = {int(c): float(s) for c, s in zip(jcands, jscores)}
+    pos = {int(c): i for i, c in enumerate(st["cells"])}
+    score = [float(s) for s in st["scores"]]
+    ok, notes = True, []
+
+    def near(x, y):
+        return abs(x - y) <= SWAP_REL_TOL * max(abs(y), 1e-30)
+
+    def ranking(s):
+        order = sorted(range(len(s)), key=lambda i: -s[i])      # stable
+        return [int(st["cells"][i]) for i in order[:len(want_row)]]
+
+    if ranking(score) != [int(c) for c in got_row]:
+        return False, ["the port's scores of the stage recomputed here do "
+                       "not give the served ranking"]
+    moved = sorted({int(c) for g, w in zip(got_row, want_row) if g != w
+                    for c in (g, w)} - set(excused))
+    for c in moved:
+        if c not in pos or c not in jscore:
+            ok = False
+            notes.append(f"candidate {c} is not among both sides' candidates")
+            continue
+        i = pos[c]
+        args = (st["offsets"][i], st["ctr"][i], float(st["sims"][i]), lam,
+                gam)
+        mine, theirs = score[i], jscore[c]
+        if not near(candidate_score(pipe, st["Z"][i], *args), mine):
+            ok = False
+            notes.append(f"candidate {c}: its score recomputed from its "
+                         f"transport differs from the served {mine:.6f}")
+            continue
+        if near(mine, theirs):
+            continue
+        for what, margin, z in near_tie_flips(st["Z"][i],
+                                              pipe.fine.superglue
+                                              .match_threshold):
+            flipped = candidate_score(pipe, z, *args)
+            if near(flipped, theirs):
+                score[i] = flipped
+                notes.append(f"candidate {c}'s score {mine:.6f} here, "
+                             f"{theirs:.6f} in JAX; {what} (margin "
+                             f"{margin:.3e}) taken the other way gives "
+                             f"{flipped:.6f}")
+                break
+        else:
+            ok = False
+            notes.append(f"candidate {c}'s score {mine:.6f} here, "
+                         f"{theirs:.6f} in JAX, and no match-extraction "
+                         f"decision within {SWAP_REL_TOL:g} explains it")
+    for a, b in zip(ranking(score), want_row):
+        b = int(b)
+        if a == b or a in excused or b in excused:
+            continue
+        gap = (abs(jscore[a] - jscore[b]) / max(abs(jscore[a]),
+                                                abs(jscore[b]), 1e-30)
+               if a in jscore and b in jscore else math.inf)
+        notes.append(f"{a} before {b}: JAX's scores of the two differ by "
+                     f"{gap:.3e} relative")
+        ok = ok and gap < SWAP_REL_TOL
+    return ok, notes
+
+
+def explain_swaps(pipe, fx, got, stage: str, cheap=None):
+    """Rows where the served ``got`` [Q, K] differs from JAX's f32
+    ``top_idx`` of ``stage`` ("rerank" or "cascade"), each with (row, ok,
+    notes) from ``explain_stage``. In the cascade, a cheap pass that kept
+    other cells than JAX's is explained first (its 24 survivors against
+    JAX's, on the cheap scores), then the full pass on the port's
+    survivors, where cells that JAX dropped are excused."""
+    want = fx[f"jax_{stage}_top_idx"]
+    out = []
+    for r in np.flatnonzero((got != want).any(1)):
+        r = int(r)
+        jc = fx["jax_rerank_cands"][r]
+        if stage == "rerank":
+            ok, notes = explain_stage(pipe, fx, got[r], want[r],
+                                      stage_candidates(pipe, fx, r), jc,
+                                      fx["jax_rerank_scores"][r])
+            out.append((r, ok, notes))
+            continue
+        jkept = [int(c) for c in fx["jax_cascade_kept"][r]]
+        st = stage_candidates(pipe, fx, r, cheap=cheap)
+        order = np.argsort(-st["scores"], kind="stable")[:len(jkept)]
+        kept = [int(c) for c in st["cells"][order]]
+        ok, notes, excused = True, [], frozenset()
+        if set(kept) != set(jkept):
+            ok, notes = explain_stage(pipe, fx, kept, jkept, st, jc,
+                                      fx["jax_cascade_cheap_scores"][r])
+            notes = [f"cheap pass: {n}" for n in notes]
+            excused = frozenset(kept) ^ frozenset(jkept)
+        ok2, notes2 = explain_stage(
+            pipe, fx, got[r], want[r], stage_candidates(pipe, fx, r, kept),
+            jkept, fx["jax_cascade_scores"][r], excused)
+        out.append((r, ok and ok2, notes + [f"full pass: {n}"
+                                            for n in notes2]))
+    return out
+
+
+def report_swaps(label: str, swaps, n: int, failures: list) -> None:
+    """Logs each differing row and why it is a near-tie; fails on a row
+    that is not one."""
+    log(f"  {label}: top_idx identical to JAX's on {n - len(swaps)} of {n} "
+        f"queries; {len(swaps)} differ")
+    for r, ok, notes in swaps:
+        log(f"    query {r}: {'; '.join(notes)}: "
+            f"{'near-ties' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label}: query {r} differs from JAX without a "
+                            f"near-tie ({notes})")
+
+
+def f32_rerank_check(pipe_f32, fx, failures):
+    """One f32 rerank@128 batch of the 2048 queries against JAX's f32
+    ``top_idx``: identical, or each differing row explained by near-ties
+    (``explain_stage``)."""
+    rk, lam, gam = fx["rerank"]
+    ti, _, sec = serve_all(pipe_f32, fx, TOP_K, int(rk), float(lam),
+                           float(gam))
+    log(f"  serve f32 rerank@{int(rk)}: {len(ti)} queries in "
+        f"{sec * 1e3:.1f} ms")
+    report_swaps(f"f32 rerank@{int(rk)}",
+                 explain_swaps(pipe_f32, fx, ti, "rerank"), len(ti),
+                 failures)
+
+
+def cascade_kernel_checks(pipe, fx, casc, cheap, failures):
+    """The cascade's kernels against their plain versions on the inputs of
+    its batch of all 2048 queries: the cheap pass's GNN at its depth and at
+    0 blocks and its Sinkhorn at the cheap iterations on the int8 bank's
+    262,144 pairs, the full pass's GNN (12 blocks) and Sinkhorn (50
+    iterations) on its 49,152 survivors (the plain GNN in slices of
+    CHUNK_PAIRS pairs to bound its memory; the kernel on all at once). Also
+    the cheap pass's kernel times and bounds at that width, and the device
+    time of its descriptors' gather, int8 dequantization and f32 widening
+    before the GNN kernel."""
+    from text2pos_torch.evaluation.pipeline import _take
+    from text2pos_torch.ops.retrieval import topk_retrieval
+    from text2pos_torch.ops.sinkhorn import (_lot_kernel,
+                                             log_optimal_transport_plain)
+    from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
+                                                  gnn_scores_plain)
+
+    rk, lam, gam, m, L, S = casc
+    sg = pipe.fine.superglue
+    dt = sg.dtype or torch.float32
+    label = "bf16" if dt == torch.bfloat16 else "f32"
+    qb, qs = cheap
+    dev = pipe.device
+    with torch.inference_mode():
+        tokens, lengths = (torch.as_tensor(fx[k], device=dev)
+                           for k in ("tokens", "lengths"))
+        sims, wide = topk_retrieval(pipe.coarse.encode_text(tokens, lengths),
+                                    pipe.cell_enc, rk)
+        hint_enc = pipe.fine.encode_hints(
+            torch.as_tensor(fx["hint_tokens"], device=dev),
+            torch.as_tensor(fx["hint_lengths"], device=dev))
+        keep = pipe._cheap_keep(wide, sims, hint_enc, m, L, S, False, qb, qs,
+                                lam, gam)
+        kept = _take(wide, keep).reshape(-1)
+        flat = wide.reshape(-1)
+
+        def dequant():
+            return (qb[flat].to(dt) * qs[flat].to(dt)).float().contiguous()
+
+        d0 = dequant()
+        d1 = hint_enc.repeat_interleave(rk, dim=0).contiguous()
+        f0 = pipe.fine_bank_enc[kept].contiguous()
+        f1 = hint_enc.repeat_interleave(m, dim=0).contiguous()
+    alpha = sg.bin_score.detach()
+    out = {}
+    for where, x0, x1, layers, iters in (
+            ("cheap pass", d0, d1, L, S), ("cheap pass", d0, d1, 0, None),
+            ("full pass", f0, f1, sg.num_layers, sg.sinkhorn_iterations)):
+        packed = sg.packed_kernel_params(layers)
+        N = x0.shape[0]
+        with torch.inference_mode():
+            got = _gnn_kernel(x0, x1, packed)
+            err = scale = 0.0
+            for s in range(0, N, CHUNK_PAIRS):
+                want = gnn_scores_plain(x0[s:s + CHUNK_PAIRS],
+                                        x1[s:s + CHUNK_PAIRS], packed)
+                err = max(err, max_err(got[s:s + CHUNK_PAIRS], want))
+                scale = max(scale, float(want.abs().max()))
+                del want
+            torch.cuda.synchronize()
+        check(f"superglue_gnn {label} {where} blocks={2 * layers} N={N} "
+              f"(|scores| max {scale:.2f})", err,
+              GNN_REL_TOL[label] * scale, failures)
+        if iters is None:
+            continue
+        with torch.inference_mode():
+            err = max_err(_lot_kernel(got, alpha, iters),
+                          log_optimal_transport_plain(got, alpha, iters))
+            torch.cuda.synchronize()
+        check(f"sinkhorn {where} B={N} iters={iters}", err, TOL["sinkhorn"],
+              failures)
+    packed = sg.packed_kernel_params(L)
+    with torch.inference_mode():
+        out["dequant_ms"] = cuda_ms(dequant, reps=5)
+        out["gnn_ms"] = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
+        scores = _gnn_kernel(d0, d1, packed)
+        out["sinkhorn_ms"] = cuda_ms(lambda: _lot_kernel(scores, alpha, S),
+                                     reps=5)
+    N = d0.shape[0]
+    out["gnn_bound_ms"] = gnn_bound(d0, d1, packed, label)[0]
+    out["sinkhorn_bound_ms"] = sinkhorn_bound(N, scores.shape[1] + 1,
+                                              scores.shape[2] + 1, S)[0]
+    log(f"  cheap pass {label} at full width, N={N} pairs: descriptors' "
+        f"gather, dequantization and f32 widening {out['dequant_ms']:.3f} ms, "
+        f"GNN kernel ({2 * L} blocks) {out['gnn_ms']:.3f} ms (bound "
+        f"{out['gnn_bound_ms']:.4f} ms), Sinkhorn kernel ({S} iterations) "
+        f"{out['sinkhorn_ms']:.3f} ms (bound "
+        f"{out['sinkhorn_bound_ms']:.4f} ms)")
+    return out
+
+
+def cascade_checks(pipe_bf16, pipe_f32, fx, failures):
+    """The cascade 128 → 24 (one block pair, 6 Sinkhorn iterations, int8
+    bank, λ=4, γ=6) on the 2048 queries in bf16 and f32: q/s (median of 3),
+    accuracies, top_idx against JAX's f32 cascade; the kernel launches of
+    one bf16 batch; its profile; a soft cheap pass and a 0-block one."""
+    from text2pos_torch.evaluation.metrics import served_accuracies
+    from text2pos_torch.evaluation.pipeline import quantize_fine_bank
+    from text2pos_torch.ops import _build
+
+    rk, m, L, S, lam, gam = fx["cascade"]
+    casc = (int(rk), float(lam), float(gam), int(m), int(L), int(S))
+    jax_t10 = float(fx["jax_cascade_top10_at_15m"])
+    res = {"launches": {}}
+    cheap = {}
+    for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
+        cheap[label] = quantize_fine_bank(pipe.fine_bank_enc)
+        kw = dict(cheap_bank=cheap[label][0], cheap_scale=cheap[label][1])
+        serve_all(pipe, fx, TOP_K, *casc, **kw)               # warm-up
+        if label == "bf16":
+            _build.LAUNCHES.clear()
+            serve_all(pipe, fx, TOP_K, *casc, **kw)     # the cascade path
+            res["launches"] = dict(_build.LAUNCHES)
+            log(f"  kernel launches in one cascade batch: "
+                f"{res['launches']}")
+            for name in ("superglue_gnn", "sinkhorn", "lstm"):
+                if res["launches"].get(name, 0) != 2:
+                    failures.append(f"cascade: {name} launched "
+                                    f"{res['launches'].get(name, 0)} times "
+                                    "in a batch, not 2")
+            log_ranges("profile of one bf16 cascade batch", profile_ranges(
+                lambda: serve_all(pipe, fx, TOP_K, *casc, **kw), "serve."))
+        ti, po, sec = serve_all(pipe, fx, TOP_K, *casc, reps=3, **kw)
+        accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+        same = float((ti == fx["jax_cascade_top_idx"]).mean())
+        Q = len(ti)
+        log(f"  serve {label} cascade@{casc[0]}->m{casc[3]} "
+            f"(L{casc[4]}:S{casc[5]}, int8 bank, lambda={lam:g}, "
+            f"gamma={gam:g}): {Q} queries in {sec * 1e3:.2f} ms = "
+            f"{Q / sec:.1f} q/s; top-10@15m {accs[TOP_K][15]:.4f} (JAX f32 "
+            f"{jax_t10:.4f}), top-1@15m {accs[1][15]:.4f} (JAX f32 "
+            f"{float(fx['jax_cascade_top1_at_15m']):.4f}); identical top_idx "
+            f"{same:.4f}")
+        res[label] = {"ms": sec * 1e3, "qps": Q / sec,
+                      "top10_at_15m": accs[TOP_K][15],
+                      "top1_at_15m": accs[1][15], "identical": same}
+        if not np.isfinite(po).all() or ti.shape != (Q, TOP_K):
+            failures.append(f"cascade {label}: malformed output")
+        if abs(accs[TOP_K][15] - jax_t10) > ACC_SLACK:
+            failures.append(f"cascade {label}: top-10@15m "
+                            f"{accs[TOP_K][15]} vs JAX {jax_t10}")
+        if label == "f32":
+            report_swaps("f32 cascade", explain_swaps(
+                pipe, fx, ti, "cascade", (*cheap[label], casc[4], casc[5])),
+                Q, failures)
+    for label, pipe, variant in (
+            ("bf16", pipe_bf16, "soft"), ("bf16", pipe_bf16, "L0"),
+            ("f32", pipe_f32, "L0")):
+        c = list(casc)
+        if variant == "L0":
+            c[4] = 0
+        _build.LAUNCHES.clear()
+        ti, po, sec = serve_all(pipe, fx, TOP_K, *c,
+                                prune_soft=variant == "soft",
+                                cheap_bank=cheap[label][0],
+                                cheap_scale=cheap[label][1])
+        n_gnn = _build.LAUNCHES.get("superglue_gnn", 0)
+        accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+        log(f"  serve {label} cascade, {variant} cheap pass "
+            f"(L{c[4]}:S{c[5]}, int8 bank): {sec * 1e3:.2f} ms; "
+            f"top-10@15m {accs[TOP_K][15]:.4f}, top-1@15m "
+            f"{accs[1][15]:.4f}; GNN kernel launches {n_gnn}")
+        res[f"{label}_{variant}_top10_at_15m"] = accs[TOP_K][15]
+        if not np.isfinite(po).all() or n_gnn != 2:
+            failures.append(f"cascade {label} {variant}: malformed output "
+                            f"or {n_gnn} GNN launches")
+    res["kernels"] = {label: cascade_kernel_checks(
+        pipe, fx, casc, cheap[label], failures)
+        for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32))}
+    return res
+
+
+def stats_vs_cache(got, want, path=()):
+    """(leaf path, median, max) of |got − want| / max|want| over every BN
+    statistics leaf of the JAX-layout tree ``want``."""
+    if isinstance(want, dict):
+        for k, v in want.items():
+            yield from stats_vs_cache(got[k], v, path + (k,))
+        return
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(g - w) / max(np.abs(w).max(), 1e-30)
+    yield "/".join(path), float(np.median(d)), float(d.max())
+
+
+def world_accuracy(fx, out, k: int = TOP_K, thresh: float = 15.0) -> float:
+    """Top-k accuracy of a server's world positions: the best of the first
+    k within ``thresh`` m of the pose, in the pose's scene."""
+    d = np.linalg.norm(out["positions_k"][:, :k, 0:2]
+                       - fx["pose_xy"][:, None, :], axis=-1)
+    same = fx["cell_scene"][out["top_cells"][:, :k]] == \
+        fx["pose_scene"][:, None]
+    return float((np.where(same, d, np.inf) <= thresh).any(1).mean())
+
+
+def calibrate_and_serve(cells, poses, bank, cell_enc, fx, failures):
+    """Phase 6. ``calibrated_for_serving`` on the card from the committed
+    checkpoints alone and the port's rebuilt map (phase 5's cell
+    encodings), on the bench's calibration set: the 2048 queries' hints and
+    the model's own top-10 retrievals, 128 cells; its statistics against
+    the DB cache's (the port's draws against JAX's: printed only); serving
+    from it; then ``LocalizationServer`` end to end and its JSON-lines CLI.
+    Returns the kernel launches of the calibration and of the server's
+    ``localize`` calls."""
+    import contextlib
+    import io
+
+    from text2pos_torch import serving
+    from text2pos_torch.data.hints import create_hint_description
+    from text2pos_torch.evaluation.metrics import served_accuracies
+    from text2pos_torch.evaluation.pipeline import (LocalizationPipeline,
+                                                    quantize_fine_bank)
+    from text2pos_torch.ops import _build
+    from text2pos_torch.ops.retrieval import topk_retrieval
+    from text2pos_torch.utils.msgpack_io import msgpack_restore
+
+    jax_t10 = float(fx["jax_top10_at_15m"])
+    dev = cell_enc.device
+    base = LocalizationPipeline.from_checkpoints(
+        CKPT_COARSE, CKPT_FINE, None, dtype="bfloat16", device=dev)
+    base = base.with_database(cell_enc, None, None)
+    with torch.inference_mode():
+        enc = base.coarse.encode_text(
+            torch.as_tensor(fx["tokens"], device=dev),
+            torch.as_tensor(fx["lengths"], device=dev))
+        cal_idx = topk_retrieval(enc, cell_enc, TOP_K)[1]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cal = base.calibrated_for_serving(bank, fx["hint_tokens"],
+                                      fx["hint_lengths"], cal_idx,
+                                      max_cells=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"calibrate": dict(_build.LAUNCHES)}
+    log(f"  calibrated_for_serving bf16 (128 cells, {len(cal_idx)} queries "
+        f"x top-{TOP_K}, {bank.num_cells} cells re-encoded): {wall:.3f} s; "
+        f"kernel launches {launches['calibrate']}")
+    with np.load(DB_CACHE) as z:
+        cache = msgpack_restore(z["batch_stats"].tobytes())
+    rows = list(stats_vs_cache(cal.batch_stats(), cache))
+    log(f"  calibrated statistics vs the DB cache's (JAX's draws and "
+        f"calibration), |diff| / max|cache| per leaf, {len(rows)} leaves: "
+        f"median of medians {np.median([r[1] for r in rows]):.4f}, largest "
+        f"max {max(r[2] for r in rows):.4f}")
+    for name, med, mx in rows:
+        log(f"    {name}: median {med:.4f} max {mx:.4f}")
+    ti, po, sec = serve_all(cal, fx, TOP_K, reps=3)
+    accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+    log(f"  serve bf16 from the port's own calibration: {len(ti)} queries "
+        f"in {sec * 1e3:.2f} ms = {len(ti) / sec:.1f} q/s; top-10@15m "
+        f"{accs[TOP_K][15]:.4f} (JAX {jax_t10:.4f}, gate +-{DB_ACC_SLACK}),"
+        f" top-1@15m {accs[1][15]:.4f}")
+    if not np.isfinite(po).all() or \
+            abs(accs[TOP_K][15] - jax_t10) > DB_ACC_SLACK:
+        failures.append(f"serve from the port's calibration: top-10@15m "
+                        f"{accs[TOP_K][15]} vs JAX {jax_t10}")
+    rk, m, L, S, lam, gam = fx["cascade"]
+    qb, qs = quantize_fine_bank(cal.fine_bank_enc)
+    ti, po, sec = serve_all(cal, fx, TOP_K, int(rk), float(lam), float(gam),
+                            int(m), int(L), int(S), reps=3, cheap_bank=qb,
+                            cheap_scale=qs)
+    accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+    log(f"  serve bf16 cascade from the port's own calibration: "
+        f"{sec * 1e3:.2f} ms = {len(ti) / sec:.1f} q/s; top-10@15m "
+        f"{accs[TOP_K][15]:.4f} (JAX f32 from the cache "
+        f"{float(fx['jax_cascade_top10_at_15m']):.4f}), top-1@15m "
+        f"{accs[1][15]:.4f}")
+
+    # LocalizationServer: the map from the Cells, calibrated on the bench
+    # queries' hints (the bench's calibration set).
+    hints = [create_hint_description(p) for p in poses]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv = serving.LocalizationServer(CKPT_COARSE, CKPT_FINE, cells,
+                                     calibration_hints=hints, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = [hints[i:i + 256] for i in range(0, len(hints), 256)]
+    srv.localize(batches[0])                                  # warm-up
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [srv.localize(b) for b in batches]
+    wall = time.perf_counter() - t0
+    launches["server"] = dict(_build.LAUNCHES)
+    merged = {k: np.concatenate([o[k] for o in outs])
+              for k in ("top_cells", "positions_k")}
+    acc = world_accuracy(fx, merged)
+    log(f"  LocalizationServer: built in {build_s:.2f} s (map bank, cell "
+        f"encode, calibration); localize of {len(hints)} queries in "
+        f"{len(batches)} batches of 256 in {wall * 1e3:.1f} ms = "
+        f"{len(hints) / wall:.1f} q/s (host decode included); top-10@15m "
+        f"{acc:.4f} (JAX {jax_t10:.4f}, gate +-{DB_ACC_SLACK}); kernel "
+        f"launches {launches['server']}")
+    if abs(acc - jax_t10) > DB_ACC_SLACK:
+        failures.append(f"LocalizationServer: top-10@15m {acc} vs JAX "
+                        f"{jax_t10}")
+    streamed = list(srv.localize_stream(batches))
+    equal = len(streamed) == len(outs) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(streamed, outs)
+        for k in ("top_cells", "positions_k", "confidences"))
+    log(f"  localize_stream over the {len(batches)} batches equals "
+        f"per-batch localize: {equal} {'ok' if equal else 'FAIL'}")
+    if not equal:
+        failures.append("localize_stream differs from per-batch localize")
+
+    # The CLI in-process on a small synthetic map, calibrated and not.
+    from text2pos_torch.data.synthetic import make_synthetic_dataset
+
+    _, spose = make_synthetic_dataset(seed=3)
+    lines = [json.dumps({"hints": create_hint_description(p), "id": i})
+             for i, p in enumerate(spose[:10])]
+    for extra in ([], ["--no_calibrate"]):
+        sys_stdin, out, err = sys.stdin, io.StringIO(), io.StringIO()
+        sys.stdin = io.StringIO("\n".join(lines))
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                serving.main(["--path_coarse", CKPT_COARSE, "--path_fine",
+                              CKPT_FINE, "--synthetic_seed", "3", "--batch",
+                              "4", "--device", str(dev), *extra])
+        finally:
+            sys.stdin = sys_stdin
+        res = [json.loads(x) for x in out.getvalue().splitlines()]
+        ok = [r["id"] for r in res] == list(range(len(lines))) and all(
+            math.isfinite(v) for r in res for v in r["position"])
+        stats = [x for x in err.getvalue().splitlines()
+                 if x.startswith("# stats")]
+        log(f"  CLI {' '.join(extra) or '(calibrated)'} on the seed-3 "
+            f"synthetic map: {len(res)} results for {len(lines)} lines "
+            f"{'ok' if ok else 'FAIL'}; {stats[0] if stats else 'no stats'}")
+        if not ok:
+            failures.append(f"CLI {extra}: bad results")
     return launches
 
 
@@ -901,7 +1526,8 @@ def main() -> int:
     log(f"checkpoints loaded by the port's reader in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    bank = bench_cell_bank(make_bench_dataset()[0])
+    cells, poses = make_bench_dataset()
+    bank = bench_cell_bank(cells)
     scenes = np.array([c.split("_")[0] for c in bank.cell_ids])
     same_map = (np.array_equal(bank.bbox_w[:, 0:2], fx["cell_bbox_xy"])
                 and np.array_equal(bank.cell_size, fx["cell_size"])
@@ -970,20 +1596,37 @@ def main() -> int:
     if abs(accs[TOP_K][15] - jax_rr) > ACC_SLACK:
         failures.append(f"rerank: top-10@15m {accs[TOP_K][15]} vs JAX "
                         f"{jax_rr}")
+    f32_rerank_check(pipe_f32, fx, failures)
+    cascade = cascade_checks(pipe_bf16, pipe_f32, fx, failures)
 
     log("phase 5 offline DB encode")
     db_subset_checks(pipe_bf16, pipe_f32, bt, dbx, failures)
-    db = db_encode_and_serve(pipe_bf16, bank, bt, fx, top_idx, failures)
+    db, cell_enc = db_encode_and_serve(pipe_bf16, bank, bt, fx, top_idx,
+                                       failures)
+    by_path = {"serve": dict(launches), "cascade": cascade["launches"],
+               "db_encode": db}
     for name in ("fps", "pointconv"):
         launches[name] = db.get(name, 0)
 
-    gnn = dict(gs["bf16"], f32=gs["f32"])
-    per_kernel = {"lstm": lstm, "sinkhorn": gs["sinkhorn"],
+    log("phase 6 calibrate and serve")
+    by_path.update(calibrate_and_serve(cells, poses, bank, cell_enc, fx,
+                                       failures))
+
+    gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
+        k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
+            "dequant_ms": v["dequant_ms"]}
+        for k, v in cascade["kernels"].items()})
+    sinkhorn = dict(gs["sinkhorn"], cascade_cheap_pass={
+        k: {"ms": v["sinkhorn_ms"], "bound_ms": v["sinkhorn_bound_ms"]}
+        for k, v in cascade["kernels"].items()})
+    per_kernel = {"lstm": lstm, "sinkhorn": sinkhorn,
                   "superglue_gnn": gnn, "pointconv": pointconv, "fps": fps}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches.get(name, 0)}
+                 "replaces": replaces, "launches": launches.get(name, 0),
+                 "launches_by_path": {p: n.get(name, 0)
+                                      for p, n in by_path.items()}}
         entry.update(per_kernel[name])
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f} s; failures: {failures or 'none'}")

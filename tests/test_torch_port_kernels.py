@@ -143,7 +143,7 @@ def test_sinkhorn_kernel_matches_plain(cuda, B, M, N, iters):
 @pytest.mark.parametrize("B,M,N", [
     (20480 // 7, 16, 6),                    # the serving coupling
     (33, 16, 7), (41, 1, 1), (37, 31, 15)])
-@pytest.mark.parametrize("iters", [0, 1, 50])
+@pytest.mark.parametrize("iters", [0, 1, 6, 50])    # 6: the cascade's
 def test_sinkhorn_kernel_fused_dustbins(cuda, B, M, N, iters):
     """Scores → log transport with the dustbins built in the kernel,
     against the plain dustbin couplings + Sinkhorn - norm."""
@@ -187,6 +187,26 @@ def test_gnn_kernel_matches_plain(cuda, dtype, rel_tol, N, L):
     different orders; in bf16 that can move a value by one bf16 step."""
     packed = _packed(dtype, cuda, L)
     g = torch.Generator().manual_seed(2)
+    d0 = torch.randn(N, 16, 128, generator=g).to(cuda)
+    d1 = torch.randn(N, 6, 128, generator=g).to(cuda)
+    got = _launches("superglue_gnn", lambda: tgnn.gnn_scores(d0, d1, packed))
+    want = tgnn.gnn_scores_plain(d0, d1, packed)
+    assert got.shape == (N, 16, 6) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel_tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("L", [0, 2])
+@pytest.mark.parametrize("N", [37, tgnn.TC_PAIRS])
+def test_gnn_kernel_cut_depth_from_sliced_stacks(cuda, dtype, rel_tol, L, N):
+    """The cascade's cheap pass: the first L blocks of a 12-block fold,
+    sliced views of its stacks, the final projection shared; at L = 0 the
+    final projection and scores of the input descriptors alone."""
+    full = _packed(dtype, cuda, 12)
+    packed = {k: v if k in tgnn.UNSTACKED else v[:L] for k, v in full.items()}
+    g = torch.Generator().manual_seed(5 + L)
     d0 = torch.randn(N, 16, 128, generator=g).to(cuda)
     d1 = torch.randn(N, 6, 128, generator=g).to(cuda)
     got = _launches("superglue_gnn", lambda: tgnn.gnn_scores(d0, d1, packed))
@@ -451,3 +471,39 @@ def test_fps_kernel_rejects_bad_input(cuda):
             torch.zeros(2, 16, 3, device=cuda, dtype=torch.float64), 8)
     with pytest.raises(ValueError):       # not [B, N, 3]
         tfps.farthest_point_sampling(torch.zeros(2, 16, 2, device=cuda), 8)
+
+
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_serving_launch_counts(cuda, calibrated):
+    """Calibrated serving runs the LSTM, GNN and Sinkhorn kernels; on batch
+    statistics (the uncalibrated model) the GNN runs as PyTorch ops and the
+    LSTM and Sinkhorn kernels still run, one launch per encoder and one
+    Sinkhorn launch a batch."""
+    import os
+
+    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ck = os.path.join(root, "checkpoints")
+    db_cache = os.path.join(ck, "bench_db_cache.npz")
+    fx = np.load(os.path.join(root, "text2pos_torch", "fixtures",
+                              "bench_queries.npz"))
+    pipe = LocalizationPipeline.from_checkpoints(
+        os.path.join(ck, "bench_coarse.msgpack"),
+        os.path.join(ck, "bench_fine.msgpack"),
+        db_cache if calibrated else None, device=cuda)
+    if not calibrated:
+        with np.load(db_cache) as z:
+            pipe = pipe.with_database(*(
+                torch.as_tensor(z[k]).float().to(cuda) for k in (
+                    "cell_enc", "fine_bank_enc", "fine_bank_centers")))
+    args = [fx[k][:64] for k in ("tokens", "lengths", "hint_tokens",
+                                 "hint_lengths")]
+    _build.LAUNCHES.clear()
+    out = pipe.serve_batch(*args, 10)
+    torch.cuda.synchronize()
+    assert out[0].shape == (64, 10)
+    assert bool(torch.isfinite(out[2].float()).all())
+    launches = dict(_build.LAUNCHES)
+    assert launches.get("lstm", 0) == 2 and launches.get("sinkhorn", 0) == 1
+    assert launches.get("superglue_gnn", 0) == (1 if calibrated else 0)

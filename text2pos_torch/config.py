@@ -1,5 +1,5 @@
 """Serving configuration: the fields of ``text2pos_tpu/config.py``
-(``EvalConfig``) that the calibrated serving path reads."""
+(``EvalConfig``) that serving, calibration and the map encode read."""
 
 from __future__ import annotations
 
@@ -15,3 +15,6 @@ class ServeConfig:
     pad_size: int = 16                # objects per cell
     top_k: Tuple[int, ...] = (1, 5, 10)
     threshs: Tuple[int, ...] = (5, 10, 15)   # meters
+    pointnet_numpoints: int = 256     # points per resampled object
+    coarse_max_objects: int = 28      # object slots per cell of the map bank
+    seed: int = 0                     # draws of the map bank and its encode

@@ -1,7 +1,7 @@
-"""Tokenization: a copy of ``text2pos_tpu/data/hints.py:27-66``.
+"""Hint text and tokenization: a copy of ``text2pos_tpu/data/hints.py:19-66``.
 
-Lowercase, strip ``.``/``,``, split on whitespace; index 0 is ``<unk>`` and
-doubles as the padding index.
+One sentence per pose description; lowercase, strip ``.``/``,``, split on
+whitespace; index 0 is ``<unk>`` and doubles as the padding index.
 """
 
 from __future__ import annotations
@@ -9,6 +9,18 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from text2pos_torch.data.structs import Pose
+
+
+def create_hint_description(pose: Pose) -> List[str]:
+    """One sentence per description: "The pose is {dir} of a {color}
+    {label}."."""
+    return [
+        f"The pose is {d.direction} of a {d.object_color_text} "
+        f"{d.object_label}."
+        for d in pose.descriptions
+    ]
 
 
 def tokenize(text: str) -> List[str]:

@@ -1,13 +1,27 @@
-"""Calibrated serving: text query → cell and in-cell position (counterpart of
+"""Serving: text query → cell and in-cell position (counterpart of
 ``text2pos_tpu/evaluation/pipeline.py``, ``serve_batch`` and its helpers),
-and the offline DB encode that produces what serving reads.
+the BN calibration that makes serving per-query (``calibrated_for_serving``,
+``with_calibrated_stats``) and the offline DB encode that produces what
+serving reads.
 
 Stages of ``serve_batch``: text encode (LSTM kernel) → top-k retrieval over
 the precomputed cell embeddings → hint encode (LSTM kernel) → gather from
 the fine bank → the fused GNN kernel → Sinkhorn kernel and match
 extraction → offset head and in-cell positions → optional stable re-rank.
-The cascade (``prune_m``, the int8 cheap bank, ``prune_soft``) is not
-ported yet.
+The cascade (``prune_m``) scores all ``rerank_k`` candidates first with a
+cheap pass, the first ``prune_layers`` block pairs and ``prune_sinkhorn``
+iterations of the same matcher through the same two kernels, optionally on
+the int8 bank of ``quantize_fine_bank`` and with soft scores
+(``prune_soft``), and runs the full pass on the ``prune_m`` best only,
+reusing the cheap pass's hint encodings.
+
+A pipeline built from the checkpoints alone (``from_checkpoints`` with no
+DB cache) is the uncalibrated JAX model: the fine stage's BNs normalize by
+batch statistics, so a query's result depends on its batch. The GNN and
+PointConv kernels fold calibrated statistics and cannot run there; that
+model runs those two stages as PyTorch ops on the card (the LSTM, Sinkhorn
+and FPS kernels still run). ``calibrated_for_serving`` turns it into the
+per-query, all-kernel serving pipeline.
 
 The offline DB encode (``encode_database``, ``LocalizationPipeline.
 encode_database``) turns a ``CellBank`` into ``cell_enc`` [C, 256] through
@@ -28,26 +42,33 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import copy
+
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from text2pos_torch.config import ServeConfig
 from text2pos_torch.data.dense import CellBank
 from text2pos_torch.data.hints import Vocabulary
 from text2pos_torch.device import resolve_device
+from text2pos_torch.models.blocks import calibrating, set_eval_batch_stats
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
 from text2pos_torch.models.matcher import SuperGlueMatch, get_pos_in_cell
 from text2pos_torch.models.object_encoder import FEATURES
 from text2pos_torch.ops.retrieval import topk_retrieval
+from text2pos_torch.ops.superglue_gnn import widen_gnn_stats
 from text2pos_torch.ops.transforms import prepare_object_points, sum_points
+from text2pos_torch.train.losses import soft_mass_and_spread
 from text2pos_torch.train.state import load_checkpoint
-from text2pos_torch.utils.convert_jax import load_jax_params
+from text2pos_torch.utils.convert_jax import (jax_to_state_dict,
+                                              load_jax_params, module_to_jax)
 from text2pos_torch.utils.msgpack_io import msgpack_restore
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
-NUM_POINTS = 256        # pointnet_numpoints: points per resampled object
 PAD_POINTS = 8          # points of a padding object, uniform in [0, 0.001)³
 DB_CHUNK = 64           # cells per DB-encode step (precompute_fine_bank's)
+Draws = Tuple[torch.Tensor, torch.Tensor]   # (u, pad_pts) of fine_cell_points
 BANK_FIELDS = ("points_xyz", "points_rgb", "point_count", "centers", "colors",
                "mask")
 # JAX leaves that encoding never reads (PointNet's class and colour heads).
@@ -82,20 +103,23 @@ def _pad_filled_cell_tensors(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
 def fine_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
                      pad: int, generator: Optional[torch.Generator] = None,
                      u: Optional[torch.Tensor] = None,
-                     pad_pts: Optional[torch.Tensor] = None
+                     pad_pts: Optional[torch.Tensor] = None,
+                     num_points: int = ServeConfig.pointnet_numpoints
                      ) -> Tuple[torch.Tensor, ...]:
-    """The fine tower's input for cells ``idx``: (xyz, rgb [n, pad, 256, 3]
-    resampled and normalize-scaled, centers, colors [n, pad, 3]), empty
-    slots filled with padding objects. ``pad_pts`` [n, pad, 8, 3] and ``u``
-    [n, pad, 256] are the padding points and resampling draws (drawn from
-    ``generator``, in that order, when None)."""
+    """The fine tower's input for cells ``idx``: (xyz, rgb [n, pad, P, 3]
+    resampled to P = ``num_points`` and normalize-scaled, centers, colors
+    [n, pad, 3]), empty slots filled with padding objects. ``pad_pts``
+    [n, pad, 8, 3] and ``u`` [n, pad, P] are the padding points and
+    resampling draws (drawn from ``generator``, in that order, when
+    None)."""
     dev = bt["points_xyz"].device
     if pad_pts is None:
         pad_pts = torch.rand((len(idx), pad, PAD_POINTS, 3),
                              generator=generator, device=dev) * 0.001
     xyz, rgb, count, centers, colors = _pad_filled_cell_tensors(
         bt, idx, pad, pad_pts.to(dev, torch.float32))
-    xyz, rgb = prepare_object_points(xyz, rgb, count, NUM_POINTS, generator, u)
+    xyz, rgb = prepare_object_points(xyz, rgb, count, num_points, generator,
+                                     u)
     return xyz, rgb, centers, colors
 
 
@@ -103,32 +127,34 @@ def encode_fine_cells(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
                       idx: torch.Tensor, pad: int,
                       generator: Optional[torch.Generator] = None,
                       u: Optional[torch.Tensor] = None,
-                      pad_pts: Optional[torch.Tensor] = None
+                      pad_pts: Optional[torch.Tensor] = None,
+                      num_points: int = ServeConfig.pointnet_numpoints
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fine object encodings of cells ``idx`` (as JAX's
     ``_encode_cells_chunk``): (enc [n, pad, E] f32, centers_xy [n, pad, 2]
     f32); the draws as in ``fine_cell_points``."""
     xyz, rgb, centers, colors = fine_cell_points(bt, idx, pad, generator, u,
-                                                 pad_pts)
+                                                 pad_pts, num_points)
     enc = fine.encode_cell_objects(xyz, rgb, centers, colors)
     return enc, centers[..., 0:2]
 
 
 def coarse_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       u: Optional[torch.Tensor] = None
+                       u: Optional[torch.Tensor] = None,
+                       num_points: int = ServeConfig.pointnet_numpoints
                        ) -> Tuple[torch.Tensor, ...]:
     """The coarse tower's input for cells ``idx``: the valid objects, cell by
     cell in slot order (the order of JAX's flat buffer), as (xyz, rgb
-    [F, 256, 3] resampled and normalize-scaled, centers, colors [F, 3],
-    cell, slot [F]); ``u`` [F, 256] gives their resampling draws (drawn from
-    ``generator`` when None)."""
+    [F, P, 3] resampled to P = ``num_points`` and normalize-scaled, centers,
+    colors [F, 3], cell, slot [F]); ``u`` [F, P] gives their resampling
+    draws (drawn from ``generator`` when None)."""
     mask = bt["mask"][idx]
     cell, slot = mask.nonzero(as_tuple=True)
     flat = idx[cell]
     xyz, rgb = prepare_object_points(
         bt["points_xyz"][flat, slot], bt["points_rgb"][flat, slot],
-        bt["point_count"][flat, slot], NUM_POINTS, generator, u)
+        bt["point_count"][flat, slot], num_points, generator, u)
     return (xyz, rgb, bt["centers"][flat, slot], bt["colors"][flat, slot],
             cell, slot)
 
@@ -136,12 +162,15 @@ def coarse_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
 def encode_coarse_cells(coarse: CellRetrievalNetwork,
                         bt: Dict[str, torch.Tensor], idx: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
-                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        u: Optional[torch.Tensor] = None,
+                        num_points: int = ServeConfig.pointnet_numpoints
+                        ) -> torch.Tensor:
     """Coarse embeddings [n, E] of cells ``idx`` (as JAX's
     ``encode_cells_step``). PointNet++ runs on the valid objects only; the
     draws as in ``coarse_cell_points``."""
-    return coarse.encode_objects(*coarse_cell_points(bt, idx, generator, u),
-                                 len(idx), bt["mask"].shape[1])
+    return coarse.encode_objects(
+        *coarse_cell_points(bt, idx, generator, u, num_points), len(idx),
+        bt["mask"].shape[1])
 
 
 def _db_chunks(bt: Dict[str, torch.Tensor]):
@@ -152,20 +181,47 @@ def _db_chunks(bt: Dict[str, torch.Tensor]):
 
 def encode_all_coarse(coarse: CellRetrievalNetwork,
                       bt: Dict[str, torch.Tensor],
-                      generator: torch.Generator) -> torch.Tensor:
+                      generator: torch.Generator,
+                      num_points: int = ServeConfig.pointnet_numpoints
+                      ) -> torch.Tensor:
     """``cell_enc`` [C, E] of every cell of ``bt``, ``DB_CHUNK`` at a time."""
-    return torch.cat([encode_coarse_cells(coarse, bt, idx, generator)
+    return torch.cat([encode_coarse_cells(coarse, bt, idx, generator,
+                                          num_points=num_points)
                       for idx in _db_chunks(bt)])
 
 
 def encode_all_fine(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
-                    pad: int, generator: torch.Generator
+                    pad: int, generator: Optional[torch.Generator] = None,
+                    num_points: int = ServeConfig.pointnet_numpoints,
+                    draws: Optional[Sequence[Draws]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(``fine_bank_enc`` [C, pad, E], ``fine_bank_centers`` [C, pad, 2]) of
-    every cell of ``bt``, ``DB_CHUNK`` at a time."""
-    out = [encode_fine_cells(fine, bt, idx, pad, generator)
-           for idx in _db_chunks(bt)]
+    every cell of ``bt``, ``DB_CHUNK`` at a time. A short last step is
+    filled up with cell 0 as ``precompute_fine_bank`` fills it: a model on
+    batch statistics sees the same batches as JAX's. ``draws`` gives each
+    step's ``(u, pad_pts)`` over its ``DB_CHUNK`` cells (drawn from
+    ``generator`` when None)."""
+    out = []
+    for i, idx in enumerate(_db_chunks(bt)):
+        real = len(idx)
+        idx = torch.cat([idx, idx.new_zeros(DB_CHUNK - real)])
+        u, pad_pts = draws[i] if draws is not None else (None, None)
+        enc, ctr = encode_fine_cells(fine, bt, idx, pad, generator, u,
+                                     pad_pts, num_points)
+        out.append((enc[:real], ctr[:real]))
     return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def quantize_fine_bank(obj_enc_bank: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fine bank in int8 with per-object scales (JAX's
+    ``quantize_fine_bank``): scale = absmax/127 [C, pad, 1] f32, q =
+    round(x / scale) half to even, clipped to ±127; dequantize as
+    ``q * scale``. The cascade's cheap pass reads it."""
+    b = obj_enc_bank.float()
+    scale = b.abs().amax(-1, keepdim=True).clamp_min(1e-12) / 127.0
+    q = torch.round(b / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 def _check_unread(unused: Sequence[str], what: str) -> None:
@@ -227,33 +283,40 @@ def _compact_results(top_idx, pos_mean, pos_offsets, confidences,
 
 
 class LocalizationPipeline:
-    """Coarse retriever + fine matcher + the serving-resident DB tensors."""
+    """Coarse retriever + fine matcher + the serving-resident DB tensors
+    (None until a database is given: ``with_database``)."""
 
     def __init__(self, coarse: CellRetrievalNetwork, fine: SuperGlueMatch,
                  vocab: Vocabulary, fine_vocab: Vocabulary,
-                 cell_enc: torch.Tensor, fine_bank_enc: torch.Tensor,
-                 fine_bank_centers: torch.Tensor,
+                 cell_enc: Optional[torch.Tensor] = None,
+                 fine_bank_enc: Optional[torch.Tensor] = None,
+                 fine_bank_centers: Optional[torch.Tensor] = None,
                  cfg: ServeConfig = ServeConfig()):
         self.coarse, self.fine = coarse.eval(), fine.eval()
         self.vocab, self.fine_vocab, self.cfg = vocab, fine_vocab, cfg
         self.cell_enc = cell_enc
         self.fine_bank_enc = fine_bank_enc
         self.fine_bank_centers = fine_bank_centers
-        self.device = cell_enc.device
+        self.device = fine.superglue.final_proj.weight.device
 
     @classmethod
-    def from_checkpoints(cls, coarse: str, fine: str, db_cache: str,
+    def from_checkpoints(cls, coarse: str, fine: str,
+                         db_cache: Optional[str] = None,
                          dtype: Optional[str] = "bfloat16",
                          device: Union[str, torch.device] = "cuda",
                          cfg: ServeConfig = ServeConfig()
                          ) -> "LocalizationPipeline":
         """Restore both stages, object towers included, from flax msgpack
-        checkpoints and the calibrated DB cache (``cell_enc``,
-        ``fine_bank_enc``, ``fine_bank_centers`` and the ``bn_stat_groups=2``
-        ``batch_stats``). ``dtype`` is the compute dtype of the fine model
-        bodies and of both object towers. To serve from a database the
-        pipeline encodes itself: ``pipe.with_database(*pipe.
-        encode_database(bank))``."""
+        checkpoints. ``dtype`` is the compute dtype of the fine model bodies
+        and of both object towers.
+
+        With ``db_cache`` (``cell_enc``, ``fine_bank_enc``,
+        ``fine_bank_centers`` and the ``bn_stat_groups=2`` ``batch_stats``)
+        the pipeline serves calibrated from that database. Without it (JAX's
+        ``build_pipeline_from_checkpoints``) it holds no database and its
+        fine model is the uncalibrated one, on batch statistics, carrying
+        the checkpoint's own statistics; ``encode_database`` and
+        ``calibrated_for_serving`` go on from there."""
         dev = resolve_device(device)
         if dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {dtype!r}")
@@ -276,58 +339,147 @@ class LocalizationPipeline:
             dtype=_DTYPES[dtype])
         _check_unread(load_jax_params(coarse_model, cp["params"],
                                       cp["batch_stats"]), coarse)
-        with np.load(db_cache) as z:
-            cell_enc = z["cell_enc"].astype(np.float32)
-            fb_enc = z["fine_bank_enc"].astype(np.float32)
-            fb_ctr = z["fine_bank_centers"].astype(np.float32)
-            stats = msgpack_restore(z["batch_stats"].tobytes())
-        if fb_enc.shape[1] != cfg.pad_size or fb_ctr.shape[1] != cfg.pad_size:
-            raise ValueError(f"{db_cache}: fine bank holds {fb_enc.shape[1]} "
-                             f"objects per cell, the matcher {cfg.pad_size}")
         fine_model = SuperGlueMatch(
             vocab_rows(fp["params"]), fx.get("embed_dim", 128),
             num_layers=fx.get("num_layers", 6),
             sinkhorn_iters=fx.get("sinkhorn_iters", 50),
-            dtype=_DTYPES[dtype], stat_groups=2)
-        _check_unread(load_jax_params(fine_model, fp["params"], stats), fine)
-
-        def t(a):
-            return torch.from_numpy(a).to(dev)
-
-        return cls(coarse_model.to(dev), fine_model.to(dev), vocab,
-                   fine_vocab, t(cell_enc), t(fb_enc), t(fb_ctr), cfg)
+            dtype=_DTYPES[dtype], stat_groups=2, eval_batch_stats=True)
+        widen_gnn_stats(fp["batch_stats"]["superglue"]["gnn"])
+        _check_unread(load_jax_params(fine_model, fp["params"],
+                                      fp["batch_stats"]), fine)
+        pipe = cls(coarse_model.to(dev), fine_model.to(dev), vocab,
+                   fine_vocab, cfg=cfg)
+        if db_cache is None:
+            return pipe
+        with np.load(db_cache) as z:
+            db = [torch.from_numpy(z[k].astype(np.float32)).to(dev)
+                  for k in ("cell_enc", "fine_bank_enc", "fine_bank_centers")]
+            stats = msgpack_restore(z["batch_stats"].tobytes())
+        if db[1].shape[1] != cfg.pad_size or db[2].shape[1] != cfg.pad_size:
+            raise ValueError(f"{db_cache}: fine bank holds {db[1].shape[1]} "
+                             f"objects per cell, the matcher {cfg.pad_size}")
+        return pipe.with_calibrated_stats(stats).with_database(*db)
 
     def with_database(self, cell_enc: torch.Tensor,
-                      fine_bank_enc: torch.Tensor,
-                      fine_bank_centers: torch.Tensor
+                      fine_bank_enc: Optional[torch.Tensor],
+                      fine_bank_centers: Optional[torch.Tensor]
                       ) -> "LocalizationPipeline":
         """The same models serving from another database."""
         return LocalizationPipeline(self.coarse, self.fine, self.vocab,
                                     self.fine_vocab, cell_enc, fine_bank_enc,
                                     fine_bank_centers, self.cfg)
 
+    def with_calibrated_stats(self, batch_stats: Dict
+                              ) -> "LocalizationPipeline":
+        """The eval-mode serving pipeline on previously computed calibration
+        statistics (the fine model's JAX-layout ``batch_stats``: object
+        encoder and the GNN's ``[2, F]`` per-set rows, as
+        ``calibrated_for_serving`` leaves them and the DB cache holds
+        them), with the same database."""
+        fine = copy.deepcopy(self.fine)
+        fine.load_state_dict(jax_to_state_dict(
+            fine, module_to_jax(fine)[0], batch_stats))
+        set_eval_batch_stats(fine, False)
+        return LocalizationPipeline(self.coarse, fine, self.vocab,
+                                    self.fine_vocab, self.cell_enc,
+                                    self.fine_bank_enc,
+                                    self.fine_bank_centers, self.cfg)
+
+    def batch_stats(self) -> Dict:
+        """The fine model's BN statistics as a JAX-layout numpy tree."""
+        return module_to_jax(self.fine)[1]
+
+    @torch.no_grad()
+    def calibrated_for_serving(self, bank: CellBank, hint_tokens,
+                               hint_lengths, top_idx, max_cells: int = 128,
+                               sample_draws: Optional[Draws] = None,
+                               bank_draws: Optional[Sequence[Draws]] = None
+                               ) -> "LocalizationPipeline":
+        """Freeze the fine stage's BNs on population statistics (JAX's
+        ``calibrated_for_serving``): the returned pipeline serves in eval
+        mode, each query independent of its batch, through the GNN and
+        PointConv kernels, from the fine bank re-encoded here and this
+        pipeline's ``cell_enc``. In JAX's order:
+
+        1. one forward of the object encoder on batch statistics over the
+           first ``min(C, max_cells)`` cells of ``bank`` overwrites its BN
+           statistics with theirs (PyTorch ops on the card, FPS's kernel);
+        2. the fine bank is encoded in eval mode with them (the PointConv
+           kernel);
+        3. one forward of the GNN on batch statistics over the calibration
+           queries (``hint_tokens`` [Q, H, T], ``hint_lengths``) matched
+           against their retrievals ``top_idx`` [Q, K] in the new bank
+           writes the object set's statistics into row 0 and the hints'
+           into row 1 of every block BN.
+
+        Draws come from a ``torch.Generator`` seeded by ``cfg.seed``;
+        ``sample_draws`` (step 1's ``(u, pad_pts)``) and ``bank_draws``
+        (step 2's, one pair a ``DB_CHUNK`` step) give them instead."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        bt = bank_tensors(bank, dev)
+        fine = set_eval_batch_stats(copy.deepcopy(self.fine), True)
+
+        sample = torch.arange(min(bank.num_cells, max_cells), device=dev)
+        u, pad_pts = sample_draws if sample_draws is not None else (None,
+                                                                    None)
+        points = fine_cell_points(bt, sample, cfg.pad_size, gen, u, pad_pts,
+                                  cfg.pointnet_numpoints)
+        with calibrating(fine.object_encoder):
+            fine.encode_cell_objects(*points)
+
+        set_eval_batch_stats(fine, False)
+        fb_enc, fb_ctr = encode_all_fine(fine, bt, cfg.pad_size, gen,
+                                         cfg.pointnet_numpoints, bank_draws)
+
+        sg = set_eval_batch_stats(fine.superglue, True)
+        hint_enc = fine.encode_hints(self._as_tensor(hint_tokens),
+                                     self._as_tensor(hint_lengths))
+        top_idx = self._as_tensor(top_idx).long()
+        with calibrating(sg):
+            fine.match_encoded(fb_enc[top_idx.reshape(-1)],
+                               hint_enc.repeat_interleave(top_idx.shape[1],
+                                                          dim=0))
+        set_eval_batch_stats(sg, False)
+        return LocalizationPipeline(self.coarse, fine, self.vocab,
+                                    self.fine_vocab, self.cell_enc, fb_enc,
+                                    fb_ctr, cfg)
+
     @torch.inference_mode()
-    def encode_database(self, bank: CellBank, seed: int = 0
+    def encode_database(self, bank: CellBank, seed: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Offline DB encode of every cell of ``bank``: (cell_enc
         [C, E_coarse], fine_bank_enc [C, pad, E_fine], fine_bank_centers
-        [C, pad, 2]), f32 on the pipeline's device."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        [C, pad, 2]), f32 on the pipeline's device; draws seeded by
+        ``seed`` (``cfg.seed`` when None)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed if seed is None else seed)
         bt = bank_tensors(bank, self.device)
-        cell_enc = encode_all_coarse(self.coarse, bt, gen)
-        return (cell_enc,
-                *encode_all_fine(self.fine, bt, self.cfg.pad_size, gen))
+        cell_enc = encode_all_coarse(self.coarse, bt, gen,
+                                     cfg.pointnet_numpoints)
+        return (cell_enc, *encode_all_fine(self.fine, bt, cfg.pad_size, gen,
+                                           cfg.pointnet_numpoints))
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
 
-    def _match_from_enc(self, obj_enc, centers_xy, hint_enc):
+    def _gather(self, top_idx: torch.Tensor, bank: torch.Tensor
+                ) -> torch.Tensor:
+        """Rows ``top_idx`` [B, K] of a per-cell bank → [B, K, ...]."""
+        return bank[top_idx.reshape(-1)].reshape(*top_idx.shape,
+                                                 *bank.shape[1:])
+
+    def _match_from_enc(self, obj_enc, centers_xy, hint_enc,
+                        num_layers: Optional[int] = None,
+                        sinkhorn_iterations: Optional[int] = None):
         """Matcher core: obj_enc [B, K, pad, E], centers_xy [B, K, pad, 2],
-        hint_enc [B, H, E]."""
+        hint_enc [B, H, E]; the depth cut as in ``SuperGlue.forward``."""
         B, K, pad = obj_enc.shape[:3]
         H = hint_enc.shape[1]
         out = self.fine.match_encoded(obj_enc.flatten(0, 1),
-                                      hint_enc.repeat_interleave(K, dim=0))
+                                      hint_enc.repeat_interleave(K, dim=0),
+                                      num_layers, sinkhorn_iterations)
         matches0 = out["matches0"].reshape(B, K, pad)
         mscores0 = out["matching_scores0"].reshape(B, K, pad)
         offsets = out["offsets"].reshape(B, K, H, 2)
@@ -340,34 +492,88 @@ class LocalizationPipeline:
                                      offsets, centers_xy)
         return pos_mean, pos_offsets, confidences, conf_scores, spreads
 
+    def _cheap_keep(self, top_idx, sims, hint_enc, prune_m: int,
+                    prune_layers: int, prune_sinkhorn: int, prune_soft: bool,
+                    cheap_bank, cheap_scale, rerank_lambda: float,
+                    rerank_gamma: float) -> torch.Tensor:
+        """The cascade's cheap pass over all candidates ``top_idx`` [B, K]:
+        the columns [B, prune_m] of the best by ``conf + λ·sim − γ·spread``
+        (stable: coarse order breaks ties). Hard scores come from match
+        extraction, soft ones (``prune_soft``) from the transport matrix
+        (``soft_mass_and_spread``)."""
+        if cheap_bank is not None:
+            dt = self.fine.superglue.dtype or torch.float32
+            obj = (self._gather(top_idx, cheap_bank).to(dt)
+                   * self._gather(top_idx, cheap_scale).to(dt))
+        else:
+            obj = self._gather(top_idx, self.fine_bank_enc)
+        ctr = self._gather(top_idx, self.fine_bank_centers)
+        if prune_soft:
+            B, K, pad = obj.shape[:3]
+            out = self.fine.match_encoded(
+                obj.flatten(0, 1), hint_enc.repeat_interleave(K, dim=0),
+                prune_layers, prune_sinkhorn)
+            conf, spread = soft_mass_and_spread(
+                out["P"].reshape(B, K, pad + 1, -1), ctr,
+                out["offsets"].reshape(B, K, -1, 2))
+        else:
+            *_, conf, spread = self._match_from_enc(
+                obj, ctr, hint_enc, prune_layers, prune_sinkhorn)
+        score = conf.float()
+        if rerank_lambda:
+            score = score + rerank_lambda * sims.float()
+        if rerank_gamma:
+            score = score - rerank_gamma * spread.float()
+        return torch.sort(-score, dim=1, stable=True).indices[:, :prune_m]
+
     @torch.inference_mode()
     def serve_batch(self, tokens, lengths, hint_tokens, hint_lengths,
                     top_k: int, rerank_k: int = 0, rerank_lambda: float = 0.0,
-                    rerank_gamma: float = 0.0) -> Tuple[torch.Tensor, ...]:
+                    rerank_gamma: float = 0.0, prune_m: int = 0,
+                    prune_layers: int = 1, prune_sinkhorn: int = 10,
+                    prune_soft: bool = False,
+                    cheap_bank: Optional[torch.Tensor] = None,
+                    cheap_scale: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
         """Localize a batch of queries end to end.
 
         tokens [Q, T], lengths [Q], hint_tokens [Q, H, Th], hint_lengths
         [Q, H]. With ``rerank_k > top_k`` the fine stage scores
         ``rerank_k`` candidates and the ``top_k`` best by
         ``conf + λ·sim − γ·spread`` are returned (stable: coarse order
-        breaks ties). Returns (top_idx, pos_mean, pos_offsets, confidences),
-        each [Q, top_k, ...], on the pipeline's device.
+        breaks ties). With ``top_k < prune_m < rerank_k`` (the cascade;
+        JAX skips it silently outside that range, and so does this) a
+        cheap pass of ``prune_layers`` block pairs and ``prune_sinkhorn``
+        Sinkhorn iterations scores all ``rerank_k`` first, on
+        ``cheap_bank``/``cheap_scale`` (``quantize_fine_bank``) when given,
+        and only the ``prune_m`` best get the full pass and the final
+        re-rank. Returns (top_idx, pos_mean, pos_offsets, confidences),
+        each [Q, top_k, ...], on the pipeline's device. Profiler ranges
+        ``serve.encode``, ``serve.cheap_pass`` and ``serve.full_pass``
+        (gather, matcher, positions) let a trace attribute the time.
         """
         tokens, lengths, hint_tokens, hint_lengths = (
             self._as_tensor(x) for x in (tokens, lengths, hint_tokens,
                                          hint_lengths))
-        text_enc = self.coarse.encode_text(tokens, lengths)
-        k_all = rerank_k if rerank_k > top_k else top_k
-        sims, top_idx = topk_retrieval(text_enc, self.cell_enc, k_all)
-        B = top_idx.shape[0]
-        flat = top_idx.reshape(-1)
-        obj_enc = self.fine_bank_enc[flat].reshape(
-            B, k_all, *self.fine_bank_enc.shape[1:])
-        centers_xy = self.fine_bank_centers[flat].reshape(
-            B, k_all, *self.fine_bank_centers.shape[1:])
-        hint_enc = self.fine.encode_hints(hint_tokens, hint_lengths)
-        pos_mean, pos_offsets, confidences, conf_scores, spreads = (
-            self._match_from_enc(obj_enc, centers_xy, hint_enc))
+        with record_function("serve.encode"):
+            text_enc = self.coarse.encode_text(tokens, lengths)
+            k_all = rerank_k if rerank_k > top_k else top_k
+            sims, top_idx = topk_retrieval(text_enc, self.cell_enc, k_all)
+            hint_enc = self.fine.encode_hints(hint_tokens, hint_lengths)
+        if prune_m and top_k < prune_m < k_all:
+            with record_function("serve.cheap_pass"):
+                keep = self._cheap_keep(top_idx, sims, hint_enc, prune_m,
+                                        prune_layers, prune_sinkhorn,
+                                        prune_soft, cheap_bank, cheap_scale,
+                                        rerank_lambda, rerank_gamma)
+                top_idx, sims = _take(top_idx, keep), _take(sims, keep)
+            rerank_k = prune_m
+        with record_function("serve.full_pass"):
+            pos_mean, pos_offsets, confidences, conf_scores, spreads = (
+                self._match_from_enc(
+                    self._gather(top_idx, self.fine_bank_enc),
+                    self._gather(top_idx, self.fine_bank_centers),
+                    hint_enc))
         return _compact_results(top_idx, pos_mean, pos_offsets, confidences,
                                 conf_scores, top_k, rerank_k,
                                 self.cell_enc.shape[0], sims=sims,

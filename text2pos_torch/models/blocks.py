@@ -1,5 +1,9 @@
-"""Building blocks (counterpart of ``text2pos_tpu/models/blocks.py``), eval
-mode only.
+"""Building blocks (counterpart of ``text2pos_tpu/models/blocks.py``) for
+inference: BatchNorm reads its running statistics, or with
+``eval_batch_stats`` normalizes by the batch's own (the JAX fine model's
+default); ``calibrating`` makes the batch-statistics BNs of a module write
+what they compute into their running statistics, as an eval forward of the
+JAX model with a mutable ``batch_stats`` collection does.
 
 Module and attribute names follow the flax parameter tree (``dense_0``,
 ``bn_0``, …) so that ``utils/convert_jax.py`` maps a checkpoint by name.
@@ -11,7 +15,8 @@ output).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,28 +51,98 @@ def dense(layer: nn.Linear, x: torch.Tensor,
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with ``stat_groups`` rows of
-    running statistics; ``stat_group`` picks the row. Computed in f32,
-    returned in the input dtype (eps 1e-5)."""
+    """BatchNorm over the last axis with ``stat_groups`` rows of running
+    statistics; ``stat_group`` picks the row. Computed in f32, returned in
+    the input dtype (eps 1e-5).
+
+    With ``eval_batch_stats`` (``set_eval_batch_stats``) it normalizes by the
+    batch's statistics: the mean and biased variance over every row (the
+    rows where ``mask`` is true, when given) in f32; the running statistics
+    are left alone unless ``calibrate`` is set (``calibrating``), which
+    overwrites the ``stat_group`` row with them, no momentum (JAX's
+    one-shot calibration)."""
 
     def __init__(self, features: int, stat_groups: int = 1,
                  eps: float = 1e-5):
         super().__init__()
         self.stat_groups = stat_groups
         self.eps = eps
+        self.eval_batch_stats = False
+        self.calibrate = False
         shape = (features,) if stat_groups == 1 else (stat_groups, features)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(shape))
         self.register_buffer("running_var", torch.ones(shape))
 
-    def forward(self, x: torch.Tensor, stat_group: int = 0) -> torch.Tensor:
-        mean, var = self.running_mean, self.running_var
-        if self.stat_groups > 1:
-            mean, var = mean[stat_group], var[stat_group]
+    def batch_stats(self, x: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, stat_group: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased variance) [C] f32 over the rows of x [..., C]
+        where ``mask`` (x's leading shape) holds; with ``calibrate`` they
+        are also written into the running statistics' ``stat_group``
+        row."""
+        xf = x.float().flatten(0, -2)
+        if mask is None:
+            mean = xf.mean(0)
+            var = ((xf - mean) ** 2).mean(0)
+        else:
+            m = mask.reshape(-1, 1).float()
+            count = m.sum().clamp_min(1.0)
+            mean = (xf * m).sum(0) / count
+            var = (((xf - mean) ** 2) * m).sum(0) / count
+        if self.calibrate:
+            with torch.no_grad():
+                if self.stat_groups == 1:
+                    self.running_mean.copy_(mean)
+                    self.running_var.copy_(var)
+                else:
+                    self.running_mean[stat_group].copy_(mean)
+                    self.running_var[stat_group].copy_(var)
+        return mean, var
+
+    def forward(self, x: torch.Tensor, stat_group: int = 0,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.eval_batch_stats:
+            mean, var = self.batch_stats(x, mask, stat_group)
+        else:
+            mean, var = self.running_mean, self.running_var
+            if self.stat_groups > 1:
+                mean, var = mean[stat_group], var[stat_group]
         inv = 1.0 / torch.sqrt(var + self.eps)
         out = (x.float() - mean) * inv * self.weight + self.bias
         return out.to(x.dtype)
+
+
+def set_eval_batch_stats(module: nn.Module, on: bool) -> nn.Module:
+    """Switch every BN of ``module`` to batch statistics (on) or to its
+    running statistics (off), as JAX clones a model with
+    ``eval_batch_stats``; so are the modules that run a kernel only in eval
+    mode (``SetAbstraction``, ``SuperGlue``: they carry the same flag).
+    Returns ``module``."""
+    for m in module.modules():
+        if hasattr(m, "eval_batch_stats"):
+            m.eval_batch_stats = on
+    return module
+
+
+@contextlib.contextmanager
+def calibrating(module: nn.Module) -> Iterator[nn.Module]:
+    """Within the block, each batch-statistics BN of ``module`` overwrites
+    its running statistics with the statistics of the batch it sees. On
+    exit, every submodule that caches a fold of those statistics
+    (``drop_fold``) drops it."""
+    bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for bn in bns:
+        bn.calibrate = True
+    try:
+        yield module
+    finally:
+        for bn in bns:
+            bn.calibrate = False
+        for m in module.modules():
+            if hasattr(m, "drop_fold"):
+                m.drop_fold()
 
 
 def bn_affine(bn: MaskedBatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,10 +167,11 @@ class MLP(nn.Module):
             self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
             in_features = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(self.n):
             x = dense(getattr(self, f"dense_{i}"), x, self.dtype)
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, mask=mask))
         return x.to(self.dtype or torch.float32)
 
 

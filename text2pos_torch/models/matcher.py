@@ -1,9 +1,12 @@
 """Fine hints-to-objects matcher (counterpart of
-``text2pos_tpu/models/matcher.py``): ``SuperGlueMatch`` in calibrated eval
-mode (hint encoding, matching against pre-encoded cell objects, the offset
-head, and the object encoder that the offline DB encode runs:
-``encode_cell_objects``) and ``get_pos_in_cell``. Serving reads
-the object encodings from the fine bank."""
+``text2pos_tpu/models/matcher.py``): ``SuperGlueMatch`` for inference (hint
+encoding, matching against pre-encoded cell objects, the offset head, and
+the object encoder that the offline DB encode runs: ``encode_cell_objects``)
+and ``get_pos_in_cell``. Serving reads the object encodings from the fine
+bank. ``eval_batch_stats`` is JAX's flag of the same name: every BN of the
+object encoder and the GNN normalizes by its batch's statistics (the
+uncalibrated model); ``blocks.set_eval_batch_stats`` switches it, as
+calibrated serving does."""
 
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from text2pos_torch.models.blocks import HeadMLP, l2_normalize
+from text2pos_torch.models.blocks import (HeadMLP, l2_normalize,
+                                         set_eval_batch_stats)
 from text2pos_torch.models.language import LanguageEncoder
 from text2pos_torch.models.object_encoder import ObjectEncoder
 from text2pos_torch.models.superglue import SuperGlue
@@ -21,7 +25,8 @@ from text2pos_torch.models.superglue import SuperGlue
 class SuperGlueMatch(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, num_layers: int = 6,
                  sinkhorn_iters: int = 50, match_threshold: float = 0.2,
-                 dtype: Optional[torch.dtype] = None, stat_groups: int = 2):
+                 dtype: Optional[torch.dtype] = None, stat_groups: int = 2,
+                 eval_batch_stats: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
@@ -29,6 +34,7 @@ class SuperGlueMatch(nn.Module):
         self.superglue = SuperGlue(embed_dim, num_layers, sinkhorn_iters,
                                    match_threshold, dtype, stat_groups)
         self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
+        set_eval_batch_stats(self, eval_batch_stats)
 
     def encode_hints(self, hint_tokens: torch.Tensor,
                      hint_lengths: torch.Tensor) -> torch.Tensor:
@@ -49,11 +55,14 @@ class SuperGlueMatch(nn.Module):
                                   colors.reshape(B * O, 3))
         return l2_normalize(enc.reshape(B, O, self.embed_dim))
 
-    def match_encoded(self, obj_enc: torch.Tensor, hint_enc: torch.Tensor
+    def match_encoded(self, obj_enc: torch.Tensor, hint_enc: torch.Tensor,
+                      num_layers: Optional[int] = None,
+                      sinkhorn_iterations: Optional[int] = None
                       ) -> Dict[str, torch.Tensor]:
         """GNN + Sinkhorn + offset head on encodings: obj_enc [B, O, E],
-        hint_enc [B, H, E]."""
-        out = self.superglue(obj_enc, hint_enc)
+        hint_enc [B, H, E]; the depth cut as in ``SuperGlue.forward``."""
+        out = self.superglue(obj_enc, hint_enc, num_layers,
+                             sinkhorn_iterations)
         out["offsets"] = self.mlp_offsets(hint_enc)      # [B, H, 2]
         return out
 

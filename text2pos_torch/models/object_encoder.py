@@ -3,7 +3,9 @@
 ``mlp_pointnet`` ("class"), the mean colour through ``color_encoder``
 ("color") and the object centre through ``pos_encoder`` ("position"), each
 L2-normalized, concatenated and fused by ``mlp_merge``: the JAX model with
-``use_features=FEATURES``, which both bench checkpoints use. Other feature
+``use_features=FEATURES``, which both bench checkpoints use. On batch
+statistics (``blocks.set_eval_batch_stats``) its BNs take them over all
+objects: the fine model passes no validity mask. Other feature
 subsets and the class/colour-id embedding variants (``class_embed``,
 ``color_embed``) are not ported.
 """

@@ -11,6 +11,16 @@ separable first layer is two matmuls (``a = [x, pos]·W1 + b1`` per point,
 neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on the
 card. The class/colour heads are not built; encoding never reads them.
 
+With ``eval_batch_stats`` (``blocks.set_eval_batch_stats``: the
+uncalibrated JAX fine model, and step 1 of ``calibrated_for_serving``) every
+BN normalizes by its batch's statistics,
+a set-abstraction level's over the ``[B, S, K, C]`` neighbour rows that the
+ball query selects. The PointConv kernel folds eval-mode BN into its
+epilogue and cannot take statistics of its own input, and JAX runs no
+Pallas kernel in that mode either, so a level then runs as PyTorch ops on
+the card (``SetAbstraction.forward_batch_stats``); FPS still runs its
+kernel.
+
 Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
 ``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps``,
 ``pointnet.first_layer``, ``pointnet.pointconv`` and ``pointnet.head``
@@ -27,7 +37,9 @@ from torch.profiler import record_function
 
 from text2pos_torch.models.blocks import MLP, MaskedBatchNorm, bn_affine, dense
 from text2pos_torch.ops.fps import farthest_point_sampling
-from text2pos_torch.ops.pointconv import pointconv_max, w2_fragments
+from text2pos_torch.ops.pointconv import (ball_neighbors, pointconv_max,
+                                          w2_fragments)
+from text2pos_torch.ops.pooling import gather_neighbors, masked_max
 
 K_CAP = 32
 
@@ -50,6 +62,7 @@ class SetAbstraction(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.ratio, self.radius, self.dtype = ratio, radius, dtype
+        self.eval_batch_stats = False      # blocks.set_eval_batch_stats
         self.conv_mlp = ConvMLP(in_features + 3, *channels)
         self._w2f = None
 
@@ -90,6 +103,8 @@ class SetAbstraction(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, N, C], pos [B, N, 3] f32 → (x' [B, S, C2], cent [B, S, 3])
         with S = N·ratio."""
+        if self.eval_batch_stats:
+            return self.forward_batch_stats(x, pos)
         args = self.pointconv_args(x, pos)
         a = args[0]
         w2f = (self.w2_fragments()
@@ -97,6 +112,23 @@ class SetAbstraction(nn.Module):
         with record_function("pointnet.pointconv"):
             out = pointconv_max(*args, self.radius, K_CAP, w2f=w2f)
         return out, args[3]
+
+    def forward_batch_stats(self, x: torch.Tensor, pos: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` with both BNs on the statistics of the selected
+        neighbour rows (JAX's ``nb_valid`` mask), as PyTorch ops; rounded
+        where ``pointconv_max_plain`` rounds."""
+        a, pos, c, cent = self.pointconv_args(x, pos)[:4]
+        m = self.conv_mlp
+        dt = a.dtype
+        with record_function("pointnet.pointconv"):
+            idx, valid = ball_neighbors(pos, cent, self.radius, K_CAP)
+            d = gather_neighbors(a, idx).float() - c.float()[:, :, None, :]
+            h = torch.relu(m.bn_0(d, mask=valid)).to(dt)
+            z = dense(m.dense_1, h, dt)
+            y = torch.relu(m.bn_1(z, mask=valid))
+            out = masked_max(y, valid[..., None], dim=2).to(dt)
+        return out, cent
 
 
 class GlobalAbstraction(nn.Module):

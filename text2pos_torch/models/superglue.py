@@ -1,13 +1,26 @@
-"""SuperGlue attentional matching in eval mode (counterpart of
+"""SuperGlue attentional matching for inference (counterpart of
 ``text2pos_tpu/models/superglue.py``).
 
 Descriptors are [B, N, E]. Heads are contiguous channel blocks
 (``reshape(B, N, heads, E/heads)``), as in JAX, not torch's interleaved
-split. On the card, ``SuperGlue.forward`` runs the fused GNN kernel
-(``ops/superglue_gnn.py``) on the folded calibrated weights and then the
+split. On the card, a calibrated ``SuperGlue.forward`` runs the fused GNN
+kernel (``ops/superglue_gnn.py``) on the folded weights and then the
 Sinkhorn kernel; on the CPU it runs the module form below, which the tests
-hold against the flax model. ``fast_graph`` is not ported (off by default in
-JAX).
+hold against the flax model. ``forward(..., num_layers=p)`` runs the first
+p block pairs of the same weights (the cascade's cheap pass; JAX's
+truncated clone), on the card through the same kernel with the first 2p
+entries of the one folded stack.
+
+With ``eval_batch_stats`` (``blocks.set_eval_batch_stats``: the
+uncalibrated JAX fine model) the block BNs
+normalize each descriptor set by its batch's statistics. The kernel folds
+calibrated per-set statistics into its weights and cannot take those, and
+JAX runs no Pallas GNN kernel in that mode either, so the module form then
+runs on the card too; Sinkhorn still runs its kernel. ``calibrating``
+(``blocks.py``) writes the two sets' statistics into the BN rows 0 and 1
+(``stat_groups=2``). JAX's opt-in ``fast_graph`` form is not ported: the
+kernel fuses q/k/v already, and the form changes only the module form's
+arithmetic order.
 """
 
 from __future__ import annotations
@@ -20,8 +33,9 @@ from torch import nn
 
 from text2pos_torch.models.blocks import SuperGlueMLP, dense
 from text2pos_torch.ops.sinkhorn import extract_matches, log_optimal_transport
-from text2pos_torch.ops.superglue_gnn import (fold_gnn_params, gnn_scores,
-                                              pack_gnn_params)
+from text2pos_torch.ops.superglue_gnn import (UNSTACKED, fold_gnn_params,
+                                              gnn_scores, pack_gnn_params,
+                                              widen_gnn_stats)
 
 
 class MultiHeadedAttention(nn.Module):
@@ -78,8 +92,10 @@ class AttentionalGNN(nn.Module):
             self.add_module(f"layer_{i}", AttentionalPropagation(
                 feature_dim, dtype=dtype, stat_groups=stat_groups))
 
-    def forward(self, desc0, desc1):
-        for i in range(self.num_blocks):
+    def forward(self, desc0, desc1, num_blocks: Optional[int] = None):
+        """The first ``num_blocks`` blocks (all when None)."""
+        for i in range(self.num_blocks if num_blocks is None
+                       else num_blocks):
             layer = getattr(self, f"layer_{i}")
             src0, src1 = (desc1, desc0) if i % 2 else (desc0, desc1)
             delta0 = layer(desc0, src0, stat_group=0)
@@ -100,54 +116,78 @@ class SuperGlue(nn.Module):
         self.descriptor_dim, self.num_layers = descriptor_dim, num_layers
         self.sinkhorn_iterations = sinkhorn_iterations
         self.match_threshold, self.dtype = match_threshold, dtype
+        self.eval_batch_stats = False      # blocks.set_eval_batch_stats
         self.gnn = AttentionalGNN(descriptor_dim, 2 * num_layers, dtype,
                                   stat_groups)
         self.final_proj = nn.Linear(descriptor_dim, descriptor_dim)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
         self._packed = None
 
+    def drop_fold(self) -> None:
+        """Forgets the kernel's folded weights, stale once weights or BN
+        statistics change (loading, ``blocks.calibrating``)."""
+        self._packed = None
+
     def _load_from_state_dict(self, *args, **kwargs):
-        self._packed = None   # folded kernel weights are stale
+        self.drop_fold()
         super()._load_from_state_dict(*args, **kwargs)
 
-    def packed_kernel_params(self) -> Dict[str, torch.Tensor]:
-        """The GNN kernel's folded, stacked weights (cached)."""
+    def packed_kernel_params(self, num_layers: Optional[int] = None
+                             ) -> Dict[str, torch.Tensor]:
+        """The GNN kernel's folded weights of the first ``num_layers`` block
+        pairs (all when None): views of the first 2·num_layers entries of
+        one cached fold of every block (stacks are ordered by block; the
+        final projection is shared)."""
         dev = self.final_proj.weight.device
         if self._packed is None or self._packed["wqkv"].device != dev:
             from text2pos_torch.utils.convert_jax import module_to_jax
 
             params, stats = module_to_jax(self)
-            for layer in stats["gnn"].values():   # one row → both sets
-                bn = layer["mlp"]["bn_0"]
-                for key in ("mean", "var"):
-                    if bn[key].ndim == 1:
-                        bn[key] = bn[key][None].repeat(2, 0)
+            widen_gnn_stats(stats["gnn"])         # one row → both sets
             folded = fold_gnn_params({"superglue": params},
                                      {"superglue": stats}, self.num_layers)
             self._packed = pack_gnn_params(folded,
                                            self.dtype or torch.float32, dev)
-        return self._packed
+        p = self.num_layers if num_layers is None else num_layers
+        self._check_depth(p)
+        return {k: v if k in UNSTACKED else v[:2 * p]
+                for k, v in self._packed.items()}
 
-    def scores(self, desc0: torch.Tensor, desc1: torch.Tensor
-               ) -> torch.Tensor:
-        """Pre-Sinkhorn [B, M, N] f32 scores: the fused GNN kernel on the
-        card, the module form on the CPU."""
-        if desc0.is_cuda:
-            return gnn_scores(desc0, desc1, self.packed_kernel_params())
-        if self.num_layers > 0:
-            desc0, desc1 = self.gnn(desc0, desc1)
+    def _check_depth(self, num_layers: int) -> None:
+        if not 0 <= num_layers <= self.num_layers:
+            raise ValueError(f"{num_layers} block pairs asked of a matcher "
+                             f"of {self.num_layers}")
+
+    def scores(self, desc0: torch.Tensor, desc1: torch.Tensor,
+               num_layers: Optional[int] = None) -> torch.Tensor:
+        """Pre-Sinkhorn [B, M, N] f32 scores after the first ``num_layers``
+        block pairs (all when None): the fused GNN kernel on the card when
+        calibrated, the module form otherwise."""
+        if desc0.is_cuda and not self.eval_batch_stats:
+            return gnn_scores(desc0, desc1,
+                              self.packed_kernel_params(num_layers))
+        p = self.num_layers if num_layers is None else num_layers
+        self._check_depth(p)
+        if p > 0:
+            desc0, desc1 = self.gnn(desc0, desc1, 2 * p)
         dt = self.dtype or torch.float32
         md0 = dense(self.final_proj, desc0, dt).to(dt)
         md1 = dense(self.final_proj, desc1, dt).to(dt)
         s = torch.einsum("bmd,bnd->bmn", md0.float(), md1.float())
         return s / math.sqrt(self.descriptor_dim)
 
-    def forward(self, desc0: torch.Tensor, desc1: torch.Tensor
+    def forward(self, desc0: torch.Tensor, desc1: torch.Tensor,
+                num_layers: Optional[int] = None,
+                sinkhorn_iterations: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
         """desc0 [B, M, E] objects, desc1 [B, N, E] hints → P, log_P
-        [B, M+1, N+1], matches0/1 and matching_scores0/1."""
-        Z = log_optimal_transport(self.scores(desc0, desc1), self.bin_score,
-                                  self.sinkhorn_iterations)
+        [B, M+1, N+1], matches0/1 and matching_scores0/1. ``num_layers``
+        and ``sinkhorn_iterations`` cut the depth (the model's when
+        None)."""
+        iters = (self.sinkhorn_iterations if sinkhorn_iterations is None
+                 else sinkhorn_iterations)
+        Z = log_optimal_transport(self.scores(desc0, desc1, num_layers),
+                                  self.bin_score, iters)
         out = extract_matches(Z, self.match_threshold)
         out["P"] = Z.exp()
         out["log_P"] = Z

@@ -42,6 +42,7 @@ HEADS = 4
 KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
 TC_PAIRS = 4                  # pairs per CTA of the bf16 kernel
 MATMUL_WEIGHTS = ("wqkv", "wm", "w0", "w1", "wf")
+UNSTACKED = ("wf", "bf")      # the final projection; the rest are per block
 
 
 def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
@@ -86,6 +87,21 @@ def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
     out["s0"] = inv
     out["t0"] = bias[:, None, :] + (b0[:, None, :] - mean) * inv
     return out
+
+
+def widen_gnn_stats(gnn_stats: Dict) -> Dict:
+    """The GNN layers' flat ``[F]`` BN statistics rows (a trainer's
+    checkpoint) widened in place to the ``[2, F]`` per-set rows that
+    serving and the fold keep, one copy for each set (JAX's
+    ``widen_gnn_stats`` in ``calibrated_for_serving``). ``gnn_stats`` is the
+    ``superglue/gnn`` subtree of a JAX-layout ``batch_stats``."""
+    for layer in gnn_stats.values():
+        bn = layer["mlp"]["bn_0"]
+        for key in ("mean", "var"):
+            v = np.asarray(bn[key])
+            if v.ndim == 1:
+                bn[key] = np.tile(v[None], (2, 1))
+    return gnn_stats
 
 
 def _fragment_index(K: int, N: int):
