@@ -68,10 +68,30 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    Cells (build time, ``localize`` in batches of 256 with its accuracy
    gated, ``localize_stream`` equal to per-batch ``localize``) and the
    JSON-lines CLI in-process on a small synthetic map, calibrated and not.
-7. A ``{"kernels": [...]}`` line (each entry also with its launches by
-   path: headline, cascade, DB encode, calibration, server), the card's
-   name and power limit, and ``{"ok": true, "device": {...}}`` as the last
-   line.
+7. Train: the recipe's training scene (seed 100) and validation scene
+   (seed 77) rebuilt by the port's generator. The LSTM and Sinkhorn
+   autograd Functions at the training shapes: forward (the kernel) against
+   the plain version, gradients against plain autograd's. For each stage,
+   from the committed checkpoint: one f32 step on the fixture's batch
+   (``fixtures/bench_train_step.npz``, 32 cells / 16 poses) with JAX's
+   draws, its loss, gradient leaves and BN statistics held against JAX's
+   (coarse) or against the same step in float64 on the host, taken on the
+   f32 step's ReLU, max, FPS and ball choices, each choice it would have
+   made otherwise a near-tie (fine; JAX's f32 step read against it), and
+   non-zero gradients to the language encoder (the GNN and ``bin_score``
+   too, fine); the evaluation epoch on JAX's draws against
+   JAX's accuracies (coarse top-k, fine recall and precision, within one
+   query); 20 steps at the recipe's batch (64 / 32) with ms a step and one
+   step's profile by range (``train.forward``, ``train.backward``,
+   ``train.optimizer``, the plain recomputation ``*.backward_plain``, the
+   kernels' device time, the device's busy share); a resume file after 10
+   steps, reloaded bit for bit, and the last 10 again from it; the
+   evaluation of the trained
+   state against a model reloaded from its ``save_checkpoint``.
+8. A ``{"kernels": [...]}`` line (each entry also with its launches by
+   path: headline, cascade, DB encode, calibration, server, the two
+   evaluation epochs and the two trainings), the card's name and power
+   limit, and ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -80,6 +100,8 @@ fixtures) and a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import json
 import math
 import os
@@ -207,7 +229,7 @@ def sum_bound(res: dict, bnd: float, by: str) -> None:
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def check(name: str, err: float, tol: float, failures: list) -> None:
@@ -1471,13 +1493,785 @@ def calibrate_and_serve(cells, poses, bank, cell_enc, fx, failures):
     return launches
 
 
+# Phase 7: training. The recipe of the committed checkpoints
+# (scripts/train_bench_ckpts.py): coarse batch 64, embed 256, 24 object
+# slots, lr 1e-3 decaying by 0.9 an epoch; fine batch 32, embed 128, 6 block
+# pairs, 50 Sinkhorn iterations, lr 3e-4 after the warm-up. The fixture's
+# steps take half the recipe's batches (32 cells, 16 poses: the size of
+# JAX's reference on the CPU); the float64 parity runs at both sizes.
+TRAIN_FIXTURE = os.path.join(ROOT, "text2pos_torch", "fixtures",
+                             "bench_train_step.npz")
+TRAIN_RECIPE = {
+    "coarse": dict(batch_size=64, embed_dim=256, learning_rate=1e-3,
+                   lr_gamma=0.9, coarse_max_objects=24,
+                   pointnet_numpoints=256, pad_size=16, num_mentioned=6),
+    "fine": dict(batch_size=32, embed_dim=128, learning_rate=3e-4,
+                 num_layers=6, sinkhorn_iters=50, coarse_max_objects=24,
+                 pointnet_numpoints=256, pad_size=16, num_mentioned=6)}
+STEP_BATCH = {"coarse": 32, "fine": 16}
+TRAIN_STEPS = 20
+# One f32 step on the card from the checkpoint, held at these limits: the
+# loss (relative), every gradient leaf (relative L2 of the full leaf, or of
+# its norm where only that is stored; a leaf whose reference norm is under
+# 1e-4 of the global norm, a bias before BatchNorm whose exact gradient is
+# zero, is held absolutely within 1e-5 of the global norm), and the BN
+# running statistics after the step (relative to each leaf's scale). Held
+# to the same step in float64 (the plain path with every f32 pin widened,
+# ``utils/float64.py``, which the CPU tests tie to JAX's float64 step),
+# taken on the f32 step's piecewise choices (``Decisions``): f32 rounding
+# moves ReLU inputs and maxima that sit within 1e-6 of a tie to the other
+# side, which moves whole rows of gradient (5.2e-3 of a GNN leaf on the
+# fine fixture batch). Each choice the float64 step would have made
+# otherwise must be such a near-tie: within NEAR_TIE_TOL of its tensor's
+# largest magnitude (the encodings entering the GNN are 9e-7 off float64
+# in f32). At the fixture's batch (JAX's draws) the coarse step is also
+# held to JAX's f32 step, and JAX's f32 step is read against the float64
+# step. The coarse recipe batch is not held to float64: its float64 step
+# would need more memory than the card has.
+PARITY_BATCHES = {"coarse": (32,), "fine": (16, 32)}
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+ZERO_GRAD_FRACTION = 1e-4
+ZERO_GRAD_TOL = 1e-5
+TRAIN_BN_TOL = 1e-5
+NEAR_TIE_TOL = 1e-5
+# Resume after 10 steps against the straight run: the reloaded state
+# (parameters, BN statistics, Adam's moments and count, step) equals the
+# straight run's at the save bit for bit, and so does the first resumed
+# step's loss (its forward pass has no atomics). The losses of the 10 steps
+# agree within RESUME_LOSS_TOL (relative): CUDA's atomics (the gathers'
+# backward) make the gradients differ in the last bits, and the coarse
+# step's kNN graph and hinges turn that into jumps (readings over four
+# runs: coarse 4.9e-6 to 1.2e-3, fine 2.1e-7 to 4.2e-7).
+RESUME_LOSS_TOL = {"coarse": 1e-2, "fine": 1e-5}
+
+
+def train_data():
+    """The recipe's training scene (seed 100, tag "7") and the seed-77
+    validation scene, by the port's generator; the checkpoints' vocab."""
+    from text2pos_torch.data.hints import Vocabulary
+    from text2pos_torch.data.synthetic import make_synthetic_dataset
+    from text2pos_torch.train.state import load_checkpoint
+
+    train = make_synthetic_dataset(
+        seed=100, scene_name="7100", extent=30.0 * 16, cell_size=30.0,
+        poses_per_cell=3, objects_per_cell_area=12)
+    val = make_synthetic_dataset(
+        seed=77, scene_name="7077", extent=30.0 * 16, cell_size=30.0,
+        poses_per_cell=1, objects_per_cell_area=12)
+    vocab = Vocabulary(load_checkpoint(CKPT_COARSE)["extra"]["known_words"])
+    return train, val, vocab
+
+
+def make_trainer(stage, vocab, **kw):
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.train.coarse import CoarseTrainer
+    from text2pos_torch.train.fine import FineTrainer
+
+    ckpt = CKPT_COARSE if stage == "coarse" else CKPT_FINE
+    cfg = TrainConfig(**{**TRAIN_RECIPE[stage], "continue_path": ckpt,
+                         "device": "cuda", **kw})
+    cls = CoarseTrainer if stage == "coarse" else FineTrainer
+    return cls(cfg, vocab)
+
+
+def stage_loader(stage, split, vocab, batch):
+    from text2pos_torch.data.loaders import CoarseLoader, FineLoader
+
+    if stage == "coarse":
+        return CoarseLoader(*split, vocab, batch, 24, 256, 64,
+                            shuffle_hints=True, flip_poses=True, seed=0)
+    return FineLoader(*split, vocab, batch, 16, 6, 256, 16, seed=0)
+
+
+def flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += flat_tree(tree[k], f"{prefix}/{k}" if prefix else str(k))
+        return out
+    return [(prefix, tree)]
+
+
+def step_grads(stage, trainer, state, batch, draws):
+    """One step's forward and backward: (loss, {leaf: gradient},
+    {leaf: BN statistic after the step}), in the JAX layout, numpy."""
+    from text2pos_torch.utils.convert_jax import module_to_jax, params_to_jax
+
+    out = trainer.forward_backward(state, batch, draws=draws)
+    model = state.model
+    grads = dict(flat_tree(params_to_jax(model, {
+        n: torch.zeros_like(p) if p.grad is None else p.grad
+        for n, p in model.named_parameters()})))
+    stats = dict(flat_tree(module_to_jax(model)[1]))
+    return float(out if stage == "coarse" else out[0]), grads, stats
+
+
+class Decisions:
+    """The piecewise choices of a training step, in call order: the sign of
+    each ReLU's input, the maximizers of each max (``Tensor.amax``), FPS's
+    indices, the ball queries' neighbours and EdgeConv's kNN graphs.
+    ``record()`` keeps a run's; ``replay()`` imposes them on a second run of
+    the same step, so that the two are compared on the same piece of the
+    loss: a ReLU input or a max within rounding of a tie may fall either
+    way, and the gradient jumps with it. The replay counts the ReLU and max
+    choices the second run would have made otherwise (``flips``) and the
+    largest margin by which it would have (``margin``, relative to the
+    largest magnitude in that tensor): a flip is a near-tie only where that
+    margin is small."""
+
+    def __init__(self):
+        self.log, self.flips, self.margin = [], 0, 0.0
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(relu, amax, fps, ball, knn):
+        import text2pos_torch.models.cell_retrieval as cr
+        import text2pos_torch.models.pointnet2 as pn
+
+        saved = (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
+                 pn.ball_neighbors, cr.masked_knn)
+        torch.relu, torch.Tensor.amax = relu, amax
+        pn.farthest_point_sampling, pn.ball_neighbors = fps, ball
+        cr.masked_knn = knn
+        try:
+            yield
+        finally:
+            (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
+             pn.ball_neighbors, cr.masked_knn) = saved
+
+    def record(self):
+        import text2pos_torch.models.cell_retrieval as cr
+        import text2pos_torch.models.pointnet2 as pn
+
+        relu, amax = torch.relu, torch.Tensor.amax
+        fps, ball = pn.farthest_point_sampling, pn.ball_neighbors
+        knn = cr.masked_knn
+
+        def rec_relu(x):
+            self.log.append(("relu", x.detach() > 0))
+            return relu(x)
+
+        def rec_amax(x, dim=(), keepdim=False):
+            m = amax(x, dim, keepdim=True)
+            self.log.append(("amax", x.detach() == m.detach()))
+            return m if keepdim else m.squeeze(dim)
+
+        def rec_fps(pos, n):
+            idx, cent = fps(pos, n)
+            self.log.append(("fps", idx))
+            return idx, cent
+
+        def rec_ball(*a):
+            out = ball(*a)
+            self.log.append(("ball", out))
+            return out
+
+        def rec_knn(*a):
+            out = knn(*a)
+            self.log.append(("knn", out))
+            return out
+        return self._patched(rec_relu, rec_amax, rec_fps, rec_ball, rec_knn)
+
+    def _next(self, kind, shape=None):
+        k, v = self.log[self._i]
+        self._i += 1
+        if k != kind or (shape is not None and tuple(v.shape) != shape):
+            raise RuntimeError(f"replayed decision {self._i}: {k} where the "
+                               f"run asks for {kind} {shape}")
+        return v
+
+    def _flip(self, where, gap, x):
+        n = int(where.sum())
+        if n:
+            real = x.abs()[x.abs() < 1e29]         # not masked_max's fill
+            self.flips += n
+            self.margin = max(self.margin, float(gap[where].max())
+                              / float(real.max()))
+
+    def replay(self):
+        amax = torch.Tensor.amax
+        self._i = 0
+        zero = lambda x: torch.zeros((), dtype=x.dtype)
+
+        def rep_relu(x):
+            mask = self._next("relu", tuple(x.shape))
+            self._flip((x > 0) != mask, x.detach().abs(), x.detach())
+            return torch.where(mask, x, zero(x))
+
+        def rep_amax(x, dim=(), keepdim=False):
+            mask = self._next("amax", tuple(x.shape))
+            xd = x.detach()
+            own = amax(xd, dim, keepdim=True)
+            chosen = amax(torch.where(mask, xd, torch.full(
+                (), -math.inf, dtype=x.dtype)), dim, keepdim=True)
+            self._flip((xd == own) != mask, (own - chosen).expand_as(xd), xd)
+            m = (torch.where(mask, x, zero(x)).sum(dim, keepdim=True)
+                 / mask.sum(dim, keepdim=True))
+            return m if keepdim else m.squeeze(dim)
+
+        def rep_fps(pos, n):
+            idx = self._next("fps")
+            return idx, torch.gather(pos, 1, idx[..., None].expand(
+                *idx.shape, 3))
+
+        def rep_ball(*a):
+            return self._next("ball")
+
+        def rep_knn(*a):
+            return self._next("knn")
+        return self._patched(rep_relu, rep_amax, rep_fps, rep_ball, rep_knn)
+
+
+def float64_step(stage, vocab, batch, draws, decisions):
+    """``step_grads`` in float64 (``utils/float64.py``) on the piecewise
+    choices ``decisions`` recorded: the plain path, the LSTM's and the
+    Sinkhorn's forward included (their kernels take f32 only; FPS is
+    replayed)."""
+    import text2pos_torch.ops.lstm as lstm
+    import text2pos_torch.ops.sinkhorn as sinkhorn
+    from text2pos_torch.utils.float64 import float64_pins
+
+    trainer = make_trainer(stage, vocab)
+    state = trainer.init_state(1)
+    kernels = lstm._lstm_kernel, sinkhorn._lot_kernel
+    lstm._lstm_kernel = lstm.lstm_final_hidden_plain
+    sinkhorn._lot_kernel = sinkhorn.log_optimal_transport_plain
+    try:
+        with float64_pins(), decisions.replay():
+            state.model.double()
+            return step_grads(stage, trainer, state, batch, draws)
+    finally:
+        lstm._lstm_kernel, sinkhorn._lot_kernel = kernels
+
+
+def leaf_errors(got, ref, total):
+    """Relative L2 error of each leaf of ``got`` against ``ref`` ({leaf:
+    array}; a missing leaf counts as zeros). A leaf whose reference norm
+    is under ZERO_GRAD_FRACTION of ``total``, the global gradient norm, is
+    measured absolutely, in units of ZERO_GRAD_TOL times ``total``, so that
+    each error is held to 1 there. Returns (worst relative error, its leaf,
+    worst zero-leaf error, its leaf)."""
+    worst, worst_zero = (0.0, ""), (0.0, "")
+    for k, r in ref.items():
+        r = np.asarray(r, np.float64)
+        g = np.asarray(got[k], np.float64) if k in got else np.zeros_like(r)
+        n, d = float(np.linalg.norm(r)), float(np.linalg.norm(g - r))
+        if n > ZERO_GRAD_FRACTION * total:
+            worst = max(worst, (d / n, k))
+        else:
+            worst_zero = max(worst_zero, (d / (ZERO_GRAD_TOL * total), k))
+    return worst + worst_zero
+
+
+def bn_error(got, ref):
+    return max(float(np.abs(np.ravel(got[k]).astype(np.float64)
+                            - np.ravel(v)).max()
+                     / max(1.0, float(np.abs(v).max())))
+               for k, v in ref.items())
+
+
+def summary(step, full=None):
+    """A step's (loss, {leaf: its gradient's norm as a 1-array}, {leaf:
+    gradient} for the leaves ``full`` (all by default), {leaf: BN
+    statistic}): the form of JAX's step in the fixture."""
+    loss, grads, stats = step
+    norms = {k: np.array([np.linalg.norm(np.asarray(v, np.float64))])
+             for k, v in grads.items()}
+    return loss, norms, {k: grads[k] for k in (full or grads)}, stats
+
+
+def fixture_step(stage, tx):
+    """JAX's f32 step from the fixture, as ``summary`` gives it: every
+    leaf's norm, a few leaves whole."""
+    norms = {k: np.array([v]) for k, v in
+             zip(tx[f"{stage}_leaf_names"], tx[f"{stage}_leaf_norms"])}
+    full = {k[len(stage) + 6:]: v for k, v in tx.items()
+            if k.startswith(f"{stage}_grad/")}
+    sizes = tx[f"{stage}_stat_sizes"]
+    stats = dict(zip(tx[f"{stage}_stat_names"], np.split(
+        tx[f"{stage}_stats"], np.cumsum(sizes)[:-1])))
+    return float(tx[f"{stage}_loss"]), norms, full, stats
+
+
+def compare_steps(got, ref):
+    """Two ``summary``s, ``got`` against ``ref``: {loss (relative), worst
+    leaf (relative, over the norms and the full leaves), its name, worst
+    zero leaf (in ZERO_GRAD_TOL of the global norm), its name, BN}."""
+    total = math.sqrt(sum(float(v[0]) ** 2 for v in ref[1].values()))
+    a = leaf_errors(got[1], ref[1], total)
+    b = leaf_errors(got[2], ref[2], total)
+    worst, leaf = max(a[:2], b[:2])
+    zero, zleaf = max(a[2:], b[2:])
+    return {"loss": abs(got[0] - ref[0]) / abs(ref[0]), "leaf": worst,
+            "leaf_name": leaf, "zero": zero, "zero_name": zleaf,
+            "bn": bn_error(got[3], ref[3])}
+
+
+def describe(c):
+    return (f"loss rel {c['loss']:.2e}, worst gradient leaf {c['leaf']:.2e} "
+            f"({c['leaf_name']}), zero-gradient leaves "
+            f"{c['zero'] * ZERO_GRAD_TOL:.2e} of the global norm "
+            f"({c['zero_name'] or 'none'}), BN statistics {c['bn']:.2e}")
+
+
+def gate_step(stage, label, c, failures):
+    ok = (c["loss"] <= TRAIN_LOSS_TOL and c["leaf"] <= TRAIN_GRAD_TOL
+          and c["zero"] <= 1.0 and c["bn"] <= TRAIN_BN_TOL)
+    log(f"  train {stage} parity, {label}: {describe(c)} (tolerances "
+        f"{TRAIN_LOSS_TOL:g}, {TRAIN_GRAD_TOL:g}, {ZERO_GRAD_TOL:g}, "
+        f"{TRAIN_BN_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"train {stage} parity, {label}: {describe(c)}")
+
+
+def train_parity(stage, train, vocab, tx, failures):
+    """One f32 step on the card from the checkpoint at each of
+    PARITY_BATCHES, held to the float64 step on its own choices; at the
+    fixture's batch (JAX's draws) the coarse step is also held to JAX's
+    f32 step, and JAX's f32 step is read against the float64 step; the
+    gradients that must not be zero."""
+    from text2pos_torch.ops.transforms import sample_indices
+    from text2pos_torch.train.coarse import step_generator
+
+    jax = fixture_step(stage, tx)
+    report = {}
+    for batch_size in PARITY_BATCHES[stage]:
+        trainer = make_trainer(stage, vocab)
+        state = trainer.init_state(1)
+        batch = next(stage_loader(stage, train, vocab, batch_size).epoch(
+            seed=1))
+        if batch_size == STEP_BATCH[stage]:
+            tok = "tokens" if stage == "coarse" else "hint_tokens"
+            same = (np.array_equal(batch[tok], tx[f"{stage}_{tok}"])
+                    and np.array_equal(batch["pose_idx"],
+                                       tx[f"{stage}_pose_idx"]))
+            log(f"  train {stage}: the loader's batch of {batch_size} "
+                f"equals the fixture's: {same}")
+            if not same:
+                failures.append(f"train {stage}: the loader's batch "
+                                "differs from the fixture's")
+            draws = {"idx": tx[f"{stage}_idx"].astype(np.int64),
+                     "angles": tx[f"{stage}_angles"]}
+            label = f"batch {batch_size}, JAX's draws"
+        else:
+            obj = (trainer.objects(batch) if stage == "coarse"
+                   else trainer.tensors(batch))
+            counts = obj["point_count"].cpu()
+            gen = step_generator(torch.device("cpu"), 6, batch_size)
+            draws = {"idx": sample_indices(counts, 256, obj[
+                "points_xyz"].shape[-2], gen).numpy(),
+                "angles": (torch.rand(counts.shape, generator=gen) * 240.0
+                           - 120.0).numpy()}
+            label = f"batch {batch_size} (the recipe's), the port's draws"
+        decisions = Decisions()
+        with decisions.record():
+            port = step_grads(stage, trainer, state, batch, draws)
+        t0 = time.time()
+        ref = float64_step(stage, vocab, batch, draws, decisions)
+        near = decisions.margin <= NEAR_TIE_TOL
+        log(f"  train {stage} {label}: the float64 step took "
+            f"{time.time() - t0:.1f} s on the card, on the f32 step's "
+            f"{len(decisions.log)} recorded choices; left to itself it "
+            f"would have chosen otherwise at {decisions.flips} entries, each "
+            f"a near-tie within {decisions.margin:.2e} of the tensor's "
+            f"largest magnitude (tolerance {NEAR_TIE_TOL:g}) "
+            f"{'ok' if near else 'FAIL'}")
+        if not near:
+            failures.append(f"train {stage} {label}: a choice of the f32 "
+                            f"step is {decisions.margin} from a tie")
+        rep = {"flips": decisions.flips, "flip_margin": decisions.margin}
+        del decisions
+        rep["port_vs_float64"] = c = compare_steps(summary(port),
+                                                   summary(ref))
+        gate_step(stage, f"the card's f32 step vs the float64 step, {label}",
+                  c, failures)
+        if batch_size == STEP_BATCH[stage]:
+            if stage == "coarse":
+                rep["port_vs_jax"] = c = compare_steps(summary(port, jax[2]),
+                                                       jax)
+                gate_step(stage, f"the card's f32 step vs JAX's f32 step, "
+                          f"{label}", c, failures)
+            rep["jax_vs_float64"] = c = compare_steps(jax,
+                                                      summary(ref, jax[2]))
+            log(f"  train {stage}: JAX's f32 step (fixture) vs the float64 "
+                f"step, {label} (on the port's choices; printed, not "
+                f"gated): {describe(c)}")
+        report[f"batch_{batch_size}"] = rep
+    named = dict(state.model.named_parameters())
+    nonzero = ["language_encoder.lstm_fwd_w_hh",
+               "language_encoder.word_embedding.weight"]
+    if stage == "fine":
+        nonzero += ["superglue.gnn.layer_0.attn.proj_q.weight",
+                    "superglue.gnn.layer_11.mlp.dense_1.weight",
+                    "superglue.bin_score"]
+    zero = [n for n in nonzero if named[n].grad is None
+            or float(named[n].grad.abs().sum()) == 0.0]
+    log(f"  train {stage}: non-zero gradients to {', '.join(nonzero)}: "
+        f"{'ok' if not zero else 'FAIL ' + str(zero)}")
+    if zero:
+        failures.append(f"train {stage}: zero gradient to {zero}")
+    return report
+
+
+def function_checks(failures):
+    """The two autograd Functions on the card at the training shapes:
+    forward (the kernel) against the plain version, gradients against plain
+    autograd's on the card."""
+    from text2pos_torch.ops.lstm import (LSTMFinalHidden,
+                                         lstm_final_hidden_plain)
+    from text2pos_torch.ops.sinkhorn import (LogOptimalTransport,
+                                             log_optimal_transport_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for name, (B, T, H) in {"coarse": (64, 64, 256),
+                            "fine": (192, 16, 128)}.items():
+        V = 31 + 1
+        tables = [(0.5 * torch.randn(V, 4 * H, device="cuda", generator=g)
+                   ).requires_grad_() for _ in range(2)]
+        w_hh = [(torch.randn(H, 4 * H, device="cuda", generator=g)
+                 / math.sqrt(H)).requires_grad_() for _ in range(2)]
+        tok = torch.randint(1, V, (B, T), device="cuda", generator=g)
+        ln = torch.randint(1, T + 1, (B,), device="cuda", generator=g)
+        w = torch.randn(2, B, H, device="cuda", generator=g)
+        got = LSTMFinalHidden.apply(tok, ln, *tables, *w_hh)
+        gg = torch.autograd.grad((got * w).sum(), (*tables, *w_hh))
+        ref = lstm_final_hidden_plain(tables, w_hh, tok, ln)
+        gr = torch.autograd.grad((ref * w).sum(), (*tables, *w_hh))
+        fwd = max_err(got, ref)
+        grad = max(float((a - b).norm() / b.norm()) for a, b in zip(gg, gr))
+        check(f"LSTM Function forward, {name} training shape [{B}, {T}], "
+              f"H={H}", fwd, TOL["lstm"], failures)
+        check(f"LSTM Function gradients vs plain autograd (relative L2), "
+              f"{name}", grad, 1e-4, failures)
+        out[f"lstm_{name}"] = {"forward_err": fwd, "grad_rel_err": grad}
+    scores = (5 * torch.randn(32, 16, 6, device="cuda", generator=g)
+              ).requires_grad_()
+    alpha = torch.tensor(1.0, device="cuda", requires_grad=True)
+    w = torch.randn(32, 17, 7, device="cuda", generator=g)
+    got = LogOptimalTransport.apply(scores, alpha, 50)
+    gg = torch.autograd.grad((got * w).sum(), (scores, alpha))
+    ref = log_optimal_transport_plain(scores, alpha, 50)
+    gr = torch.autograd.grad((ref * w).sum(), (scores, alpha))
+    fwd = max_err(got, ref)
+    grad = max(float((a - b).norm() / b.norm()) for a, b in zip(gg, gr))
+    check("Sinkhorn Function forward, training shape [32, 17, 7], 50 "
+          "iterations", fwd, TOL["sinkhorn"], failures)
+    check("Sinkhorn Function gradients vs plain autograd (relative L2)",
+          grad, 1e-4, failures)
+    out["sinkhorn_fine"] = {"forward_err": fwd, "grad_rel_err": grad}
+    return out
+
+
+def eval_checks(stage, trainer, state, val, vocab, tx, failures,
+                label="committed checkpoint"):
+    """The evaluation epoch on the validation scene with JAX's draws:
+    coarse top-k accuracy, fine recall and precision, against the
+    fixture's within one query."""
+    if stage == "coarse":
+        from text2pos_torch.data.loaders import CoarseLoader
+
+        loader = CoarseLoader(*val, vocab, 64, 24, 256, 64, seed=0)
+        offs = tx["coarse_eval_offsets"]
+        draws = [tx["coarse_eval_idx"][a:b].astype(np.int64)
+                 for a, b in zip(offs[:-1], offs[1:])]
+        acc, close, _ = trainer.eval_epoch(state, loader, (1, 3, 5),
+                                           draws=draws)
+        want = tx["coarse_eval_acc"]
+        q = len(loader)
+        diff = max(abs(acc[k] - w) for k, w in zip((1, 3, 5), want))
+        log(f"  eval coarse ({label}): top-1/3/5 "
+            f"{acc[1]:.4f}/{acc[3]:.4f}/{acc[5]:.4f} vs JAX "
+            f"{want[0]:.4f}/{want[1]:.4f}/{want[2]:.4f} on JAX's draws "
+            f"({q} queries; the checkpoint's stored val_acc 0.7368, other "
+            "draws)")
+        if diff > 1.0 / q + 1e-9:
+            failures.append(f"eval coarse: accuracy {acc} vs JAX {want}")
+        return acc
+    loader = stage_loader("fine", val, vocab, 32)
+    draws = [{"idx": d.astype(np.int64)} for d in tx["fine_eval_idx"]]
+    rows = []
+    for i, b in enumerate(loader.epoch(seed=0, shuffle=False,
+                                       drop_last=False)):
+        B = b["gt_obj_for_hint"].shape[0]
+        b["sample_mask"] = np.arange(B) < int(b["num_real"])
+        m, _ = trainer.eval_step(state, b, draws=draws[i])
+        rows.append([float(m["recall"]), float(m["precision"])])
+    rows = np.array(rows)
+    want = tx["fine_eval_metrics"][:, :2]
+    per_query = np.abs(rows - want) * tx["fine_eval_real"][:, None]
+    log(f"  eval fine ({label}): recall {rows[:, 0].mean():.4f} precision "
+        f"{rows[:, 1].mean():.4f} (mean {rows.mean():.4f}) vs JAX "
+        f"{want[:, 0].mean():.4f} {want[:, 1].mean():.4f} (mean "
+        f"{want.mean():.4f}); the checkpoint's stored val_acc 0.8775 (other "
+        f"draws); largest batch difference {per_query.max():.3f} queries")
+    if per_query.max() > 1.0 + 1e-6:
+        failures.append(f"eval fine: recall/precision differ from JAX's by "
+                        f"{per_query.max()} queries")
+    return rows.mean(0)
+
+
+def profile_train_step(stage, trainer, state, batch, generator):
+    """One training step under torch.profiler, its three ranges apart
+    (``train.forward``, ``train.backward``, ``train.optimizer``, each run
+    to a synchronization): {range: (wall ms, device ms)} and {kernel or
+    ``*.backward_plain`` range: device ms}; None when the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    held = {}
+
+    def forward():
+        out = trainer.forward_loss(state, batch, generator)
+        held["loss"] = out if stage == "coarse" else out[0]
+
+    phases = {"train.forward": forward,
+              "train.backward": lambda: held["loss"].backward(),
+              "train.optimizer": state.apply_gradients}
+    ranges, detail = {}, collections.defaultdict(float)
+    for name, fn in phases.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        spans, kernels = [], []
+        events = prof.events()
+        on_host = {e.name for e in events
+                   if "CUDA" not in str(getattr(e, "device_type", ""))}
+        for e in events:
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            if e.name.endswith(".backward_plain"):
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            elif e.name not in on_host:     # not a range's device span
+                kernels.append(e)
+        dev = 0.0
+        for k in kernels:
+            t = k.time_range.elapsed_us() / 1e3
+            dev += t
+            for a, b, n in spans:
+                if a <= k.time_range.start < b:
+                    detail[n] += t
+            if "lstm" in k.name or "sinkhorn" in k.name:
+                detail["kernel " + ("lstm" if "lstm" in k.name
+                                    else "sinkhorn")] += t
+        ranges[name] = (wall, dev)
+    if not any(dev for _, dev in ranges.values()):
+        return None
+    return ranges, dict(detail)
+
+
+def state_snapshot(state):
+    """Copies of a training state's parameters (``param/``), BN statistics
+    (``buffer/``), Adam's moments (``mu/``, ``nu/``), count and step."""
+    opt = state.optimizer
+    snap = {f"param/{n}": p.detach().clone()
+            for n, p in state.model.named_parameters()}
+    snap.update({f"buffer/{n}": b.detach().clone()
+                 for n, b in state.model.named_buffers()})
+    for p in opt.param_groups[0]["params"]:
+        for m in ("mu", "nu"):
+            snap[f"{m}/{opt.names[p]}"] = opt.state[p][m].detach().clone()
+    snap["count"] = torch.tensor([opt.count, state.step])
+    return snap
+
+
+def train_steps(stage, train, vocab, gpu, scratch, failures,
+                steps=TRAIN_STEPS):
+    """``steps`` training steps at the recipe's width from the checkpoint:
+    losses finite, ms a step (median of the last 15, synchronized), one
+    step's profile; a resume file after step 10 and the last 10 steps again
+    from it. Returns (trainer, state, launches by kernel, report)."""
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.state import (load_resume_checkpoint,
+                                            save_resume_checkpoint)
+
+    trainer = make_trainer(stage, vocab)
+    loader = stage_loader(stage, train, vocab, TRAIN_RECIPE[stage][
+        "batch_size"])
+    state = trainer.init_state(loader.num_batches(True))
+    batches = list(itertools.islice(itertools.chain.from_iterable(
+        loader.epoch(seed=e) for e in range(1, steps + 1)), steps))
+    gen = lambda i: step_generator(trainer.device, 5, i)
+    step = lambda i: trainer.train_step(state, batches[i], gen(i))
+    resume = os.path.join(scratch, f"train_{stage}_resume.msgpack")
+    losses, times = [], []
+    _build.LAUNCHES.clear()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(out if stage == "coarse" else out["loss"]))
+        if i + 1 == steps // 2:
+            save_resume_checkpoint(resume, state, 0, -1.0, None)
+            saved = state_snapshot(state)
+    launches = dict(_build.LAUNCHES)
+    ms = statistics.median(times[5:] or times)
+    finite = all(math.isfinite(x) for x in losses)
+    log(f"  train {stage}: {steps} steps at batch "
+        f"{TRAIN_RECIPE[stage]['batch_size']}, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, all finite {finite}; {ms:.2f} ms a step (median "
+        f"of the last {steps - 5}; first {times[0]:.0f} ms) on {gpu}; "
+        f"launches {launches}")
+    if not finite:
+        failures.append(f"train {stage}: a loss is not finite: {losses}")
+    for k in ("lstm", "fps") + (("sinkhorn",) if stage == "fine" else ()):
+        if launches.get(k, 0) < steps:
+            failures.append(f"train {stage}: kernel {k} launched "
+                            f"{launches.get(k, 0)} times in {steps} steps")
+    prof = profile_train_step(stage, trainer, state, batches[steps - 1],
+                              gen(steps - 1))
+    report = {"ms_per_step": ms, "losses": losses}
+    if prof is None:
+        log(f"  train {stage} profile: no device time recorded (not "
+            "measured)")
+    else:
+        ranges, detail = prof
+        wall = sum(w for w, _ in ranges.values())
+        busy = sum(d for _, d in ranges.values())
+        log(f"  train {stage} profile of one step (torch.profiler, ranges "
+            f"run apart, {gpu}): wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms ({100 * busy / wall:.1f}%); " + ", ".join(
+                f"{k} wall {w:.2f} ms device {d:.2f} ms"
+                for k, (w, d) in ranges.items()) + "; device time of " +
+            ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(detail.items())))
+        report.update(profile_wall_ms=wall, device_busy_ms=busy,
+                      by_range=ranges, detail=detail)
+    # Resume after half the steps and run the rest again.
+    trainer2 = make_trainer(stage, vocab)
+    state2, _, _, _ = load_resume_checkpoint(
+        resume, trainer2.init_state(loader.num_batches(True)))
+    loaded = state_snapshot(state2)
+    unequal = [k for k in saved if k not in loaded
+               or not torch.equal(saved[k], loaded[k])]
+    log(f"  train {stage}: the resume file after {steps // 2} steps reloads "
+        f"the straight run's parameters, BN statistics, Adam's moments, count"
+        f" and step bit for bit ({len(saved)} tensors): "
+        f"{'ok' if not unequal else 'FAIL'}")
+    if unequal or set(saved) != set(loaded):
+        failures.append(f"train {stage}: the reloaded state differs from "
+                        f"the saved one: {unequal[:5]}")
+    again = []
+    for i in range(steps // 2, steps):
+        out = trainer2.train_step(state2, batches[i], gen(i))
+        again.append(float(out if stage == "coarse" else out["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again,
+                                                  losses[steps // 2:]))
+    first = again[0] == losses[steps // 2]
+    log(f"  train {stage}: resumed after {steps // 2} steps, the first "
+        f"resumed loss equals the straight run's: {first}; the last "
+        f"{steps - steps // 2} losses within {rel:.2e} (relative) of the "
+        f"straight run's (tolerance {RESUME_LOSS_TOL[stage]:g})")
+    if rel > RESUME_LOSS_TOL[stage] or not first:
+        failures.append(f"train {stage}: resume differs by {rel} (first "
+                        f"step equal: {first})")
+    report["resume_loss_rel_err"] = rel
+    return trainer, state, launches, report
+
+
+def after_training(stage, trainer, state, val, vocab, scratch, failures):
+    """Eval of the trained state against a fresh model loaded from its
+    ``save_checkpoint``: equal encodings and metrics show that the kernels
+    see the updated weights (no stale W2 fragments or GNN fold)."""
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.state import save_checkpoint
+
+    path = os.path.join(scratch, f"train_{stage}.msgpack")
+    save_checkpoint(path, state)
+    fresh_trainer = make_trainer(stage, vocab, continue_path=path)
+    fresh = fresh_trainer.init_state(1)
+    if stage == "coarse":
+        from text2pos_torch.data.loaders import CoarseLoader
+
+        loader = CoarseLoader(*val, vocab, 64, 24, 256, 64, seed=0)
+        a = trainer.eval_epoch(state, loader, (1, 3, 5), True)
+        b = fresh_trainer.eval_epoch(fresh, loader, (1, 3, 5), True)
+        diff = max(float(np.abs(a[3] - b[3]).max()),
+                   float(np.abs(a[4] - b[4]).max()))
+        same = a[0] == b[0] and diff == 0.0
+        log(f"  eval coarse after {TRAIN_STEPS} steps: top-1/3/5 "
+            f"{a[0][1]:.4f}/{a[0][3]:.4f}/{a[0][5]:.4f}; a model reloaded "
+            f"from save_checkpoint gives {b[0][1]:.4f}/{b[0][3]:.4f}/"
+            f"{b[0][5]:.4f}, encodings max difference {diff:.2e}: "
+            f"{'equal' if same else 'FAIL'}")
+    else:
+        loader = stage_loader("fine", val, vocab, 32)
+        rows = []
+        for tr, st in ((trainer, state), (fresh_trainer, fresh)):
+            res = []
+            for i, b in enumerate(loader.epoch(seed=0, shuffle=False,
+                                               drop_last=False)):
+                B = b["gt_obj_for_hint"].shape[0]
+                b["sample_mask"] = np.arange(B) < int(b["num_real"])
+                _, out = tr.eval_step(st, b, step_generator(tr.device, 3,
+                                                            0, i))
+                res.append(out["log_P"])
+            rows.append(torch.cat(res))
+        diff = float((rows[0] - rows[1]).abs().max())
+        same = diff == 0.0
+        log(f"  eval fine after {TRAIN_STEPS} steps: log transport of the "
+            f"trained state vs a model reloaded from save_checkpoint, max "
+            f"difference {diff:.2e}: {'equal' if same else 'FAIL'}")
+    if not same:
+        failures.append(f"eval {stage} after training differs from the "
+                        "reloaded checkpoint's")
+
+
+def train_phase(gpu, failures):
+    """Phase 7. Returns ({path: launches}, report). Checkpoints go to a
+    temporary directory in the checkout, removed at the end."""
+    import tempfile
+
+    from text2pos_torch.ops import _build
+
+    if not os.path.isfile(TRAIN_FIXTURE):
+        failures.append(f"missing {TRAIN_FIXTURE}")
+        return {}, {}
+    tx = dict(np.load(TRAIN_FIXTURE))
+    t0 = time.time()
+    train, val, vocab = train_data()
+    log(f"  training data rebuilt in {time.time() - t0:.1f} s: "
+        f"{len(train[0])} cells / {len(train[1])} poses, validation "
+        f"{len(val[0])} / {len(val[1])}")
+    report = {"functions": function_checks(failures)}
+    by_path = {}
+    scratch = tempfile.TemporaryDirectory(dir=ROOT, prefix=".train_smoke_")
+    for stage in ("coarse", "fine"):
+        report[f"{stage}_parity"] = train_parity(stage, train, vocab, tx,
+                                                 failures)
+        trainer = make_trainer(stage, vocab)
+        state = trainer.init_state(1)
+        _build.LAUNCHES.clear()
+        eval_checks(stage, trainer, state, val, vocab, tx, failures)
+        by_path[f"eval_{stage}"] = dict(_build.LAUNCHES)
+        trainer, state, launches, rep = train_steps(
+            stage, train, vocab, gpu, scratch.name, failures)
+        by_path[f"train_{stage}"] = launches
+        report[f"{stage}_steps"] = rep
+        after_training(stage, trainer, state, val, vocab, scratch.name,
+                       failures)
+    scratch.cleanup()
+    if by_path["eval_coarse"].get("pointconv", 0) < 1:
+        failures.append("the coarse eval epoch launched no PointConv kernel")
+    return by_path, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 2
     missing = [p for p in (CKPT_COARSE, CKPT_FINE, DB_CACHE, FIXTURE,
-                           DB_FIXTURE) if not os.path.isfile(p)]
+                           DB_FIXTURE, TRAIN_FIXTURE)
+               if not os.path.isfile(p)]
     try:
         from text2pos_torch.data.bench import (bench_cell_bank,
                                                make_bench_dataset)
@@ -1612,6 +2406,12 @@ def main() -> int:
     by_path.update(calibrate_and_serve(cells, poses, bank, cell_enc, fx,
                                        failures))
 
+    log("phase 7 train")
+    t0 = time.time()
+    train_paths, train_report = train_phase(gpu, failures)
+    by_path.update(train_paths)
+    log(f"  phase 7 took {time.time() - t0:.1f} s")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -1619,6 +2419,10 @@ def main() -> int:
     sinkhorn = dict(gs["sinkhorn"], cascade_cheap_pass={
         k: {"ms": v["sinkhorn_ms"], "bound_ms": v["sinkhorn_bound_ms"]}
         for k, v in cascade["kernels"].items()})
+    fn = train_report.get("functions", {})
+    lstm = dict(lstm, train_function={
+        k[5:]: v for k, v in fn.items() if k.startswith("lstm_")})
+    sinkhorn = dict(sinkhorn, train_function=fn.get("sinkhorn_fine"))
     per_kernel = {"lstm": lstm, "sinkhorn": sinkhorn,
                   "superglue_gnn": gnn, "pointconv": pointconv, "fps": fps}
     kernels = []

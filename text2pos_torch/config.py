@@ -1,10 +1,134 @@
-"""Serving configuration: the fields of ``text2pos_tpu/config.py``
-(``EvalConfig``) that serving, calibration and the map encode read."""
+"""Configurations: ``TrainConfig`` and ``parse_config``, copies of
+``text2pos_tpu/config.py``'s (the same flags, names and defaults), and
+``ServeConfig``, the fields of its ``EvalConfig`` that serving, calibration
+and the map encode read."""
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
+
+
+@dataclass
+class TrainConfig:
+    """Training configuration: a copy of ``text2pos_tpu/config.py``'s
+    ``TrainConfig`` (the reference's training flags, names and defaults),
+    plus ``device``."""
+
+    purpose: str = ""
+    batch_size: int = 32
+    num_distractors: str = "all"
+    max_batches: Optional[int] = None
+    dataset: str = "K360"
+    base_path: str = ""
+
+    # Model
+    embed_dim: int = 300
+    num_layers: int = 6          # SuperGlue self/cross block pairs
+    use_features: Tuple[str, ...] = ("class", "color", "position")
+    shuffle: bool = False
+    variation: int = 0           # 0 = max aggregation, 1 = mean (cell_retrieval.py:44-54)
+    lr_idx: Optional[int] = None
+    learning_rate: float = 1e-3
+    continue_path: str = ""
+    resume_path: str = ""        # rolling full-state checkpoint; if the file
+                                 # exists training resumes from it (params +
+                                 # optimizer + epoch), else it is created and
+                                 # refreshed at every eval point
+    no_pc_augment: bool = False
+    no_cell_augment: bool = False
+
+    # SuperGlue
+    sinkhorn_iters: int = 50
+    num_mentioned: int = 6
+    pad_size: int = 16
+    describe_by: str = "all"
+
+    # Cell retrieval
+    margin: float = 0.35
+    top_k: Tuple[int, ...] = (1, 3, 5)
+    ranking_loss: str = "pairwise"
+
+    # Object encoder / PointNet
+    pointnet_layers: int = 3
+    pointnet_variation: int = 0
+    pointnet_numpoints: int = 256
+    pointnet_path: str = ""
+    pointnet_freeze: bool = False
+    pointnet_features: int = 2   # which feature tier feeds the object MLP
+
+    class_embed: bool = False
+    color_embed: bool = False
+
+    # Offset regressor
+    regressor_dim: int = 128
+    regressor_cell: str = "pose"      # pose | best
+    regressor_learn: str = "center"   # center | closest
+    regressor_eval: str = "center"    # center | closest
+
+    epochs: int = 16
+    lr_gamma: float = 1.0
+
+    # ------------------------------------------------------------------
+    # Additions of the JAX package (no reference equivalent)
+    # ------------------------------------------------------------------
+    seed: int = 0
+    dtype: str = "float32"            # compute dtype for the model bodies
+    max_text_len: int = 64            # token cap for joined coarse text
+    max_hint_len: int = 16            # token cap for a single hint
+    coarse_max_objects: int = 28      # dense cap of objects per cell (coarse)
+    flat_object_cap: Optional[int] = None  # packed-object buffer per batch
+    data_parallel: int = 1            # devices on the 'dp' mesh axis
+    remat: bool = False               # jax.checkpoint the object encoders
+    fused: bool = False               # device-resident fused training epochs
+    global_negatives: bool = False    # all-gather embeddings for the ranking loss
+    # Global-negative memory bank (fused coarse training only): a device-
+    # resident table of ALL train-cell embeddings, refreshed once per epoch
+    # with the current parameters, scored against every anchor in one MXU
+    # matmul. Trains retrieval against the full database instead of the 63
+    # in-batch negatives — the serving task is top-k over thousands of cells.
+    neg_bank: bool = False
+    neg_bank_hardest: int = 8         # hardest bank negatives per anchor
+    neg_bank_weight: float = 1.0      # weight of the bank term in the loss
+    neg_bank_warmup: int = 2          # epochs before the bank term turns on
+    neg_bank_refresh: int = 1         # bank re-embeds per epoch (staleness ↓)
+    eval_every: int = 1               # run the retrieval eval every N epochs
+    # Rank-aware fine training (the JAX package's addition): listwise loss on a
+    # differentiable surrogate of the SERVING re-ranking score — each
+    # query's hints are matched against its own cell plus rank_negatives
+    # other cells from the batch; softmax-CE pushes the soft transport
+    # mass (− rank_gamma · soft vote spread) of the true cell above the
+    # negatives'. Trains the fine confidence for the job re-ranking uses
+    # it for (the reference's fine loss never compares cells,
+    # the Text2Pos reference code, training/fine.py:56-63).
+    rank_weight: float = 0.0          # 0 = off (reference loss only)
+    rank_negatives: int = 4           # negative cells per query
+    rank_tau: float = 1.0             # listwise softmax temperature
+    rank_gamma: float = 0.0           # soft vote-spread penalty in the score
+    # The port's addition: where the trainers run ("cuda" or "cpu").
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.use_features = tuple(self.use_features)
+        self.top_k = tuple(self.top_k)
+        assert self.variation in (0, 1)
+        assert self.ranking_loss in ("triplet", "pairwise", "hardest")
+        assert self.regressor_cell in ("pose", "best")
+        assert self.regressor_learn in ("center", "closest")
+        assert self.regressor_eval in ("center", "closest")
+        assert self.describe_by in ("closest", "class", "direction", "random", "all")
+        for feat in self.use_features:
+            assert feat in ("class", "color", "position"), f"Unexpected feature {feat}"
+
+    @property
+    def flat_cap(self) -> int:
+        if self.flat_object_cap is not None:
+            return self.flat_object_cap
+        return self.batch_size * self.coarse_max_objects
+
+
 
 
 @dataclass(frozen=True)
@@ -18,3 +142,63 @@ class ServeConfig:
     pointnet_numpoints: int = 256     # points per resampled object
     coarse_max_objects: int = 28      # object slots per cell of the map bank
     seed: int = 0                     # draws of the map bank and its encode
+
+
+def check_ported(cfg: TrainConfig, stage: str) -> None:
+    """Raise ``ValueError`` for the training options the port does not
+    have yet, each naming its ROADMAP item; nothing takes another path
+    quietly. ``stage`` is "coarse" or "fine"."""
+    def no(flag: str, item: str) -> ValueError:
+        return ValueError(f"{flag} is not ported to text2pos_torch yet "
+                          f"(ROADMAP Queue 1 item {item}); use "
+                          f"text2pos_tpu.train.{stage} for it")
+
+    if cfg.fused or cfg.neg_bank:
+        raise no("--fused (with --neg_bank and token swaps)", "4")
+    if stage == "fine" and cfg.rank_weight > 0:
+        raise no("--rank_weight > 0 (forward_rank, soft_rank_score, "
+                 "listwise_rank_loss)", "4")
+    if cfg.remat:
+        raise no("--remat", "4")
+    if cfg.data_parallel > 1 or cfg.global_negatives:
+        raise no("--data_parallel > 1 and --global_negatives", "6")
+    if cfg.variation != 0:
+        raise no("--variation 1 (EdgeConv mean aggregation)", "7")
+    if cfg.class_embed or cfg.color_embed:
+        raise no("--class_embed / --color_embed", "7")
+    if tuple(cfg.use_features) != ("class", "color", "position") \
+            or cfg.pointnet_features != 2:
+        raise no("--use_features other than class color position, and "
+                 "--pointnet_features other than 2", "7")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"--dtype {cfg.dtype}: float32 or bfloat16")
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
+    for f in dataclasses.fields(cls):
+        name = "--" + f.name
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.type in ("bool", bool):
+            parser.add_argument(name, action="store_true", default=bool(default))
+        elif isinstance(default, tuple):
+            parser.add_argument(name, nargs="+", type=type(default[0]), default=list(default))
+        elif f.type in ("Optional[int]",):
+            parser.add_argument(name, type=int, default=default)
+        else:
+            typ = type(default) if default is not None else str
+            parser.add_argument(name, type=typ, default=default)
+
+
+def parse_config(cls, argv: Optional[Sequence[str]] = None):
+    """Parse CLI args into the given config dataclass.
+
+    Keeps the reference flag spelling (`--batch_size`, `--use_features`, ...).
+    """
+    parser = argparse.ArgumentParser(description=f"Text2Pos (PyTorch): {cls.__name__}")
+    _add_dataclass_args(parser, cls)
+    ns = parser.parse_args(argv)
+    kwargs = {f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)}
+    for key in ("use_features", "top_k", "threshs"):
+        if key in kwargs and isinstance(kwargs[key], list):
+            kwargs[key] = tuple(kwargs[key])
+    return cls(**kwargs)

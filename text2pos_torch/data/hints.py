@@ -1,19 +1,22 @@
-"""Hint text and tokenization: a copy of ``text2pos_tpu/data/hints.py:19-66``.
+"""Hint text, tokenization and flip rewrites: a copy of
+``text2pos_tpu/data/hints.py``.
 
 One sentence per pose description; lowercase, strip ``.``/``,``, split on
-whitespace; index 0 is ``<unk>`` and doubles as the padding index.
+whitespace; index 0 is ``<unk>`` and doubles as the padding index. A
+horizontal flip swaps east and west, a vertical one north and south.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from text2pos_torch.data.structs import Pose
+from text2pos_torch.data.structs import Cell, Pose
 
 
-def create_hint_description(pose: Pose) -> List[str]:
+def create_hint_description(pose: Pose, cell: Cell = None) -> List[str]:
     """One sentence per description: "The pose is {dir} of a {color}
     {label}."."""
     return [
@@ -25,6 +28,15 @@ def create_hint_description(pose: Pose) -> List[str]:
 
 def tokenize(text: str) -> List[str]:
     return text.replace(".", "").replace(",", "").lower().split()
+
+
+def build_vocabulary(hint_lists: Sequence[Sequence[str]]) -> List[str]:
+    """Unique sorted word list over all hints."""
+    words: List[str] = []
+    for hints in hint_lists:
+        for hint in hints:
+            words.extend(tokenize(hint))
+    return list(np.unique(words))
 
 
 class Vocabulary:
@@ -52,3 +64,42 @@ class Vocabulary:
         for i, t in enumerate(texts):
             tokens[i], lengths[i] = self.encode(t, max_len)
         return tokens, lengths
+
+
+def flip_text(text: str, direction: int) -> str:
+    """Rewrite direction words for a horizontal (+1) or vertical (-1) flip."""
+    assert direction in (-1, 1)
+    if direction == 1:
+        out = (text.replace("east", "east-flipped").replace("west", "east")
+               .replace("east-flipped", "west"))
+    else:
+        out = (text.replace("north", "north-flipped")
+               .replace("south", "north").replace("north-flipped", "south"))
+    assert "flipped" not in out
+    return out
+
+
+def flip_pose_in_cell(pose: Pose, cell: Cell, text: str, direction: int,
+                      hints: List[str] = None, offsets: np.ndarray = None):
+    """Flip a (pose, cell, text[, hints, offsets]) tuple along x (+1) or y
+    (-1), on copies."""
+    assert direction in (-1, 1)
+    assert (hints is None) == (offsets is None)
+    pose = copy.deepcopy(pose)
+    cell = copy.deepcopy(cell)
+    if offsets is not None:
+        offsets = offsets.copy()
+
+    axis = 0 if direction == 1 else 1
+    pose.pose[axis] = 1.0 - pose.pose[axis]
+    for obj in cell.objects:
+        obj.xyz[:, axis] = 1.0 - obj.xyz[:, axis]
+    for descr in pose.descriptions:
+        descr.closest_point[axis] = 1.0 - descr.closest_point[axis]
+
+    text = flip_text(text, direction)
+    if hints is not None:
+        hints = [flip_text(h, direction) for h in hints]
+        offsets[:, axis] *= -1
+        return pose, cell, text, hints, offsets
+    return pose, cell, text

@@ -1,9 +1,13 @@
-"""Building blocks (counterpart of ``text2pos_tpu/models/blocks.py``) for
-inference: BatchNorm reads its running statistics, or with
+"""Building blocks (counterpart of ``text2pos_tpu/models/blocks.py``).
+In eval mode BatchNorm reads its running statistics, or with
 ``eval_batch_stats`` normalizes by the batch's own (the JAX fine model's
 default); ``calibrating`` makes the batch-statistics BNs of a module write
 what they compute into their running statistics, as an eval forward of the
-JAX model with a mutable ``batch_stats`` collection does.
+JAX model with a mutable ``batch_stats`` collection does. In train mode
+(``train_mode``: JAX's ``train=True``) every BN normalizes by the batch's
+statistics and moves its running statistics towards them by momentum 0.1,
+the variance unbiased; the port never runs an initializing forward, so
+nothing updates while weights are made (JAX's ``is_initializing``).
 
 Module and attribute names follow the flax parameter tree (``dense_0``,
 ``bn_0``, …) so that ``utils/convert_jax.py`` maps a checkpoint by name.
@@ -60,14 +64,19 @@ class MaskedBatchNorm(nn.Module):
     rows where ``mask`` is true, when given) in f32; the running statistics
     are left alone unless ``calibrate`` is set (``calibrating``), which
     overwrites the ``stat_group`` row with them, no momentum (JAX's
-    one-shot calibration)."""
+    one-shot calibration). With ``train_stats`` (``train_mode``) it
+    normalizes by the same statistics and updates the row as
+    ``(1 - momentum)·old + momentum·batch``, the variance made unbiased by
+    ``n / max(n - 1, 1)`` over the n rows counted."""
 
     def __init__(self, features: int, stat_groups: int = 1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.stat_groups = stat_groups
         self.eps = eps
+        self.momentum = momentum
         self.eval_batch_stats = False
+        self.train_stats = False
         self.calibrate = False
         shape = (features,) if stat_groups == 1 else (stat_groups, features)
         self.weight = nn.Parameter(torch.ones(features))
@@ -84,6 +93,7 @@ class MaskedBatchNorm(nn.Module):
         row."""
         xf = x.float().flatten(0, -2)
         if mask is None:
+            count = xf.new_tensor(float(xf.shape[0]))
             mean = xf.mean(0)
             var = ((xf - mean) ** 2).mean(0)
         else:
@@ -91,19 +101,25 @@ class MaskedBatchNorm(nn.Module):
             count = m.sum().clamp_min(1.0)
             mean = (xf * m).sum(0) / count
             var = (((xf - mean) ** 2) * m).sum(0) / count
-        if self.calibrate:
+        if self.calibrate or self.train_stats:
             with torch.no_grad():
-                if self.stat_groups == 1:
-                    self.running_mean.copy_(mean)
-                    self.running_var.copy_(var)
+                rows = ((self.running_mean, self.running_var)
+                        if self.stat_groups == 1 else
+                        (self.running_mean[stat_group],
+                         self.running_var[stat_group]))
+                if self.train_stats:
+                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                    new = [(1 - self.momentum) * old + self.momentum * b
+                           for old, b in zip(rows, (mean, unbiased))]
                 else:
-                    self.running_mean[stat_group].copy_(mean)
-                    self.running_var[stat_group].copy_(var)
+                    new = (mean, var)
+                for old, b in zip(rows, new):
+                    old.copy_(b)
         return mean, var
 
     def forward(self, x: torch.Tensor, stat_group: int = 0,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.eval_batch_stats:
+        if self.eval_batch_stats or self.train_stats:
             mean, var = self.batch_stats(x, mask, stat_group)
         else:
             mean, var = self.running_mean, self.running_var
@@ -127,11 +143,27 @@ def set_eval_batch_stats(module: nn.Module, on: bool) -> nn.Module:
 
 
 @contextlib.contextmanager
+def train_mode(module: nn.Module, on: bool = True) -> Iterator[nn.Module]:
+    """Within the block, every BN of ``module`` runs in train mode (``on``)
+    or not, and so do the modules that run a kernel only in eval mode
+    (``SetAbstraction``, ``SuperGlue``: they carry the same flag); on exit
+    each flag is restored."""
+    mods = [m for m in module.modules() if hasattr(m, "train_stats")]
+    before = [m.train_stats for m in mods]
+    for m in mods:
+        m.train_stats = on
+    try:
+        yield module
+    finally:
+        for m, b in zip(mods, before):
+            m.train_stats = b
+
+
+@contextlib.contextmanager
 def calibrating(module: nn.Module) -> Iterator[nn.Module]:
     """Within the block, each batch-statistics BN of ``module`` overwrites
-    its running statistics with the statistics of the batch it sees. On
-    exit, every submodule that caches a fold of those statistics
-    (``drop_fold``) drops it."""
+    its running statistics, in place, with the statistics of the batch it
+    sees (a cached fold of them keyed by ``weights_key`` is then stale)."""
     bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
     for bn in bns:
         bn.calibrate = True
@@ -140,10 +172,30 @@ def calibrating(module: nn.Module) -> Iterator[nn.Module]:
     finally:
         for bn in bns:
             bn.calibrate = False
-        for m in module.modules():
-            if hasattr(m, "drop_fold"):
-                m.drop_fold()
 
+
+def tensor_slots(module: nn.Module) -> list:
+    """(dict, name) of every parameter and buffer of ``module``: looked up
+    anew at each ``weights_key``, they follow ``module.to`` and
+    ``load_state_dict`` without walking the module tree again."""
+    return [(m._parameters if kind == 0 else m._buffers, n)
+            for kind in (0, 1) for m in module.modules()
+            for n, t in (m._parameters if kind == 0 else m._buffers).items()
+            if t is not None]
+
+
+def weights_key(slots) -> tuple:
+    """What a cache of values derived from the tensors at ``slots``
+    (``tensor_slots``) is valid for: their storage and ``_version`` counters
+    (an in-place update, such as ``optimizer.step()``, ``load_state_dict``
+    or a BN statistics write, bumps the counter; moving the module changes
+    the storage). Inference tensors keep no counter; they cannot be updated
+    in place outside ``torch.inference_mode``."""
+    out = []
+    for d, n in slots:
+        t = d[n]
+        out.append((t.data_ptr(), None if t.is_inference() else t._version))
+    return tuple(out)
 
 def bn_affine(bn: MaskedBatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BN as ``x·scale + shift`` (f32): scale = γ/√(σ²+ε),

@@ -1,20 +1,27 @@
 """Coarse cell-retrieval network (counterpart of
-``text2pos_tpu/models/cell_retrieval.py``) in eval mode: the text tower
-(``encode_text``, used by serving) and the object tower (``encode_objects``,
-used by the offline DB encode): per-object ``ObjectEncoder`` embeddings,
-L2-normalized, scattered into [cells, max_objects, E], an ``EdgeConv`` over
-each cell's kNN graph (k=8, max aggregation: ``variation=0``, the bench
-checkpoint's), a masked max over the cell's objects, ``lin`` and an L2 norm.
+``text2pos_tpu/models/cell_retrieval.py``): the text tower (``encode_text``,
+used by serving) and the object tower (``encode_objects``, used by the
+offline DB encode): per-object ``ObjectEncoder`` embeddings, L2-normalized,
+scattered into [cells, max_objects, E], an ``EdgeConv`` over each cell's
+kNN graph (k=8, max aggregation: ``variation=0``, the bench checkpoint's),
+a masked max over the cell's objects, ``lin`` and an L2 norm.
+
+``forward(..., train=True)`` runs both towers in train mode
+(``blocks.train_mode``: batch statistics with running updates), as JAX's
+``__call__`` does for a training step; ``train=False`` is the eval form.
+The object tower takes the valid objects only (JAX's flat buffer less its
+padding tail, which JAX masks out of every statistic), so no mask reaches
+the object encoder; EdgeConv's BNs count the valid edges.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from text2pos_torch.models.blocks import MLP, l2_normalize
+from text2pos_torch.models.blocks import MLP, l2_normalize, train_mode
 from text2pos_torch.models.language import LanguageEncoder
 from text2pos_torch.models.object_encoder import ObjectEncoder
 from text2pos_torch.ops.neighbors import masked_knn
@@ -36,20 +43,22 @@ class EdgeConv(nn.Module):
         idx, edge_valid = masked_knn(x, mask, self.k)
         x_j = gather_neighbors(x, idx)
         x_i = x[:, :, None, :].expand_as(x_j)
-        h = self.edge_mlp(torch.cat([x_i, x_j - x_i], dim=-1))
+        h = self.edge_mlp(torch.cat([x_i, x_j - x_i], dim=-1),
+                          mask=edge_valid)
         return masked_max(h, edge_valid[..., None], dim=2)
 
 
 class CellRetrievalNetwork(nn.Module):
     """``dtype`` is the object tower's compute dtype (the text tower is
-    always f32)."""
+    always f32); ``pointnet_heads`` as ``ObjectEncoder``'s."""
 
     def __init__(self, vocab_size: int, embed_dim: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 pointnet_heads: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
-        self.object_encoder = ObjectEncoder(embed_dim, dtype)
+        self.object_encoder = ObjectEncoder(embed_dim, dtype, pointnet_heads)
         self.graph1 = EdgeConv(embed_dim, dtype=dtype)
         self.lin = MLP(embed_dim, (embed_dim, embed_dim), dtype)
 
@@ -74,3 +83,16 @@ class CellRetrievalNetwork(nn.Module):
         x = self.graph1(dense, mask)
         pooled = masked_max(x, mask[..., None], dim=1)
         return l2_normalize(self.lin(pooled).float())
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                points_xyz, points_rgb, centers, colors,
+                cell_idx: torch.Tensor, slot_idx: torch.Tensor,
+                num_cells: int, max_objects: int, train: bool = True):
+        """Both towers: (text [B, E], cells [num_cells, E]), each
+        L2-normalized; in train mode with ``train``."""
+        with train_mode(self, train):
+            text = self.encode_text(tokens, lengths)
+            cells = self.encode_objects(points_xyz, points_rgb, centers,
+                                        colors, cell_idx, slot_idx,
+                                        num_cells, max_objects)
+        return text, cells

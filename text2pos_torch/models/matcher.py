@@ -6,17 +6,25 @@ and ``get_pos_in_cell``. Serving reads the object encodings from the fine
 bank. ``eval_batch_stats`` is JAX's flag of the same name: every BN of the
 object encoder and the GNN normalizes by its batch's statistics (the
 uncalibrated model); ``blocks.set_eval_batch_stats`` switches it, as
-calibrated serving does."""
+calibrated serving does.
+
+``forward(..., train=True)`` is the training forward of JAX's
+``SuperGlueMatch.__call__``: hints and cell objects encoded, the GNN on
+batch statistics with running updates (``blocks.train_mode``), Sinkhorn
+through its autograd Function, the offset head; ``train=False`` the same
+without updates, as the fine trainer's eval step runs it (the trainer's
+model has ``eval_batch_stats``, ``stat_groups=1``: the checkpoints' flat
+statistics)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from text2pos_torch.models.blocks import (HeadMLP, l2_normalize,
-                                         set_eval_batch_stats)
+                                         set_eval_batch_stats, train_mode)
 from text2pos_torch.models.language import LanguageEncoder
 from text2pos_torch.models.object_encoder import ObjectEncoder
 from text2pos_torch.models.superglue import SuperGlue
@@ -26,11 +34,12 @@ class SuperGlueMatch(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int, num_layers: int = 6,
                  sinkhorn_iters: int = 50, match_threshold: float = 0.2,
                  dtype: Optional[torch.dtype] = None, stat_groups: int = 2,
-                 eval_batch_stats: bool = False):
+                 eval_batch_stats: bool = False,
+                 pointnet_heads: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
-        self.object_encoder = ObjectEncoder(embed_dim, dtype)
+        self.object_encoder = ObjectEncoder(embed_dim, dtype, pointnet_heads)
         self.superglue = SuperGlue(embed_dim, num_layers, sinkhorn_iters,
                                    match_threshold, dtype, stat_groups)
         self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
@@ -65,6 +74,18 @@ class SuperGlueMatch(nn.Module):
                              sinkhorn_iterations)
         out["offsets"] = self.mlp_offsets(hint_enc)      # [B, H, 2]
         return out
+
+    def forward(self, hint_tokens: torch.Tensor, hint_lengths: torch.Tensor,
+                points_xyz, points_rgb, centers, colors, train: bool = True
+                ) -> Dict[str, torch.Tensor]:
+        """[B, H, T] hints against [B, O, ...] cell objects → P, log_P,
+        matches0/1, matching_scores0/1 and offsets; in train mode with
+        ``train``."""
+        with train_mode(self, train):
+            hint_enc = self.encode_hints(hint_tokens, hint_lengths)
+            obj_enc = self.encode_cell_objects(points_xyz, points_rgb,
+                                               centers, colors)
+            return self.match_encoded(obj_enc, hint_enc)
 
 
 def get_pos_in_cell(centers: torch.Tensor, matches0: torch.Tensor,

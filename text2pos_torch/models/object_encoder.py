@@ -12,7 +12,7 @@ subsets and the class/colour-id embedding variants (``class_embed``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,9 +24,13 @@ FEATURES = ("class", "color", "position")
 
 
 class ObjectEncoder(nn.Module):
-    def __init__(self, embed_dim: int, dtype: Optional[torch.dtype] = None):
+    """``pointnet_heads``: (classes, colours) of PointNet's unread heads,
+    built for a trainer (``PointNet2(heads=...)``)."""
+
+    def __init__(self, embed_dim: int, dtype: Optional[torch.dtype] = None,
+                 pointnet_heads: Optional[Tuple[int, int]] = None):
         super().__init__()
-        self.pointnet = PointNet2(dtype)
+        self.pointnet = PointNet2(dtype, heads=pointnet_heads)
         self.mlp_pointnet = MLP(self.pointnet.lin2.out_features,
                                 (embed_dim,), dtype)
         self.color_encoder = MLP(3, (64, embed_dim), dtype)

@@ -9,7 +9,9 @@ separable first layer is two matmuls (``a = [x, pos]·W1 + b1`` per point,
 ``c = cent·W1[-3:]`` per centroid), and the rest of the level (ball query,
 ``a_n − c_s``, BN0, ReLU, the second layer, BN1, ReLU, max over
 neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on the
-card. The class/colour heads are not built; encoding never reads them.
+card. The class/colour heads are built only when asked for (``heads``):
+encoding never reads them, but a trainer keeps them so that its
+checkpoints hold every leaf of the JAX model.
 
 With ``eval_batch_stats`` (``blocks.set_eval_batch_stats``: the
 uncalibrated JAX fine model, and step 1 of ``calibrated_for_serving``) every
@@ -19,7 +21,10 @@ ball query selects. The PointConv kernel folds eval-mode BN into its
 epilogue and cannot take statistics of its own input, and JAX runs no
 Pallas kernel in that mode either, so a level then runs as PyTorch ops on
 the card (``SetAbstraction.forward_batch_stats``); FPS still runs its
-kernel.
+kernel. The same holds in train mode (``blocks.train_mode``: batch
+statistics, running averages updated, differentiable): the PointConv kernel
+does not apply, as JAX trains through its unfused PointNet++ too, and FPS,
+which chooses centroids and needs no gradient, keeps its kernel.
 
 Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
 ``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps``,
@@ -35,7 +40,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from text2pos_torch.models.blocks import MLP, MaskedBatchNorm, bn_affine, dense
+from text2pos_torch.models.blocks import (MLP, MaskedBatchNorm, bn_affine,
+                                         dense, weights_key)
 from text2pos_torch.ops.fps import farthest_point_sampling
 from text2pos_torch.ops.pointconv import (ball_neighbors, pointconv_max,
                                           w2_fragments)
@@ -63,19 +69,16 @@ class SetAbstraction(nn.Module):
         super().__init__()
         self.ratio, self.radius, self.dtype = ratio, radius, dtype
         self.eval_batch_stats = False      # blocks.set_eval_batch_stats
+        self.train_stats = False           # blocks.train_mode
         self.conv_mlp = ConvMLP(in_features + 3, *channels)
         self._w2f = None
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._w2f = None   # the packed W2 is stale
-        super()._load_from_state_dict(*args, **kwargs)
 
     def w2_fragments(self) -> torch.Tensor:
         """W2 in bf16 in the tensor-core kernel's fragment order
         (``ops.pointconv.w2_fragments``), packed once and kept until the
-        weights are loaded again or moved."""
+        weights change (loaded, moved or updated in place)."""
         w = self.conv_mlp.dense_1.weight
-        key = (w.device, w.data_ptr())
+        key = weights_key(((self.conv_mlp.dense_1._parameters, "weight"),))
         if self._w2f is None or self._w2f[0] != key:
             with torch.no_grad():
                 self._w2f = key, w2_fragments(w.t().to(torch.bfloat16))
@@ -103,7 +106,7 @@ class SetAbstraction(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, N, C], pos [B, N, 3] f32 → (x' [B, S, C2], cent [B, S, 3])
         with S = N·ratio."""
-        if self.eval_batch_stats:
+        if self.eval_batch_stats or self.train_stats:
             return self.forward_batch_stats(x, pos)
         args = self.pointconv_args(x, pos)
         a = args[0]
@@ -148,7 +151,8 @@ class PointNet2(nn.Module):
     """[B, P, 3] points and colours → ``features2`` [B, 256] f32."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None, dim0: int = 1024,
-                 dim1: int = 512, dim2: int = 256):
+                 dim1: int = 512, dim2: int = 256,
+                 heads: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.dtype = dtype
         self.sa1 = SetAbstraction(3, 0.5, 0.2, (32, 64), dtype)
@@ -157,6 +161,9 @@ class PointNet2(nn.Module):
         self.ga = GlobalAbstraction(256, (512, dim0), dtype)
         self.lin1 = nn.Linear(dim0, dim1)
         self.lin2 = nn.Linear(dim1, dim2)
+        if heads is not None:      # (classes, colours); never read here
+            self.class_classifier = nn.Linear(dim2, heads[0])
+            self.color_classifier = nn.Linear(dim2, heads[1])
 
     def forward(self, xyz: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
         x, pos = rgb, xyz.float()

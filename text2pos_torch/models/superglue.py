@@ -21,6 +21,13 @@ runs on the card too; Sinkhorn still runs its kernel. ``calibrating``
 (``stat_groups=2``). JAX's opt-in ``fast_graph`` form is not ported: the
 kernel fuses q/k/v already, and the form changes only the module form's
 arithmetic order.
+
+In train mode (``blocks.train_mode``) the GNN runs as PyTorch ops on batch
+statistics, as JAX trains it, and the Sinkhorn goes through its autograd
+Function (``ops.sinkhorn.LogOptimalTransport``): the kernel forward, the
+plain version's gradient. The kernel's fold is cached against the
+parameters' and statistics' ``_version`` counters, so an optimizer step or
+a running-statistics update makes the next eval-mode call fold again.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from text2pos_torch.models.blocks import SuperGlueMLP, dense
+from text2pos_torch.models.blocks import (SuperGlueMLP, dense, tensor_slots,
+                                          weights_key)
 from text2pos_torch.ops.sinkhorn import extract_matches, log_optimal_transport
 from text2pos_torch.ops.superglue_gnn import (UNSTACKED, fold_gnn_params,
                                               gnn_scores, pack_gnn_params,
@@ -117,41 +125,36 @@ class SuperGlue(nn.Module):
         self.sinkhorn_iterations = sinkhorn_iterations
         self.match_threshold, self.dtype = match_threshold, dtype
         self.eval_batch_stats = False      # blocks.set_eval_batch_stats
+        self.train_stats = False           # blocks.train_mode
         self.gnn = AttentionalGNN(descriptor_dim, 2 * num_layers, dtype,
                                   stat_groups)
         self.final_proj = nn.Linear(descriptor_dim, descriptor_dim)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
         self._packed = None
-
-    def drop_fold(self) -> None:
-        """Forgets the kernel's folded weights, stale once weights or BN
-        statistics change (loading, ``blocks.calibrating``)."""
-        self._packed = None
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self.drop_fold()
-        super()._load_from_state_dict(*args, **kwargs)
+        self._slots = tensor_slots(self)
 
     def packed_kernel_params(self, num_layers: Optional[int] = None
                              ) -> Dict[str, torch.Tensor]:
         """The GNN kernel's folded weights of the first ``num_layers`` block
         pairs (all when None): views of the first 2·num_layers entries of
         one cached fold of every block (stacks are ordered by block; the
-        final projection is shared)."""
+        final projection is shared), kept until a weight or statistic
+        changes (``weights_key``: loaded, moved, calibrated or stepped)."""
         dev = self.final_proj.weight.device
-        if self._packed is None or self._packed["wqkv"].device != dev:
+        key = weights_key(self._slots)
+        if self._packed is None or self._packed[0] != key:
             from text2pos_torch.utils.convert_jax import module_to_jax
 
             params, stats = module_to_jax(self)
             widen_gnn_stats(stats["gnn"])         # one row → both sets
             folded = fold_gnn_params({"superglue": params},
                                      {"superglue": stats}, self.num_layers)
-            self._packed = pack_gnn_params(folded,
-                                           self.dtype or torch.float32, dev)
+            self._packed = key, pack_gnn_params(
+                folded, self.dtype or torch.float32, dev)
         p = self.num_layers if num_layers is None else num_layers
         self._check_depth(p)
         return {k: v if k in UNSTACKED else v[:2 * p]
-                for k, v in self._packed.items()}
+                for k, v in self._packed[1].items()}
 
     def _check_depth(self, num_layers: int) -> None:
         if not 0 <= num_layers <= self.num_layers:
@@ -163,7 +166,7 @@ class SuperGlue(nn.Module):
         """Pre-Sinkhorn [B, M, N] f32 scores after the first ``num_layers``
         block pairs (all when None): the fused GNN kernel on the card when
         calibrated, the module form otherwise."""
-        if desc0.is_cuda and not self.eval_batch_stats:
+        if desc0.is_cuda and not (self.eval_batch_stats or self.train_stats):
             return gnn_scores(desc0, desc1,
                               self.packed_kernel_params(num_layers))
         p = self.num_layers if num_layers is None else num_layers

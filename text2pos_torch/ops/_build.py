@@ -127,5 +127,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and one of ``tensors`` requires grad: a
+    kernel's output is a fresh tensor that C fills, with no path back to
+    its inputs. Only a kernel's ``torch.autograd.Function`` (where grad
+    mode is off in ``forward``) may launch it on such inputs."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel's output would "
+            "be detached from it; call it through its autograd Function or "
+            "under torch.no_grad()")
+
+
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream

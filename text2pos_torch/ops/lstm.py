@@ -13,7 +13,15 @@ direction runs over the reversed padded sequence with reversed validity. All
 f32, as in JAX.
 
 On CPU tensors ``lstm_final_hidden`` runs its plain PyTorch version; on CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. Where grad mode is on and the
+tables or ``w_hh`` require grad (a training step), it goes through
+``LSTMFinalHidden``, a ``torch.autograd.Function`` whose forward is the
+kernel (the plain version on the CPU) and whose backward recomputes the
+plain version under autograd (profiler range ``lstm.backward_plain``), as
+JAX's ``custom_vjp`` takes its gradients from the XLA scan
+(``text2pos_tpu/ops/lstm.py:89-113``). The kernel has no
+backward of its own; the token tables stay PyTorch ops outside the
+Function, so gradients reach the embedding, W_ih and b through them.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from text2pos_torch.ops import _build
 
@@ -72,7 +81,19 @@ def lstm_final_hidden_plain(tables: Sequence[torch.Tensor],
         for d in (0, 1)])
 
 
+def check_kernel_width(hidden: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes hidden width ``hidden``
+    (a multiple of 32 in [32, 256]: W_hh of both directions in a cluster's
+    shared memory)."""
+    if hidden % 32 or not 32 <= hidden <= 256:
+        raise ValueError(
+            f"the LSTM kernel takes a hidden width (embed_dim) that is a "
+            f"multiple of 32 in [32, 256], not {hidden}; use --embed_dim "
+            "256 or 128 on the card, or --device cpu")
+
+
 def _lstm_kernel(tables, w_hh, tokens, lengths):
+    _build.refuse_grad("LSTM kernel", *tables, *w_hh)
     dev = tokens.device
     B, T = tokens.shape
     tables = [t.contiguous() for t in tables]
@@ -110,6 +131,33 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
     return out
 
 
+class LSTMFinalHidden(torch.autograd.Function):
+    """``lstm_final_hidden`` with a gradient: forward runs the kernel on
+    CUDA tensors (the plain version on the CPU), backward recomputes the
+    plain version and differentiates it. Arguments: tokens, lengths, the
+    two tables, the two ``w_hh``."""
+
+    @staticmethod
+    def forward(ctx, tokens, lengths, table_f, table_b, w_hh_f, w_hh_b):
+        ctx.save_for_backward(tokens, lengths, table_f, table_b, w_hh_f,
+                              w_hh_b)
+        tables, w_hh = (table_f, table_b), (w_hh_f, w_hh_b)
+        if tokens.is_cuda:
+            return _lstm_kernel(tables, w_hh, tokens, lengths)
+        return lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, lengths, *weights = ctx.saved_tensors
+        with torch.enable_grad(), record_function("lstm.backward_plain"):
+            leaves = [w.detach().requires_grad_() for w in weights]
+            out = lstm_final_hidden_plain(leaves[:2], leaves[2:], tokens,
+                                          lengths)
+            grads = torch.autograd.grad(out, leaves, grad)
+        return (None, None, *(g if ctx.needs_input_grad[i + 2] else None
+                              for i, g in enumerate(grads)))
+
+
 def lstm_final_hidden(tables: Sequence[torch.Tensor],
                       w_hh: Sequence[torch.Tensor], tokens: torch.Tensor,
                       lengths: torch.Tensor) -> torch.Tensor:
@@ -117,7 +165,11 @@ def lstm_final_hidden(tables: Sequence[torch.Tensor],
     length-masked LSTM whose step-t input for sequence b is
     ``tables[d][tokens[b, t]]`` (the input projection with its bias, [V,
     4H] per direction d, forward then backward; ``w_hh`` [H, 4H] each). The
-    CUDA kernel on the card, the plain version on the CPU."""
+    CUDA kernel on the card, the plain version on the CPU; through
+    ``LSTMFinalHidden`` where a gradient is wanted."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*tables, *w_hh)):
+        return LSTMFinalHidden.apply(tokens, lengths, *tables, *w_hh)
     if tokens.is_cuda:
         return _lstm_kernel(tables, w_hh, tokens, lengths)
     return lstm_final_hidden_plain(tables, w_hh, tokens, lengths)

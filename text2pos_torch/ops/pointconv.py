@@ -98,6 +98,8 @@ def pointconv_max_plain(a: torch.Tensor, pos: torch.Tensor, c: torch.Tensor,
 
 def _pointconv_kernel(a, pos, c, cent, bn0, w2, b2, bn1, radius, k_cap,
                       w2f=None):
+    _build.refuse_grad("PointConv kernel", a, pos, c, cent, *bn0, w2, b2,
+                       *bn1, w2f)
     B, N, C1 = a.shape
     S = c.shape[1]
     C2 = w2.shape[1]

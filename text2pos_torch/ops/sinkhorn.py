@@ -9,6 +9,15 @@ the card all of it is one launch of the hand-written CUDA kernel
 builds the dustbins in registers; ``log_sinkhorn`` takes given couplings and
 marginals through the same kernel. ``extract_matches`` is plain PyTorch:
 mutual max, threshold, first index on argmax ties. All f32.
+
+Where grad mode is on and the scores or the dustbin score require grad (a
+training step), ``log_optimal_transport`` goes through
+``LogOptimalTransport``, a ``torch.autograd.Function`` whose forward is the
+fused kernel (the plain version on the CPU) and whose backward recomputes
+``log_optimal_transport_plain`` under autograd (profiler range
+``sinkhorn.backward_plain``): the kernel has no backward
+of its own, and JAX trains through its XLA loop
+(``text2pos_tpu/models/superglue.py:221``).
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from text2pos_torch.ops import _build
 
@@ -64,6 +74,7 @@ def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
 
 
 def _sinkhorn_kernel(Z, log_mu, log_nu, iters):
+    _build.refuse_grad("Sinkhorn kernel", Z, log_mu, log_nu)
     B, M, N = Z.shape
     if tuple(log_mu.shape) != (B, M) or tuple(log_nu.shape) != (B, N):
         raise ValueError("Sinkhorn kernel: marginal shapes do not match Z")
@@ -73,6 +84,7 @@ def _sinkhorn_kernel(Z, log_mu, log_nu, iters):
 def _lot_kernel(scores, alpha, iters):
     """The fused ``log_optimal_transport``: scores [B, M, N] → [B, M+1,
     N+1], dustbins, marginals and ``- norm`` in the kernel."""
+    _build.refuse_grad("Sinkhorn kernel", scores, alpha)
     M, N = scores.shape[1:]
     alpha = torch.as_tensor(alpha, device=scores.device).float().reshape(1)
     return _sinkhorn_launch(scores, None, None, alpha, M + 1, N + 1, iters,
@@ -93,15 +105,16 @@ def dustbin_couplings(scores: torch.Tensor, alpha: torch.Tensor
                                  float]:
     """Sinkhorn's inputs for [B, M, N] scores: the [B, M+1, N+1] couplings
     with dustbin score ``alpha``, the log marginals [B, M+1] and [B, N+1],
-    and ``norm`` = -log(M+N)."""
+    and ``norm`` = -log(M+N). f32, or f64 for f64 scores."""
     B, M, N = scores.shape
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=scores.device)
+    dt = torch.float64 if scores.dtype == torch.float64 else torch.float32
+    alpha = torch.as_tensor(alpha, dtype=dt, device=scores.device)
     couplings = alpha.expand(B, M + 1, N + 1).clone()
-    couplings[:, :M, :N] = scores.float()
+    couplings[:, :M, :N] = scores.to(dt)
     norm = -math.log(M + N)
-    log_mu = torch.full((M + 1,), norm, device=scores.device)
+    log_mu = torch.full((M + 1,), norm, device=scores.device, dtype=dt)
     log_mu[M] = math.log(N) + norm
-    log_nu = torch.full((N + 1,), norm, device=scores.device)
+    log_nu = torch.full((N + 1,), norm, device=scores.device, dtype=dt)
     log_nu[N] = math.log(M) + norm
     return (couplings, log_mu.expand(B, M + 1).contiguous(),
             log_nu.expand(B, N + 1).contiguous(), norm)
@@ -115,11 +128,41 @@ def log_optimal_transport_plain(scores: torch.Tensor, alpha: torch.Tensor,
     return log_sinkhorn_plain(Z, log_mu, log_nu, iters) - norm
 
 
+class LogOptimalTransport(torch.autograd.Function):
+    """``log_optimal_transport`` with a gradient to the scores and the
+    dustbin score: forward is the fused kernel on CUDA tensors (the plain
+    version on the CPU), backward recomputes the plain version and
+    differentiates it. Arguments: scores [B, M, N], alpha (a 0-d tensor),
+    iters."""
+
+    @staticmethod
+    def forward(ctx, scores, alpha, iters):
+        ctx.save_for_backward(scores, alpha)
+        ctx.iters = iters
+        if scores.is_cuda:
+            return _lot_kernel(scores.float(), alpha, iters)
+        return log_optimal_transport_plain(scores, alpha, iters)
+
+    @staticmethod
+    def backward(ctx, grad):
+        scores, alpha = ctx.saved_tensors
+        with torch.enable_grad(), record_function("sinkhorn.backward_plain"):
+            leaves = [scores.detach().requires_grad_(),
+                      alpha.detach().requires_grad_()]
+            out = log_optimal_transport_plain(*leaves, ctx.iters)
+            g_scores, g_alpha = torch.autograd.grad(out, leaves, grad)
+        return (g_scores if ctx.needs_input_grad[0] else None,
+                g_alpha if ctx.needs_input_grad[1] else None, None)
+
+
 def log_optimal_transport(scores: torch.Tensor, alpha: torch.Tensor,
                           iters: int) -> torch.Tensor:
     """[B, M, N] scores → [B, M+1, N+1] log transport (dustbins included),
     scaled by M+N; one kernel launch on the card, the plain version on the
-    CPU."""
+    CPU; through ``LogOptimalTransport`` where a gradient is wanted."""
+    if torch.is_grad_enabled() and (scores.requires_grad or (
+            isinstance(alpha, torch.Tensor) and alpha.requires_grad)):
+        return LogOptimalTransport.apply(scores, alpha, iters)
     if scores.is_cuda:
         return _lot_kernel(scores.float(), alpha, iters)
     return log_optimal_transport_plain(scores, alpha, iters)

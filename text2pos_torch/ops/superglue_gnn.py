@@ -228,6 +228,7 @@ def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
 
 
 def _gnn_kernel(desc0, desc1, packed):
+    _build.refuse_grad("GNN kernel", desc0, desc1, *packed.values())
     N, T0, E = desc0.shape
     T1 = desc1.shape[1]
     if (E, T0, T1) != KERNEL_SHAPE or tuple(desc1.shape) != (N, T1, E):

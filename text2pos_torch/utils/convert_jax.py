@@ -14,10 +14,13 @@ entry has one JAX leaf:
   i|f|g|o; ``bin_score``).
 
 Trees are nested dicts of numpy arrays, as ``train/state.py`` returns them.
+``params_to_jax`` and ``jax_to_params`` carry any per-parameter tensors
+(Adam's moments) across by the same map.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -115,3 +118,41 @@ def module_to_jax(module: nn.Module) -> Tuple[Dict, Dict]:
         _set(trees[coll], path, np.array(arr.T if transpose else arr,
                                          order="C"))
     return trees["params"], trees["batch_stats"]
+
+
+def param_paths(module: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """{parameter name: (path in the JAX ``params`` tree, transposed)}."""
+    return {key: (path, transpose)
+            for key, coll, path, transpose in _entries(module)
+            if coll == "params"}
+
+
+def params_to_jax(module: nn.Module, values: Dict[str, Any],
+                  missing: Any = None) -> Dict:
+    """A JAX-layout ``params``-shaped tree of per-parameter ``values``
+    ({parameter name: tensor}, e.g. Adam's first moments); a parameter
+    without a value gets ``missing`` (a copy of it)."""
+    tree: Dict = {}
+    for key, (path, transpose) in param_paths(module).items():
+        v = values.get(key)
+        if v is None:
+            leaf = copy.deepcopy(missing)
+        else:
+            arr = v.detach().float().cpu().numpy()
+            leaf = np.array(arr.T if transpose else arr, order="C")
+        _set(tree, path, leaf)
+    return tree
+
+
+def jax_to_params(module: nn.Module, tree: Dict) -> Dict[str, torch.Tensor]:
+    """{parameter name: f32 tensor} from a JAX-layout ``params``-shaped
+    tree; a leaf that is not an array (flax's ``{}`` of a masked leaf) is
+    left out."""
+    out = {}
+    for key, (path, transpose) in param_paths(module).items():
+        leaf = _get(tree, path)
+        if isinstance(leaf, (np.ndarray, np.generic)):
+            arr = np.asarray(leaf, np.float32)
+            out[key] = torch.from_numpy(np.array(arr.T if transpose else arr,
+                                                 np.float32, order="C"))
+    return out

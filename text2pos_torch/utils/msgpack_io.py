@@ -1,8 +1,11 @@
-"""Pure-Python reader for flax's msgpack checkpoints.
+"""Pure-Python reader and writer of flax's msgpack checkpoints.
 
-Counterpart of ``flax.serialization.msgpack_restore`` as used by
-``text2pos_tpu/train/state.py:179`` and ``bench.py:278``: the card machine
-has neither ``flax`` nor ``msgpack``, so the port decodes the format itself.
+Counterparts of ``flax.serialization.msgpack_restore`` and
+``msgpack_serialize`` as used by ``text2pos_tpu/train/state.py`` and
+``bench.py:278``: the card machine has neither ``flax`` nor ``msgpack``, so
+the port decodes and encodes the format itself. The writer packs as
+``msgpack.packb(tree, default=flax's ext hook, strict_types=True)`` does, so
+both packages write the same bytes for the same tree.
 
 Covers maps, arrays, str, bin, nil/bool, ints, floats and ext types. Flax
 packs an ndarray as ext code 1 whose payload is a msgpack array
@@ -153,3 +156,127 @@ def _unchunk_tree(d: Any) -> Any:
 def msgpack_restore(encoded: bytes) -> Any:
     """Restore a flax-serialized tree: nested dicts with numpy leaves."""
     return _unchunk_tree(unpackb(encoded))
+
+
+MAX_CHUNK_SIZE = 2 ** 30
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80:
+        return struct.pack(">B", n)
+    if -0x20 <= n < 0:
+        return struct.pack(">b", n)
+    if 0x80 <= n <= 0xFF:
+        return b"\xcc" + struct.pack(">B", n)
+    if -0x80 <= n < 0:
+        return b"\xd0" + struct.pack(">b", n)
+    if 0xFF < n <= 0xFFFF:
+        return b"\xcd" + struct.pack(">H", n)
+    if -0x8000 <= n < -0x80:
+        return b"\xd1" + struct.pack(">h", n)
+    if 0xFFFF < n <= 0xFFFFFFFF:
+        return b"\xce" + struct.pack(">I", n)
+    if -0x80000000 <= n < -0x8000:
+        return b"\xd2" + struct.pack(">i", n)
+    if 0xFFFFFFFF < n <= 0xFFFFFFFFFFFFFFFF:
+        return b"\xcf" + struct.pack(">Q", n)
+    if -0x8000000000000000 <= n < -0x80000000:
+        return b"\xd3" + struct.pack(">q", n)
+    raise OverflowError(f"integer {n} does not fit msgpack")
+
+
+def _pack_len(n: int, fix: int, fixmax: int, codes) -> bytes:
+    """Header of a str/bin/array/map/ext of length n: a fix form below
+    ``fixmax`` (when ``fix`` is not None), else 8/16/32-bit lengths."""
+    if fix is not None and n < fixmax:
+        return struct.pack(">B", fix | n)
+    for code, fmt, lim in zip(codes, (">B", ">H", ">I"),
+                              (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= lim:
+            return struct.pack(">B", code) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of length {n} is too large")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    n = len(data)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        head = struct.pack(">B", fixext[n])
+    else:
+        head = _pack_len(n, None, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    return packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def packb(obj: Any, strict: bool = False) -> bytes:
+    """Encode one object as ``msgpack.packb`` (use_bin_type) does, numpy
+    arrays and scalars and complex numbers as flax's ext types. ``strict``
+    is msgpack's ``strict_types``: a tuple is then not a list, and goes
+    through the ext hook (which refuses it)."""
+    out = []
+    _pack(obj, out, strict)
+    return b"".join(out)
+
+
+def _pack(obj: Any, out: list, strict: bool) -> None:
+    t = type(obj)
+    if obj is None:
+        out.append(b"\xc0")
+    elif t is bool:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif t is int:
+        out.append(_pack_int(obj))
+    elif t is float:
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif t is str:
+        b = obj.encode("utf-8")
+        out.append(_pack_len(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + b)
+    elif t in (bytes, bytearray, memoryview):
+        b = bytes(obj)
+        out.append(_pack_len(len(b), None, 0, (0xC4, 0xC5, 0xC6)) + b)
+    elif t is list or (t is tuple and not strict):
+        out.append(_pack_len(len(obj), 0x90, 16, (None, 0xDC, 0xDD)))
+        for v in obj:
+            _pack(v, out, strict)
+    elif t is dict:
+        out.append(_pack_len(len(obj), 0x80, 16, (None, 0xDE, 0xDF)))
+        for k, v in obj.items():
+            _pack(k, out, strict)
+            _pack(v, out, strict)
+    elif isinstance(obj, np.ndarray):
+        out.append(_pack_ext(_EXT_NDARRAY, _ndarray_bytes(obj)))
+    elif isinstance(obj, np.generic):
+        out.append(_pack_ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj))))
+    elif t is complex:
+        out.append(_pack_ext(_EXT_COMPLEX, packb((obj.real, obj.imag))))
+    else:
+        raise TypeError(f"can not serialize {t.__name__!r} object")
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): n for i, n in enumerate(arr.shape)},
+            "chunks": {str(j): flat[i:i + size] for j, i in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _chunk_tree(d: Any) -> Any:
+    if isinstance(d, dict):     # keys sorted, as flax's tree_map leaves them
+        return {k: _chunk_tree(d[k]) for k in sorted(d)}
+    if isinstance(d, np.ndarray) and d.size * d.dtype.itemsize \
+            > MAX_CHUNK_SIZE:
+        return _chunk(d)
+    return d
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts, lists, Python scalars and numpy leaves as
+    ``flax.serialization.msgpack_serialize``: map keys sorted, arrays above
+    1 GiB as ``__msgpack_chunked_array__`` maps, then packed with strict
+    types."""
+    return packb(_chunk_tree(tree), strict=True)
