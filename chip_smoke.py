@@ -88,10 +88,30 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    steps, reloaded bit for bit, and the last 10 again from it; the
    evaluation of the trained
    state against a model reloaded from its ``save_checkpoint``.
-8. A ``{"kernels": [...]}`` line (each entry also with its launches by
+8. Evaluation: JAX's evaluator at its CLI's defaults (f32, top-k 1/5/10,
+   5/10/15 m, batches of 32, fine chunks of 8) on the bench map and
+   checkpoints: ``run_coarse`` (the LSTM, FPS and PointConv kernels), the
+   fine bank on batch statistics and ``run_fine`` with the cache (LSTM,
+   Sinkhorn and FPS kernels; the GNN as PyTorch ops, as JAX runs it),
+   re-ranked at 128 (γ = 6), each stage's synchronized wall time, launches
+   and queries/s; every accuracy within 2 points of JAX's at top-1/5/10
+   @15m (``fixtures/bench_eval.npz``), ``coarse_random`` and the fine
+   oracles equal to JAX's; a calibrated bf16 pipeline's ``run_fine`` (the
+   GNN kernel must launch; its accuracies within 2 points of JAX's
+   calibrated bf16 run); the uncached path (chunk 1) on 16 queries beside
+   the cached rate; ``evaluation.fine`` on JAX's draws (within 2e-3 of
+   JAX's stats; two controls, the LSTM kernel dropping each hint's last
+   token and Sinkhorn stopping after one iteration, must read above
+   that); both evaluation CLIs as subprocesses, their tables parsed.
+   Every stage keeps a copy of its kernels' inputs at their first
+   shapes, and each wrapper is then held against its plain version on
+   them; the cached ``run_fine`` and the fine bank are profiled (device
+   busy time against wall time).
+9. A ``{"kernels": [...]}`` line (each entry also with its launches by
    path: headline, cascade, DB encode, calibration, server, the two
-   evaluation epochs and the two trainings), the card's name and power
-   limit, and ``{"ok": true, "device": {...}}`` as the last line.
+   evaluation epochs, the two trainings and phase 8's stages,
+   ``evaluator_*``), the card's name and power limit, and ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -101,6 +121,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
+import io
 import itertools
 import json
 import math
@@ -2264,13 +2286,430 @@ def train_phase(gpu, failures):
     return by_path, report
 
 
+# Phase 8: evaluation. JAX's evaluator at its CLI's defaults (f32, top-k
+# 1/5/10, thresholds 5/10/15 m, batches of 32, fine chunks of 8) on the
+# bench map and checkpoints; its CPU outputs are in the fixture
+# (scripts/make_torch_port_eval_fixture.py). The port draws its own points,
+# which moves the encodings statistically (phase 5), so each accuracy is
+# held within EVAL_ACC_SLACK at top-1, 5 and 10 @15 m; the numpy oracles on
+# a given top_idx must equal JAX's exactly.
+EVAL_FIXTURE = os.path.join(ROOT, "text2pos_torch", "fixtures",
+                            "bench_eval.npz")
+EVAL_ACC_SLACK = 0.02
+# evaluation.fine on JAX's own draws: every stat and threshold accuracy
+# within EVAL_FINE_TOL of JAX's. One flipped match moves recall or
+# precision by about 1 / (32 poses x 6 hints) / 2 batches = 2.6e-3 and a
+# threshold accuracy by 1 / 64, so the gate admits f32 rounding (the port
+# on the CPU reads 6e-8) and no flipped decision.
+EVAL_FINE_TOL = 2e-3
+UNCACHED_QUERIES = 16
+PROFILE_QUERIES = 64
+# The kernel wrappers whose inputs phase 8 keeps, with their plain
+# versions: (kernel, module under text2pos_torch.ops, wrapper, plain).
+EVAL_WRAPPERS = (
+    ("lstm", "lstm", "_lstm_kernel", "lstm_final_hidden_plain"),
+    ("sinkhorn", "sinkhorn", "_lot_kernel", "log_optimal_transport_plain"),
+    ("sinkhorn", "sinkhorn", "_sinkhorn_kernel", "log_sinkhorn_plain"),
+    ("fps", "fps", "_fps_kernel", "farthest_point_sampling_plain"),
+    ("pointconv", "pointconv", "_pointconv_kernel", "pointconv_max_plain"),
+    ("superglue_gnn", "superglue_gnn", "_gnn_kernel", "gnn_scores_plain"),
+)
+CAPTURE_SHAPES = 3   # input shapes a wrapper keeps a stage: an SA step
+
+
+def detached_copy(x):
+    """A copy of a wrapper's argument: tensors cloned, containers rebuilt."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(detached_copy(v) for v in x)
+    if isinstance(x, dict):
+        return {k: detached_copy(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def kept_inputs(store: dict):
+    """While inside, each wrapper of EVAL_WRAPPERS keeps a copy of its
+    arguments for each of the first CAPTURE_SHAPES input shapes it meets:
+    ``store[(module, wrapper)][shapes] = args``. One shape check a call and
+    a few copies a stage are all it adds to the stage's time."""
+    patched = []
+    for _, mod, wrapper, _ in EVAL_WRAPPERS:
+        m = importlib.import_module(f"text2pos_torch.ops.{mod}")
+        orig = getattr(m, wrapper)
+        seen = store.setdefault((mod, wrapper), {})
+
+        def keep(*args, _orig=orig, _seen=seen):
+            key = tuple(tuple(a.shape) for a in args
+                        if isinstance(a, torch.Tensor))
+            if key not in _seen and len(_seen) < CAPTURE_SHAPES:
+                _seen[key] = detached_copy(args)
+            return _orig(*args)
+
+        setattr(m, wrapper, keep)
+        patched.append((m, wrapper, orig))
+    try:
+        yield store
+    finally:
+        for m, wrapper, orig in patched:
+            setattr(m, wrapper, orig)
+
+
+def kept_checks(stage: str, store: dict, failures: list) -> dict:
+    """Each kept launch's inputs through its wrapper and its plain version:
+    LSTM and Sinkhorn to TOL, PointConv and the GNN to their relative
+    tolerances of the output's largest magnitude, FPS's indices and
+    centroids bit for bit. Returns {kernel: largest error}."""
+    errs = {}
+    for kernel, mod, wrapper, plain in EVAL_WRAPPERS:
+        m = importlib.import_module(f"text2pos_torch.ops.{mod}")
+        for shapes, args in store.get((mod, wrapper), {}).items():
+            with torch.inference_mode():
+                got = getattr(m, wrapper)(*args)
+                want = getattr(m, plain)(
+                    *(args[:10] if kernel == "pointconv" else args))
+                torch.cuda.synchronize()
+            if kernel == "fps":
+                err = max_err(got[1], want[1]) + float(
+                    (got[0] != want[0]).sum())
+                tol, what = 0.0, "differing indices + centroid error"
+            elif kernel in ("pointconv", "superglue_gnn"):
+                dt = (args[2]["wqkv"] if kernel == "superglue_gnn"
+                      else args[0]).dtype
+                label = "bf16" if dt == torch.bfloat16 else "f32"
+                rel = (GNN_REL_TOL if kernel == "superglue_gnn"
+                       else POINTCONV_REL_TOL)[label]
+                err = max_err(got, want)
+                tol = rel * float(want.float().abs().max())
+                what = f"{label}, {rel:g} of |out| max"
+            else:
+                err, tol, what = max_err(got, want), TOL[kernel], "abs"
+            check(f"{stage} {wrapper} on its inputs {list(shapes)} vs "
+                  f"{plain} ({what})", err, tol, failures)
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    return errs
+
+
+def acc_at15(accs) -> list:
+    """[top-1, 5, 10 (or 1)]@15m of an accuracy dict, rounded."""
+    return [round(float(accs[k][15]), 4) for k in accs]
+
+
+def gate_accs(label, accs, want, failures, exact=False):
+    """Hold ``accs`` (a dict) against JAX's [k, t] array ``want``: each
+    top-k@15m within EVAL_ACC_SLACK, or every entry equal."""
+    got = np.array([[accs[k][t] for t in accs[k]] for k in accs])
+    if exact:
+        ok = np.array_equal(got, want)
+        err = float(np.abs(got - want).max())
+    else:
+        err = float(np.abs(got[:, -1] - want[:, -1]).max())
+        ok = err <= EVAL_ACC_SLACK
+    log(f"    {label}: @15m {[round(float(x), 4) for x in got[:, -1]]} "
+        f"(JAX {[round(float(x), 4) for x in want[:, -1]]}); max |diff| "
+        f"{err:.4f} ({'equal' if exact else f'gate {EVAL_ACC_SLACK}'}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"eval {label}: {got.tolist()} vs JAX "
+                        f"{want.tolist()}")
+
+
+def timed(fn, store=None):
+    """(result, synchronized wall seconds, kernel launches) of ``fn()``;
+    with ``store``, its kernels' inputs kept there (``kept_inputs``)."""
+    from text2pos_torch.ops import _build
+
+    with kept_inputs(store) if store is not None else \
+            contextlib.nullcontext():
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def parse_tables(text: str) -> dict:
+    """{table name: [accuracies]} of the evaluation CLI's output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        s = line.strip()
+        if s.endswith(":") and not s[0].isdigit():
+            name = s[:-1]
+        elif name and s[:1].isdigit() and ":" in s:
+            out[name] = [float(v) for part in s.split(":", 1)[1].split()
+                         for v in part.split("/")]
+    return out
+
+
+def eval_cli_checks(failures):
+    """Both evaluation CLIs as subprocesses on the card (the SYNTHETIC
+    validation scenes, the bench checkpoints); their tables parsed."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = {
+        "pipeline": (["--dataset", "SYNTHETIC", "--path_coarse",
+                      CKPT_COARSE, "--path_fine", CKPT_FINE],
+                     ("Coarse", "Fine (mean)", "Fine (offsets)",
+                      "Fine (mean-conf)")),
+        "fine": (["--dataset", "SYNTHETIC-FINE", "--path_fine", CKPT_FINE],
+                 ()),
+    }
+    for mod, (args, tables) in runs.items():
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m",
+                            f"text2pos_torch.evaluation.{mod}", *args],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=300)
+        wall = time.time() - t0
+        if mod == "pipeline":
+            parsed = parse_tables(p.stdout)
+            ok = p.returncode == 0 and all(
+                len(parsed.get(t, [])) in (3, 9)
+                and all(0.0 <= v <= 1.0 for v in parsed[t]) for t in tables)
+            shown = {t: parsed.get(t) for t in tables}
+        else:
+            vals = {}
+            for line in p.stdout.splitlines():
+                k, _, v = line.strip().partition(": ")
+                try:
+                    vals[k] = float(v)
+                except ValueError:
+                    pass
+            ok = p.returncode == 0 and all(
+                0.0 <= vals.get(k, -1.0) <= 1.0
+                for k in ("recall", "precision"))
+            shown = {k: vals.get(k) for k in ("recall", "precision", "mean",
+                                              "offsets")}
+        log(f"  CLI python -m text2pos_torch.evaluation.{mod} "
+            f"{' '.join(args[:2])}: exit {p.returncode} in {wall:.1f} s; "
+            f"{shown} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"evaluation CLI {mod}: exit {p.returncode}; "
+                            f"{p.stderr[-2000:]}")
+
+
+def fine_isolation(draws):
+    """``evaluation.fine``'s ``main`` in-process on JAX's draws, its table
+    unprinted; returns (stats in the fixture's order, threshold accuracies
+    [variant, threshold])."""
+    from text2pos_torch.evaluation import fine as efine
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = efine.main(["--dataset", "SYNTHETIC-FINE", "--path_fine",
+                          CKPT_FINE], draws)
+    return (np.array([res["stats"][k]
+                      for k in ("recall", "precision") + efine.VARIANTS]),
+            np.array([list(d.values()) for d in res["thresh"].values()]))
+
+
+def eval_phase(cells, poses, failures):
+    """Phase 8. The evaluator (``run_coarse``, ``run_fine`` cached and
+    re-ranked, the oracles) on the checkpoints' pipeline in f32; a
+    calibrated bf16 pipeline's ``run_fine`` (the GNN kernel); the uncached
+    path on the first queries; ``evaluation.fine`` on JAX's draws and its
+    controls; both CLIs. Each stage's kernels are held against their plain
+    versions on the inputs it gave them. Returns ({path: launches},
+    {kernel: {path: largest error on the path's inputs}})."""
+    import dataclasses
+
+    from text2pos_torch.config import EvalConfig
+    from text2pos_torch.data.hints import create_hint_description
+    from text2pos_torch.data.loaders import CoarseLoader
+    from text2pos_torch.evaluation.pipeline import (
+        LocalizationPipeline, build_pipeline_from_checkpoints, hint_arrays)
+    from text2pos_torch.ops import lstm, sinkhorn
+
+    if not os.path.isfile(EVAL_FIXTURE):
+        failures.append(f"missing {EVAL_FIXTURE}")
+        return {}, {}
+    ex = dict(np.load(EVAL_FIXTURE))
+    cfg = EvalConfig()
+    pipe, vocab, fvocab = build_pipeline_from_checkpoints(
+        cfg, CKPT_COARSE, CKPT_FINE)
+    t0 = time.time()
+    loader = CoarseLoader(cells, poses, vocab, cfg.batch_size,
+                          cfg.coarse_max_objects, cfg.pointnet_numpoints,
+                          cfg.max_text_len)
+    Q = len(poses)
+    log(f"  checkpoints' pipeline, f32, JAX's CLI defaults; CoarseLoader "
+        f"of the bench map built in {time.time() - t0:.1f} s")
+    by_path, errs = {}, collections.defaultdict(dict)
+
+    def stage(path, fn):
+        """``fn()`` timed as path ``path``, its launches recorded and its
+        kernels' kept inputs checked; returns (result, wall s)."""
+        kept = {}
+        out, wall, by_path[path] = timed(fn, kept)
+        for kernel, err in kept_checks(path, kept, failures).items():
+            errs[kernel][path] = err
+        return out, wall
+
+    (top_idx, caccs), t_coarse = stage(
+        "evaluator_coarse", lambda: pipe.run_coarse(loader, poses))
+    same = float((top_idx == ex["coarse_top_idx"]).all(1).mean())
+    log(f"  run_coarse: {Q} queries x {cfg.batch_size}-query steps, "
+        f"{loader.bank.num_cells} cells in {cfg.batch_size}-cell steps: "
+        f"{t_coarse:.3f} s; launches {by_path['evaluator_coarse']}; rows "
+        f"equal to JAX's top_idx {same:.4f}")
+    gate_accs("coarse", caccs, ex["coarse_acc"], failures)
+    fbank, t_bank = stage("evaluator_fine_bank",
+                          lambda: pipe.precompute_fine_bank(loader.bank))
+    log(f"  precompute_fine_bank (batch statistics, 64-cell steps): "
+        f"{t_bank:.3f} s; launches {by_path['evaluator_fine_bank']}")
+    (m, o, c), t_fine = stage(
+        "evaluator_fine", lambda: pipe.run_fine(loader, poses, top_idx,
+                                                fvocab, fine_bank=fbank))
+    total = t_coarse + t_bank + t_fine
+    log(f"  run_fine cached, chunks of 8 x top-{top_idx.shape[1]}: "
+        f"{t_fine:.3f} s; launches {by_path['evaluator_fine']}; evaluation "
+        f"{total:.3f} s = {Q / total:.1f} queries/s")
+    gate_accs("fine mean", m, ex["fine_mean_acc"], failures)
+    gate_accs("fine offsets", o, ex["fine_offsets_acc"], failures)
+    gate_accs("fine mean-conf", c, ex["fine_conf_acc"], failures)
+    for name in ("lstm", "sinkhorn", "fps", "pointconv"):
+        n = sum(by_path[p].get(name, 0) for p in
+                ("evaluator_coarse", "evaluator_fine_bank", "evaluator_fine"))
+        if n < 1:
+            failures.append(f"the evaluation launched no {name} kernel")
+
+    # Where the two slow stages spend their time: the device's busy time
+    # (torch.profiler) against the wall time of the same call unprofiled.
+    pq = PROFILE_QUERIES
+    sub = lambda: pipe.run_fine(loader, poses[:pq], top_idx[:pq], fvocab,
+                                fine_bank=fbank)
+    _, t_sub, _ = timed(sub)
+    log(f"  run_fine cached on the first {pq} queries ({pq // 8} chunks): "
+        f"{t_sub * 1e3:.2f} ms unprofiled")
+    log_ranges(f"profile of run_fine cached, first {pq} queries",
+               profile_ranges(sub, "evaluator."))
+    log_ranges(f"profile of precompute_fine_bank ({t_bank * 1e3:.1f} ms "
+               "unprofiled above; by PointNet++ stage)", profile_ranges(
+                   lambda: pipe.precompute_fine_bank(loader.bank),
+                   "pointnet."))
+
+    rcfg = dataclasses.replace(cfg, rerank=128, rerank_gamma=6.0)
+    rpipe = LocalizationPipeline(pipe.coarse, pipe.fine, vocab, fvocab,
+                                 cfg=rcfg)
+    (rtop, raccs), t_rc, _ = timed(lambda: rpipe.run_coarse(loader, poses))
+    (rm, ro, rc), t_rf = stage(
+        "evaluator_rerank", lambda: rpipe.run_fine(loader, poses, rtop,
+                                                   fvocab, fine_bank=fbank))
+    log(f"  rerank@128 (gamma 6): run_coarse {t_rc:.3f} s, run_fine of {Q} "
+        f"queries x 128 {t_rf:.3f} s = {Q / t_rf:.1f} queries/s; launches "
+        f"{by_path['evaluator_rerank']}")
+    gate_accs("rerank coarse", raccs, ex["rerank_coarse_acc"], failures)
+    gate_accs("rerank fine mean", rm, ex["rerank_mean_acc"], failures)
+    gate_accs("rerank fine offsets", ro, ex["rerank_offsets_acc"], failures)
+    gate_accs("rerank fine mean-conf", rc, ex["rerank_conf_acc"], failures)
+
+    rtop_rand, rand_acc = LocalizationPipeline(
+        pipe.coarse, pipe.fine, vocab, fvocab,
+        cfg=dataclasses.replace(cfg, coarse_random=True)).run_coarse(
+            loader, poses)
+    eq = np.array_equal(rtop_rand, ex["coarse_random_top_idx"])
+    log(f"  coarse_random top_idx equal to JAX's: {eq} "
+        f"{'ok' if eq else 'FAIL'}")
+    if not eq:
+        failures.append("coarse_random top_idx differs from JAX's")
+    gate_accs("coarse_random", rand_acc, ex["coarse_random_acc"], failures,
+              exact=True)
+    jtop = ex["coarse_top_idx"].astype(np.int64)
+    for rnd, key in ((False, "oracle_exact_acc"), (True,
+                                                    "oracle_random_acc")):
+        gate_accs(f"fine oracle ({'random' if rnd else 'exact'}) on JAX's "
+                  f"top_idx", pipe.run_fine_oracle(loader, poses, jtop, rnd),
+                  ex[key], failures, exact=True)
+
+    base = build_pipeline_from_checkpoints(cfg, CKPT_COARSE, CKPT_FINE,
+                                           "bfloat16")[0]
+    htk, hln = hint_arrays(fvocab, [create_hint_description(p)
+                                    for p in poses], cfg.num_mentioned,
+                           cfg.max_hint_len)
+    cal, t_cal, _ = timed(lambda: base.calibrated_for_serving(
+        loader.bank, htk, hln, top_idx, max_cells=128))
+    (km, ko, kc), t_kf = stage(
+        "evaluator_calibrated",
+        lambda: cal.run_fine(loader, poses, top_idx, fvocab))
+    log(f"  calibrated pipeline, bf16: calibrated in {t_cal:.3f} s; "
+        f"run_fine cached (bank re-encoded) {t_kf:.3f} s = {Q / t_kf:.1f} "
+        f"queries/s; launches {by_path['evaluator_calibrated']}")
+    gate_accs("calibrated fine mean", km, ex["calibrated_mean_acc"],
+              failures)
+    gate_accs("calibrated fine offsets", ko, ex["calibrated_offsets_acc"],
+              failures)
+    gate_accs("calibrated fine mean-conf", kc, ex["calibrated_conf_acc"],
+              failures)
+    if by_path["evaluator_calibrated"].get("superglue_gnn", 0) < 1:
+        failures.append("the calibrated evaluation launched no GNN kernel")
+
+    uq = UNCACHED_QUERIES
+    (um, _, _), t_u = stage(
+        "evaluator_uncached",
+        lambda: pipe.run_fine(loader, poses[:uq], top_idx[:uq], fvocab,
+                              chunk=1, use_cache=False))
+    (cm, _, _), t_c, _ = timed(
+        lambda: pipe.run_fine(loader, poses[:uq], top_idx[:uq], fvocab,
+                              chunk=1, fine_bank=fbank))
+    log(f"  uncached path (every candidate re-encoded, chunk 1), {uq} "
+        f"queries: {t_u:.3f} s = {uq / t_u:.2f} queries/s against the "
+        f"cached {uq / t_c:.1f} queries/s (same chunks, bank given); "
+        f"launches {by_path['evaluator_uncached']}; top-10@15m uncached "
+        f"{um[10][15]:.4f}, cached {cm[10][15]:.4f}")
+
+    draws = [{"idx": a.astype(np.int64)} for a in ex["fine_eval_idx"]]
+    (got, thresh), t_fe = stage("evaluator_fine_isolation",
+                                lambda: fine_isolation(draws))
+    diffs = lambda got, thresh: (
+        float(np.abs(got - ex["fine_eval_stats"]).max()),
+        float(np.abs(thresh - ex["fine_eval_thresh"]).max()))
+    err, terr = diffs(got, thresh)
+    ok = err <= EVAL_FINE_TOL and terr <= EVAL_FINE_TOL
+    log(f"  evaluation.fine on SYNTHETIC-FINE val (JAX's draws; its CLI's "
+        f"main in-process): {t_fe:.3f} s; recall {got[0]:.6f} precision "
+        f"{got[1]:.6f} (JAX {ex['fine_eval_stats'][0]:.6f} "
+        f"{ex['fine_eval_stats'][1]:.6f}); max |diff| of the stats "
+        f"{err:.3e}, of the threshold accuracies {terr:.3e} (gate "
+        f"{EVAL_FINE_TOL:g}) {'ok' if ok else 'FAIL'}; launches "
+        f"{by_path['evaluator_fine_isolation']}")
+    if not ok:
+        failures.append(f"evaluation.fine: {got.tolist()} vs JAX "
+                        f"{ex['fine_eval_stats'].tolist()}")
+    # Controls: the same run with a kernel deliberately wrong; the gate
+    # must see each. (Sinkhorn at half its iterations moves the couplings
+    # by up to 0.5 but flips one match of 1024, a near-tie that the
+    # kernel's rounding keeps: it reads like the true run. One iteration
+    # flips 41.)
+    controls = (
+        ("the LSTM kernel dropping each hint's last token", lstm,
+         "_lstm_kernel", lambda k: lambda t, w, tok, ln: k(
+             t, w, tok, (ln - 1).clamp(min=0))),
+        ("the Sinkhorn kernel stopping after one iteration", sinkhorn,
+         "_lot_kernel", lambda k: lambda z, a, it: k(z, a, 1)))
+    for what, mod, wrapper, wrong in controls:
+        right = getattr(mod, wrapper)
+        setattr(mod, wrapper, wrong(right))
+        try:
+            cerr, cterr = diffs(*fine_isolation(draws))
+        finally:
+            setattr(mod, wrapper, right)
+        seen = max(cerr, cterr) > EVAL_FINE_TOL
+        log(f"  control, {what}: max |diff| of the stats {cerr:.3e}, of the "
+            f"threshold accuracies {cterr:.3e}; above the gate {seen} "
+            f"{'ok' if seen else 'FAIL'}")
+        if not seen:
+            failures.append(f"evaluation.fine's gate does not see {what}")
+    eval_cli_checks(failures)
+    return by_path, dict(errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 2
     missing = [p for p in (CKPT_COARSE, CKPT_FINE, DB_CACHE, FIXTURE,
-                           DB_FIXTURE, TRAIN_FIXTURE)
+                           DB_FIXTURE, TRAIN_FIXTURE, EVAL_FIXTURE)
                if not os.path.isfile(p)]
     try:
         from text2pos_torch.data.bench import (bench_cell_bank,
@@ -2412,6 +2851,12 @@ def main() -> int:
     by_path.update(train_paths)
     log(f"  phase 7 took {time.time() - t0:.1f} s")
 
+    log("phase 8 evaluation")
+    t0 = time.time()
+    eval_paths, eval_errs = eval_phase(cells, poses, failures)
+    by_path.update(eval_paths)
+    log(f"  phase 8 took {time.time() - t0:.1f} s")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -2430,7 +2875,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches.get(name, 0),
                  "launches_by_path": {p: n.get(name, 0)
-                                      for p, n in by_path.items()}}
+                                      for p, n in by_path.items()},
+                 "max_abs_err_by_evaluator_path": eval_errs.get(name, {})}
         entry.update(per_kernel[name])
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f} s; failures: {failures or 'none'}")

@@ -1,7 +1,7 @@
-"""Configurations: ``TrainConfig`` and ``parse_config``, copies of
-``text2pos_tpu/config.py``'s (the same flags, names and defaults), and
-``ServeConfig``, the fields of its ``EvalConfig`` that serving, calibration
-and the map encode read."""
+"""Configurations: ``TrainConfig``, ``EvalConfig`` and ``parse_config``,
+copies of ``text2pos_tpu/config.py``'s (the same flags, names and defaults),
+and ``ServeConfig``, the fields of its ``EvalConfig`` that serving,
+calibration and the map encode read."""
 
 from __future__ import annotations
 
@@ -142,6 +142,93 @@ class ServeConfig:
     pointnet_numpoints: int = 256     # points per resampled object
     coarse_max_objects: int = 28      # object slots per cell of the map bank
     seed: int = 0                     # draws of the map bank and its encode
+
+
+@dataclass
+class EvalConfig:
+    """Evaluation configuration: a copy of ``text2pos_tpu/config.py``'s
+    ``EvalConfig`` (the same flags, names and defaults), plus ``dtype`` (the
+    compute dtype of the restored model bodies: JAX's evaluator runs f32)
+    and ``device``. It holds every field of ``ServeConfig``, so a pipeline
+    built for evaluation reads it as its serving configuration."""
+
+    purpose: str = ""
+    batch_size: int = 32
+    dataset: str = "K360"
+    base_path: str = ""
+    path_coarse: str = ""
+    path_fine: str = ""
+
+    top_k: Tuple[int, ...] = (1, 5, 10)
+    threshs: Tuple[int, ...] = (5, 10, 15)   # meters
+    pad_size: int = 16
+    use_test_set: bool = False
+    no_pc_augment: bool = False
+    num_mentioned: int = 6
+
+    plot_retrievals: bool = False
+    plot_matches: bool = False
+    coarse_only: bool = False
+
+    # Oracles (the reference's evaluation/args.py:44-50)
+    coarse_oracle: bool = False
+    street_oracle: bool = False
+    coarse_random: bool = False
+    fine_oracle: bool = False
+    fine_random: bool = False
+
+    # DB-cell encoding sharded over devices (the JAX package's addition)
+    data_parallel: int = 1
+
+    pointnet_numpoints: int = 256
+    ranking_loss: str = "pairwise"
+    regressor_cell: str = "pose"
+    regressor_learn: str = "center"
+    regressor_eval: str = "center"
+
+    # Additions of the JAX package
+    seed: int = 0
+    max_text_len: int = 64
+    max_hint_len: int = 16
+    coarse_max_objects: int = 28
+    # Fine-confidence re-ranking: retrieve this many coarse candidates, run
+    # the fine matcher on all of them and re-rank by the summed Sinkhorn
+    # scores of matched objects before reporting top-k (0 = off).
+    rerank: int = 0
+    # Weight of the matched position votes' spread in the re-ranking score
+    # (conf − gamma·spread).
+    rerank_gamma: float = 0.0
+    # The port's additions: compute dtype of the model bodies and where the
+    # evaluation runs ("cuda" or "cpu").
+    dtype: str = "float32"
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.top_k = tuple(self.top_k)
+        self.threshs = tuple(self.threshs)
+        if self.coarse_oracle:
+            assert max(self.top_k) >= 1
+        if self.coarse_random:
+            assert not self.coarse_oracle and not self.street_oracle
+        if self.fine_random:
+            assert not self.coarse_oracle and not self.fine_oracle
+
+
+def check_eval_ported(cfg: EvalConfig) -> None:
+    """Raise ``ValueError`` for the evaluation options the port does not
+    have yet, each naming its ROADMAP item (``--dataset K360`` raises in
+    ``utils.cli.load_split``)."""
+    if cfg.data_parallel > 1:
+        raise ValueError("--data_parallel > 1 is not ported to "
+                         "text2pos_torch yet (ROADMAP Queue 1 item 6); use "
+                         "text2pos_tpu.evaluation for it")
+    if cfg.plot_retrievals:
+        raise ValueError("--plot_retrievals is not ported to text2pos_torch "
+                         "yet (ROADMAP Queue 1 item 7: utils/drawing.py, "
+                         "which needs cv2); use text2pos_tpu.evaluation for "
+                         "it")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"--dtype {cfg.dtype}: float32 or bfloat16")
 
 
 def check_ported(cfg: TrainConfig, stage: str) -> None:

@@ -1,7 +1,8 @@
-"""Localization accuracy (a copy of ``text2pos_tpu/evaluation/metrics.py``'s
-``calc_accuracies``): predictions in the retrieved cells are mapped to world
-coordinates, cross-scene retrievals count as infinitely far, and top-k /
-threshold accuracies are averaged over the queries."""
+"""Localization accuracy (copies of ``text2pos_tpu/evaluation/metrics.py``'s
+``calc_accuracies`` and ``print_accuracies``): predictions in the retrieved
+cells are mapped to world coordinates, cross-scene retrievals count as
+infinitely far, and top-k / threshold accuracies are averaged over the
+queries."""
 
 from __future__ import annotations
 
@@ -30,6 +31,23 @@ def calc_accuracies(
         best = np.min(dists[:, :min(k, dists.shape[1])], axis=1)
         accs[k] = {t: float(np.mean(best <= t)) for t in threshs}
     return accs
+
+
+def print_accuracies(accs: Dict, name: str = "", log=print) -> str:
+    """Render the reference's accuracy table (evaluation/utils.py:57-69)."""
+    lines = []
+    if name:
+        lines.append(f"\t\t{name}:")
+    top_k = list(accs.keys())
+    threshs = list(accs[top_k[0]].keys())
+    lines.append("".join(f"\t\t\t\t{k}" for k in top_k))
+    row = "/".join(str(t) for t in threshs) + ":"
+    for k in top_k:
+        row += "\t" + "/".join(f"{accs[k][t]:0.2f}" for t in threshs)
+    lines.append(row)
+    out = "\n".join(lines)
+    log(out)
+    return out
 
 
 def served_accuracies(db: Dict[str, np.ndarray], top_idx: np.ndarray,

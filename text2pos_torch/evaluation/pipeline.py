@@ -36,6 +36,19 @@ tower the calibrated ones of the DB cache. Point resampling and padding
 objects draw from a ``torch.Generator`` seeded by ``seed``, so a rebuilt
 database matches one built by JAX only statistically; the ``u`` and
 ``pad_pts`` arguments take given draws instead.
+
+Evaluation (JAX's ``run_coarse``, ``run_fine``, the oracles and the CLI,
+``python -m text2pos_torch.evaluation.pipeline``) runs on the pipeline of
+``build_pipeline_from_checkpoints``, f32 unless ``--dtype`` says otherwise,
+its ``cfg`` an ``EvalConfig``: ``run_coarse`` encodes the queries and the
+cells through the coarse trainer's loops (``cfg.batch_size`` a step: the
+LSTM, FPS and PointConv kernels) and retrieves with the stable top-k;
+``run_fine`` matches chunks of queries against their candidates, from the
+fine bank (``precompute_fine_bank``) or re-encoding every candidate, and
+re-ranks in numpy as JAX does. On the checkpoints' pipeline every fine BN
+takes batch statistics (the bank's 64-cell steps, a chunk's pose-cell
+pairs), so the GNN runs as PyTorch ops there, as JAX runs it without its
+Pallas kernel; a calibrated pipeline runs the GNN and PointConv kernels.
 """
 
 from __future__ import annotations
@@ -43,15 +56,17 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import copy
+import os
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from text2pos_torch.config import ServeConfig
+from text2pos_torch.config import ServeConfig, TrainConfig
 from text2pos_torch.data.dense import CellBank
-from text2pos_torch.data.hints import Vocabulary
+from text2pos_torch.data.hints import Vocabulary, create_hint_description
 from text2pos_torch.device import resolve_device
+from text2pos_torch.evaluation.metrics import calc_accuracies
 from text2pos_torch.models.blocks import calibrating, set_eval_batch_stats
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
 from text2pos_torch.models.matcher import SuperGlueMatch, get_pos_in_cell
@@ -59,8 +74,9 @@ from text2pos_torch.models.object_encoder import FEATURES
 from text2pos_torch.ops.retrieval import topk_retrieval
 from text2pos_torch.ops.superglue_gnn import widen_gnn_stats
 from text2pos_torch.ops.transforms import prepare_object_points, sum_points
+from text2pos_torch.train.coarse import CoarseTrainer
 from text2pos_torch.train.losses import soft_mass_and_spread
-from text2pos_torch.train.state import load_checkpoint
+from text2pos_torch.train.state import TrainState, load_checkpoint
 from text2pos_torch.utils.convert_jax import (jax_to_state_dict,
                                               load_jax_params, module_to_jax)
 from text2pos_torch.utils.msgpack_io import msgpack_restore
@@ -73,6 +89,22 @@ BANK_FIELDS = ("points_xyz", "points_rgb", "point_count", "centers", "colors",
                "mask")
 # JAX leaves that encoding never reads (PointNet's class and colour heads).
 _UNREAD = ("class_classifier", "color_classifier")
+
+
+def hint_arrays(vocab: Vocabulary, hint_lists: Sequence[Sequence[str]],
+                num_mentioned: int, max_hint_len: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """(hint_tokens [Q, H, T], hint_lengths [Q, H]) of the first H hints of
+    each query; missing hints are all-pad with length 1."""
+    Q, H = len(hint_lists), num_mentioned
+    hint_tokens = np.zeros((Q, H, max_hint_len), np.int32)
+    hint_lengths = np.ones((Q, H), np.int32)
+    for i, hints in enumerate(hint_lists):
+        if hints:
+            tk, ln = vocab.encode_batch(list(hints)[:H], max_hint_len)
+            hint_tokens[i, :len(tk)] = tk
+            hint_lengths[i, :len(ln)] = ln
+    return hint_tokens, hint_lengths
 
 
 def bank_tensors(bank: CellBank, device) -> Dict[str, torch.Tensor]:
@@ -104,14 +136,15 @@ def fine_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
                      pad: int, generator: Optional[torch.Generator] = None,
                      u: Optional[torch.Tensor] = None,
                      pad_pts: Optional[torch.Tensor] = None,
-                     num_points: int = ServeConfig.pointnet_numpoints
+                     num_points: int = ServeConfig.pointnet_numpoints,
+                     no_pc_augment: bool = False
                      ) -> Tuple[torch.Tensor, ...]:
     """The fine tower's input for cells ``idx``: (xyz, rgb [n, pad, P, 3]
-    resampled to P = ``num_points`` and normalize-scaled, centers, colors
-    [n, pad, 3]), empty slots filled with padding objects. ``pad_pts``
-    [n, pad, 8, 3] and ``u`` [n, pad, P] are the padding points and
-    resampling draws (drawn from ``generator``, in that order, when
-    None)."""
+    resampled to P = ``num_points`` and normalize-scaled (not scaled with
+    ``no_pc_augment``), centers, colors [n, pad, 3]), empty slots filled
+    with padding objects. ``pad_pts`` [n, pad, 8, 3] and ``u`` [n, pad, P]
+    are the padding points and resampling draws (drawn from ``generator``,
+    in that order, when None)."""
     dev = bt["points_xyz"].device
     if pad_pts is None:
         pad_pts = torch.rand((len(idx), pad, PAD_POINTS, 3),
@@ -119,7 +152,7 @@ def fine_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
     xyz, rgb, count, centers, colors = _pad_filled_cell_tensors(
         bt, idx, pad, pad_pts.to(dev, torch.float32))
     xyz, rgb = prepare_object_points(xyz, rgb, count, num_points, generator,
-                                     u)
+                                     u, no_pc_augment=no_pc_augment)
     return xyz, rgb, centers, colors
 
 
@@ -128,13 +161,15 @@ def encode_fine_cells(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None,
                       u: Optional[torch.Tensor] = None,
                       pad_pts: Optional[torch.Tensor] = None,
-                      num_points: int = ServeConfig.pointnet_numpoints
+                      num_points: int = ServeConfig.pointnet_numpoints,
+                      no_pc_augment: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fine object encodings of cells ``idx`` (as JAX's
     ``_encode_cells_chunk``): (enc [n, pad, E] f32, centers_xy [n, pad, 2]
-    f32); the draws as in ``fine_cell_points``."""
+    f32); the draws and ``no_pc_augment`` as in ``fine_cell_points``."""
     xyz, rgb, centers, colors = fine_cell_points(bt, idx, pad, generator, u,
-                                                 pad_pts, num_points)
+                                                 pad_pts, num_points,
+                                                 no_pc_augment)
     enc = fine.encode_cell_objects(xyz, rgb, centers, colors)
     return enc, centers[..., 0:2]
 
@@ -193,7 +228,8 @@ def encode_all_coarse(coarse: CellRetrievalNetwork,
 def encode_all_fine(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
                     pad: int, generator: Optional[torch.Generator] = None,
                     num_points: int = ServeConfig.pointnet_numpoints,
-                    draws: Optional[Sequence[Draws]] = None
+                    draws: Optional[Sequence[Draws]] = None,
+                    no_pc_augment: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(``fine_bank_enc`` [C, pad, E], ``fine_bank_centers`` [C, pad, 2]) of
     every cell of ``bt``, ``DB_CHUNK`` at a time. A short last step is
@@ -207,7 +243,7 @@ def encode_all_fine(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
         idx = torch.cat([idx, idx.new_zeros(DB_CHUNK - real)])
         u, pad_pts = draws[i] if draws is not None else (None, None)
         enc, ctr = encode_fine_cells(fine, bt, idx, pad, generator, u,
-                                     pad_pts, num_points)
+                                     pad_pts, num_points, no_pc_augment)
         out.append((enc[:real], ctr[:real]))
     return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
@@ -252,6 +288,34 @@ def _match_vote_spread(matches1: torch.Tensor, offsets: torch.Tensor,
     mean_v = (votes * valid[..., None]).sum(2) / n[..., None]
     d2 = ((votes - mean_v[:, :, None, :]) ** 2).sum(-1)
     return torch.sqrt((d2 * valid).sum(-1) / n)
+
+
+def _match_results(out: Dict[str, torch.Tensor], centers_xy: torch.Tensor):
+    """The matcher's outputs over [B·K] pairs → (pos_mean, pos_offsets
+    [B, K, 2], confidences, conf_scores, spreads [B, K]) for the candidates'
+    object centres ``centers_xy`` [B, K, pad, 2]."""
+    B, K, pad = centers_xy.shape[:3]
+    matches0 = out["matches0"].reshape(B, K, pad)
+    mscores0 = out["matching_scores0"].reshape(B, K, pad)
+    offsets = out["offsets"].reshape(B, K, -1, 2)
+    pos_mean = get_pos_in_cell(centers_xy, matches0, torch.zeros_like(offsets))
+    pos_offsets = get_pos_in_cell(centers_xy, matches0, offsets)
+    confidences = (matches0 >= 0).sum(2)
+    conf_scores = _match_confidence_scores(matches0, mscores0)
+    spreads = _match_vote_spread(out["matches1"].reshape(B, K, -1), offsets,
+                                 centers_xy)
+    return pos_mean, pos_offsets, confidences, conf_scores, spreads
+
+
+def _rerank_order(conf_scores: np.ndarray, spreads: np.ndarray,
+                  gamma: float) -> np.ndarray:
+    """Re-ranked candidate order per query, [Q, K] indices into the coarse
+    top-k list (JAX's ``_rerank_order``, numpy): score ``conf −
+    gamma·spread``, the stable sort keeping the coarse order among ties."""
+    score = np.asarray(conf_scores, np.float32)
+    if gamma:
+        score = score - gamma * np.asarray(spreads, np.float32)
+    return np.argsort(-score, axis=1, kind="stable")
 
 
 def _take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -475,22 +539,11 @@ class LocalizationPipeline:
                         sinkhorn_iterations: Optional[int] = None):
         """Matcher core: obj_enc [B, K, pad, E], centers_xy [B, K, pad, 2],
         hint_enc [B, H, E]; the depth cut as in ``SuperGlue.forward``."""
-        B, K, pad = obj_enc.shape[:3]
-        H = hint_enc.shape[1]
+        K = obj_enc.shape[1]
         out = self.fine.match_encoded(obj_enc.flatten(0, 1),
                                       hint_enc.repeat_interleave(K, dim=0),
                                       num_layers, sinkhorn_iterations)
-        matches0 = out["matches0"].reshape(B, K, pad)
-        mscores0 = out["matching_scores0"].reshape(B, K, pad)
-        offsets = out["offsets"].reshape(B, K, H, 2)
-        pos_mean = get_pos_in_cell(centers_xy, matches0,
-                                   torch.zeros_like(offsets))
-        pos_offsets = get_pos_in_cell(centers_xy, matches0, offsets)
-        confidences = (matches0 >= 0).sum(2)
-        conf_scores = _match_confidence_scores(matches0, mscores0)
-        spreads = _match_vote_spread(out["matches1"].reshape(B, K, H),
-                                     offsets, centers_xy)
-        return pos_mean, pos_offsets, confidences, conf_scores, spreads
+        return _match_results(out, centers_xy)
 
     def _cheap_keep(self, top_idx, sims, hint_enc, prune_m: int,
                     prune_layers: int, prune_sinkhorn: int, prune_soft: bool,
@@ -587,16 +640,8 @@ class LocalizationPipeline:
         cfg = self.cfg
         tokens, lengths = self.vocab.encode_batch(
             [" ".join(h) for h in hint_lists], cfg.max_text_len)
-        Q, H = len(hint_lists), cfg.num_mentioned
-        hint_tokens = np.zeros((Q, H, cfg.max_hint_len), np.int32)
-        hint_lengths = np.ones((Q, H), np.int32)
-        for i, hints in enumerate(hint_lists):
-            if hints:
-                tk, ln = self.fine_vocab.encode_batch(list(hints)[:H],
-                                                      cfg.max_hint_len)
-                hint_tokens[i, :len(tk)] = tk
-                hint_lengths[i, :len(ln)] = ln
-        return tokens, lengths, hint_tokens, hint_lengths
+        return (tokens, lengths, *hint_arrays(
+            self.fine_vocab, hint_lists, cfg.num_mentioned, cfg.max_hint_len))
 
     def localize(self, hint_lists: Sequence[Sequence[str]], top_k: int = 10,
                  **rerank) -> Dict[str, np.ndarray]:
@@ -608,6 +653,247 @@ class LocalizationPipeline:
                 "pos_in_cell": pos.float().cpu().numpy(),
                 "confidences": conf.cpu().numpy()}
 
+    # ------------------------------------------------------------------
+    # Evaluation (JAX's run_coarse, run_fine and the oracles). The pipeline
+    # is the checkpoints' (``build_pipeline_from_checkpoints``), its ``cfg``
+    # an ``EvalConfig``; draws of the coarse tower come from the coarse
+    # trainer's generators, the fine tower's from a generator seeded by
+    # ``cfg.seed``, unless handed over.
+    # ------------------------------------------------------------------
+    def coarse_trainer(self) -> CoarseTrainer:
+        """The coarse trainer's query and cell encode loops over this
+        pipeline's coarse model: ``cfg.batch_size`` queries or cells a
+        step, ``cfg.coarse_max_objects`` slots, ``cfg.pointnet_numpoints``
+        points."""
+        cfg = self.cfg
+        tcfg = TrainConfig(
+            batch_size=cfg.batch_size, embed_dim=self.coarse.embed_dim,
+            pointnet_numpoints=cfg.pointnet_numpoints,
+            coarse_max_objects=cfg.coarse_max_objects,
+            no_pc_augment=cfg.no_pc_augment, seed=cfg.seed,
+            device=self.device.type)
+        return CoarseTrainer(tcfg, self.vocab, self.device, model=self.coarse)
+
+    @torch.no_grad()
+    def coarse_encodings(self, loader, cell_draws=None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """(text [Q, E], cells [C, E]) of every query of ``loader`` and
+        every cell of its bank; ``cell_draws`` as ``CoarseTrainer.
+        encode_all_cells``'s ``draws``."""
+        trainer, state = self.coarse_trainer(), TrainState(self.coarse)
+        return (trainer.encode_all_queries(state, loader),
+                trainer.encode_all_cells(state, loader.bank, cell_draws))
+
+    def run_coarse(self, loader, poses, cell_draws=None
+                   ) -> Tuple[np.ndarray, Dict]:
+        """Retrieve ``max(top_k)`` cells a pose (``rerank`` when larger, for
+        the fine stage to re-order), or the oracles' cells
+        (``coarse_oracle``, ``coarse_random``, ``street_oracle``); coarse
+        accuracy predicts the cells' centres. Returns (top_idx [Q, max_k],
+        accuracies)."""
+        cfg = self.cfg
+        bank = loader.bank
+        max_k = min(max(max(cfg.top_k), cfg.rerank), bank.num_cells)
+        if cfg.coarse_oracle:
+            top_idx = np.tile(loader.pose_cell_idx[:, None], (1, max_k))
+        elif cfg.coarse_random:
+            rng = np.random.default_rng(cfg.seed)
+            top_idx = rng.integers(0, bank.num_cells, size=(len(poses), max_k))
+        elif cfg.street_oracle:
+            top_idx = self._street_oracle_retrieval(loader, poses, max_k,
+                                                    cell_draws=cell_draws)
+        else:
+            text_enc, cell_enc = self.coarse_encodings(loader, cell_draws)
+            _, top_idx = topk_retrieval(self._as_tensor(text_enc),
+                                        self._as_tensor(cell_enc), max_k)
+            top_idx = top_idx.cpu().numpy()
+        accs = self._accuracies(poses, bank, top_idx,
+                                np.full(top_idx.shape + (2,), 0.5))
+        return top_idx, accs
+
+    def _street_oracle_retrieval(self, loader, poses, max_k: int,
+                                 street_centers=None, cell_draws=None
+                                 ) -> np.ndarray:
+        """The model's retrieval with every cell whose nearest street centre
+        is not the pose's masked out, per scene. ``street_centers``: one
+        array for every scene, a dict {scene: array}, or (None) the
+        pickles ``{base_path}/street_centers/2013_05_28_drive_<scene>_
+        sync.pkl``. Scores are numpy ``text @ cells.T`` ordered by numpy's
+        default ``argsort``, as JAX orders them: where fewer than ``max_k``
+        cells share the pose's street, the −inf tail is in its order."""
+        from scipy.spatial.distance import cdist
+
+        cfg = self.cfg
+        bank = loader.bank
+        pose_scenes = np.array([p.scene_name for p in poses])
+        cell_scenes = np.array([cid.split("_")[0] for cid in bank.cell_ids])
+        scenes = sorted(set(pose_scenes) | set(cell_scenes))
+        if street_centers is None:
+            import pickle
+
+            street_centers = {}
+            for scene in scenes:
+                path = os.path.join(cfg.base_path, "street_centers",
+                                    f"2013_05_28_drive_{scene}_sync.pkl")
+                with open(path, "rb") as f:
+                    street_centers[scene] = np.asarray(pickle.load(f))
+        elif not isinstance(street_centers, dict):
+            street_centers = {scene: np.asarray(street_centers)
+                              for scene in scenes}
+        text_enc, cell_enc = self.coarse_encodings(loader, cell_draws)
+
+        cell_centers = 0.5 * (bank.bbox_w[:, 0:3] + bank.bbox_w[:, 3:6])
+        pose_w = np.array([p.pose_w for p in poses])
+        cell_street = np.full(bank.num_cells, -1, np.int64)
+        pose_street = np.full(len(poses), -2, np.int64)
+        for si, scene in enumerate(scenes):
+            centers = street_centers[scene]
+            cm = cell_scenes == scene
+            if np.any(cm):
+                cell_street[cm] = (np.argmin(cdist(cell_centers[cm], centers),
+                                             axis=1) + si * 10_000)
+            pm = pose_scenes == scene
+            if np.any(pm):
+                pose_street[pm] = (np.argmin(cdist(pose_w[pm], centers),
+                                             axis=1) + si * 10_000)
+        scores = text_enc @ cell_enc.T
+        scores = np.where(cell_street[None, :] == pose_street[:, None],
+                          scores, -np.inf)
+        return np.argsort(-scores, axis=1)[:, :max_k]
+
+    def _accuracies(self, poses, bank: CellBank, top_idx: np.ndarray,
+                    pos_in_cells: np.ndarray,
+                    top_k: Optional[Tuple[int, ...]] = None) -> Dict:
+        pose_w = np.array([p.pose_w[0:2] for p in poses])
+        pose_scenes = np.array([p.cell_id.split("_")[0] for p in poses])
+        cell_scenes = np.array([cid.split("_")[0] for cid in bank.cell_ids])
+        same_scene = cell_scenes[top_idx] == pose_scenes[:, None]
+        return calc_accuracies(pose_w, bank.bbox_w[top_idx][..., 0:2],
+                               bank.cell_size[top_idx], pos_in_cells,
+                               same_scene, top_k or self.cfg.top_k,
+                               self.cfg.threshs)
+
+    @torch.no_grad()
+    def precompute_fine_bank(self, bank: CellBank,
+                             draws: Optional[Sequence[Draws]] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fine object encodings of every cell of ``bank`` (``[C, pad,
+        E]``, ``[C, pad, 2]``), ``DB_CHUNK`` cells a step
+        (``encode_all_fine``): on the checkpoints' model each step on its
+        own batch statistics, the last filled up with cell 0."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        return encode_all_fine(self.fine, bank_tensors(bank, self.device),
+                               cfg.pad_size, gen, cfg.pointnet_numpoints,
+                               draws, cfg.no_pc_augment)
+
+    def _match_chunk_cached(self, fine_bank, top_idx, hint_tokens,
+                            hint_lengths):
+        """Fine matching of a chunk's queries against their candidates'
+        encodings in ``fine_bank``: hints encoded once a query, then the
+        GNN, Sinkhorn and offsets over the chunk's [B·K] pairs."""
+        hint_enc = self.fine.encode_hints(hint_tokens, hint_lengths)
+        return self._match_from_enc(self._gather(top_idx, fine_bank[0]),
+                                    self._gather(top_idx, fine_bank[1]),
+                                    hint_enc)
+
+    def _fine_chunk(self, bt, top_idx, hint_tokens, hint_lengths,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Draws] = None):
+        """The uncached path (the reference's execution pattern): every
+        candidate cell re-encoded for its query, padding objects and
+        resampling drawn (``draws``: ``(u, pad_pts)`` over the [B·K]
+        cells), then the matcher's whole forward on the repeated hints."""
+        cfg = self.cfg
+        B, K = top_idx.shape
+        u, pad_pts = draws if draws is not None else (None, None)
+        xyz, rgb, centers, colors = fine_cell_points(
+            bt, top_idx.reshape(-1), cfg.pad_size, generator, u, pad_pts,
+            cfg.pointnet_numpoints, cfg.no_pc_augment)
+        out = self.fine(hint_tokens.repeat_interleave(K, dim=0),
+                        hint_lengths.repeat_interleave(K, dim=0), xyz, rgb,
+                        centers, colors, train=False)
+        return _match_results(out, centers[..., 0:2].reshape(
+            B, K, cfg.pad_size, 2))
+
+    @torch.no_grad()
+    def run_fine(self, loader, poses, top_idx: np.ndarray, vocab: Vocabulary,
+                 chunk: int = 8, use_cache: bool = True, fine_bank=None,
+                 bank_draws: Optional[Sequence[Draws]] = None,
+                 chunk_draws: Optional[Sequence[Draws]] = None
+                 ) -> Tuple[Dict, Dict, Dict]:
+        """Fine matching of every pose against its candidates ``top_idx``
+        [Q, K], ``chunk`` queries at a time; the last chunk is padded with
+        copies of its first row (on batch statistics they enter the
+        statistics, as in JAX). With ``use_cache`` the candidates'
+        encodings come from ``fine_bank`` (``precompute_fine_bank`` when
+        None, ``bank_draws`` its draws); without, every chunk re-encodes
+        its cells (``chunk_draws[c]``: chunk c's). With ``cfg.rerank`` the
+        candidates are re-ordered by ``conf − rerank_gamma·spread``.
+        Returns the accuracies of the mean and offsets positions and of
+        the most-matched candidate (mean-conf, the first on ties)."""
+        cfg = self.cfg
+        bank = loader.bank
+        Q, K = top_idx.shape
+        hint_tokens, hint_lengths = hint_arrays(
+            vocab, [create_hint_description(p) for p in poses],
+            cfg.num_mentioned, cfg.max_hint_len)
+        bt = bank_tensors(bank, self.device)
+        if use_cache and fine_bank is None:
+            fine_bank = self.precompute_fine_bank(bank, bank_draws)
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        parts = []
+        for c, i in enumerate(range(0, Q, chunk)):
+            sl = slice(i, min(i + chunk, Q))
+            real = sl.stop - sl.start
+            arrs = [top_idx[sl], hint_tokens[sl], hint_lengths[sl]]
+            if real < chunk:
+                arrs = [np.concatenate([a, a[:1].repeat(chunk - real, 0)])
+                        for a in arrs]
+            idx, tok, lng = (self._as_tensor(a) for a in arrs)
+            if use_cache:
+                res = self._match_chunk_cached(fine_bank, idx.long(), tok, lng)
+            else:
+                res = self._fine_chunk(
+                    bt, idx.long(), tok, lng, gen,
+                    None if chunk_draws is None else chunk_draws[c])
+            parts.append([r[:real] for r in res])
+        pos_mean, pos_offsets, confidences, conf_scores, spreads = (
+            torch.cat(p).cpu().numpy() for p in zip(*parts))
+
+        if cfg.rerank > 0 and K > 1:
+            order = _rerank_order(conf_scores, spreads, cfg.rerank_gamma)
+            rows = np.arange(Q)[:, None]
+            top_idx = top_idx[rows, order]
+            pos_mean = pos_mean[rows, order]
+            pos_offsets = pos_offsets[rows, order]
+            confidences = confidences[rows, order]
+
+        accs_mean = self._accuracies(poses, bank, top_idx, pos_mean)
+        accs_offsets = self._accuracies(poses, bank, top_idx, pos_offsets)
+        conf_idx = np.argmax(confidences, axis=1)
+        rows = np.arange(Q)
+        accs_conf = self._accuracies(
+            poses, bank, top_idx[rows, conf_idx][:, None],
+            pos_mean[rows, conf_idx][:, None], top_k=(1,))
+        return accs_mean, accs_offsets, accs_conf
+
+    def run_fine_oracle(self, loader, poses, top_idx: np.ndarray,
+                        random_oracle: bool = False) -> Dict:
+        """Accuracies of perfect in-cell positions (the pose's own,
+        clipped to each retrieved cell), or of uniform random ones drawn
+        from ``default_rng(cfg.seed)``."""
+        bank = loader.bank
+        pose_w = np.array([p.pose_w[0:2] for p in poses])
+        if random_oracle:
+            rng = np.random.default_rng(self.cfg.seed)
+            pos = rng.random(top_idx.shape + (2,))
+        else:
+            lo = bank.bbox_w[top_idx][..., 0:2]
+            size = bank.cell_size[top_idx][..., None]
+            pos = np.clip((pose_w[:, None, :] - lo) / size, 0, 1)
+        return self._accuracies(poses, bank, top_idx, pos)
+
 
 def encode_database(coarse: str, fine: str, db_cache: str, bank: CellBank,
                     dtype: Optional[str] = "bfloat16",
@@ -618,3 +904,65 @@ def encode_database(coarse: str, fine: str, db_cache: str, bank: CellBank,
     statistics and the DB cache's calibrated fine ones."""
     return LocalizationPipeline.from_checkpoints(
         coarse, fine, db_cache, dtype, device).encode_database(bank, seed)
+
+
+def build_pipeline_from_checkpoints(cfg, path_coarse: str, path_fine: str,
+                                    dtype: Optional[str] = None
+                                    ) -> Tuple[LocalizationPipeline,
+                                               Vocabulary, Vocabulary]:
+    """Both stages restored from msgpack checkpoints into the evaluator's
+    pipeline (JAX's ``build_pipeline_from_checkpoints``): no database, the
+    fine model on batch statistics, ``cfg`` (an ``EvalConfig``) its
+    configuration and its device. The model bodies run in f32 unless
+    ``dtype`` is given, as JAX builds them. Returns (pipeline, coarse
+    vocabulary, fine vocabulary)."""
+    pipe = LocalizationPipeline.from_checkpoints(
+        path_coarse, path_fine, None, dtype or "float32", cfg.device,
+        cfg=cfg)
+    return pipe, pipe.vocab, pipe.fine_vocab
+
+
+def main(argv: Optional[Sequence[str]] = None, draws: Optional[Dict] = None
+         ) -> None:
+    """``python -m text2pos_torch.evaluation.pipeline``: JAX's evaluation
+    CLI (its flags, plus ``--dtype`` and ``--device``): the coarse stage's
+    accuracy table, then the fine stage's (mean, offsets and mean-conf
+    positions, re-ranked with ``--rerank``) or the fine oracle's. ``draws``
+    hands over the coarse cell steps' (``cells``) and the fine bank's
+    (``bank``) resampling draws."""
+    from text2pos_torch.config import (EvalConfig, check_eval_ported,
+                                       parse_config)
+    from text2pos_torch.data.loaders import CoarseLoader
+    from text2pos_torch.evaluation.metrics import print_accuracies
+    from text2pos_torch.utils.cli import load_split
+
+    cfg = parse_config(EvalConfig, argv)
+    check_eval_ported(cfg)
+    resolve_device(cfg.device)
+    draws = draws or {}
+    cells, poses = load_split(cfg, "test" if cfg.use_test_set else "val")
+    pipe, vocab, fine_vocab = build_pipeline_from_checkpoints(
+        cfg, cfg.path_coarse, cfg.path_fine, cfg.dtype)
+    loader = CoarseLoader(cells, poses, vocab, cfg.batch_size,
+                          cfg.coarse_max_objects, cfg.pointnet_numpoints,
+                          cfg.max_text_len)
+
+    top_idx, coarse_accs = pipe.run_coarse(loader, poses, draws.get("cells"))
+    print_accuracies(coarse_accs, "Coarse")
+    if cfg.coarse_only:
+        return
+    if cfg.fine_oracle or cfg.fine_random:
+        accs = pipe.run_fine_oracle(loader, poses, top_idx,
+                                    random_oracle=cfg.fine_random)
+        print_accuracies(accs, "Fine (oracle)")
+        return
+    accs_mean, accs_offsets, accs_conf = pipe.run_fine(
+        loader, poses, top_idx, fine_vocab, bank_draws=draws.get("bank"))
+    tag = f", reranked@{cfg.rerank}" if cfg.rerank > 0 else ""
+    print_accuracies(accs_mean, f"Fine (mean{tag})")
+    print_accuracies(accs_offsets, f"Fine (offsets{tag})")
+    print_accuracies(accs_conf, f"Fine (mean-conf{tag})")
+
+
+if __name__ == "__main__":
+    main()

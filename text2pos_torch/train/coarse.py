@@ -69,16 +69,20 @@ def build_model(cfg: TrainConfig, vocab_size: int) -> CellRetrievalNetwork:
 
 
 class CoarseTrainer:
-    """The train and encode steps of one model configuration."""
+    """The train and encode steps of one model configuration; ``model``
+    gives a network already built (the evaluator's, restored from a
+    checkpoint) in place of a new one."""
 
-    def __init__(self, cfg: TrainConfig, vocab: Vocabulary, device=None):
+    def __init__(self, cfg: TrainConfig, vocab: Vocabulary, device=None,
+                 model: Optional[CellRetrievalNetwork] = None):
         check_ported(cfg, "coarse")
         self.cfg = cfg
         self.vocab = vocab
         self.device = resolve_device(device or cfg.device)
         if self.device.type == "cuda":
             check_kernel_width(cfg.embed_dim)
-        self.model = build_model(cfg, vocab.size)
+        self.model = model if model is not None else build_model(cfg,
+                                                                 vocab.size)
 
     # ------------------------------------------------------------------
     # Initialization

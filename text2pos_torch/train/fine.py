@@ -12,7 +12,8 @@ through their autograd Functions (``ops.lstm.LSTMFinalHidden``,
 versions; the GNN and PointNet++ run as PyTorch ops on batch statistics, as
 JAX trains them. ``eval_step`` runs the model on batch statistics without
 updates (the fine model's ``eval_batch_stats``, as the JAX trainer's eval)
-and reports recall, precision and three pose errors.
+and reports recall, precision and three pose errors; ``eval_conf`` is JAX's
+retrieval-by-confidence probe over it.
 
     python -m text2pos_torch.train.fine --dataset SYNTHETIC --epochs 4 \\
         --batch_size 32 --embed_dim 128 --num_layers 6
@@ -24,6 +25,7 @@ epochs, then takes the target rate; both decay by ``lr_gamma`` each epoch.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -324,6 +326,45 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
 
     return state, {"history": history, "vocab": vocab,
                    "best_path": best_path, "trainer": trainer}
+
+
+@torch.no_grad()
+def eval_conf(trainer: FineTrainer, state: TrainState, loader: FineLoader,
+              num_trials: int = 100, num_cells: int = 5, seed: int = 0,
+              log=print, draws: Optional[List[Dict]] = None) -> float:
+    """Retrieval by confidence (JAX's ``eval_conf``): each trial matches a
+    pose's hints against its own cell and ``num_cells - 1`` other poses'
+    cells, drawn by ``default_rng(seed)``; the score is how often the own
+    cell has the most matched objects (the mean over reading the row
+    forwards and backwards, first on ties). The trials run in batches of
+    ``batch_size`` rows, the last padded with its last row; ``draws[i]``
+    hands over batch i's resampling draws (``idx``)."""
+    rng = np.random.default_rng(seed)
+    n = len(loader)
+    samples = []
+    for _ in range(num_trials):
+        own = loader.make_sample(int(rng.integers(n)), rng)
+        samples.append(own)
+        for _ in range(num_cells - 1):
+            other = loader.make_sample(int(rng.integers(n)), rng)
+            samples.append(dataclasses.replace(own, objects=other.objects))
+    B = trainer.cfg.batch_size
+    confs = []
+    for b, i in enumerate(range(0, len(samples), B)):
+        chunk = samples[i:i + B]
+        real = len(chunk)
+        chunk = chunk + [chunk[-1]] * (B - real)
+        batch = loader._collate(chunk, real, np.zeros(B, np.int32))
+        _, out = trainer.eval_step(
+            state, batch, step_generator(trainer.device, 5, seed, i),
+            None if draws is None else draws[b])
+        confs.append((out["matches0"] >= 0).sum(1)[:real].cpu().numpy())
+    confs = np.concatenate(confs).reshape(num_trials, num_cells)
+    acc = float(np.mean(np.argmax(confs, axis=1) == 0))
+    acc_rev = float(np.mean(
+        np.argmax(confs[:, ::-1], axis=1) == num_cells - 1))
+    log(f"Conf score: {0.5 * (acc + acc_rev):0.3f} ({acc:0.3f})")
+    return 0.5 * (acc + acc_rev)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
