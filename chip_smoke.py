@@ -107,11 +107,40 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    shapes, and each wrapper is then held against its plain version on
    them; the cached ``run_fine`` and the fine bank are profiled (device
    busy time against wall time).
-9. A ``{"kernels": [...]}`` line (each entry also with its launches by
+9. The recipe's training (``scripts/train_bench_ckpts.py``) on phase 7's
+   training scene: PointNet++ pretraining from ``bench_pointnet`` (10
+   steps at batch 64, ms a step, the checkpoint written and read back, and
+   the validation of the committed weights on JAX's draws within one
+   object of JAX's, ``fixtures/bench_recipe.npz``); the fused coarse
+   trainer with the negative bank (batch 64, embed 256; segments of 4
+   steps, the bank refreshed at the start of an 8-step epoch and before
+   its second segment; two epochs from the pretraining's checkpoint): its
+   assembly equal to
+   ``CoarseLoader``'s batch, a step equal to the host step within the
+   host's run-to-run spread, the inactive bank equal to no bank, the
+   refresh equal to ``encode_all_cells`` and the bank loss to float64
+   within 1e-6, the step with the bank at 32 cells held to float64 on its
+   own choices; the fused fine trainer with the rank-aware loss (batch 32,
+   R = 4; one epoch): equal to the host step, held to float64 at 32 poses;
+   ``--remat`` on both (gradients and statistics as without, peak memory
+   and ms); the offsets trainer (10 steps at batch 32, a validation pass).
+   Each fused segment is profiled: no synchronization and no
+   host-to-device copy between steps, and the device's busy share, beside
+   the host-loader steps on the same number of batches, the loader's
+   host time taken alone. Launches of one step, one refresh and one rank
+   step against the code's count; every kernel against its plain version
+   on each stage's inputs. Last, the four training CLIs (pretraining, the
+   fused coarse trainer with ``--neg_bank --remat``, the fused fine one
+   with ``--rank_weight 1 --remat``, offsets) run at once as subprocesses
+   on the card, each in its own directory: exit 0, finite losses, and the
+   checkpoints ``train()`` keeps (pretraining's one best, named by its
+   validation accuracy, each earlier best removed).
+10. A ``{"kernels": [...]}`` line (each entry also with its launches by
    path: headline, cascade, DB encode, calibration, server, the two
-   evaluation epochs, the two trainings and phase 8's stages,
-   ``evaluator_*``), the card's name and power limit, and ``{"ok": true,
-   "device": {...}}`` as the last line.
+   evaluation epochs, the two trainings, phase 8's stages,
+   ``evaluator_*``, and phase 9's, ``recipe_*``, with the errors on phase
+   9's inputs under ``max_abs_err_by_training_path``), the card's name and
+   power limit, and ``{"ok": true, "device": {...}}`` as the last line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -1629,122 +1658,6 @@ def step_grads(stage, trainer, state, batch, draws):
     return float(out if stage == "coarse" else out[0]), grads, stats
 
 
-class Decisions:
-    """The piecewise choices of a training step, in call order: the sign of
-    each ReLU's input, the maximizers of each max (``Tensor.amax``), FPS's
-    indices, the ball queries' neighbours and EdgeConv's kNN graphs.
-    ``record()`` keeps a run's; ``replay()`` imposes them on a second run of
-    the same step, so that the two are compared on the same piece of the
-    loss: a ReLU input or a max within rounding of a tie may fall either
-    way, and the gradient jumps with it. The replay counts the ReLU and max
-    choices the second run would have made otherwise (``flips``) and the
-    largest margin by which it would have (``margin``, relative to the
-    largest magnitude in that tensor): a flip is a near-tie only where that
-    margin is small."""
-
-    def __init__(self):
-        self.log, self.flips, self.margin = [], 0, 0.0
-
-    @staticmethod
-    @contextlib.contextmanager
-    def _patched(relu, amax, fps, ball, knn):
-        import text2pos_torch.models.cell_retrieval as cr
-        import text2pos_torch.models.pointnet2 as pn
-
-        saved = (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
-                 pn.ball_neighbors, cr.masked_knn)
-        torch.relu, torch.Tensor.amax = relu, amax
-        pn.farthest_point_sampling, pn.ball_neighbors = fps, ball
-        cr.masked_knn = knn
-        try:
-            yield
-        finally:
-            (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
-             pn.ball_neighbors, cr.masked_knn) = saved
-
-    def record(self):
-        import text2pos_torch.models.cell_retrieval as cr
-        import text2pos_torch.models.pointnet2 as pn
-
-        relu, amax = torch.relu, torch.Tensor.amax
-        fps, ball = pn.farthest_point_sampling, pn.ball_neighbors
-        knn = cr.masked_knn
-
-        def rec_relu(x):
-            self.log.append(("relu", x.detach() > 0))
-            return relu(x)
-
-        def rec_amax(x, dim=(), keepdim=False):
-            m = amax(x, dim, keepdim=True)
-            self.log.append(("amax", x.detach() == m.detach()))
-            return m if keepdim else m.squeeze(dim)
-
-        def rec_fps(pos, n):
-            idx, cent = fps(pos, n)
-            self.log.append(("fps", idx))
-            return idx, cent
-
-        def rec_ball(*a):
-            out = ball(*a)
-            self.log.append(("ball", out))
-            return out
-
-        def rec_knn(*a):
-            out = knn(*a)
-            self.log.append(("knn", out))
-            return out
-        return self._patched(rec_relu, rec_amax, rec_fps, rec_ball, rec_knn)
-
-    def _next(self, kind, shape=None):
-        k, v = self.log[self._i]
-        self._i += 1
-        if k != kind or (shape is not None and tuple(v.shape) != shape):
-            raise RuntimeError(f"replayed decision {self._i}: {k} where the "
-                               f"run asks for {kind} {shape}")
-        return v
-
-    def _flip(self, where, gap, x):
-        n = int(where.sum())
-        if n:
-            real = x.abs()[x.abs() < 1e29]         # not masked_max's fill
-            self.flips += n
-            self.margin = max(self.margin, float(gap[where].max())
-                              / float(real.max()))
-
-    def replay(self):
-        amax = torch.Tensor.amax
-        self._i = 0
-        zero = lambda x: torch.zeros((), dtype=x.dtype)
-
-        def rep_relu(x):
-            mask = self._next("relu", tuple(x.shape))
-            self._flip((x > 0) != mask, x.detach().abs(), x.detach())
-            return torch.where(mask, x, zero(x))
-
-        def rep_amax(x, dim=(), keepdim=False):
-            mask = self._next("amax", tuple(x.shape))
-            xd = x.detach()
-            own = amax(xd, dim, keepdim=True)
-            chosen = amax(torch.where(mask, xd, torch.full(
-                (), -math.inf, dtype=x.dtype)), dim, keepdim=True)
-            self._flip((xd == own) != mask, (own - chosen).expand_as(xd), xd)
-            m = (torch.where(mask, x, zero(x)).sum(dim, keepdim=True)
-                 / mask.sum(dim, keepdim=True))
-            return m if keepdim else m.squeeze(dim)
-
-        def rep_fps(pos, n):
-            idx = self._next("fps")
-            return idx, torch.gather(pos, 1, idx[..., None].expand(
-                *idx.shape, 3))
-
-        def rep_ball(*a):
-            return self._next("ball")
-
-        def rep_knn(*a):
-            return self._next("knn")
-        return self._patched(rep_relu, rep_amax, rep_fps, rep_ball, rep_knn)
-
-
 def float64_step(stage, vocab, batch, draws, decisions):
     """``step_grads`` in float64 (``utils/float64.py``) on the piecewise
     choices ``decisions`` recorded: the plain path, the LSTM's and the
@@ -1855,6 +1768,7 @@ def train_parity(stage, train, vocab, tx, failures):
     gradients that must not be zero."""
     from text2pos_torch.ops.transforms import sample_indices
     from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.utils.float64 import Decisions
 
     jax = fixture_step(stage, tx)
     report = {}
@@ -2703,13 +2617,940 @@ def eval_phase(cells, poses, failures):
     return by_path, dict(errs)
 
 
+# Phase 9: the checkpoints' three-stage recipe (scripts/train_bench_ckpts.py)
+# on the card, on phase 7's training scene: PointNet++ pretraining from the
+# committed checkpoint (batch 64, 256 points), the fused coarse trainer with
+# the negative bank (batch 64, embed 256, 24 objects; T2P_FUSED_SEG=4, so an
+# 8-step epoch has two segments and the bank is refreshed before each),
+# the fused fine trainer with the rank-aware loss (batch 32, embed 128, 6
+# block pairs, 50 iterations, R = 4), --remat, and the offsets trainer
+# (batch 32). Limits:
+# - fused ≡ host: the assembly equals CoarseLoader's batch exactly; a fused
+#   step's loss equals the host step's within RECIPE_LOSS_TOL (relative;
+#   both run the same kernels on the same inputs) and each gradient leaf
+#   lies within the host step's run-to-run spread (the host step run twice;
+#   CUDA's atomics in the gathers' backward), at most SPREAD_FACTOR times
+#   the largest spread of a leaf, or SPREAD_FLOOR where that reads lower;
+# - the bank: refresh rows against encode_all_cells on the same draws, and
+#   the bank loss against a float64 recomputation, within BANK_TOL;
+# - float64 replays at phase 7's limits (TRAIN_*_TOL): the rank-aware fine step
+#   at 32 poses and the fused coarse step with the bank at 32 cells;
+# - remat: gradients and BN statistics as the no-remat step's within the
+#   spread rule above, the statistics moved once, and a lower peak;
+# - the pretraining's validation accuracy on JAX's draws with the committed
+#   weights within one object of JAX's (fixtures/bench_recipe.npz).
+RECIPE_FIXTURE = os.path.join(ROOT, "text2pos_torch", "fixtures",
+                              "bench_recipe.npz")
+CKPT_POINTNET = os.path.join(ROOT, "checkpoints", "bench_pointnet.msgpack")
+PRETRAIN = dict(batch_size=64, pointnet_numpoints=256, learning_rate=1e-3,
+                lr_gamma=0.95)
+PRETRAIN_STEPS = 10
+FUSED_SEG = "4"
+COARSE_EPOCHS = 2
+RANK = dict(rank_weight=1.0, rank_negatives=4)
+BANK = dict(neg_bank=True, neg_bank_warmup=0, neg_bank_refresh=3)
+OFFSETS_STEPS = 10
+CLI_PRETRAIN_EPOCHS = 4
+RECIPE_LOSS_TOL = 1e-6
+SPREAD_FACTOR = 2.0
+SPREAD_FLOOR = 1e-6
+BANK_TOL = 1e-6
+F64_CELLS = 32
+# Launches a single call makes, as the code predicts them (the refresh's
+# per chunk of cells).
+PREDICTED = {"fused coarse step": {"lstm": 1, "fps": 3, "pointconv": 0},
+             "refresh": {"pointconv": 3, "fps": 3},
+             "rank step": {"sinkhorn": 5, "lstm": 1, "fps": 3}}
+
+
+def grads_stats(model):
+    """({leaf: gradient}, {leaf: BN statistic}) in the JAX layout, numpy;
+    a parameter without a gradient counts as zeros."""
+    from text2pos_torch.utils.convert_jax import module_to_jax, params_to_jax
+
+    grads = dict(flat_tree(params_to_jax(model, {
+        n: torch.zeros_like(p) if p.grad is None else p.grad
+        for n, p in model.named_parameters()})))
+    return grads, dict(flat_tree(module_to_jax(model)[1]))
+
+
+def leaf_diffs(a, b):
+    """({leaf: relative L2 difference of a's leaf from b's} for the leaves
+    whose norm is above ZERO_GRAD_FRACTION of b's global norm, {leaf: the
+    difference's norm over the global norm} for the others: a bias before
+    BatchNorm, whose exact gradient is zero, has only rounding left)."""
+    total = math.sqrt(sum(float(np.sum(np.square(np.asarray(
+        v, np.float64)))) for v in b.values())) or 1.0
+    rel, small = {}, {}
+    for k, v in b.items():
+        v = np.asarray(v, np.float64)
+        n = float(np.linalg.norm(v))
+        d = float(np.linalg.norm(np.asarray(a[k], np.float64) - v))
+        if n > ZERO_GRAD_FRACTION * total:
+            rel[k] = d / n
+        else:
+            small[k] = d / total
+    return rel, small
+
+
+def gate_spread(label, got, ref, pair, failures):
+    """``got`` against ``ref`` (loss, grads, stats): each gradient leaf and
+    BN statistic within SPREAD_FACTOR times the largest difference between
+    the two runs of ``pair`` (one step run twice) of its kind (relative, or
+    of a leaf near zero over the global norm), or SPREAD_FLOOR where that
+    reads lower. Returns the readings."""
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1], default=("", 0.0))
+    a, b = pair
+    spreads = [worst(d)[1] for d in leaf_diffs(b[1], a[1])
+               + leaf_diffs(b[2], a[2])]
+    errs = [worst(d) for d in leaf_diffs(got[1], ref[1])
+            + leaf_diffs(got[2], ref[2])]
+    tols = [max(SPREAD_FACTOR * sp, SPREAD_FLOOR) for sp in spreads]
+    loss = abs(got[0] - ref[0]) / abs(ref[0])
+    ok = loss <= RECIPE_LOSS_TOL and all(e[1] <= t for e, t in
+                                         zip(errs, tols))
+    kinds = ("gradient leaves", "gradient leaves near zero (of the global "
+             "norm)", "BN statistics", "BN statistics near zero")
+    log(f"  {label}: loss {got[0]:.7f} vs {ref[0]:.7f} (rel {loss:.2e}, "
+        f"tolerance {RECIPE_LOSS_TOL:g}); " + "; ".join(
+            f"{k} {e[1]:.2e} ({e[0] or 'none'}), the reference's run-to-run "
+            f"spread {sp:.2e}, tolerance {t:.2e}"
+            for k, e, sp, t in zip(kinds, errs, spreads, tols)) +
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: loss {loss}, errors {errs}, spreads "
+                        f"{spreads}")
+    return {"loss_rel": loss, "errors": [e[1] for e in errs],
+            "spreads": spreads}
+
+
+def replay_float64(run, decisions):
+    """``run(True)`` in float64 on the choices ``decisions`` recorded, the
+    LSTM's and Sinkhorn's forwards on their plain versions (their kernels
+    take f32 only)."""
+    import text2pos_torch.ops.lstm as lstm
+    import text2pos_torch.ops.sinkhorn as sinkhorn
+    from text2pos_torch.utils.float64 import float64_pins
+
+    kernels = lstm._lstm_kernel, sinkhorn._lot_kernel
+    lstm._lstm_kernel = lstm.lstm_final_hidden_plain
+    sinkhorn._lot_kernel = sinkhorn.log_optimal_transport_plain
+    try:
+        with float64_pins(), decisions.replay():
+            return run(True)
+    finally:
+        lstm._lstm_kernel, sinkhorn._lot_kernel = kernels
+
+
+def gate_float64(label, run, failures):
+    """The f32 step ``run(False)`` against its float64 replay, at phase 7's
+    limits; each choice the float64 step would have made otherwise a
+    near-tie within NEAR_TIE_TOL."""
+    from text2pos_torch.utils.float64 import Decisions
+
+    decisions = Decisions()
+    with decisions.record():
+        got = run(False)
+    t0 = time.time()
+    ref = replay_float64(run, decisions)
+    near = decisions.margin <= NEAR_TIE_TOL
+    log(f"  {label}: float64 replay in {time.time() - t0:.1f} s on "
+        f"{len(decisions.log)} recorded choices; {decisions.flips} would "
+        f"have gone the other way, each within {decisions.margin:.2e} of a "
+        f"tie (tolerance {NEAR_TIE_TOL:g}) {'ok' if near else 'FAIL'}")
+    if not near:
+        failures.append(f"{label}: a choice {decisions.margin} from a tie")
+    c = compare_steps(summary(got), summary(ref))
+    gate_step("recipe", label + ", f32 vs float64", c, failures)
+    return dict(c, flips=decisions.flips, flip_margin=decisions.margin)
+
+
+@contextlib.contextmanager
+def dev_float64(trainer, on):
+    """The fused trainer's device-resident floats in float64 while on."""
+    if not on:
+        yield
+        return
+    saved = trainer.dev
+    trainer.dev = {k: v.double() if v.is_floating_point() else v
+                   for k, v in saved.items()}
+    try:
+        yield
+    finally:
+        trainer.dev = saved
+
+
+def busy_profile(fn):
+    """``fn()`` under torch.profiler, the device's activity only (kernels,
+    copies and the CUDA runtime calls; the trace is read from the raw
+    events, which keeps a trace of 100,000 launches quick to read):
+    {wall_ms (the device's span from an event before to one after),
+    busy_ms, h2d (host-to-device copies), syncs (stream, event or device
+    synchronizations and blocking copies between the first and the last
+    launch), launches, read_s}, or None when the profiler recorded no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+    b.synchronize()
+    t1 = time.perf_counter()
+    events = [(e.name(), "CUDA" in str(e.device_type()), e.start_ns(),
+               e.duration_ns()) for e in prof.profiler.kineto_results.events()]
+    kernels = [d for n, dev, _, d in events if dev and "Memcpy" not in n
+               and "Memset" not in n]
+    if not kernels:
+        return None
+    launches = [t for n, dev, t, _ in events if not dev
+                and "LaunchKernel" in n]
+    syncs = [n for n, dev, t, _ in events if not dev and n in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize", "cudaMemcpy") and launches
+        and min(launches) <= t <= max(launches)]
+    return {"wall_ms": a.elapsed_time(b), "busy_ms": sum(kernels) / 1e6,
+            "h2d": sum(dev and "Memcpy" in n and "HtoD" in n
+                       for n, dev, _, _ in events),
+            "syncs": len(syncs) if launches else None,
+            "sync_names": dict(collections.Counter(syncs)),
+            "launches": len(kernels), "read_s": time.perf_counter() - t1}
+
+
+def no_host_work(label, steps, failures):
+    """``steps()`` (a segment of fused steps) profiled: no synchronization
+    and no host-to-device copy between the steps. Returns the profile."""
+    prof = busy_profile(steps)
+    ok = prof is not None and prof["h2d"] == 0 and prof["syncs"] == 0
+    if prof is None:
+        log(f"  {label}: no device time in the profile (not measured) FAIL")
+    else:
+        log(f"  {label} (torch.profiler): wall {prof['wall_ms']:.2f} ms, "
+            f"device busy {prof['busy_ms']:.2f} ms "
+            f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+            f"{prof['launches']} launches, host-to-device copies "
+            f"{prof['h2d']}, synchronizations {prof['syncs']} "
+            f"{prof['sync_names']}; the trace read in {prof['read_s']:.1f} "
+            f"s; no host work between the steps {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: host work between steps ({prof})")
+    return prof
+
+
+def fresh_state(trainer, weights, remat=False):
+    """A state of ``trainer``'s model with ``weights`` loaded, on the card,
+    no gradients, ``remat`` set."""
+    from text2pos_torch.train.state import TrainState
+
+    model = trainer.model.to(trainer.device)
+    model.load_state_dict(weights)
+    model.remat = remat
+    for p in model.parameters():
+        p.grad = None
+    return TrainState(model)
+
+
+def host_segment(label, trainer, weights, make_batches, n):
+    """The host-loader path, for comparison with a fused segment: the
+    loader's host work timed on its own (``make_batches()`` builds ``n``
+    batches), then ``train_step`` on those batches profiled. Returns the
+    profile with ``loader_ms``, the loader's ms a batch."""
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.state import make_optimizer
+
+    t = time.perf_counter()
+    batches = make_batches()
+    loader_ms = 1e3 * (time.perf_counter() - t) / n
+    state = fresh_state(trainer, weights)
+    state.optimizer = make_optimizer(state.model, 1e-4)
+    gen = step_generator(trainer.device, 14)
+    prof = busy_profile(lambda: [trainer.train_step(state, b, gen)
+                                 for b in batches])
+    log(f"  {label}: the loader builds a batch in {loader_ms:.2f} ms on the "
+        "host (timed alone)")
+    if prof is None:
+        log(f"  {label}: no device time in the profile (not measured)")
+        return {"loader_ms": loader_ms}
+    log(f"  {label} (torch.profiler): wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['busy_ms']:.2f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+        f"{prof['launches']} launches, host-to-device copies "
+        f"{prof['h2d']}, synchronizations {prof['syncs']}; the trace "
+        f"read in {prof['read_s']:.1f} s; with the loader, "
+        f"{prof['wall_ms'] / n + loader_ms:.2f} ms a step")
+    return dict(prof, loader_ms=loader_ms)
+
+
+def gate_launches(label, launches, failures, units=1):
+    want = {k: units * n for k, n in PREDICTED[label].items()}
+    got = {k: launches.get(k, 0) for k in want}
+    ok = got == want
+    log(f"  launches of one {label}: {dict(launches)}; predicted {want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: launches {got}, predicted {want}")
+
+
+def timed_steps(fn, n):
+    """(median synchronized ms of ``fn(i)`` over i < n, results)."""
+    times, out = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(fn(i))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:] or times), out
+
+
+def pretrain_stage(train, val, gpu, scratch, by_path, errs, failures):
+    """PointNet++ pretraining from the committed checkpoint: steps, the
+    checkpoint written and read back, the validation on JAX's draws."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.models.pointnet2 import PointNet2
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.pointnet2 import (ObjectsDataset,
+                                                PointNet2Trainer)
+    from text2pos_torch.train.state import (load_checkpoint, load_variables,
+                                            save_checkpoint)
+
+    fx = dict(np.load(RECIPE_FIXTURE))
+    cfg = TrainConfig(**PRETRAIN, device="cuda")
+    ds = ObjectsDataset(train[0], 256, seed=0)
+    trainer = PointNet2Trainer(cfg)
+    state = trainer.init_state(len(ds) // 64)
+    load_variables(state.model, load_checkpoint(CKPT_POINTNET))
+    batches = list(itertools.islice(ds.epoch(64, 1), PRETRAIN_STEPS))
+    kept = {}
+    with kept_inputs(kept):
+        _build.LAUNCHES.clear()
+        ms, out = timed_steps(lambda i: trainer.train_step(
+            state, batches[i], step_generator(trainer.device, 9, 0, 1, i)),
+            len(batches))
+        by_path["recipe_pretrain"] = dict(_build.LAUNCHES)
+    losses = [float(l) for l, _ in out]
+    finite = all(math.isfinite(x) for x in losses)
+    log(f"  pretraining: {len(ds)} objects; {len(batches)} steps at batch "
+        f"64 from bench_pointnet: losses {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f", all finite {finite}; {ms:.2f} ms a step (median) on {gpu}; "
+        f"launches {by_path['recipe_pretrain']}")
+    if not finite:
+        failures.append(f"pretraining: a loss is not finite: {losses}")
+    path = os.path.join(scratch, "pointnet_acc0.00.msgpack")
+    save_checkpoint(path, state, extra={"val_acc": 0.0})
+    back = PointNet2(heads=(state.model.class_classifier.out_features,
+                            state.model.color_classifier.out_features))
+    load_variables(back, load_checkpoint(path))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        state.model.state_dict().values(), back.state_dict().values()))
+    log(f"  pretraining checkpoint written ({os.path.getsize(path)} bytes) "
+        f"and read back equal: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("pretraining: the checkpoint reads back different")
+    # Validation of the committed weights on JAX's draws.
+    vds = ObjectsDataset(val[0], 256, seed=0)
+    vstate = trainer.init_state(1)
+    load_variables(vstate.model, load_checkpoint(CKPT_POINTNET))
+    idx = fx["pretrain_val_idx"].astype(np.int64)
+    kept_eval = {}
+    with kept_inputs(kept_eval):
+        def evaluate():
+            return [trainer.predictions(vstate, b, draws={
+                "idx": idx[i * 64:(i + 1) * 64]})
+                for i, b in enumerate(vds.epoch(64, 0, shuffle=False))]
+        preds, t_eval, by_path["recipe_pretrain_eval"] = timed(evaluate)
+    preds = torch.cat(preds).cpu().numpy()
+    labels = vds.classes[:len(preds)]
+    acc = float(np.mean(preds == labels))
+    diff = int((preds != fx["pretrain_val_pred"]).sum())
+    ok = abs(acc - float(fx["pretrain_val_acc"])) * len(preds) <= 1 + 1e-9
+    log(f"  pretraining validation of bench_pointnet on JAX's draws: "
+        f"{len(preds)} objects in {len(preds) // 64} batches, {t_eval:.3f} s"
+        f"; accuracy {acc:.6f} vs JAX {float(fx['pretrain_val_acc']):.6f}; "
+        f"{diff} predictions differ (gate: within one object) "
+        f"{'ok' if ok else 'FAIL'}; launches "
+        f"{by_path['recipe_pretrain_eval']}")
+    if not ok:
+        failures.append(f"pretraining validation {acc} vs JAX "
+                        f"{fx['pretrain_val_acc']}")
+    if by_path["recipe_pretrain_eval"].get("pointconv", 0) < 1:
+        failures.append("the pretraining's evaluation launched no PointConv "
+                        "kernel")
+    for path_name, store in (("recipe_pretrain", kept),
+                             ("recipe_pretrain_eval", kept_eval)):
+        for k, e in kept_checks(path_name, store, failures).items():
+            errs[k][path_name] = e
+    return path, {"ms_per_step": ms, "losses": losses, "val_acc": acc,
+                  "val_differ": diff, "eval_s": t_eval}
+
+
+def coarse_stage(train, vocab, pointnet_path, gpu, by_path, errs, failures):
+    """The fused coarse trainer with the bank: its gates, then two epochs."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.data.loaders import CoarseLoader
+    from text2pos_torch.ops import _build
+    from text2pos_torch.ops.transforms import sample_indices
+    from text2pos_torch.train.coarse import CoarseTrainer, step_generator
+    from text2pos_torch.train.fused_coarse import (FusedCoarseTrainer,
+                                                   epoch_plan)
+
+    recipe = dict(TRAIN_RECIPE["coarse"], device="cuda",
+                  pointnet_path=pointnet_path)
+    t0 = time.time()
+    tr = FusedCoarseTrainer(TrainConfig(**recipe, **BANK, fused=True),
+                            vocab, *train)
+    cfg = tr.cfg
+    B, O, P = cfg.batch_size, cfg.coarse_max_objects, cfg.pointnet_numpoints
+    state = tr.init_state(tr.num_poses // B)
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    host = CoarseTrainer(TrainConfig(**recipe), vocab)
+    loader = CoarseLoader(*train, vocab, B, O, P, cfg.max_text_len, seed=0)
+    log(f"  fused coarse trainer (bank, hint tokens, swap tables on the "
+        f"card) and the host loader built in {time.time() - t0:.1f} s")
+    rep = {}
+
+    def fresh(trainer, remat=False):
+        return fresh_state(trainer, weights, remat)
+
+    g = step_generator(tr.device, 12)
+    pose_idx = torch.arange(B, device=tr.device)
+    counts = tr.dev["point_count"][tr.dev["pose_cell_idx"][pose_idx]]
+    draws = tr.draw(B, counts, g)
+    F = tr.num_objects(np.arange(B))
+    a = tr.assemble(pose_idx, F, draws)
+    hb = loader.batch_with(np.arange(B), draws["perm"].cpu().numpy(),
+                           draws["flips"].cpu().numpy())
+    valid = hb["flat_valid"]
+    same = (np.array_equal(a["tokens"].cpu().numpy(), hb["tokens"])
+            and np.array_equal(a["lengths"].cpu().numpy(), hb["lengths"])
+            and all(np.array_equal(a[k].cpu().numpy(), hb[k][valid])
+                    for k in ("points_xyz", "centers", "cell_idx",
+                              "slot_idx")))
+    log(f"  fused assembly of {B} poses ({F} objects, "
+        f"{int(draws['flips'].sum())} flips) equals CoarseLoader's batch "
+        f"for the same flips and hint order (tokens, lengths, flipped "
+        f"points and centres, slots): {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("fused coarse assembly differs from CoarseLoader's")
+    hdraws = {"idx": a["idx"].cpu().numpy(), "angles": a["angles"].cpu()
+              .numpy()}
+
+    def host_step():
+        st = fresh(host)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = host.forward_backward(st, hb, draws=hdraws)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        return (float(loss),) + grads_stats(st.model) + (ms,)
+
+    def fused_step(weight, remat=False, idx=pose_idx, d=None, n=F):
+        tr.neg_weight = weight
+        st = fresh(tr, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        loss = tr.fused_forward_loss(st, idx, n, draws=d or draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() - base
+        return (float(loss.detach()),) + grads_stats(st.model) + (ms, peak)
+
+    h1, h2 = host_step(), host_step()
+    fz = fused_step(0.0)
+    rep["fused_vs_host"] = gate_spread(
+        f"fused coarse step (bank weight 0) vs CoarseTrainer's step, {B} "
+        "cells, the same draws", fz, h1, (h1, h2), failures)
+    log(f"  forward+backward ms, one call each: host {h1[3]:.2f}, "
+        f"{h2[3]:.2f}; fused {fz[3]:.2f} (the loader's host work not "
+        f"included in the host's)")
+    nobank = FusedCoarseTrainer(TrainConfig(**recipe, fused=True), vocab,
+                                *train)
+    st = fresh(nobank)
+    l0 = float(nobank.fused_forward_loss(st, pose_idx, F,
+                                         draws=draws).detach())
+    rep["inactive_bank_equal"] = eq = l0 == fz[0]
+    log(f"  bank inactive (weight 0) vs no bank: loss {fz[0]!r} vs {l0!r} "
+        f"{'equal ok' if eq else 'FAIL'}")
+    if not eq:
+        failures.append("the inactive bank moves the fused coarse loss")
+    del nobank
+
+    # The bank: refresh against encode_all_cells on the same draws.
+    rstate = fresh(tr)
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.refresh_neg_bank(rstate)
+    torch.cuda.synchronize()
+    rep["refresh_ms"] = 1e3 * (time.perf_counter() - t)
+    by_path["recipe_refresh"] = dict(_build.LAUNCHES)
+    chunks = tr.refresh_chunks()
+    gate_launches("refresh", _build.LAUNCHES, failures, len(chunks))
+    u = torch.rand((B, O, P), generator=step_generator(tr.device, 8),
+                   device=tr.device)
+    bank = tr.bank
+    cdraws = []
+    for c in chunks:
+        idx = sample_indices(torch.from_numpy(bank.point_count[c]).to(
+            tr.device), P, P, u=u).cpu().numpy()
+        cdraws.append(idx[bank.mask[c]])
+    direct = host.encode_all_cells(rstate, bank, cdraws)
+    rerr = float(np.abs(tr.dev["neg_bank"].cpu().numpy() - direct).max())
+    ok = rerr <= BANK_TOL
+    log(f"  refresh_neg_bank ({len(chunks)} chunks of {B} cells, eval mode) "
+        f"in {rep['refresh_ms']:.2f} ms: rows vs encode_all_cells on the "
+        f"same draws max |diff| {rerr:.2e} (tolerance {BANK_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"refresh_neg_bank differs from encode_all_cells by "
+                        f"{rerr}")
+    rep["refresh_err"] = rerr
+    # The bank loss against float64.
+    with torch.no_grad():
+        text = torch.nn.functional.normalize(torch.randn(
+            B, cfg.embed_dim, device=tr.device, generator=g), dim=-1)
+        cells = torch.nn.functional.normalize(torch.randn(
+            B, cfg.embed_dim, device=tr.device, generator=g), dim=-1)
+        cell_idx = tr.dev["pose_cell_idx"][pose_idx]
+        got = float(tr._neg_bank_loss(pose_idx, cell_idx, text, cells))
+        with dev_float64(tr, True):
+            want = float(tr._neg_bank_loss(pose_idx, cell_idx,
+                                           text.double(), cells.double()))
+    berr = abs(got - want) / abs(want)
+    ok = berr <= BANK_TOL
+    log(f"  bank loss {got:.7f} vs float64 {want:.7f} (rel {berr:.2e}, "
+        f"tolerance {BANK_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"bank loss {got} vs float64 {want}")
+    rep["bank_loss_rel_err"] = berr
+
+    # Remat against no remat, with the bank active.
+    p1, p2 = fused_step(1.0), fused_step(1.0)
+    rm = fused_step(1.0, remat=True)
+    rep["remat"] = gate_spread("remat vs no remat (BN statistics moved once "
+                               "if equal), fused coarse step with "
+                               f"the bank, {B} cells", rm, p1, (p1, p2),
+                               failures)
+    rep["remat"].update(ms=rm[3], peak_gb=rm[4] / 2 ** 30, plain_ms=p1[3],
+                        plain_peak_gb=p1[4] / 2 ** 30)
+    ok = rm[4] < p1[4]
+    log(f"  remat, coarse: peak {rm[4] / 2 ** 30:.2f} GiB vs "
+        f"{p1[4] / 2 ** 30:.2f} GiB without ({100 * rm[4] / max(p1[4], 1):.1f}%), "
+        f"forward+backward {rm[3]:.2f} ms vs {p1[3]:.2f} ms; lower peak "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("remat does not lower the coarse step's peak")
+
+    # Float64 replay of the fused step with the bank at 32 cells.
+    idx32 = pose_idx[:F64_CELLS]
+    d32 = {"flips": draws["flips"][:F64_CELLS],
+           "perm": draws["perm"][:F64_CELLS],
+           "idx": draws["idx"][:F64_CELLS],
+           "angles": draws["angles"][:F64_CELLS]}
+    F32 = tr.num_objects(np.arange(F64_CELLS))
+
+    def f64_run(f64):
+        tr.neg_weight = 1.0
+        st = fresh(tr)
+        if f64:
+            st.model.double()
+        with dev_float64(tr, f64):
+            loss = tr.fused_forward_loss(st, idx32, F32, draws=d32)
+            loss.backward()
+        return (float(loss),) + grads_stats(st.model)
+
+    rep["float64"] = gate_float64(
+        f"fused coarse step with the bank, {F64_CELLS} cells", f64_run,
+        failures)
+    tr.model.remat = False
+    tr.model.double().float()
+    state.model.load_state_dict(weights)
+
+    # Launches of one step; one segment with no host work; two epochs.
+    tr.neg_weight = 1.0
+    _build.LAUNCHES.clear()
+    tr.fused_train_step(state, pose_idx, F, g)
+    gate_launches("fused coarse step", _build.LAUNCHES, failures)
+    n = int(FUSED_SEG)
+    seg = torch.arange(n * B, device=tr.device).view(n, B)
+    nobj = [tr.num_objects(np.arange(i * B, (i + 1) * B)) for i in range(n)]
+    rep["segment_profile"] = no_host_work(
+        f"fused coarse segment ({n} steps)", lambda: [
+            tr.fused_train_step(state, seg[i], nobj[i], g)
+            for i in range(n)], failures)
+    hosted = CoarseLoader(*train, vocab, B, O, P, cfg.max_text_len,
+                          shuffle_hints=True, flip_poses=True, seed=0)
+    rep["host_profile"] = host_segment(
+        f"host-loader coarse steps ({n}, CoarseTrainer.train_step)", host,
+        weights,
+        lambda: list(itertools.islice(hosted.epoch(seed=1), n)), n)
+    saved = os.environ.get("T2P_FUSED_SEG")
+    os.environ["T2P_FUSED_SEG"] = FUSED_SEG
+    refresh, refresh_ms = tr.refresh_neg_bank, []
+
+    def timed_refresh(st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        refresh(st)
+        torch.cuda.synchronize()
+        refresh_ms.append(1e3 * (time.perf_counter() - t))
+    tr.refresh_neg_bank = timed_refresh
+    want = sum(1 + len(epoch_plan(tr.num_poses, B, cfg.seed, e,
+                                  cfg.neg_bank_refresh)[2])
+               for e in range(1, COARSE_EPOCHS + 1))
+    kept = {}
+    try:
+        with kept_inputs(kept):
+            _build.LAUNCHES.clear()
+            walls, losses = [], []
+            for epoch in range(1, COARSE_EPOCHS + 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, loss = tr.fused_train_epoch(state, epoch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                losses.append(loss)
+            by_path["recipe_fused_coarse"] = dict(_build.LAUNCHES)
+    finally:
+        tr.refresh_neg_bank = refresh
+        if saved is None:
+            os.environ.pop("T2P_FUSED_SEG")
+        else:
+            os.environ["T2P_FUSED_SEG"] = saved
+    steps = COARSE_EPOCHS * (tr.num_poses // B)
+    ms = 1e3 * (sum(walls) - sum(refresh_ms) / 1e3) / steps
+    finite = all(math.isfinite(x) for x in losses)
+    log(f"  fused coarse: {COARSE_EPOCHS} epochs of {steps // COARSE_EPOCHS}"
+        f" steps in segments of {FUSED_SEG}, {len(refresh_ms)} bank "
+        f"refreshes ({statistics.median(refresh_ms):.2f} ms median); epoch "
+        f"losses {[round(x, 5) for x in losses]}, finite {finite}; "
+        f"{ms:.2f} ms a step (epochs' wall less the refreshes) on {gpu}; "
+        f"launches {by_path['recipe_fused_coarse']}")
+    if not finite:
+        failures.append(f"fused coarse: a loss is not finite: {losses}")
+    if len(refresh_ms) != want:
+        failures.append(f"fused coarse: {len(refresh_ms)} refreshes, not "
+                        f"{want}")
+    for k, e in kept_checks("recipe_fused_coarse", kept, failures).items():
+        errs[k]["recipe_fused_coarse"] = e
+    rep.update(ms_per_step=ms, epoch_losses=losses, refreshes_ms=refresh_ms)
+    return rep
+
+
+def fine_stage(train, vocab, pointnet_path, gpu, by_path, errs, failures):
+    """The fused fine trainer with the rank-aware loss: its gates, then one
+    epoch."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.fine import FineTrainer
+    from text2pos_torch.data.loaders import FineLoader
+    from text2pos_torch.ops.transforms import sample_indices
+    from text2pos_torch.train.fused_fine import FusedFineTrainer
+
+    recipe = dict(TRAIN_RECIPE["fine"], **RANK, device="cuda",
+                  pointnet_path=pointnet_path)
+    t0 = time.time()
+    tr = FusedFineTrainer(TrainConfig(**recipe, fused=True), vocab, *train)
+    B, P = tr.cfg.batch_size, tr.cfg.pointnet_numpoints
+    state = tr.init_state(tr.num_poses // B)
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    host = FineTrainer(TrainConfig(**recipe), vocab)
+    log(f"  fused fine trainer ({tr.num_poses} samples on the card) built "
+        f"in {time.time() - t0:.1f} s")
+    rep = {}
+
+    def fresh(trainer, remat=False):
+        return fresh_state(trainer, weights, remat)
+
+    g = step_generator(tr.device, 13)
+    pose_idx = torch.arange(B, device=tr.device)
+    counts = tr.dev["point_count"][pose_idx]
+    draws = {"idx": sample_indices(counts, P, tr.dev["points_xyz"].shape[2],
+                                   g),
+             "angles": torch.rand(counts.shape, generator=g,
+                                  device=tr.device) * 240.0 - 120.0}
+    hbatch = {k: v.cpu().numpy() for k, v in tr.batch(pose_idx).items()}
+    hdraws = {k: v.cpu().numpy() for k, v in draws.items()}
+
+    def step(trainer, batch, d, remat=False):
+        st = fresh(trainer, remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        loss = trainer.forward_backward(st, batch, draws=d)[0]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() - base
+        return (float(loss.detach()),) + grads_stats(st.model) + (ms, peak)
+
+    h1, h2 = step(host, hbatch, hdraws), step(host, hbatch, hdraws)
+    fz = step(tr, tr.batch(pose_idx), draws)
+    rep["fused_vs_host"] = gate_spread(
+        f"fused fine step vs FineTrainer's step (rank-aware, R = "
+        f"{tr.rank_negatives}), {B} poses, the same samples and draws", fz,
+        h1, (h1, h2), failures)
+    log(f"  forward+backward ms, one call each: host {h1[3]:.2f}, "
+        f"{h2[3]:.2f}; fused {fz[3]:.2f}")
+    rm = step(tr, tr.batch(pose_idx), draws, remat=True)
+    rep["remat"] = gate_spread(f"remat vs no remat, fused fine step, {B} "
+                               "poses (the host step's spread)", rm, fz,
+                               (h1, h2), failures)
+    rep["remat"].update(ms=rm[3], peak_gb=rm[4] / 2 ** 30, plain_ms=fz[3],
+                        plain_peak_gb=fz[4] / 2 ** 30)
+    ok = rm[4] < fz[4]
+    log(f"  remat, fine: peak {rm[4] / 2 ** 30:.2f} GiB vs "
+        f"{fz[4] / 2 ** 30:.2f} GiB without ({100 * rm[4] / max(fz[4], 1):.1f}%), "
+        f"forward+backward {rm[3]:.2f} ms vs {fz[3]:.2f} ms; lower peak "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("remat does not lower the fine step's peak")
+
+    def f64_run(f64):
+        st = fresh(tr)
+        if f64:
+            st.model.double()
+        with dev_float64(tr, f64):
+            d = {k: v.double() if f64 and v.is_floating_point() else v
+                 for k, v in draws.items()}
+            loss = tr.forward_backward(st, tr.batch(pose_idx), draws=d)[0]
+        return (float(loss),) + grads_stats(st.model)
+
+    rep["float64"] = gate_float64(
+        f"rank-aware fine step, {B} poses, R = {tr.rank_negatives}",
+        f64_run, failures)
+    tr.model.remat = False
+    tr.model.double().float()
+    state.model.load_state_dict(weights)
+
+    _build.LAUNCHES.clear()
+    tr.fused_train_step(state, pose_idx, g)
+    gate_launches("rank step", _build.LAUNCHES, failures)
+    n = int(FUSED_SEG)
+    seg = torch.randperm(tr.num_poses, generator=torch.Generator()
+                         .manual_seed(0))[:n * B].view(n, B).to(tr.device)
+    rep["segment_profile"] = no_host_work(
+        f"fused fine segment ({n} rank steps)", lambda: [
+            tr.fused_train_step(state, seg[i], g) for i in range(n)],
+        failures)
+    floader = FineLoader(*train, vocab, B, tr.cfg.pad_size,
+                         tr.cfg.num_mentioned, P, tr.cfg.max_hint_len, seed=0)
+    rep["host_profile"] = host_segment(
+        f"host-loader rank-aware fine steps ({n}, FineTrainer.train_step)",
+        host, weights,
+        lambda: list(itertools.islice(floader.epoch(seed=1), n)), n)
+    saved = os.environ.get("T2P_FUSED_SEG")
+    os.environ["T2P_FUSED_SEG"] = FUSED_SEG
+    kept = {}
+    try:
+        with kept_inputs(kept):
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = tr.fused_train_epoch(state, 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            by_path["recipe_fused_fine"] = dict(_build.LAUNCHES)
+    finally:
+        if saved is None:
+            os.environ.pop("T2P_FUSED_SEG")
+        else:
+            os.environ["T2P_FUSED_SEG"] = saved
+    steps = tr.num_poses // B
+    ok = math.isfinite(loss)
+    log(f"  fused fine, rank-aware: one epoch of {steps} steps in segments "
+        f"of {FUSED_SEG}: loss {loss:.5f}, finite {ok}; "
+        f"{1e3 * wall / steps:.2f} ms a step on {gpu}; launches "
+        f"{by_path['recipe_fused_fine']}")
+    if not ok:
+        failures.append(f"fused fine: loss {loss}")
+    for k, e in kept_checks("recipe_fused_fine", kept, failures).items():
+        errs[k]["recipe_fused_fine"] = e
+    rep.update(ms_per_step=1e3 * wall / steps, epoch_loss=loss)
+    return rep
+
+
+def offsets_stage(train, val, vocab, gpu, by_path, errs, failures):
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.data.loaders import FineLoader
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.offsets import OffsetsTrainer
+
+    cfg = TrainConfig(batch_size=32, regressor_dim=128, pad_size=16,
+                      num_mentioned=6, pointnet_numpoints=256,
+                      device="cuda")
+    tr = OffsetsTrainer(cfg, vocab)
+    loader = FineLoader(*train, vocab, 32, 16, 6, 256, 16)
+    state = tr.init_state(loader.num_batches(True))
+    batches = list(itertools.islice(loader.epoch(seed=0), OFFSETS_STEPS))
+    kept = {}
+    vloader = FineLoader(*val, vocab, 32, 16, 6, 256, 16)
+    with kept_inputs(kept):
+        _build.LAUNCHES.clear()
+        ms, losses = timed_steps(lambda i: tr.train_step(state, batches[i]),
+                                 len(batches))
+        launches = collections.Counter(_build.LAUNCHES)
+        losses = [float(x) for x in losses]
+        val_out, t_val, vl = timed(lambda: [
+            tr.eval_step(state, b) for b in vloader.epoch(seed=0,
+                                                          shuffle=False)])
+        by_path["recipe_offsets"] = dict(launches + collections.Counter(vl))
+    mse = float(np.mean([float(m) for m, _ in val_out]))
+    err = float(np.mean([float(e) for _, e in val_out]))
+    ok = all(math.isfinite(x) for x in losses + [mse])
+    log(f"  offsets: {len(batches)} steps at batch 32, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {ms:.2f} ms a step on {gpu};"
+        f" validation ({len(val_out)} batches, {t_val:.3f} s): mse {mse:.4f}"
+        f", intersection error {err:.4f}; finite {ok}; launches "
+        f"{by_path['recipe_offsets']}")
+    if not ok:
+        failures.append(f"offsets: a loss is not finite: {losses}, {mse}")
+    for k, e in kept_checks("recipe_offsets", kept, failures).items():
+        errs[k]["recipe_offsets"] = e
+    return {"ms_per_step": ms, "losses": losses, "val_mse": mse,
+            "val_err": err}
+
+
+def epoch_losses(stdout):
+    """The per-epoch losses a training CLI printed ("epoch N loss X ...")."""
+    return [float(line.split(" loss ")[1].split()[0])
+            for line in stdout.splitlines()
+            if line.startswith("epoch ") and " loss " in line]
+
+
+def recipe_cli_checks(pointnet_path, scratch, failures):
+    """The recipe's four CLIs as subprocesses on the card, all at once, each
+    in its own directory (its ./checkpoints): PointNet++ pretraining
+    (CLI_PRETRAIN_EPOCHS epochs from scratch: one best checkpoint left,
+    named by the best validation accuracy, each earlier best removed), the
+    fused coarse trainer with the bank and remat and the fused rank-aware
+    fine trainer with remat (both from ``pointnet_path``), and the offsets
+    trainer; each on the SYNTHETIC dataset at the recipe's widths."""
+    env = dict(os.environ, PYTHONPATH=ROOT, T2P_FUSED_SEG="1",
+               T2P_FUSED_VERBOSE="1")
+    stage = lambda k: [f"--{a}={v}" for a, v in TRAIN_RECIPE[k].items()]
+    runs = {
+        "pointnet2": ["--dataset", "SYNTHETIC", "--epochs",
+                      str(CLI_PRETRAIN_EPOCHS), "--batch_size", "64",
+                      "--pointnet_numpoints", "256", "--learning_rate",
+                      "1e-3"],
+        "coarse": ["--dataset", "SYNTHETIC", "--fused", "--neg_bank",
+                   "--neg_bank_warmup", "0", "--neg_bank_refresh", "2",
+                   "--remat", "--epochs", "2", "--pointnet_path",
+                   pointnet_path, *stage("coarse")],
+        "fine": ["--dataset", "SYNTHETIC", "--fused", "--rank_weight", "1",
+                 "--rank_negatives", "4", "--remat", "--epochs", "1",
+                 "--pointnet_path", pointnet_path, *stage("fine")],
+        "offsets": ["--dataset", "SYNTHETIC", "--epochs", "1",
+                    "--batch_size", "32", "--regressor_dim", "128"],
+    }
+    t0 = time.time()
+    procs = {}
+    for mod, args in runs.items():
+        cwd = os.path.join(scratch, f"cli_{mod}")
+        os.makedirs(cwd)
+        procs[mod] = (cwd, subprocess.Popen(
+            [sys.executable, "-m", f"text2pos_torch.train.{mod}", *args],
+            cwd=cwd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = {}
+    for mod, (cwd, p) in procs.items():
+        try:
+            out, err = p.communicate(timeout=max(1.0, 300 - (time.time()
+                                                             - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        outs[mod] = (cwd, p.returncode, out, err)
+    wall = time.time() - t0
+    for mod, (cwd, rc, out, err) in outs.items():
+        losses = epoch_losses(out)
+        kept = sorted(f for f in os.listdir(os.path.join(cwd, "checkpoints"))
+                      ) if os.path.isdir(os.path.join(cwd, "checkpoints")) \
+            else []
+        ok = rc == 0 and bool(losses) and all(map(math.isfinite, losses))
+        note = ""
+        if mod == "pointnet2":
+            accs = [float(line.split("val-acc ")[1]) for line in
+                    out.splitlines() if "val-acc " in line]
+            bests = {f"pointnet_acc{a:0.2f}.msgpack" for i, a in
+                     enumerate(accs) if a > max(accs[:i], default=-1.0)}
+            want = [f"pointnet_acc{max(accs):0.2f}.msgpack"] if accs else []
+            said = out.split("best checkpoint:")[-1].strip()
+            ok = ok and bool(want) and kept == want \
+                and os.path.basename(said) == want[0] and len(bests) >= 2
+            note = (f"; val-acc {accs}: {len(bests)} bests written, "
+                    f"left {kept} (want {want}, the earlier "
+                    f"{len(bests) - 1} removed)")
+        elif mod in ("coarse", "fine"):
+            ok = ok and len(kept) == 1 and kept[0].startswith(f"{mod}_acc") \
+                and "best checkpoint:" in out and "seg 1 " in out
+            note = f"; checkpoint {kept}"
+        shown = " ".join(a for a in runs[mod] if "=" not in a
+                         and a != pointnet_path)
+        log(f"  CLI python -m text2pos_torch.train.{mod} {shown} (the "
+            f"recipe's widths): exit {rc}; epoch losses {losses}{note} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"training CLI {mod}: exit {rc}; {note}; "
+                            f"{out[-1500:]} {err[-2000:]}")
+    log(f"  the four CLIs, run at once, took {wall:.1f} s")
+    return wall
+
+
+def recipe_phase(gpu, failures):
+    """Phase 9. Returns ({path: launches}, {kernel: {path: largest error
+    on the path's inputs}}, report). Checkpoints go to a temporary
+    directory in the checkout, removed at the end."""
+    import tempfile
+
+    if not os.path.isfile(RECIPE_FIXTURE):
+        failures.append(f"missing {RECIPE_FIXTURE}")
+        return {}, {}, {}
+    train, val, vocab = train_data()
+    by_path, errs = {}, collections.defaultdict(dict)
+    scratch = tempfile.TemporaryDirectory(dir=ROOT, prefix=".train_smoke_")
+    report = {}
+    try:
+        t0 = time.time()
+        path, report["pretrain"] = pretrain_stage(train, val, gpu,
+                                                  scratch.name, by_path,
+                                                  errs, failures)
+        log(f"  9.1 took {time.time() - t0:.1f} s")
+        t0 = time.time()
+        report["coarse"] = coarse_stage(train, vocab, path, gpu, by_path,
+                                        errs, failures)
+        log(f"  9.2 took {time.time() - t0:.1f} s")
+        t0 = time.time()
+        report["fine"] = fine_stage(train, vocab, path, gpu, by_path, errs,
+                                    failures)
+        log(f"  9.3-9.4 took {time.time() - t0:.1f} s")
+        t0 = time.time()
+        report["offsets"] = offsets_stage(train, val, vocab, gpu, by_path,
+                                          errs, failures)
+        log(f"  9.5 took {time.time() - t0:.1f} s")
+        report["cli_s"] = recipe_cli_checks(path, scratch.name, failures)
+    finally:
+        scratch.cleanup()
+    return by_path, dict(errs), report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA device", file=sys.stderr)
         return 2
     missing = [p for p in (CKPT_COARSE, CKPT_FINE, DB_CACHE, FIXTURE,
-                           DB_FIXTURE, TRAIN_FIXTURE, EVAL_FIXTURE)
+                           DB_FIXTURE, TRAIN_FIXTURE, EVAL_FIXTURE,
+                           CKPT_POINTNET, RECIPE_FIXTURE)
                if not os.path.isfile(p)]
     try:
         from text2pos_torch.data.bench import (bench_cell_bank,
@@ -2857,6 +3698,12 @@ def main() -> int:
     by_path.update(eval_paths)
     log(f"  phase 8 took {time.time() - t0:.1f} s")
 
+    log("phase 9 the recipe's training")
+    t0 = time.time()
+    recipe_paths, recipe_errs, _ = recipe_phase(gpu, failures)
+    by_path.update(recipe_paths)
+    log(f"  phase 9 took {time.time() - t0:.1f} s")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -2876,7 +3723,8 @@ def main() -> int:
                  "replaces": replaces, "launches": launches.get(name, 0),
                  "launches_by_path": {p: n.get(name, 0)
                                       for p, n in by_path.items()},
-                 "max_abs_err_by_evaluator_path": eval_errs.get(name, {})}
+                 "max_abs_err_by_evaluator_path": eval_errs.get(name, {}),
+                 "max_abs_err_by_training_path": recipe_errs.get(name, {})}
         entry.update(per_kernel[name])
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f} s; failures: {failures or 'none'}")

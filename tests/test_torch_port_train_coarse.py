@@ -387,6 +387,28 @@ def test_loader_batches_match_jax(case):
                                   case["loader"].all_query_tokens()[0])
 
 
+def test_loader_close_cell_batches_match_jax(case):
+    """With ``sample_close_cell`` too (a close-by cell drawn between the
+    hint shuffle and the flips), and a padded tail batch: the same
+    batches as JAX's loader, through the one path that draws, then
+    builds with ``batch_with``."""
+    vocab = Vocabulary(case["vocab"].known_words)
+    kw = dict(shuffle_hints=True, flip_poses=True, sample_close_cell=True,
+              seed=0)
+    port = CoarseLoader(*corpus(make_synthetic_dataset), vocab, 5, 16, 32,
+                        48, **kw)
+    jax_loader = JCoarseLoader(*corpus(jsynthetic), case["vocab"], 5, 16,
+                               32, 48, **kw)
+    n = 0
+    for got, want in zip(port.epoch(seed=3, drop_last=False),
+                         jax_loader.epoch(seed=3, drop_last=False)):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        n += 1
+    assert n == port.num_batches(drop_last=False) > 1
+
+
 def test_lstm_function_gradcheck():
     """``LSTMFinalHidden`` in float64 (its CPU forward is the plain
     version, its backward the plain version's recomputed gradient)."""
@@ -404,8 +426,7 @@ def test_lstm_function_gradcheck():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fused"], ["--neg_bank"], ["--data_parallel", "2"],
-    ["--global_negatives"], ["--remat"], ["--variation", "1"],
+    ["--data_parallel", "2"], ["--global_negatives"], ["--variation", "1"],
     ["--class_embed"], ["--use_features", "class", "position"]])
 def test_unported_options_raise(flag):
     from text2pos_torch.config import parse_config

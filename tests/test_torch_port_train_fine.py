@@ -320,12 +320,6 @@ def test_sinkhorn_function_gradcheck():
         lambda s, a: LogOptimalTransport.apply(s, a, 5), (scores, alpha))
 
 
-def test_rank_loss_raises():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
-        FineTrainer(TrainConfig(rank_weight=1.0, device="cpu",
-                                embed_dim=32), Vocabulary(["a"]))
-
-
 def test_cli_one_epoch(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     out = subprocess.run(

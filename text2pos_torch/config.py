@@ -233,20 +233,15 @@ def check_eval_ported(cfg: EvalConfig) -> None:
 
 def check_ported(cfg: TrainConfig, stage: str) -> None:
     """Raise ``ValueError`` for the training options the port does not
-    have yet, each naming its ROADMAP item; nothing takes another path
-    quietly. ``stage`` is "coarse" or "fine"."""
+    have yet, each naming its ROADMAP item (multi-GPU training, item 6;
+    the model variants, item 7); nothing takes another path quietly.
+    ``--fused``, ``--neg_bank``, ``--remat`` and ``--rank_weight`` are
+    ported. ``stage`` is "coarse" or "fine"."""
     def no(flag: str, item: str) -> ValueError:
         return ValueError(f"{flag} is not ported to text2pos_torch yet "
                           f"(ROADMAP Queue 1 item {item}); use "
                           f"text2pos_tpu.train.{stage} for it")
 
-    if cfg.fused or cfg.neg_bank:
-        raise no("--fused (with --neg_bank and token swaps)", "4")
-    if stage == "fine" and cfg.rank_weight > 0:
-        raise no("--rank_weight > 0 (forward_rank, soft_rank_score, "
-                 "listwise_rank_loss)", "4")
-    if cfg.remat:
-        raise no("--remat", "4")
     if cfg.data_parallel > 1 or cfg.global_negatives:
         raise no("--data_parallel > 1 and --global_negatives", "6")
     if cfg.variation != 0:

@@ -109,38 +109,59 @@ class CoarseLoader:
 
     def _make_batch(self, pose_idx: np.ndarray, real: int,
                     rng: np.random.Generator) -> Dict[str, np.ndarray]:
-        texts: List[str] = []
-        per_cell: List[ObjectArrays] = []
-        for pi in pose_idx:
-            hints = list(self.hints[pi])
+        """Each pose's draws from ``rng``, in the JAX package's order (its
+        hint order, its close-by cell, its x and its y flip), then the
+        batch ``batch_with`` builds from them."""
+        orders: List[np.ndarray] = []
+        cell_idx = self.pose_cell_idx[pose_idx].astype(np.int64)
+        flips = np.zeros((len(pose_idx), 2), bool)
+        for b, pi in enumerate(pose_idx):
+            order = np.arange(len(self.hints[pi]))
             if self.shuffle_hints:
-                rng.shuffle(hints)
-            text = " ".join(hints)
-            cell_index = int(self.pose_cell_idx[pi])
+                rng.shuffle(order)  # the permutation a shuffled list takes
+            orders.append(order)
             if self.sample_close_cell:
-                cell_size = float(self.bank.cell_size[cell_index])
+                cell_size = float(self.bank.cell_size[cell_idx[b]])
                 dists = np.linalg.norm(
                     self.cell_centers_xy - self.poses[pi].pose_w[0:2], axis=1)
                 close = np.flatnonzero(dists <= cell_size / 2)
                 if len(close) > 0:
-                    cell_index = int(rng.choice(close))
-            arrs = self._cell_arrays(cell_index)
+                    cell_idx[b] = int(rng.choice(close))
             if self.flip_poses:
-                if rng.choice((True, False)):
-                    arrs = _flip_arrays(arrs, 0)
-                    text = flip_text(text, 1)
-                if rng.choice((True, False)):
-                    arrs = _flip_arrays(arrs, 1)
-                    text = flip_text(text, -1)
+                flips[b] = rng.choice((True, False)), rng.choice((True, False))
+        return self.batch_with(pose_idx, orders, flips, cell_idx, real)
+
+    def batch_with(self, pose_idx: np.ndarray, hint_orders: Sequence,
+                   flips: np.ndarray, cell_idx: Optional[np.ndarray] = None,
+                   real: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The batch of ``pose_idx`` for given draws: pose b's hints in the
+        order ``hint_orders[b]``, its cell ``cell_idx[b]`` (default its
+        best cell), flipped along x and y where ``flips[b]`` says so; the
+        first ``real`` poses (default all) are real. ``_make_batch`` builds
+        every batch through here, and the device-side assembly of
+        ``train/fused_coarse.py`` is held against it."""
+        if cell_idx is None:
+            cell_idx = self.pose_cell_idx[pose_idx]
+        texts: List[str] = []
+        per_cell: List[ObjectArrays] = []
+        for pi, order, ci, (fx, fy) in zip(pose_idx, hint_orders, cell_idx,
+                                           flips):
+            text = " ".join(self.hints[pi][h] for h in order)
+            arrs = self._cell_arrays(int(ci))
+            if fx:
+                arrs = _flip_arrays(arrs, 0)
+                text = flip_text(text, 1)
+            if fy:
+                arrs = _flip_arrays(arrs, 1)
+                text = flip_text(text, -1)
             texts.append(text)
             per_cell.append(arrs)
-
         tokens, lengths = self.vocab.encode_batch(texts, self.max_text_len)
         batch = flatten_object_batch(per_cell, self.flat_cap)
-        batch["tokens"] = tokens
-        batch["lengths"] = lengths
-        batch["num_real"] = np.int32(real)
-        batch["pose_idx"] = pose_idx.astype(np.int32)
+        batch.update(tokens=tokens, lengths=lengths,
+                     num_real=np.int32(len(pose_idx) if real is None
+                                       else real),
+                     pose_idx=np.asarray(pose_idx, np.int32))
         return batch
 
     def all_query_tokens(self) -> Tuple[np.ndarray, np.ndarray]:

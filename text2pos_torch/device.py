@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,11 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor, or an array) as a tensor on ``device``; a tensor
+    already there is returned as it is (no copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)

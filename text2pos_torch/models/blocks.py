@@ -67,7 +67,9 @@ class MaskedBatchNorm(nn.Module):
     one-shot calibration). With ``train_stats`` (``train_mode``) it
     normalizes by the same statistics and updates the row as
     ``(1 - momentum)·old + momentum·batch``, the variance made unbiased by
-    ``n / max(n - 1, 1)`` over the n rows counted."""
+    ``n / max(n - 1, 1)`` over the n rows counted. ``hold_stats``
+(``checkpointed``'s recompute) keeps the running statistics as they are
+whatever the mode."""
 
     def __init__(self, features: int, stat_groups: int = 1,
                  eps: float = 1e-5, momentum: float = 0.1):
@@ -78,6 +80,7 @@ class MaskedBatchNorm(nn.Module):
         self.eval_batch_stats = False
         self.train_stats = False
         self.calibrate = False
+        self.hold_stats = False
         shape = (features,) if stat_groups == 1 else (stat_groups, features)
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -93,7 +96,8 @@ class MaskedBatchNorm(nn.Module):
         row."""
         xf = x.float().flatten(0, -2)
         if mask is None:
-            count = xf.new_tensor(float(xf.shape[0]))
+            # A Python count: a tensor made from it would be a host copy.
+            count = float(xf.shape[0])
             mean = xf.mean(0)
             var = ((xf - mean) ** 2).mean(0)
         else:
@@ -101,14 +105,16 @@ class MaskedBatchNorm(nn.Module):
             count = m.sum().clamp_min(1.0)
             mean = (xf * m).sum(0) / count
             var = (((xf - mean) ** 2) * m).sum(0) / count
-        if self.calibrate or self.train_stats:
+        if (self.calibrate or self.train_stats) and not self.hold_stats:
             with torch.no_grad():
                 rows = ((self.running_mean, self.running_var)
                         if self.stat_groups == 1 else
                         (self.running_mean[stat_group],
                          self.running_var[stat_group]))
                 if self.train_stats:
-                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                    unbiased = var * count / (
+                        max(count - 1.0, 1.0) if mask is None
+                        else (count - 1.0).clamp_min(1.0))
                     new = [(1 - self.momentum) * old + self.momentum * b
                            for old, b in zip(rows, (mean, unbiased))]
                 else:
@@ -172,6 +178,44 @@ def calibrating(module: nn.Module) -> Iterator[nn.Module]:
     finally:
         for bn in bns:
             bn.calibrate = False
+
+
+def checkpointed(module: nn.Module, *args) -> torch.Tensor:
+    """``module(*args)`` with its activations recomputed in the backward
+    pass instead of kept (``torch.utils.checkpoint``, non-reentrant): JAX's
+    ``nn.remat``. The recompute runs with the modes the forward ran in
+    (``train_mode``'s flags and ``eval_batch_stats``, which the forward's
+    ``train_mode`` block has restored by then), and with every BN's running
+    statistics held (``hold_stats``), so that they move once a step, as
+    under ``nn.remat``."""
+    from torch.utils.checkpoint import checkpoint
+
+    flags = [(m, m.train_stats, getattr(m, "eval_batch_stats", None))
+             for m in module.modules() if hasattr(m, "train_stats")]
+
+    @contextlib.contextmanager
+    def recompute():
+        before = [(m, m.train_stats, getattr(m, "eval_batch_stats", None),
+                   getattr(m, "hold_stats", None)) for m, _, _ in flags]
+        for m, train, ebs in flags:
+            m.train_stats = train
+            if ebs is not None:
+                m.eval_batch_stats = ebs
+            if isinstance(m, MaskedBatchNorm):
+                m.hold_stats = True
+        try:
+            yield
+        finally:
+            for m, train, ebs, hold in before:
+                m.train_stats = train
+                if ebs is not None:
+                    m.eval_batch_stats = ebs
+                if hold is not None:
+                    m.hold_stats = hold
+
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
 
 
 def tensor_slots(module: nn.Module) -> list:

@@ -11,7 +11,10 @@ a masked max over the cell's objects, ``lin`` and an L2 norm.
 ``__call__`` does for a training step; ``train=False`` is the eval form.
 The object tower takes the valid objects only (JAX's flat buffer less its
 padding tail, which JAX masks out of every statistic), so no mask reaches
-the object encoder; EdgeConv's BNs count the valid edges.
+the object encoder; EdgeConv's BNs count the valid edges. ``remat`` (JAX's
+flag) recomputes the object encoder's PointNet++, which holds nearly all
+of its activations, in the backward pass, a level at a time
+(``PointNet2.remat``).
 """
 
 from __future__ import annotations
@@ -54,13 +57,23 @@ class CellRetrievalNetwork(nn.Module):
 
     def __init__(self, vocab_size: int, embed_dim: int,
                  dtype: Optional[torch.dtype] = None,
-                 pointnet_heads: Optional[Tuple[int, int]] = None):
+                 pointnet_heads: Optional[Tuple[int, int]] = None,
+                 remat: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
         self.object_encoder = ObjectEncoder(embed_dim, dtype, pointnet_heads)
         self.graph1 = EdgeConv(embed_dim, dtype=dtype)
         self.lin = MLP(embed_dim, (embed_dim, embed_dim), dtype)
+        self.remat = remat
+
+    @property
+    def remat(self) -> bool:
+        return self.object_encoder.pointnet.remat
+
+    @remat.setter
+    def remat(self, on: bool) -> None:
+        self.object_encoder.pointnet.remat = on
 
     def encode_text(self, tokens: torch.Tensor, lengths: torch.Tensor
                     ) -> torch.Tensor:
@@ -79,7 +92,9 @@ class CellRetrievalNetwork(nn.Module):
         dense[cell_idx, slot_idx] = emb
         mask = torch.zeros(num_cells, max_objects, dtype=torch.bool,
                            device=emb.device)
-        mask[cell_idx, slot_idx] = True
+        # A device value: an element set from a Python number is a host
+        # copy that the host waits for.
+        mask[cell_idx, slot_idx] = mask.new_ones(())
         x = self.graph1(dense, mask)
         pooled = masked_max(x, mask[..., None], dim=1)
         return l2_normalize(self.lin(pooled).float())

@@ -14,10 +14,16 @@ batch statistics with running updates (``blocks.train_mode``), Sinkhorn
 through its autograd Function, the offset head; ``train=False`` the same
 without updates, as the fine trainer's eval step runs it (the trainer's
 model has ``eval_batch_stats``, ``stat_groups=1``: the checkpoints' flat
-statistics)."""
+statistics). ``forward_rank`` adds the transport of each query's hints
+against R other cells of the batch, for the rank-aware loss. ``remat``
+(JAX's flag) recomputes the object encoder's PointNet++ in the backward
+pass, a level at a time (``PointNet2.remat``). ``get_pos_in_cell_intersect`` is the
+least-squares intersection of matched direction rays, which the offsets
+trainer's evaluation uses."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,7 +41,8 @@ class SuperGlueMatch(nn.Module):
                  sinkhorn_iters: int = 50, match_threshold: float = 0.2,
                  dtype: Optional[torch.dtype] = None, stat_groups: int = 2,
                  eval_batch_stats: bool = False,
-                 pointnet_heads: Optional[Tuple[int, int]] = None):
+                 pointnet_heads: Optional[Tuple[int, int]] = None,
+                 remat: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
@@ -44,6 +51,15 @@ class SuperGlueMatch(nn.Module):
                                    match_threshold, dtype, stat_groups)
         self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
         set_eval_batch_stats(self, eval_batch_stats)
+        self.remat = remat
+
+    @property
+    def remat(self) -> bool:
+        return self.object_encoder.pointnet.remat
+
+    @remat.setter
+    def remat(self, on: bool) -> None:
+        self.object_encoder.pointnet.remat = on
 
     def encode_hints(self, hint_tokens: torch.Tensor,
                      hint_lengths: torch.Tensor) -> torch.Tensor:
@@ -87,6 +103,27 @@ class SuperGlueMatch(nn.Module):
                                                centers, colors)
             return self.match_encoded(obj_enc, hint_enc)
 
+    def forward_rank(self, hint_tokens: torch.Tensor,
+                     hint_lengths: torch.Tensor, points_xyz, points_rgb,
+                     centers, colors, num_negs: int, train: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+        """``forward``'s outputs plus ``neg_P`` [R, B, M+1, N+1]: each
+        query's hints matched against the objects of the cell r places
+        before it in the batch (``roll(obj_enc, r)``, r = 1..R). The
+        encoders run once; the R negative passes run before the true
+        pairs' pass, each one momentum update of the GNN's BN statistics
+        in train mode, so that they end on the true pairs, as in JAX."""
+        with train_mode(self, train):
+            hint_enc = self.encode_hints(hint_tokens, hint_lengths)
+            obj_enc = self.encode_cell_objects(points_xyz, points_rgb,
+                                               centers, colors)
+            neg_P = [self.superglue(torch.roll(obj_enc, r, 0), hint_enc)["P"]
+                     for r in range(1, num_negs + 1)]
+            out = self.match_encoded(obj_enc, hint_enc)
+        out["neg_P"] = (torch.stack(neg_P) if neg_P
+                        else out["P"].new_zeros((0,) + out["P"].shape))
+        return out
+
 
 def get_pos_in_cell(centers: torch.Tensor, matches0: torch.Tensor,
                     offsets: torch.Tensor) -> torch.Tensor:
@@ -103,3 +140,36 @@ def get_pos_in_cell(centers: torch.Tensor, matches0: torch.Tensor,
     count = vf.sum(-2)
     mean = total / count.clamp_min(1.0)
     return torch.where(count > 0, mean, torch.full_like(mean, 0.5))
+
+
+def get_pos_in_cell_intersect(centers: torch.Tensor, matches0: torch.Tensor,
+                              directions: torch.Tensor) -> torch.Tensor:
+    """Least-squares intersection of the matched objects' rays (centre,
+    matched hint's unit direction): the point p minimizing Σ‖(I − n nᵀ)(p
+    − c)‖², from the 2x2 normal equations regularized by 1e-6·I; (0.5,
+    0.5) where fewer than two objects matched. A hint index past the
+    last hint reads NaN, as JAX's gather fills it.
+
+    centers [..., O, 2], matches0 [..., O] (-1 unmatched), directions
+    [..., H, 2] → [..., 2].
+    """
+    dirs = directions / torch.linalg.vector_norm(
+        directions, dim=-1, keepdim=True).clamp_min(1e-12)
+    valid = matches0 >= 0
+    H = dirs.shape[-2]
+    past = (matches0 >= H)[..., None]
+    safe = matches0.long().clamp(0, H - 1)[..., None].expand(
+        *matches0.shape, 2)
+    n = torch.gather(dirs, -2, safe)                             # [..., O, 2]
+    n = torch.where(past, torch.full_like(n, math.nan), n)
+    eye = torch.eye(2, dtype=centers.dtype, device=centers.device)
+    projs = eye - n[..., :, None] * n[..., None, :]              # [..., O, 2, 2]
+    vf = valid[..., None, None].to(centers.dtype)
+    R = (projs * vf).sum(-3) + 1e-6 * eye
+    q = (torch.einsum("...oij,...oj->...oi", projs, centers)
+         * vf[..., 0]).sum(-2)
+    # LU with partial pivoting, as jnp.linalg.solve; no error check (a
+    # synchronization on the card).
+    p = torch.linalg.solve_ex(R, q[..., None])[0][..., 0]
+    count = valid.sum(-1, keepdim=True)
+    return torch.where(count >= 2, p, torch.full_like(p, 0.5))

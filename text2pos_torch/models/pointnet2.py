@@ -11,7 +11,8 @@ separable first layer is two matmuls (``a = [x, pos]·W1 + b1`` per point,
 neighbours) is ``ops.pointconv.pointconv_max``: the CUDA kernel on the
 card. The class/colour heads are built only when asked for (``heads``):
 encoding never reads them, but a trainer keeps them so that its
-checkpoints hold every leaf of the JAX model.
+checkpoints hold every leaf of the JAX model; ``predict`` gives their
+logits too, as the pretraining trainer reads them.
 
 With ``eval_batch_stats`` (``blocks.set_eval_batch_stats``: the
 uncalibrated JAX fine model, and step 1 of ``calibrated_for_serving``) every
@@ -34,14 +35,14 @@ Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
 from text2pos_torch.models.blocks import (MLP, MaskedBatchNorm, bn_affine,
-                                         dense, weights_key)
+                                         checkpointed, dense, weights_key)
 from text2pos_torch.ops.fps import farthest_point_sampling
 from text2pos_torch.ops.pointconv import (ball_neighbors, pointconv_max,
                                           w2_fragments)
@@ -161,15 +162,32 @@ class PointNet2(nn.Module):
         self.ga = GlobalAbstraction(256, (512, dim0), dtype)
         self.lin1 = nn.Linear(dim0, dim1)
         self.lin2 = nn.Linear(dim1, dim2)
-        if heads is not None:      # (classes, colours); never read here
+        self.remat = False         # the models' --remat
+        if heads is not None:      # (classes, colours); read by predict
             self.class_classifier = nn.Linear(dim2, heads[0])
             self.color_classifier = nn.Linear(dim2, heads[1])
 
+    def predict(self, xyz: torch.Tensor, rgb: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        """``features2`` [B, 256] and the heads' ``class_pred`` and
+        ``color_pred`` logits, all f32: the heads run in f32 on the f32
+        features (stored in the compute dtype first), as flax promotes
+        them (no compute dtype)."""
+        f2 = self(xyz, rgb).to(self.dtype or torch.float32).float()
+        return {"features2": f2,
+                "class_pred": dense(self.class_classifier, f2),
+                "color_pred": dense(self.color_classifier, f2)}
+
     def forward(self, xyz: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+        """With ``remat`` and a gradient wanted, each abstraction level is
+        recomputed in the backward pass (``blocks.checkpointed``), one at a
+        time, so that no more than one level's activations are held."""
+        run = (checkpointed if self.remat and torch.is_grad_enabled()
+               else lambda m, *a: m(*a))
         x, pos = rgb, xyz.float()
         for sa in (self.sa1, self.sa2, self.sa3):
-            x, pos = sa(x, pos)
+            x, pos = run(sa, x, pos)
         with record_function("pointnet.head"):
-            f0 = self.ga(x, pos)
+            f0 = run(self.ga, x, pos)
             f1 = torch.relu(dense(self.lin1, f0, self.dtype))
             return torch.relu(dense(self.lin2, f1, self.dtype))

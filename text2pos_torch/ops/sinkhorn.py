@@ -112,10 +112,11 @@ def dustbin_couplings(scores: torch.Tensor, alpha: torch.Tensor
     couplings = alpha.expand(B, M + 1, N + 1).clone()
     couplings[:, :M, :N] = scores.to(dt)
     norm = -math.log(M + N)
-    log_mu = torch.full((M + 1,), norm, device=scores.device, dtype=dt)
-    log_mu[M] = math.log(N) + norm
-    log_nu = torch.full((N + 1,), norm, device=scores.device, dtype=dt)
-    log_nu[N] = math.log(M) + norm
+    # Made on the device: an element set from a Python number is a host
+    # copy that the host waits for.
+    full = lambda n, v: torch.full((n,), v, device=scores.device, dtype=dt)
+    log_mu = torch.cat([full(M, norm), full(1, math.log(N) + norm)])
+    log_nu = torch.cat([full(N, norm), full(1, math.log(M) + norm)])
     return (couplings, log_mu.expand(B, M + 1).contiguous(),
             log_nu.expand(B, N + 1).contiguous(), norm)
 

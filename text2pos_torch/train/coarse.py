@@ -16,7 +16,9 @@ reports top-k and close-by accuracy.
         --batch_size 64 --embed_dim 256 --coarse_max_objects 24
 
 takes ``text2pos_tpu.train.coarse``'s flags and runs on the card unless
-``--device cpu`` is given. Draws: the loaders' numpy streams are the JAX
+``--device cpu`` is given; ``--fused`` (with ``--neg_bank``) trains from
+the device-resident bank of ``train/fused_coarse.py``, ``--remat``
+recomputes the object encoder in the backward pass. Draws: the loaders' numpy streams are the JAX
 package's, so batches are the same; the point draws come from a
 ``torch.Generator`` seeded by (seed, epoch, step), or are handed over
 (``draws``: sample indices and rotation angles) to repeat JAX's.
@@ -65,7 +67,8 @@ def step_generator(device: torch.device, *seeds: int) -> torch.Generator:
 def build_model(cfg: TrainConfig, vocab_size: int) -> CellRetrievalNetwork:
     return CellRetrievalNetwork(
         vocab_size, cfg.embed_dim, DTYPES[cfg.dtype],
-        pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES))
+        pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES),
+        remat=cfg.remat)
 
 
 class CoarseTrainer:
@@ -304,7 +307,13 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
 
     vocab = Vocabulary(build_vocabulary(
         [create_hint_description(p) for p in poses_train]))
-    trainer = CoarseTrainer(cfg, vocab)
+    if cfg.fused:
+        from text2pos_torch.train.fused_coarse import FusedCoarseTrainer
+
+        trainer = FusedCoarseTrainer(cfg, vocab, cells_train, poses_train,
+                                     seed=cfg.seed)
+    else:
+        trainer = CoarseTrainer(cfg, vocab)
     loader_train, loader_val = make_loaders(cfg, vocab, cells_train,
                                             poses_train, cells_val, poses_val)
     steps_per_epoch = loader_train.num_batches(drop_last=True)
@@ -327,7 +336,10 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
 
     for epoch in range(start_epoch + 1, cfg.epochs + 1):
         t0 = time.time()
-        state, loss = trainer.train_epoch(state, loader_train, epoch)
+        if cfg.fused:
+            state, loss = trainer.fused_train_epoch(state, epoch)
+        else:
+            state, loss = trainer.train_epoch(state, loader_train, epoch)
         history["train_loss"].append(loss)
         if cfg.resume_path:
             save_resume_checkpoint(cfg.resume_path, state, epoch, best_acc,

@@ -1,7 +1,11 @@
 """Fine matching-stage training (counterpart of
 ``text2pos_tpu/train/fine.py``).
 
-The loss is the matching NLL plus 5 · the MSE of the offsets;
+The loss is the matching NLL plus 5 · the MSE of the offsets, and with
+``--rank_weight`` > 0 the rank-aware term: ``rank_weight`` times the
+listwise loss of the true cell's soft rank score against those of
+``rank_negatives`` other cells of the batch (``forward_rank``; a negative
+whose object centres all equal the query's own cell's is left out);
 ``train_step`` resamples and augments the points on the device, runs the
 matcher in train mode (batch-statistics BN with running updates), the
 backward pass and one Adam step, under the profiler ranges
@@ -19,13 +23,16 @@ retrieval-by-confidence probe over it.
         --batch_size 32 --embed_dim 128 --num_layers 6
 
 takes ``text2pos_tpu.train.fine``'s flags and runs on the card unless
-``--device cpu`` is given. The learning rate warms up at 1e-5 for three
+``--device cpu`` is given. ``--fused`` trains from device-resident samples
+(``train/fused_fine.py``), ``--remat`` recomputes the object encoder in the
+backward pass. The learning rate warms up at 1e-5 for three
 epochs, then takes the target rate; both decay by ``lr_gamma`` each epoch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -38,14 +45,15 @@ from text2pos_torch.config import TrainConfig, check_ported
 from text2pos_torch.data.dense import NUM_CLASS_INDICES, NUM_COLOR_INDICES
 from text2pos_torch.data.hints import Vocabulary
 from text2pos_torch.data.loaders import FineLoader
-from text2pos_torch.device import resolve_device
+from text2pos_torch.device import on_device, resolve_device
 from text2pos_torch.models.matcher import SuperGlueMatch
 from text2pos_torch.ops.lstm import check_kernel_width
 from text2pos_torch.ops.transforms import prepare_object_points
 from text2pos_torch.train.coarse import DTYPES, step_generator
 from text2pos_torch.train.losses import (calc_pose_error,
                                          calc_recall_precision,
-                                         matching_loss)
+                                         listwise_rank_loss, matching_loss,
+                                         soft_rank_score)
 from text2pos_torch.train.state import (TrainState, init_parameters,
                                         load_variables, make_optimizer,
                                         restore_variables, save_checkpoint)
@@ -62,7 +70,8 @@ def build_model(cfg: TrainConfig, vocab_size: int) -> SuperGlueMatch:
     return SuperGlueMatch(
         vocab_size, cfg.embed_dim, cfg.num_layers, cfg.sinkhorn_iters,
         dtype=DTYPES[cfg.dtype], stat_groups=1, eval_batch_stats=True,
-        pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES))
+        pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES),
+        remat=cfg.remat)
 
 
 def warmup_schedule(learning_rate: float, lr_gamma: float,
@@ -87,6 +96,8 @@ class FineTrainer:
         if self.device.type == "cuda":
             check_kernel_width(cfg.embed_dim)
         self.model = build_model(cfg, vocab.size)
+        self.rank_negatives = (cfg.rank_negatives if cfg.rank_weight > 0
+                               else 0)
 
     def init_state(self, steps_per_epoch: int,
                    learning_rate: Optional[float] = None) -> TrainState:
@@ -110,12 +121,11 @@ class FineTrainer:
 
     def tensors(self, batch: Dict[str, np.ndarray]
                 ) -> Dict[str, torch.Tensor]:
-        out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
-            self.device) for k in TENSOR_KEYS}
-        if "sample_mask" in batch:
-            out["sample_mask"] = torch.as_tensor(batch["sample_mask"],
-                                                 device=self.device)
-        return out
+        """The batch's arrays on the device (tensors already there stay
+        as they are)."""
+        keys = TENSOR_KEYS + (("sample_mask",) if "sample_mask" in batch
+                              else ())
+        return {k: on_device(batch[k], self.device) for k in keys}
 
     def points(self, tb: Dict[str, torch.Tensor], augment: bool,
                generator: Optional[torch.Generator] = None,
@@ -125,28 +135,52 @@ class FineTrainer:
         ``points`` (a pair of arrays) themselves."""
         draws = draws or {}
         if "points" in draws:
-            return tuple(torch.as_tensor(np.asarray(a), device=self.device)
-                         for a in draws["points"])
+            return tuple(on_device(a, self.device) for a in draws["points"])
         as_t = lambda k: (None if k not in draws else
-                          torch.as_tensor(np.asarray(draws[k]),
-                                          device=self.device))
+                          on_device(draws[k], self.device))
         return prepare_object_points(
             tb["points_xyz"], tb["points_rgb"], tb["point_count"],
             self.cfg.pointnet_numpoints, generator, augment=augment,
             no_pc_augment=self.cfg.no_pc_augment, idx=as_t("idx"),
             angles=as_t("angles"))
 
-    def _forward(self, state: TrainState, tb, pts, cols, train: bool):
-        return state.model(tb["hint_tokens"], tb["hint_lengths"], pts, cols,
-                           tb["centers"], tb["colors"], train=train)
+    def _forward(self, state: TrainState, tb, pts, cols, train: bool,
+                 rank: bool = False):
+        args = (tb["hint_tokens"], tb["hint_lengths"], pts, cols,
+                tb["centers"], tb["colors"])
+        if rank and self.rank_negatives:
+            return state.model.forward_rank(*args, self.rank_negatives,
+                                            train=train)
+        return state.model(*args, train=train)
 
     def loss(self, out: Dict[str, torch.Tensor], tb
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(loss, matching NLL, offsets MSE)."""
+        """(loss, matching NLL, offsets MSE); the rank-aware term is in the
+        loss when ``out`` holds ``neg_P``."""
         lm = matching_loss(out["log_P"], tb["all_matches"],
                            tb["all_matches_count"])
         lo = ((out["offsets"] - tb["offsets"]) ** 2).mean()
-        return lm + OFFSET_LOSS_WEIGHT * lo, lm, lo
+        loss = lm + OFFSET_LOSS_WEIGHT * lo
+        if "neg_P" in out:
+            loss = loss + self.cfg.rank_weight * self.rank_loss(out, tb)
+        return loss, lm, lo
+
+    def rank_loss(self, out: Dict[str, torch.Tensor], tb) -> torch.Tensor:
+        """The listwise loss of the true cell's soft rank score against the
+        R rolled negatives' (``roll(centres, r)`` for r = 1..R); a negative
+        whose centres all equal the query's own cell's (several poses
+        share a cell) scores −inf, out of the softmax."""
+        cfg = self.cfg
+        ctr = tb["centers"][..., 0:2]
+        pos_s = soft_rank_score(out["P"], ctr, out["offsets"],
+                                cfg.rank_gamma)
+        neg_ctr = torch.stack([torch.roll(ctr, r, 0) for r in
+                               range(1, out["neg_P"].shape[0] + 1)])
+        neg_s = soft_rank_score(out["neg_P"], neg_ctr, out["offsets"][None],
+                                cfg.rank_gamma)
+        same_cell = (neg_ctr == ctr[None]).all(-1).all(-1)
+        neg_s = torch.where(same_cell, -math.inf, neg_s)
+        return listwise_rank_loss(pos_s, neg_s, cfg.rank_tau)
 
     def forward_loss(self, state: TrainState, batch: Dict[str, np.ndarray],
                      generator: Optional[torch.Generator] = None,
@@ -157,7 +191,7 @@ class FineTrainer:
         with record_function("train.forward"):
             tb = self.tensors(batch)
             pts, cols = self.points(tb, True, generator, draws)
-            out = self._forward(state, tb, pts, cols, True)
+            out = self._forward(state, tb, pts, cols, True, rank=True)
             loss, lm, lo = self.loss(out, tb)
         return loss, out, lm, lo, tb
 
@@ -257,7 +291,13 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
 
     vocab = Vocabulary(build_vocabulary(
         [create_hint_description(p) for p in poses_train]))
-    trainer = FineTrainer(cfg, vocab)
+    if cfg.fused:
+        from text2pos_torch.train.fused_fine import FusedFineTrainer
+
+        trainer = FusedFineTrainer(cfg, vocab, cells_train, poses_train,
+                                   seed=cfg.seed)
+    else:
+        trainer = FineTrainer(cfg, vocab)
 
     def make_loader(cells, poses):
         return FineLoader(
@@ -287,8 +327,12 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
 
     for epoch in range(start_epoch + 1, cfg.epochs):
         t0 = time.time()
-        state, train_stats = trainer.run_epoch(state, loader_train, epoch,
-                                               train=True)
+        if cfg.fused:
+            state, fused_loss = trainer.fused_train_epoch(state, epoch)
+            train_stats = {"loss": fused_loss}
+        else:
+            state, train_stats = trainer.run_epoch(state, loader_train,
+                                                   epoch, train=True)
         _, val_stats = trainer.run_epoch(state, loader_val, epoch,
                                          train=False)
         history["train"].append(train_stats)

@@ -2,8 +2,9 @@
 ``text2pos_tpu/train/losses.py``): the matching NLL, the ranking losses of
 the coarse stage, batched recall/precision and the in-cell pose error, and
 ``soft_mass_and_spread``, which the cascade's soft cheap pass scores with
-(``serve_batch(prune_soft=True)``). The listwise rank loss is not ported
-(ROADMAP Queue 1 item 4)."""
+(``serve_batch(prune_soft=True)``), and the fine stage's rank-aware term:
+``soft_rank_score`` of each (query, cell) transport and
+``listwise_rank_loss`` over the true cell and its in-batch negatives."""
 
 from __future__ import annotations
 
@@ -163,3 +164,22 @@ def soft_mass_and_spread(P: torch.Tensor, centers_xy: torch.Tensor,
     d2 = ((votes - mean_v[..., None, :]) ** 2).sum(-1)
     spread = torch.sqrt((d2 * w_h).sum(-1) / wsum + 1e-12)
     return mass, spread
+
+
+def soft_rank_score(P: torch.Tensor, centers_xy: torch.Tensor,
+                    offsets: torch.Tensor, gamma: float = 0.0
+                    ) -> torch.Tensor:
+    """The serving re-rank score's differentiable surrogate [...] f32:
+    the soft transport mass, less ``gamma`` times the soft vote spread
+    (``soft_mass_and_spread``; the spread is not formed when ``gamma`` is
+    0)."""
+    mass, spread = soft_mass_and_spread(P, centers_xy, offsets)
+    return mass - gamma * spread if gamma else mass
+
+
+def listwise_rank_loss(pos_score: torch.Tensor, neg_scores: torch.Tensor,
+                       tau: float = 1.0) -> torch.Tensor:
+    """Mean over queries of −log softmax(s⁺/τ over {s⁺, s⁻…}): pos_score
+    [B], neg_scores [R, B] (−inf drops a negative from the softmax)."""
+    logits = torch.cat([pos_score[None], neg_scores], 0) / tau
+    return -torch.log_softmax(logits, 0)[0].mean()

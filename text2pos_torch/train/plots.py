@@ -1,11 +1,13 @@
 """Metric-curve plotting (a copy of ``text2pos_tpu/train/plots.py``): a grid
 of subplots, one per metric, one line per run key, saved as PNG.
-matplotlib is imported when a plot is drawn."""
+matplotlib is imported when a plot is drawn; where it is not installed, the
+plot is skipped with a note on standard error."""
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+import sys
 from typing import Dict
 
 import numpy as np
@@ -15,8 +17,12 @@ def plot_metrics(metrics: Dict[str, Dict], file_path: str,
                  size: float = 8.0) -> None:
     """metrics: {metric_name: {run_key: [values per epoch]}}; file_path:
     the PNG written."""
-    import matplotlib
-
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"matplotlib is not installed: {file_path} not drawn",
+              file=sys.stderr)
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 

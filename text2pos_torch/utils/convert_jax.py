@@ -13,6 +13,11 @@ entry has one JAX leaf:
 - any other parameter keeps its name (``lstm_fwd_w_ih`` [E, 4E], gates
   i|f|g|o; ``bin_score``).
 
+The same map carries any module of the port across, by its names: the
+standalone ``PointNet2`` with both heads (``class_classifier``,
+``color_classifier``; the pretraining's checkpoints) and the
+``OffsetRegressor`` (``language_encoder``, ``mlp_offsets``) included.
+
 Trees are nested dicts of numpy arrays, as ``train/state.py`` returns them.
 ``params_to_jax`` and ``jax_to_params`` carry any per-parameter tensors
 (Adam's moments) across by the same map.
