@@ -135,12 +135,27 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    on the card, each in its own directory: exit 0, finite losses, and the
    checkpoints ``train()`` keeps (pretraining's one best, named by its
    validation accuracy, each earlier best removed).
-10. A ``{"kernels": [...]}`` line (each entry also with its launches by
+10. Data parallelism (``parallel/dp.py``) on a mesh of max(2, min(4,
+   cards)) shards, card 0 repeated on a machine with fewer cards (the
+   line says so; the shards then run one after another, and the times
+   are no scaling figure): ``dp_serve_batch`` on the 2048 bench queries
+   (headline, rerank@128, the cascade 128 → 24) in bf16 and f32 against
+   ``serve_batch`` (f32 top_idx identical, bf16 top-10@15m equal), the
+   DB-sharded ring at the same settings in f32 (top_idx identical) and
+   its bf16 headline, ``dp_encode_all_cells`` of the bench map in f32
+   against ``encode_all_coarse``'s steps on the same draws, and one DP
+   step a stage at the recipe's per-device batch against the mean of the
+   shards' single-device steps (phase 7's limits); ms of each beside the
+   single-device run, the launches of each path, every kernel against its
+   plain version on the path's inputs.
+11. A ``{"kernels": [...]}`` line (each entry also with its launches by
    path: headline, cascade, DB encode, calibration, server, the two
    evaluation epochs, the two trainings, phase 8's stages,
-   ``evaluator_*``, and phase 9's, ``recipe_*``, with the errors on phase
-   9's inputs under ``max_abs_err_by_training_path``), the card's name and
-   power limit, and ``{"ok": true, "device": {...}}`` as the last line.
+   ``evaluator_*``, phase 9's, ``recipe_*``, and phase 10's, ``dp_*``,
+   with the errors on phase 9's and phase 10's inputs under
+   ``max_abs_err_by_training_path`` and ``max_abs_err_by_dp_path``), the
+   card's name and power limit, and ``{"ok": true, "device": {...}}`` as
+   the last line.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -3543,6 +3558,302 @@ def recipe_phase(gpu, failures):
     return by_path, dict(errs), report
 
 
+
+# Phase 10: data parallelism (text2pos_torch/parallel/dp.py) on a mesh of
+# max(2, min(4, cards)) shards: cards 0 … D-1, or card 0 D times on a machine
+# with fewer (the shards then run one after another on its stream, so the
+# times are no scaling figure). Each DP path against its single-device run
+# on the card: query-sharded serving of the 2048 bench queries (headline,
+# rerank@128, the cascade 128 → 24 without the int8 bank, which DP serving
+# refuses as JAX does): f32 top_idx identical, bf16 top-10@15m equal; the
+# DB-sharded ring at the same settings in f32: top_idx identical; the
+# evaluator's dp_encode_all_cells on the bench map in f32 against
+# encode_all_coarse's steps on the same resampling draws (DP_ENC_TOL, f32
+# sums in other batch shapes); one DP step a stage at the recipe's
+# per-device batch against the mean of its shards' single-device steps
+# (phase 7's limits: the same computation, summed in another order).
+DP_REPS = 3
+DP_ENC_TOL = 1e-5
+DP_ENC_BATCH = 32      # cells a shard a step: the evaluator's batch_size
+DP_OPTS = ("rerank_k", "rerank_lambda", "rerank_gamma", "prune_m",
+           "prune_layers", "prune_sinkhorn")
+# The kernels each DP path must launch.
+DP_PATH_KERNELS = {
+    "dp_serve": ("lstm", "sinkhorn", "superglue_gnn"),
+    "dp_ring": ("lstm", "sinkhorn", "superglue_gnn"),
+    "dp_encode": ("fps", "pointconv"),
+    "dp_train_coarse": ("lstm", "fps"),
+    "dp_train_fine": ("lstm", "sinkhorn", "fps")}
+
+
+def sync_mesh(mesh) -> None:
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+
+
+def mesh_timed(mesh, fn, reps=1, store=None):
+    """(result of the last run, median synchronized wall ms over ``reps``
+    runs, launches of the first run); with ``store`` the first run's
+    kernel inputs are kept there."""
+    from text2pos_torch.ops import _build
+
+    times, launches = [], None
+    for r in range(reps):
+        with kept_inputs(store) if store is not None and r == 0 else \
+                contextlib.nullcontext():
+            sync_mesh(mesh)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = fn()
+            sync_mesh(mesh)
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = launches or dict(_build.LAUNCHES)
+    return out, statistics.median(times), launches
+
+
+def dp_serving_checks(mesh, pipes, fx, by_path, stores, report, failures):
+    """10.1-10.2: query-sharded and ring serving against serve_batch."""
+    from text2pos_torch.evaluation.metrics import served_accuracies
+    from text2pos_torch.parallel import dp
+
+    rk, lam, gam = fx["rerank"]
+    modes = {"headline": (), "rerank": (int(rk), float(lam), float(gam)),
+             "cascade": (int(rk), float(lam), float(gam), 24, 1, 6)}
+    for label in ("bf16", "f32"):
+        pipe = pipes[label]
+        args = [torch.as_tensor(fx[k]).to(pipe.device)
+                for k in ("tokens", "lengths", "hint_tokens", "hint_lengths")]
+        C = pipe.cell_enc.shape[0]
+        pad = (-C) % mesh.size
+        z = lambda a: torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+        padded = pipe.with_database(z(pipe.cell_enc), z(pipe.fine_bank_enc),
+                                    z(pipe.fine_bank_centers))
+        for mode, opts in modes.items():
+            kw = dict(zip(DP_OPTS, opts))
+            dp_serve = dp.dp_serve_batch(pipe, mesh, TOP_K, **kw)
+            serves = {"single": lambda: pipe.serve_batch(*args, TOP_K, **kw),
+                      "dp": lambda: dp_serve(*args)}
+            if label == "f32" or mode == "headline":
+                ring = dp.dp_serve_batch_dbsharded(padded, mesh, TOP_K,
+                                                   num_real_cells=C, **kw)
+                serves["ring"] = lambda: ring(*args)
+            outs, ms = {}, {}
+            for name, fn in serves.items():
+                headline = label == "bf16" and mode == "headline"
+                path = {"dp": "dp_serve", "ring": "dp_ring"}.get(name)
+                store = stores.setdefault(path, {}) if headline and path \
+                    else None
+                out, ms[name], launches = mesh_timed(mesh, fn, DP_REPS,
+                                                     store)
+                if store is not None:
+                    by_path[path] = launches
+                outs[name] = [o.cpu().numpy() for o in out]
+            single = outs["single"]
+            for name in [n for n in outs if n != "single"]:
+                ti, po = outs[name][0], outs[name][2].astype("float32")
+                same = float((ti == single[0]).all(1).mean())
+                a = served_accuracies(fx, ti.astype("int64"), po,
+                                      (1, 5, TOP_K))[TOP_K][15]
+                b = served_accuracies(fx, single[0].astype("int64"),
+                                      single[2].astype("float32"),
+                                      (1, 5, TOP_K))[TOP_K][15]
+                ok = bool(np.isfinite(po).all()) and ti.shape == \
+                    single[0].shape and (same == 1.0 if label == "f32"
+                                         else a == b)
+                log(f"  10 {name} {label} {mode}: {ti.shape[0]} queries in "
+                    f"{ms[name]:.2f} ms (single device {ms['single']:.2f} "
+                    f"ms); rows with top_idx equal to the single device's "
+                    f"{same:.4f}; top-10@15m {a:.4f} (single {b:.4f}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"DP {name} {label} {mode}: top_idx "
+                                    f"rows equal {same}, top-10@15m {a} vs "
+                                    f"{b}")
+                report[f"{name}_{label}_{mode}_ms"] = ms[name]
+            report[f"single_{label}_{mode}_ms"] = ms["single"]
+
+
+def dp_encode_checks(mesh, pipe, bank, by_path, stores, report, failures):
+    """10.3: dp_encode_all_cells against encode_all_coarse's steps
+    (encode_coarse_cells, DB_CHUNK cells a step) on the same resampling
+    draws, f32."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.evaluation.pipeline import (DB_CHUNK, bank_tensors,
+                                                    encode_coarse_cells)
+    from text2pos_torch.ops.transforms import sample_indices
+    from text2pos_torch.parallel import dp
+    from text2pos_torch.train.coarse import CoarseTrainer
+    from text2pos_torch.train.state import TrainState
+
+    dev = pipe.device
+    bt = bank_tensors(bank, dev)
+    counts = bt["mask"].sum(1)
+    first = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).tolist()
+    cell, slot = bt["mask"].nonzero(as_tuple=True)
+    P, stored = 256, bt["points_xyz"].shape[2]
+    u = torch.rand(len(cell), P, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(10))
+    idx = sample_indices(bt["point_count"][cell, slot], P, stored, u=u)
+    rows = lambda cells: torch.cat([torch.arange(first[c], first[c + 1])
+                                    for c in cells])
+    C = bank.num_cells
+    with torch.inference_mode():
+        want, single_ms, _ = mesh_timed(mesh, lambda: torch.cat([
+            encode_coarse_cells(pipe.coarse, bt, torch.arange(
+                i, min(i + DB_CHUNK, C), device=dev),
+                u=u[first[i]:first[min(i + DB_CHUNK, C)]])
+            for i in range(0, C, DB_CHUNK)]))
+    D, B = mesh.size, DP_ENC_BATCH
+    draws = []
+    for i in range(0, C, B * D):
+        cells = list(range(i, min(i + B * D, C)))
+        cells += [0] * (B * D - len(cells))
+        draws.append([idx[rows(cells[d * B:(d + 1) * B])].cpu().numpy()
+                      for d in range(D)])
+    trainer = CoarseTrainer(TrainConfig(
+        batch_size=B, embed_dim=pipe.coarse.embed_dim, pointnet_numpoints=P,
+        coarse_max_objects=bank.mask.shape[1], device=dev.type), pipe.vocab,
+        model=pipe.coarse)
+    got, dp_ms, by_path["dp_encode"] = mesh_timed(
+        mesh, lambda: dp.dp_encode_all_cells(
+            trainer, TrainState(pipe.coarse), bank, mesh, draws),
+        store=stores.setdefault("dp_encode", {}))
+    err = float(np.abs(got - want.cpu().numpy()).max())
+    ok = got.shape == tuple(want.shape) and err <= DP_ENC_TOL
+    log(f"  10.3 dp_encode_all_cells, {C} cells in steps of {B} a shard, "
+        f"f32: {dp_ms:.1f} ms = {C / dp_ms * 1e3:.0f} cells/s (single "
+        f"device, {DB_CHUNK}-cell steps: {single_ms:.1f} ms); max abs error "
+        f"against encode_all_coarse's steps on the same draws {err:.3e} "
+        f"(tolerance {DP_ENC_TOL:g}); launches {by_path['dp_encode']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"dp_encode_all_cells: error {err}")
+    report.update(dp_encode_ms=dp_ms, single_encode_ms=single_ms,
+                  dp_encode_err=err)
+
+
+class KeptGradients:
+    """A stand-in optimizer: keeps the gradients the step hands it."""
+
+    def __init__(self, model):
+        self.model, self.grads = model, None
+
+    def step(self):
+        self.grads = {n: torch.zeros_like(p) if p.grad is None
+                      else p.grad.detach().clone()
+                      for n, p in self.model.named_parameters()}
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.model.parameters():
+            p.grad = None
+
+
+def host_draws(stage, batch, rng):
+    """Sample indices and angles of a batch, drawn on the host, so that a
+    shard on any card and its single-device reference take the same."""
+    P = TRAIN_RECIPE[stage]["pointnet_numpoints"]
+    count = batch["point_count"]
+    if stage == "coarse":
+        count = count[batch["flat_valid"].astype(bool)]
+    stored = batch["points_xyz"].shape[-2]
+    u = rng.random(count.shape + (P,), dtype=np.float32)
+    idx = np.clip(np.floor(u * count[..., None]), 0, stored - 1)
+    return {"idx": idx.astype(np.int64),
+            "angles": rng.uniform(-120, 120, count.shape).astype(np.float32)}
+
+
+def dp_train_checks(mesh, train, vocab, by_path, stores, report, failures):
+    """10.4: one DP step a stage against the mean of its shards'
+    single-device steps."""
+    from text2pos_torch.parallel import dp
+    from text2pos_torch.train.state import TrainState
+    from text2pos_torch.utils.convert_jax import module_to_jax, params_to_jax
+
+    D = mesh.size
+    for stage in ("coarse", "fine"):
+        B = TRAIN_RECIPE[stage]["batch_size"]
+        loader = stage_loader(stage, train, vocab, B)
+        batches = list(itertools.islice(loader.epoch(seed=1), D))
+        rng = np.random.default_rng(5)
+        draws = [host_draws(stage, b, rng) for b in batches]
+        trainer = make_trainer(stage, vocab)
+        model = trainer.init_state(1).model
+        state = TrainState(model, KeptGradients(model))
+        make = (dp.dp_coarse_train_step if stage == "coarse"
+                else dp.dp_fine_train_step)
+        step = make(trainer, mesh)
+        stacked = dp.stack_microbatches(batches)
+        loss, ms, by_path[f"dp_train_{stage}"] = mesh_timed(
+            mesh, lambda: step(state, stacked, draws=draws),
+            store=stores.setdefault(f"dp_train_{stage}", {}))
+        grads = dict(flat_tree(params_to_jax(model, state.optimizer.grads)))
+        stats = dict(flat_tree(module_to_jax(model)[1]))
+        _, ms2, _ = mesh_timed(mesh, lambda: step(state, stacked,
+                                                  draws=draws))
+        refs, ref_ms = [], 0.0
+        for d in range(D):
+            rt = make_trainer(stage, vocab)
+            rs = rt.init_state(1)
+            _, t, _ = mesh_timed(mesh, lambda: rt.forward_backward(
+                rs, batches[d], draws=draws[d]))
+            # the step again, on a fresh model, for its gradients
+            rt = make_trainer(stage, vocab)
+            refs.append(step_grads(stage, rt, rt.init_state(1), batches[d],
+                                   draws[d]))
+            ref_ms += t
+        mean = lambda xs: {k: sum(x[k] for x in xs) / D for k in xs[0]}
+        ref = (float(np.mean([r[0] for r in refs])),
+               mean([r[1] for r in refs]), mean([r[2] for r in refs]))
+        c = compare_steps(summary((float(loss), grads, stats)), summary(ref))
+        gate_step(stage, f"DP step of {D} shards x {B} vs the mean of the "
+                  f"shards' single-device steps", c, failures)
+        log(f"  10.4 DP {stage} step, {D} shards x {B}: {ms2:.1f} ms "
+            f"(first {ms:.1f}, with the replicas' copies; the shards' "
+            f"single-device forward and backward {ref_ms:.1f} ms "
+            f"together); launches "
+            f"{by_path[f'dp_train_{stage}']}")
+        report.update({f"dp_{stage}_step_ms": ms2,
+                       f"single_{stage}_steps_ms": ref_ms})
+
+
+def dp_phase(gpu, pipe_bf16, pipe_f32, bank, fx, failures):
+    """Phase 10. Returns ({path: launches}, {kernel: {path: largest error
+    on the path's inputs}}, report)."""
+    from text2pos_torch.parallel import dp
+
+    D = max(2, min(4, torch.cuda.device_count()))
+    mesh = dp.make_mesh(D, "cuda", log=log)
+    cards = len(set(mesh.devices))
+    log(f"  mesh of {D} shards: {[str(d) for d in mesh.devices]} ({gpu})")
+    if cards < 2:
+        log("  not exercised here: shards on a second card (the device "
+            "guard, peer copies); this machine has one card, so every "
+            "shard runs on cuda:0, one after another")
+    by_path, stores, report = {}, {}, {"shards": D, "cards": cards}
+    t0 = time.time()
+    dp_serving_checks(mesh, {"bf16": pipe_bf16, "f32": pipe_f32}, fx,
+                      by_path, stores, report, failures)
+    log(f"  10.1-10.2 took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dp_encode_checks(mesh, pipe_f32, bank, by_path, stores, report, failures)
+    train, _, vocab = train_data()
+    dp_train_checks(mesh, train, vocab, by_path, stores, report, failures)
+    log(f"  10.3-10.4 took {time.time() - t0:.1f} s")
+    for path, kernels in DP_PATH_KERNELS.items():
+        for name in kernels:
+            if by_path.get(path, {}).get(name, 0) < 1:
+                failures.append(f"kernel {name} was not launched on {path}")
+    want = {"lstm": 2 * D, "sinkhorn": D, "superglue_gnn": D}
+    if {k: by_path["dp_serve"].get(k, 0) for k in want} != want:
+        failures.append(f"dp_serve launches {by_path['dp_serve']}, not "
+                        f"{want} (one batch a shard)")
+    errs = collections.defaultdict(dict)
+    for path, store in stores.items():
+        for kernel, err in kept_checks(path, store, failures).items():
+            errs[kernel][path] = err
+    return by_path, dict(errs), report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3704,6 +4015,14 @@ def main() -> int:
     by_path.update(recipe_paths)
     log(f"  phase 9 took {time.time() - t0:.1f} s")
 
+    log("phase 10 data parallelism")
+    t0 = time.time()
+    dp_paths, dp_errs, dp_report = dp_phase(gpu, pipe_bf16, pipe_f32, bank,
+                                            fx, failures)
+    by_path.update(dp_paths)
+    log(f"  phase 10 took {time.time() - t0:.1f} s; "
+        f"{json.dumps(dp_report)}")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -3724,7 +4043,8 @@ def main() -> int:
                  "launches_by_path": {p: n.get(name, 0)
                                       for p, n in by_path.items()},
                  "max_abs_err_by_evaluator_path": eval_errs.get(name, {}),
-                 "max_abs_err_by_training_path": recipe_errs.get(name, {})}
+                 "max_abs_err_by_training_path": recipe_errs.get(name, {}),
+                 "max_abs_err_by_dp_path": dp_errs.get(name, {})}
         entry.update(per_kernel[name])
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f} s; failures: {failures or 'none'}")

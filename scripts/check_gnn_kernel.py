@@ -78,12 +78,11 @@ def launch(lib, d0, d1, packed):
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     out = torch.empty(d0.shape[0], 16, 6, device=d0.device)
-    _build.check(fn(d0.data_ptr(), d1.data_ptr(),
-                    *(packed[k].data_ptr() for k in WEIGHTS),
-                    packed["wqkv"].shape[0], d0.shape[0],
-                    int(packed["wqkv"].dtype == torch.bfloat16),
-                    out.data_ptr(), _build.stream_ptr(d0.device)),
-                 "superglue_gnn")
+    _build.launch(fn, d0.device, "superglue_gnn", d0.data_ptr(),
+                  d1.data_ptr(), *(packed[k].data_ptr() for k in WEIGHTS),
+                  packed["wqkv"].shape[0], d0.shape[0],
+                  int(packed["wqkv"].dtype == torch.bfloat16),
+                  out.data_ptr())
     return out
 
 

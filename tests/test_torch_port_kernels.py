@@ -507,3 +507,73 @@ def test_serving_launch_counts(cuda, calibrated):
     launches = dict(_build.LAUNCHES)
     assert launches.get("lstm", 0) == 2 and launches.get("sinkhorn", 0) == 1
     assert launches.get("superglue_gnn", 0) == (1 if calibrated else 0)
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """Every kernel on tensors of the second card while the first is
+    current (each wrapper makes its tensors' card current around the
+    launch), against its plain version there, at the tolerances of the
+    tests above; FPS bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda", 1)
+    before = dict(_build.LAUNCHES)
+    with torch.cuda.device(0):
+        tables, w_hh, tokens, lengths = _lstm_case(9, 37, 32)
+        args = ([t.to(dev) for t in tables], [w.to(dev) for w in w_hh],
+                tokens.to(dev), lengths.to(dev))
+        got = tlstm.lstm_final_hidden(*args)
+        torch.testing.assert_close(got, tlstm.lstm_final_hidden_plain(*args),
+                                   atol=1e-5, rtol=1e-4)
+        scores = _sinkhorn_inputs(45, 16, 6, 60.0, 3)[0].to(dev)
+        alpha = torch.tensor(1.3, device=dev)
+        got = tsink.log_optimal_transport(scores, alpha, 50)
+        torch.testing.assert_close(
+            got, tsink.log_optimal_transport_plain(scores, alpha, 50),
+            atol=1e-4, rtol=1e-4)
+        packed = _packed(torch.bfloat16, dev)
+        g = torch.Generator().manual_seed(2)
+        d0 = torch.randn(37, 16, 128, generator=g).to(dev)
+        d1 = torch.randn(37, 6, 128, generator=g).to(dev)
+        got, want = (tgnn.gnn_scores(d0, d1, packed),
+                     tgnn.gnn_scores_plain(d0, d1, packed))
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-2 * float(want.abs().max()))
+        args = _pointconv_case(dev, torch.bfloat16, 37, 256, 128, 32, 64,
+                               1.0, 11)
+        got = tpc.pointconv_max(*args, 0.2, 32)
+        want = tpc.pointconv_max_plain(*args, 0.2, 32)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=1e-2 * float(want.float().abs().max()))
+        pts = _fps_points(37, 256, 3).to(dev)
+        idx, cent = tfps.farthest_point_sampling(pts, 128)
+        widx, wcent = tfps.farthest_point_sampling_plain(pts, 128)
+        assert torch.equal(idx, widx) and torch.equal(cent, wcent)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    for name in ("lstm", "sinkhorn", "superglue_gnn", "pointconv", "fps"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
+
+
+def test_kernels_refuse_tensors_on_two_devices(cuda):
+    """A wrapper given one input on the CPU and the rest on the card
+    raises; nothing is moved for it."""
+    tables, w_hh, tokens, lengths = _lstm_case(9, 37, 32)
+    with pytest.raises(ValueError, match="different devices"):
+        tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
+                                [w.to(cuda) for w in w_hh], tokens.to(cuda),
+                                lengths)
+    z, mu, nu = _sinkhorn_inputs(3, 17, 7, 60.0, 1)
+    with pytest.raises(ValueError, match="different devices"):
+        tsink.log_sinkhorn(z.to(cuda), mu, nu.to(cuda), 5)
+    with pytest.raises(ValueError, match="different devices"):
+        tsink.log_optimal_transport(z.to(cuda), torch.tensor(1.0), 5)
+    packed = _packed(torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        tgnn.gnn_scores(torch.zeros(2, 16, 128, device=cuda),
+                        torch.zeros(2, 6, 128), packed)
+    args = list(_pointconv_case(cuda, torch.float32, 2, 64, 32, 32, 64, 1.0,
+                                1))
+    args[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="not on a's device"):
+        tpc.pointconv_max(*args, 0.2, 32)

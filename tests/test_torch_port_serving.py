@@ -189,12 +189,15 @@ def test_prune_zero_is_always_allowed():
 
 
 def test_not_ported_options_raise(server, monkeypatch):
-    """Multi-GPU serving and the KITTI360 reader raise, naming the missing
+    """JAX's two refusals of data-parallel serving (the int8 cheap bank,
+    batch statistics) and the KITTI360 reader raise, naming the missing
     piece; nothing falls back."""
     srv, cells, _, (pc, pf, _) = server
-    for kw in ({"data_parallel": 2}, {"shard_db": True}):
-        with pytest.raises(ValueError, match="parallel/dp.py"):
-            serving.LocalizationServer(pc, pf, cells, device="cpu", **kw)
+    for kw, msg in (({"int8_cheap_bank": True}, "single-device only"),
+                    ({"calibrate": False}, "requires calibrate=True")):
+        with pytest.raises(ValueError, match=msg):
+            serving.LocalizationServer(pc, pf, cells, device="cpu",
+                                       data_parallel=2, **kw)
     with pytest.raises(ValueError, match="prune_layers=3 exceeds"):
         serving.LocalizationServer(pc, pf, cells, cfg=srv.cfg, top_k=3,
                                    rerank_k=8, prune_m=5, prune_layers=3,

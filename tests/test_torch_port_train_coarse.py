@@ -426,8 +426,8 @@ def test_lstm_function_gradcheck():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data_parallel", "2"], ["--global_negatives"], ["--variation", "1"],
-    ["--class_embed"], ["--use_features", "class", "position"]])
+    ["--variation", "1"], ["--class_embed"],
+    ["--use_features", "class", "position"]])
 def test_unported_options_raise(flag):
     from text2pos_torch.config import parse_config
 
@@ -435,6 +435,24 @@ def test_unported_options_raise(flag):
                                      *flag])
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
         CoarseTrainer(cfg, Vocabulary(["a"]))
+
+
+@pytest.mark.parametrize("stage,flag", [
+    ("coarse", ["--fused"]), ("fine", ["--fused"]),
+    ("fine", ["--rank_weight", "1"])])
+def test_data_parallel_exclusions_raise(stage, flag):
+    """``--data_parallel`` with ``--fused`` raises, as JAX asserts
+    (``train/coarse.py:289``, ``train/fine.py:264``); with the fine
+    stage's ``--rank_weight``, which JAX's data-parallel step would leave
+    out, too."""
+    from text2pos_torch.config import parse_config
+    from text2pos_torch.train.fine import FineTrainer
+
+    cfg = parse_config(TrainConfig, ["--device", "cpu", "--embed_dim", "32",
+                                     "--data_parallel", "2", *flag])
+    with pytest.raises(ValueError, match="--data_parallel exclude"):
+        (CoarseTrainer if stage == "coarse" else FineTrainer)(
+            cfg, Vocabulary(["a"]))
 
 
 def test_k360_and_kernel_width_raise():

@@ -218,10 +218,6 @@ def check_eval_ported(cfg: EvalConfig) -> None:
     """Raise ``ValueError`` for the evaluation options the port does not
     have yet, each naming its ROADMAP item (``--dataset K360`` raises in
     ``utils.cli.load_split``)."""
-    if cfg.data_parallel > 1:
-        raise ValueError("--data_parallel > 1 is not ported to "
-                         "text2pos_torch yet (ROADMAP Queue 1 item 6); use "
-                         "text2pos_tpu.evaluation for it")
     if cfg.plot_retrievals:
         raise ValueError("--plot_retrievals is not ported to text2pos_torch "
                          "yet (ROADMAP Queue 1 item 7: utils/drawing.py, "
@@ -233,17 +229,25 @@ def check_eval_ported(cfg: EvalConfig) -> None:
 
 def check_ported(cfg: TrainConfig, stage: str) -> None:
     """Raise ``ValueError`` for the training options the port does not
-    have yet, each naming its ROADMAP item (multi-GPU training, item 6;
-    the model variants, item 7); nothing takes another path quietly.
-    ``--fused``, ``--neg_bank``, ``--remat`` and ``--rank_weight`` are
-    ported. ``stage`` is "coarse" or "fine"."""
+    have yet, each naming its ROADMAP item (the model variants, item 7),
+    and for the combinations the data-parallel step does not take;
+    nothing takes another path quietly. ``--fused``, ``--neg_bank``,
+    ``--remat``, ``--rank_weight``, ``--data_parallel`` and
+    ``--global_negatives`` are ported. ``stage`` is "coarse" or "fine"."""
     def no(flag: str, item: str) -> ValueError:
         return ValueError(f"{flag} is not ported to text2pos_torch yet "
                           f"(ROADMAP Queue 1 item {item}); use "
                           f"text2pos_tpu.train.{stage} for it")
 
-    if cfg.data_parallel > 1 or cfg.global_negatives:
-        raise no("--data_parallel > 1 and --global_negatives", "6")
+    if cfg.data_parallel > 1 and cfg.fused:
+        # JAX asserts the same (train/coarse.py:289, train/fine.py:264).
+        raise ValueError("--fused and --data_parallel exclude each other")
+    if cfg.data_parallel > 1 and stage == "fine" and cfg.rank_weight > 0:
+        # JAX's data-parallel fine step has no rank term: it would train
+        # without it, quietly (parallel/dp.py:129-160).
+        raise ValueError("--rank_weight > 0 and --data_parallel exclude "
+                         "each other (the data-parallel fine step has no "
+                         "rank-aware term)")
     if cfg.variation != 0:
         raise no("--variation 1 (EdgeConv mean aggregation)", "7")
     if cfg.class_embed or cfg.color_embed:

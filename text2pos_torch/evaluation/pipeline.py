@@ -348,7 +348,10 @@ def _compact_results(top_idx, pos_mean, pos_offsets, confidences,
 
 class LocalizationPipeline:
     """Coarse retriever + fine matcher + the serving-resident DB tensors
-    (None until a database is given: ``with_database``)."""
+    (None until a database is given: ``with_database``). ``mesh``
+    (``parallel.dp.make_mesh``, set by ``build_pipeline_from_checkpoints``
+    from the evaluator's ``--data_parallel``) shards the evaluation's
+    DB-cell encode over its devices."""
 
     def __init__(self, coarse: CellRetrievalNetwork, fine: SuperGlueMatch,
                  vocab: Vocabulary, fine_vocab: Vocabulary,
@@ -361,6 +364,7 @@ class LocalizationPipeline:
         self.cell_enc = cell_enc
         self.fine_bank_enc = fine_bank_enc
         self.fine_bank_centers = fine_bank_centers
+        self.mesh = None
         self.device = fine.superglue.final_proj.weight.device
 
     @classmethod
@@ -561,6 +565,16 @@ class LocalizationPipeline:
         else:
             obj = self._gather(top_idx, self.fine_bank_enc)
         ctr = self._gather(top_idx, self.fine_bank_centers)
+        return self._cheap_order(obj, ctr, sims, hint_enc, prune_m,
+                                 prune_layers, prune_sinkhorn, prune_soft,
+                                 rerank_lambda, rerank_gamma)
+
+    def _cheap_order(self, obj, ctr, sims, hint_enc, prune_m: int,
+                     prune_layers: int, prune_sinkhorn: int,
+                     prune_soft: bool, rerank_lambda: float,
+                     rerank_gamma: float) -> torch.Tensor:
+        """``_cheap_keep`` on the candidates' gathered encodings ``obj``
+        [B, K, pad, E] and centres ``ctr`` [B, K, pad, 2]."""
         if prune_soft:
             B, K, pad = obj.shape[:3]
             out = self.fine.match_encoded(
@@ -679,10 +693,17 @@ class LocalizationPipeline:
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """(text [Q, E], cells [C, E]) of every query of ``loader`` and
         every cell of its bank; ``cell_draws`` as ``CoarseTrainer.
-        encode_all_cells``'s ``draws``."""
+        encode_all_cells``'s ``draws``, or with a mesh as
+        ``parallel.dp.dp_encode_all_cells``'s, which encodes the cells
+        then."""
         trainer, state = self.coarse_trainer(), TrainState(self.coarse)
-        return (trainer.encode_all_queries(state, loader),
-                trainer.encode_all_cells(state, loader.bank, cell_draws))
+        text = trainer.encode_all_queries(state, loader)
+        if self.mesh is not None:
+            from text2pos_torch.parallel.dp import dp_encode_all_cells
+
+            return text, dp_encode_all_cells(trainer, state, loader.bank,
+                                             self.mesh, cell_draws)
+        return text, trainer.encode_all_cells(state, loader.bank, cell_draws)
 
     def run_coarse(self, loader, poses, cell_draws=None
                    ) -> Tuple[np.ndarray, Dict]:
@@ -913,12 +934,17 @@ def build_pipeline_from_checkpoints(cfg, path_coarse: str, path_fine: str,
     """Both stages restored from msgpack checkpoints into the evaluator's
     pipeline (JAX's ``build_pipeline_from_checkpoints``): no database, the
     fine model on batch statistics, ``cfg`` (an ``EvalConfig``) its
-    configuration and its device. The model bodies run in f32 unless
-    ``dtype`` is given, as JAX builds them. Returns (pipeline, coarse
-    vocabulary, fine vocabulary)."""
+    configuration and its device; with ``cfg.data_parallel`` > 1 a mesh of
+    that many shards on ``cfg.device`` (``parallel.dp.make_mesh``). The
+    model bodies run in f32 unless ``dtype`` is given, as JAX builds them.
+    Returns (pipeline, coarse vocabulary, fine vocabulary)."""
     pipe = LocalizationPipeline.from_checkpoints(
         path_coarse, path_fine, None, dtype or "float32", cfg.device,
         cfg=cfg)
+    if getattr(cfg, "data_parallel", 1) > 1:
+        from text2pos_torch.parallel.dp import make_mesh
+
+        pipe.mesh = make_mesh(cfg.data_parallel, pipe.device)
     return pipe, pipe.vocab, pipe.fine_vocab
 
 

@@ -8,8 +8,10 @@ flags, and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per
 source at once. A failed build raises; nothing falls back to the plain
 versions.
 
-``LAUNCHES`` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, so a run can show that its path went through them.
+``launch`` makes the tensors' device current around the call, so each
+kernel runs on the card its tensors lie on. ``LAUNCHES`` counts kernel
+launches by name: each wrapper adds one where it launches its kernel, so a
+run can show that its path went through them.
 """
 
 from __future__ import annotations
@@ -141,5 +143,12 @@ def refuse_grad(what: str, *tensors) -> None:
             "under torch.no_grad()")
 
 
-def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(fn: ctypes._CFuncPtr, device: torch.device, what: str,
+           *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``device`` the
+    current device and ``stream`` that device's current stream, and raise
+    on a CUDA error. The C side sets kernel attributes and launches on the
+    current device, so a tensor on another card than the current one is
+    still worked on where it lies."""
+    with torch.cuda.device(device):
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), what)

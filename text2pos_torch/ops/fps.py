@@ -84,8 +84,8 @@ def _launch(points: torch.Tensor, idx: torch.Tensor, cent: torch.Tensor
     B, N, _ = points.shape
     fn = _build.entry("fps", "t2p_fps", [ctypes.c_void_p] * 3
                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _build.check(fn(points.data_ptr(), idx.data_ptr(), cent.data_ptr(), B, N,
-                    idx.shape[1], _build.stream_ptr(points.device)), "fps")
+    _build.launch(fn, points.device, "fps", points.data_ptr(),
+                  idx.data_ptr(), cent.data_ptr(), B, N, idx.shape[1])
     _build.LAUNCHES["fps"] += 1
 
 

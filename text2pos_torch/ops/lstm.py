@@ -117,16 +117,19 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
             tuple(lengths.shape) != (B,):
         raise ValueError("LSTM kernel: tokens must be [B, T] integers and "
                          "lengths [B]")
+    if lengths.device != dev:
+        raise ValueError("LSTM kernel: tokens and lengths lie on different "
+                         "devices")
     tokens = tokens.to(torch.int32).contiguous()
-    lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty(2, B, H, device=dev, dtype=torch.float32)
     fn = _build.entry("lstm", "t2p_lstm_final_hidden",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
-    _build.check(fn(tables[0].data_ptr(), tables[1].data_ptr(),
-                    w_hh[0].data_ptr(), w_hh[1].data_ptr(),
-                    tokens.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                    V, T, B, H, _build.stream_ptr(dev)), "lstm_final_hidden")
+    _build.launch(fn, dev, "lstm_final_hidden", tables[0].data_ptr(),
+                  tables[1].data_ptr(), w_hh[0].data_ptr(),
+                  w_hh[1].data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+                  out.data_ptr(), V, T, B, H)
     _build.LAUNCHES["lstm"] += 1
     return out
 

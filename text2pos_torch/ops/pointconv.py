@@ -154,12 +154,11 @@ def _pointconv_kernel(a, pos, c, cent, bn0, w2, b2, bn1, radius, k_cap,
     out = torch.empty(B, S, C2, device=a.device, dtype=dt)
     fn = _build.entry("pointconv", "t2p_pointconv_max", _ARGTYPES)
     s0, t0, b2, s1, t1 = vecs
-    _build.check(fn(a.data_ptr(), pos.data_ptr(), c.data_ptr(),
-                    cent.data_ptr(), s0.data_ptr(), t0.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), s1.data_ptr(),
-                    t1.data_ptr(), out.data_ptr(), B, N, S, C1, C2,
-                    radius * radius, k_cap, int(bf16),
-                    _build.stream_ptr(a.device)), "pointconv_max")
+    _build.launch(fn, a.device, "pointconv_max", a.data_ptr(),
+                  pos.data_ptr(), c.data_ptr(), cent.data_ptr(),
+                  s0.data_ptr(), t0.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  s1.data_ptr(), t1.data_ptr(), out.data_ptr(), B, N, S, C1,
+                  C2, radius * radius, k_cap, int(bf16))
     _build.LAUNCHES["pointconv"] += 1
     return out
 

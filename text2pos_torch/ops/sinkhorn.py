@@ -66,9 +66,8 @@ def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
     fn = _build.entry("sinkhorn", "t2p_log_sinkhorn",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])
-    _build.check(fn(z.data_ptr(), *ptr, out.data_ptr(), B, M, N, int(iters),
-                    int(bins), _build.stream_ptr(z.device)),
-                 "log_sinkhorn")
+    _build.launch(fn, z.device, "log_sinkhorn", z.data_ptr(), *ptr,
+                  out.data_ptr(), B, M, N, int(iters), int(bins))
     _build.LAUNCHES["sinkhorn"] += 1
     return out
 
@@ -86,6 +85,8 @@ def _lot_kernel(scores, alpha, iters):
     N+1], dustbins, marginals and ``- norm`` in the kernel."""
     _build.refuse_grad("Sinkhorn kernel", scores, alpha)
     M, N = scores.shape[1:]
+    if isinstance(alpha, torch.Tensor) and alpha.device != scores.device:
+        raise ValueError("Sinkhorn kernel: inputs on different devices")
     alpha = torch.as_tensor(alpha, device=scores.device).float().reshape(1)
     return _sinkhorn_launch(scores, None, None, alpha, M + 1, N + 1, iters,
                             True)

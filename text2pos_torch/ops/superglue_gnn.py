@@ -264,15 +264,14 @@ def _gnn_kernel(desc0, desc1, packed):
                       [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p] * 2)
     p = packed
-    _build.check(fn(desc0.data_ptr(), desc1.data_ptr(),
-                    p["wqkv"].data_ptr(), p["bqkv"].data_ptr(),
-                    p["wm"].data_ptr(), p["bm"].data_ptr(),
-                    p["w0"].data_ptr(), p["s0"].data_ptr(),
-                    p["t0"].data_ptr(), p["w1"].data_ptr(),
-                    p["b1"].data_ptr(), p["wf"].data_ptr(),
-                    p["bf"].data_ptr(), L, N,
-                    int(dt == torch.bfloat16), out.data_ptr(),
-                    _build.stream_ptr(desc0.device)), "superglue_gnn")
+    _build.launch(fn, desc0.device, "superglue_gnn", desc0.data_ptr(),
+                  desc1.data_ptr(), p["wqkv"].data_ptr(),
+                  p["bqkv"].data_ptr(), p["wm"].data_ptr(),
+                  p["bm"].data_ptr(), p["w0"].data_ptr(),
+                  p["s0"].data_ptr(), p["t0"].data_ptr(),
+                  p["w1"].data_ptr(), p["b1"].data_ptr(),
+                  p["wf"].data_ptr(), p["bf"].data_ptr(), L, N,
+                  int(dt == torch.bfloat16), out.data_ptr())
     _build.LAUNCHES["superglue_gnn"] += 1
     return out
 

@@ -1,5 +1,5 @@
 """Serving front end: checkpoints + map → world positions (counterpart of
-``text2pos_tpu/serving.py``) on one device.
+``text2pos_tpu/serving.py``).
 
     server = LocalizationServer("coarse.msgpack", "fine.msgpack", cells)
     result = server.localize([["the pose is east of a gray building",
@@ -12,12 +12,15 @@ population statistics (``LocalizationPipeline.calibrated_for_serving``):
 serving then runs every stage through the port's kernels and each query's
 result is independent of its batch. ``calibrate=False`` keeps the
 reference's batch statistics; the GNN and the set-abstraction levels then
-run as PyTorch ops (the pipeline module says why). ``python -m
-text2pos_torch.serving`` serves JSON lines from stdin.
+run as PyTorch ops (the pipeline module says why). ``data_parallel=N``
+splits each batch's queries over a mesh of N shards (``parallel.dp``:
+cards 0 … N-1, or card 0 N times on a machine with fewer), and with
+``shard_db`` the map too, served by two ring passes; both need
+``calibrate``. ``python -m text2pos_torch.serving`` serves JSON lines from
+stdin.
 
 Not in this package yet: maps read from a KITTI360-format dataset
-(``--base_path``, which needs ``data/legacy.py``), and serving over several
-devices (``data_parallel``, ``shard_db``). Asking for them raises.
+(``--base_path``, which needs ``data/legacy.py``). Asking for it raises.
 """
 
 from __future__ import annotations
@@ -77,8 +80,10 @@ class LocalizationServer:
             calibration_hints: hint lists to calibrate the GNN on; by
                 default fabricated from the map's class and colour
                 vocabulary.
-            data_parallel, shard_db: serving over several devices; only 1
-                and False are ported.
+            data_parallel: shards of the mesh the queries are split over
+                (each batch padded to a multiple of it); needs calibrate.
+            shard_db: with data_parallel > 1, the map split over the mesh
+                too (zero rows appended to a multiple of it).
             device: where the models run (the card unless "cpu").
         """
         self.cfg = cfg or ServeConfig(top_k=(1, 5, top_k))
@@ -93,12 +98,12 @@ class LocalizationServer:
         if prune_m and not (top_k < prune_m < rerank_k):
             raise ValueError(f"cascaded re-ranking needs top_k < prune_m "
                              f"< rerank_k, got {top_k}/{prune_m}/{rerank_k}")
-        if data_parallel > 1:
-            raise _not_ported("data_parallel > 1",
-                              "the multi-GPU serving of parallel/dp.py")
-        if shard_db:
-            raise _not_ported("shard_db",
-                              "the multi-GPU serving of parallel/dp.py")
+        # JAX's two refusals, made before any work.
+        if int8_cheap_bank and data_parallel > 1:
+            raise ValueError("int8_cheap_bank is single-device only")
+        if data_parallel > 1 and not calibrate:
+            raise ValueError("data_parallel serving requires calibrate=True "
+                             "(batch-statistics BN is not shard-invariant)")
         cfg = self.cfg
         pipe = LocalizationPipeline.from_checkpoints(
             path_coarse, path_fine, None, dtype, device, cfg)
@@ -137,6 +142,35 @@ class LocalizationServer:
         self.pipe = pipe
         self.cheap_bank = (quantize_fine_bank(self.fine_bank[0])
                            if int8_cheap_bank else (None, None))
+
+        self._dp_serve = None
+        if data_parallel > 1:
+            from text2pos_torch.parallel.dp import (dp_serve_batch,
+                                                    dp_serve_batch_dbsharded,
+                                                    make_mesh)
+
+            self._dp = data_parallel
+            mesh = make_mesh(data_parallel, pipe.device)
+            C = self.bank.num_cells
+            k, rk = min(top_k, C), min(rerank_k, C)
+            opts = dict(rerank_lambda=self.rerank_lambda,
+                        rerank_gamma=self.rerank_gamma, prune_m=self.prune_m,
+                        prune_layers=self.prune_layers,
+                        prune_sinkhorn=self.prune_sinkhorn,
+                        prune_soft=self.prune_soft)
+            if shard_db:
+                # Zero rows up to a multiple of the mesh size; the serve
+                # masks them by global index, so none is ever retrieved.
+                padn = (-C) % data_parallel
+                z = lambda a: torch.cat([a, a.new_zeros((padn,)
+                                                        + a.shape[1:])])
+                self.cell_enc = z(self.cell_enc)
+                self.fine_bank = (z(self.fine_bank[0]), z(self.fine_bank[1]))
+                self._dp_serve = dp_serve_batch_dbsharded(
+                    pipe.with_database(self.cell_enc, *self.fine_bank), mesh,
+                    k, rk, num_real_cells=C, **opts)
+            else:
+                self._dp_serve = dp_serve_batch(pipe, mesh, k, rk, **opts)
 
     # ------------------------------------------------------------------
     def _calibration_tokens(self, calibration_hints):
@@ -202,10 +236,18 @@ class LocalizationServer:
         texts = [" ".join(h) for h in hint_lists]
         tk, ln = self.vocab.encode_batch(texts, self.cfg.max_text_len)
         htk, hln = self._hint_tokens(hint_lists, pad_short=pad_short_queries)
+        if self._dp_serve is not None:
+            pad = (-len(hint_lists)) % self._dp
+            if pad:  # the queries must divide over the mesh
+                tk, ln, htk, hln = (np.concatenate(
+                    [a, np.repeat(a[-1:], pad, 0)]) for a in (tk, ln, htk,
+                                                               hln))
         return (tk, ln, htk, hln), len(hint_lists)
 
     def _dispatch(self, tk, ln, htk, hln):
-        """Enqueue one batch on the device; returns unfetched tensors."""
+        """Enqueue one batch on the device(s); returns unfetched tensors."""
+        if self._dp_serve is not None:
+            return self._dp_serve(tk, ln, htk, hln)
         C = self.bank.num_cells
         return self.pipe.serve_batch(
             tk, ln, htk, hln, min(self.top_k, C), min(self.rerank_k, C),
@@ -420,8 +462,12 @@ def main(argv=None):
                     help="self-repeat hints of short queries instead of "
                          "rejecting them")
     ap.add_argument("--no_calibrate", action="store_true")
-    ap.add_argument("--data_parallel", type=int, default=1)
-    ap.add_argument("--shard_db", action="store_true")
+    ap.add_argument("--data_parallel", type=int, default=1,
+                    help="split each batch's queries over this many "
+                         "shards (cards 0..N-1, or card 0 N times)")
+    ap.add_argument("--shard_db", action="store_true",
+                    help="with --data_parallel N: shard the map over the "
+                         "mesh too (ring retrieval and gather)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     proto = ServeConfig()

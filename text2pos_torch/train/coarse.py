@@ -149,23 +149,35 @@ class CoarseTrainer:
         return triplet_margin_loss(text, cells, torch.roll(cells, 1, 0),
                                    cfg.margin)
 
+    def forward_towers(self, state: TrainState, batch: Dict[str, np.ndarray],
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Dict[str, np.ndarray]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both towers of the step's forward pass in train mode (BN running
+        statistics updated): (text [B, E], cells [B, E]), with their
+        graph."""
+        with record_function("train.forward"):
+            return self._towers(state, batch, generator, draws)
+
+    def _towers(self, state, batch, generator, draws):
+        cfg = self.cfg
+        obj = self.objects(batch)
+        pts, cols = self.points(obj, True, generator, draws)
+        tok = torch.from_numpy(batch["tokens"]).to(self.device)
+        ln = torch.from_numpy(batch["lengths"]).to(self.device)
+        return state.model(
+            tok, ln, pts, cols, obj["centers"], obj["colors"],
+            obj["cell_idx"].long(), obj["slot_idx"].long(),
+            len(batch["tokens"]), cfg.coarse_max_objects, train=True)
+
     def forward_loss(self, state: TrainState, batch: Dict[str, np.ndarray],
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict[str, np.ndarray]] = None
                      ) -> torch.Tensor:
         """The step's forward pass in train mode (BN running statistics
         updated): the loss, with its graph."""
-        cfg = self.cfg
         with record_function("train.forward"):
-            obj = self.objects(batch)
-            pts, cols = self.points(obj, True, generator, draws)
-            tok = torch.from_numpy(batch["tokens"]).to(self.device)
-            ln = torch.from_numpy(batch["lengths"]).to(self.device)
-            text, cells = state.model(
-                tok, ln, pts, cols, obj["centers"], obj["colors"],
-                obj["cell_idx"].long(), obj["slot_idx"].long(),
-                len(batch["tokens"]), cfg.coarse_max_objects, train=True)
-            return self.loss(text, cells)
+            return self.loss(*self._towers(state, batch, generator, draws))
 
     def forward_backward(self, state: TrainState, batch: Dict[str, np.ndarray],
                          generator: Optional[torch.Generator] = None,
@@ -230,17 +242,29 @@ class CoarseTrainer:
         out = []
         for step, i in enumerate(range(0, bank.num_cells, B)):
             idx = np.arange(i, min(i + B, bank.num_cells))
-            obj = self.objects(flatten_bank_slice(
-                bank, idx, B * cfg.coarse_max_objects))
-            F = obj["points_xyz"].shape[0]
-            d = None if draws is None else {"idx": draws[step][:F]}
-            gen = step_generator(self.device, 1, cfg.seed, i)
-            pts, cols = self.points(obj, False, gen, d)
-            out.append(state.model.encode_objects(
-                pts, cols, obj["centers"], obj["colors"],
-                obj["cell_idx"].long(), obj["slot_idx"].long(), len(idx),
-                cfg.coarse_max_objects))
+            flat = flatten_bank_slice(bank, idx, B * cfg.coarse_max_objects)
+            out.append(self.encode_cells(
+                state.model, flat, len(idx),
+                step_generator(self.device, 1, cfg.seed, i),
+                None if draws is None else draws[step]))
         return torch.cat(out).cpu().numpy()
+
+    def encode_cells(self, model: CellRetrievalNetwork,
+                     flat: Dict[str, np.ndarray], num_cells: int,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[np.ndarray] = None) -> torch.Tensor:
+        """[num_cells, E] encodings (eval mode) of the cells flat-packed in
+        ``flat`` (``flatten_bank_slice``); the sample indices from
+        ``draws`` ([F', P] with F' at least the valid objects, in flat
+        order) or from ``generator``."""
+        obj = self.objects(flat)
+        F = obj["points_xyz"].shape[0]
+        d = None if draws is None else {"idx": np.asarray(draws)[:F]}
+        pts, cols = self.points(obj, False, generator, d)
+        return model.encode_objects(
+            pts, cols, obj["centers"], obj["colors"],
+            obj["cell_idx"].long(), obj["slot_idx"].long(), num_cells,
+            self.cfg.coarse_max_objects)
 
     def eval_epoch(self, state: TrainState, loader: CoarseLoader,
                    top_k: Tuple[int, ...], return_encodings: bool = False,
@@ -321,6 +345,16 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
           if cfg.lr_idx is not None else cfg.learning_rate)
     state = trainer.init_state(steps_per_epoch, learning_rate=lr)
 
+    dp_step = None
+    if cfg.data_parallel > 1:
+        # Batch-sharded training (parallel/dp.py); cfg.batch_size is the
+        # per-device batch; --global_negatives all-gathers both towers.
+        from text2pos_torch.parallel.dp import (dp_coarse_train_step,
+                                                dp_train_epoch, make_mesh)
+
+        mesh = make_mesh(cfg.data_parallel, trainer.device, log=log)
+        dp_step = dp_coarse_train_step(trainer, mesh, cfg.global_negatives)
+
     if os.environ.get("T2P_DEBUG_NANS"):
         enable_nan_tripwire()
     metrics_log = MetricsLogger(os.environ.get("T2P_METRICS_JSONL"))
@@ -338,6 +372,9 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
         t0 = time.time()
         if cfg.fused:
             state, loss = trainer.fused_train_epoch(state, epoch)
+        elif dp_step is not None:
+            state, loss = dp_train_epoch(dp_step, trainer, state,
+                                         loader_train, epoch, mesh, 0)
         else:
             state, loss = trainer.train_epoch(state, loader_train, epoch)
         history["train_loss"].append(loss)

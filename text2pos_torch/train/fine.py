@@ -313,6 +313,16 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
           if cfg.lr_idx is not None else cfg.learning_rate)
     state = trainer.init_state(steps_per_epoch, learning_rate=lr)
 
+    dp_step = None
+    if cfg.data_parallel > 1:
+        # Batch-sharded training (parallel/dp.py); cfg.batch_size is the
+        # per-device batch.
+        from text2pos_torch.parallel.dp import (dp_fine_train_step,
+                                                dp_train_epoch, make_mesh)
+
+        mesh = make_mesh(cfg.data_parallel, trainer.device, log=log)
+        dp_step = dp_fine_train_step(trainer, mesh)
+
     if os.environ.get("T2P_DEBUG_NANS"):
         enable_nan_tripwire()
     metrics_log = MetricsLogger(os.environ.get("T2P_METRICS_JSONL"))
@@ -330,6 +340,10 @@ def train(cfg: TrainConfig, cells_train, poses_train, cells_val, poses_val,
         if cfg.fused:
             state, fused_loss = trainer.fused_train_epoch(state, epoch)
             train_stats = {"loss": fused_loss}
+        elif dp_step is not None:
+            state, dp_loss = dp_train_epoch(dp_step, trainer, state,
+                                            loader_train, epoch, mesh, 2)
+            train_stats = {"loss": dp_loss}
         else:
             state, train_stats = trainer.run_epoch(state, loader_train,
                                                    epoch, train=True)
