@@ -151,11 +151,29 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
 11. A ``{"kernels": [...]}`` line (each entry also with its launches by
    path: headline, cascade, DB encode, calibration, server, the two
    evaluation epochs, the two trainings, phase 8's stages,
-   ``evaluator_*``, phase 9's, ``recipe_*``, and phase 10's, ``dp_*``,
-   with the errors on phase 9's and phase 10's inputs under
-   ``max_abs_err_by_training_path`` and ``max_abs_err_by_dp_path``), the
-   card's name and power limit, and ``{"ok": true, "device": {...}}`` as
-   the last line.
+   ``evaluator_*``, phase 9's, ``recipe_*``, phase 10's, ``dp_*``, and
+   phase 12's, ``wide_*`` and ``variant_*``, with the errors on phase 9's
+   and phase 10's inputs under ``max_abs_err_by_training_path`` and
+   ``max_abs_err_by_dp_path`` and phase 12's readings under ``widths``),
+   the card's name and power limit, and ``{"ok": true, "device": {...}}``
+   as the last line; ``superglue_gnn_any`` (the GNN's second form) has the
+   E=300 headline's launches and times.
+12. JAX's default widths and the variants (run before the line of 11):
+   models at embed_dim 300 from seeded generators, the bench map
+   encoded and calibrated, then 12.1 the widened kernels against their
+   plain versions on the E=300 serving path's inputs (LSTM both encoders
+   beside cuDNN, the GNN's second form in bf16 and f32 with ragged counts
+   and ties, Sinkhorn) and on seeded random inputs at LSTM H in
+   {96, 300, 384, 512} beside cuDNN, GNN (E, T0, T1) in {(300, 16, 6),
+   (128, 24, 6), (256, 32, 8)} and FPS N in {512, 1024}; 12.2 the E=300
+   headline in bf16 and f32 (q/s, launches: no tuned-GNN launch); 12.3
+   the f32 headline, rerank@128 and cascade against the same pipeline
+   with every kernel wrapper rebound to its plain version (differing rows
+   only as near-ties), and the fine model at pad_size 24; 12.4 one f32
+   coarse and fine step at E=300 against the plain versions' on the same
+   choices, at phase 7's limits; 12.5 one step of each variant of the
+   object encoder, and a class-embedding model's DB encode (no PointConv
+   or FPS launch) and serving.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -236,6 +254,8 @@ KERNEL_SOURCES = {
                  "text2pos_tpu/ops/sinkhorn_pallas.py:51"),
     "superglue_gnn": ("text2pos_torch/csrc/superglue_gnn.cu",
                       "text2pos_tpu/ops/superglue_gnn_pallas.py:253"),
+    "superglue_gnn_any": ("text2pos_torch/csrc/superglue_gnn_any.cu",
+                          "text2pos_tpu/ops/superglue_gnn_pallas.py:253"),
     "pointconv": ("text2pos_torch/csrc/pointconv.cu",
                   "text2pos_tpu/ops/pointconv_pallas.py:91"),
     "fps": ("text2pos_torch/csrc/fps.cu",
@@ -982,7 +1002,8 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
     return launches, cell_enc
 
 
-def near_tie_flips(z: torch.Tensor, threshold: float):
+def near_tie_flips(z: torch.Tensor, threshold: float,
+                   tol: float = SWAP_REL_TOL):
     """Each match-extraction decision of one pair whose relative margin is
     below SWAP_REL_TOL, taken the other way: yields (what, margin, z') with
     z' the log transport z [M+1, N+1] (f32) moved by that margin at one
@@ -991,7 +1012,7 @@ def near_tie_flips(z: torch.Tensor, threshold: float):
     row's and each column's largest transport against its second largest
     (the mutual max: raise the second just above the first, or lower the
     first just below the second) and each row's largest against the
-    threshold (moved just across it)."""
+    threshold (moved just across it). ``tol`` replaces SWAP_REL_TOL."""
     p = z[:-1, :-1].exp()
     M, N = p.shape
     up, down = torch.tensor(math.inf), torch.tensor(-math.inf)
@@ -1010,13 +1031,13 @@ def near_tie_flips(z: torch.Tensor, threshold: float):
               for j, i in enumerate(p.topk(2, dim=0).indices.T)]
     for what, hi, lo in pairs:
         margin = float((p[hi] - p[lo]) / p[hi])
-        if margin < SWAP_REL_TOL:
+        if margin < tol:
             for at, to, way in ((lo, hi, up), (hi, lo, down)):
                 yield (f"{what}'s {hi} against {lo}", margin,
                        moved(at, torch.nextafter(z[to], way)))
     for i, j in enumerate(p.argmax(1).tolist()):
         margin = abs(float(p[i, j]) - threshold) / threshold
-        if margin < SWAP_REL_TOL:
+        if margin < tol:
             v, above = z[i, j], bool(p[i, j] > threshold)
             while bool(v.exp() > threshold) == above:
                 v = torch.nextafter(v, down if above else up)
@@ -1083,7 +1104,7 @@ def stage_candidates(pipe, fx, r: int, kept=None, cheap=None):
 
 
 def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
-                  excused=frozenset()):
+                  excused=frozenset(), tol: float = SWAP_REL_TOL):
     """Whether the port's ranking ``got_row`` of one stage differs from
     JAX's ``want_row`` only by near-ties; returns (ok, notes). ``st`` is
     the port's stage (``stage_candidates``), ``jcands``/``jscores`` JAX's
@@ -1096,7 +1117,7 @@ def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
     port's candidates must give JAX's ranking, but at positions where
     JAX's own scores of the two candidates differ by less than SWAP_REL_TOL.
     Cells in ``excused`` (dropped at an earlier, explained stage) are
-    skipped."""
+    skipped. ``tol`` replaces SWAP_REL_TOL throughout."""
     _, lam, gam = (float(v) for v in fx["rerank"])
     jscore = {int(c): float(s) for c, s in zip(jcands, jscores)}
     pos = {int(c): i for i, c in enumerate(st["cells"])}
@@ -1104,7 +1125,7 @@ def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
     ok, notes = True, []
 
     def near(x, y):
-        return abs(x - y) <= SWAP_REL_TOL * max(abs(y), 1e-30)
+        return abs(x - y) <= tol * max(abs(y), 1e-30)
 
     def ranking(s):
         order = sorted(range(len(s)), key=lambda i: -s[i])      # stable
@@ -1133,7 +1154,7 @@ def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
             continue
         for what, margin, z in near_tie_flips(st["Z"][i],
                                               pipe.fine.superglue
-                                              .match_threshold):
+                                              .match_threshold, tol):
             flipped = candidate_score(pipe, z, *args)
             if near(flipped, theirs):
                 score[i] = flipped
@@ -1146,7 +1167,7 @@ def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
             ok = False
             notes.append(f"candidate {c}'s score {mine:.6f} here, "
                          f"{theirs:.6f} in JAX, and no match-extraction "
-                         f"decision within {SWAP_REL_TOL:g} explains it")
+                         f"decision within {tol:g} explains it")
     for a, b in zip(ranking(score), want_row):
         b = int(b)
         if a == b or a in excused or b in excused:
@@ -1156,7 +1177,7 @@ def explain_stage(pipe, fx, got_row, want_row, st, jcands, jscores,
                if a in jscore and b in jscore else math.inf)
         notes.append(f"{a} before {b}: JAX's scores of the two differ by "
                      f"{gap:.3e} relative")
-        ok = ok and gap < SWAP_REL_TOL
+        ok = ok and gap < tol
     return ok, notes
 
 
@@ -1196,17 +1217,19 @@ def explain_swaps(pipe, fx, got, stage: str, cheap=None):
     return out
 
 
-def report_swaps(label: str, swaps, n: int, failures: list) -> None:
+def report_swaps(label: str, swaps, n: int, failures: list,
+                 against: str = "JAX's") -> None:
     """Logs each differing row and why it is a near-tie; fails on a row
-    that is not one."""
-    log(f"  {label}: top_idx identical to JAX's on {n - len(swaps)} of {n} "
-        f"queries; {len(swaps)} differ")
+    that is not one. ``against`` names the reference ("JAX" in the notes
+    of ``explain_stage``)."""
+    log(f"  {label}: top_idx identical to {against} on {n - len(swaps)} of "
+        f"{n} queries; {len(swaps)} differ")
     for r, ok, notes in swaps:
         log(f"    query {r}: {'; '.join(notes)}: "
             f"{'near-ties' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"{label}: query {r} differs from JAX without a "
-                            f"near-tie ({notes})")
+            failures.append(f"{label}: query {r} differs from {against} "
+                            f"without a near-tie ({notes})")
 
 
 def f32_rerank_check(pipe_f32, fx, failures):
@@ -2669,6 +2692,7 @@ CLI_PRETRAIN_EPOCHS = 4
 RECIPE_LOSS_TOL = 1e-6
 SPREAD_FACTOR = 2.0
 SPREAD_FLOOR = 1e-6
+HOST_RUNS = 4      # runs of the host step: its spread over their 6 pairs
 BANK_TOL = 1e-6
 F64_CELLS = 32
 # Launches a single call makes, as the code predicts them (the refresh's
@@ -2708,16 +2732,17 @@ def leaf_diffs(a, b):
     return rel, small
 
 
-def gate_spread(label, got, ref, pair, failures):
+def gate_spread(label, got, ref, runs, failures):
     """``got`` against ``ref`` (loss, grads, stats): each gradient leaf and
-    BN statistic within SPREAD_FACTOR times the largest difference between
-    the two runs of ``pair`` (one step run twice) of its kind (relative, or
-    of a leaf near zero over the global norm), or SPREAD_FLOOR where that
-    reads lower. Returns the readings."""
+    BN statistic within SPREAD_FACTOR times the largest difference of its
+    kind (relative, or of a leaf near zero over the global norm) between
+    any two of ``runs`` (one step run HOST_RUNS times: the spread of a
+    single pair of runs read low once in three chip_smoke runs), or
+    SPREAD_FLOOR where that reads lower. Returns the readings."""
     worst = lambda d: max(d.items(), key=lambda kv: kv[1], default=("", 0.0))
-    a, b = pair
-    spreads = [worst(d)[1] for d in leaf_diffs(b[1], a[1])
-               + leaf_diffs(b[2], a[2])]
+    spreads = [max(w) for w in zip(*(
+        [worst(d)[1] for d in leaf_diffs(b[1], a[1]) + leaf_diffs(b[2], a[2])]
+        for a, b in itertools.combinations(runs, 2)))]
     errs = [worst(d) for d in leaf_diffs(got[1], ref[1])
             + leaf_diffs(got[2], ref[2])]
     tols = [max(SPREAD_FACTOR * sp, SPREAD_FLOOR) for sp in spreads]
@@ -3077,11 +3102,12 @@ def coarse_stage(train, vocab, pointnet_path, gpu, by_path, errs, failures):
         peak = torch.cuda.max_memory_allocated() - base
         return (float(loss.detach()),) + grads_stats(st.model) + (ms, peak)
 
-    h1, h2 = host_step(), host_step()
+    hs = [host_step() for _ in range(HOST_RUNS)]
+    h1, h2 = hs[:2]
     fz = fused_step(0.0)
     rep["fused_vs_host"] = gate_spread(
         f"fused coarse step (bank weight 0) vs CoarseTrainer's step, {B} "
-        "cells, the same draws", fz, h1, (h1, h2), failures)
+        "cells, the same draws", fz, h1, hs, failures)
     log(f"  forward+backward ms, one call each: host {h1[3]:.2f}, "
         f"{h2[3]:.2f}; fused {fz[3]:.2f} (the loader's host work not "
         f"included in the host's)")
@@ -3307,18 +3333,19 @@ def fine_stage(train, vocab, pointnet_path, gpu, by_path, errs, failures):
         peak = torch.cuda.max_memory_allocated() - base
         return (float(loss.detach()),) + grads_stats(st.model) + (ms, peak)
 
-    h1, h2 = step(host, hbatch, hdraws), step(host, hbatch, hdraws)
+    hs = [step(host, hbatch, hdraws) for _ in range(HOST_RUNS)]
+    h1, h2 = hs[:2]
     fz = step(tr, tr.batch(pose_idx), draws)
     rep["fused_vs_host"] = gate_spread(
         f"fused fine step vs FineTrainer's step (rank-aware, R = "
         f"{tr.rank_negatives}), {B} poses, the same samples and draws", fz,
-        h1, (h1, h2), failures)
+        h1, hs, failures)
     log(f"  forward+backward ms, one call each: host {h1[3]:.2f}, "
         f"{h2[3]:.2f}; fused {fz[3]:.2f}")
     rm = step(tr, tr.batch(pose_idx), draws, remat=True)
     rep["remat"] = gate_spread(f"remat vs no remat, fused fine step, {B} "
                                "poses (the host step's spread)", rm, fz,
-                               (h1, h2), failures)
+                               hs, failures)
     rep["remat"].update(ms=rm[3], peak_gb=rm[4] / 2 ** 30, plain_ms=fz[3],
                         plain_peak_gb=fz[4] / 2 ** 30)
     ok = rm[4] < fz[4]
@@ -3854,6 +3881,599 @@ def dp_phase(gpu, pipe_bf16, pipe_f32, bank, fx, failures):
     return by_path, dict(errs), report
 
 
+# Phase 12: JAX's default widths and the model variants. Models at JAX's
+# default embed_dim 300 (coarse; fine with 6 block pairs and 50 Sinkhorn
+# iterations, pad_size 16, num_mentioned 6) initialised by
+# ``train.state.init_parameters`` from seeded generators, the bench map and
+# its 2048 queries. Limits: each widened kernel against its plain version at
+# its phase-3 tolerance (TOL, GNN_REL_TOL; FPS bit for bit); the f32 serving
+# modes' top_idx equal to the same pipeline's with every kernel wrapper
+# rebound to its plain version (``plain_kernels``), a differing row passing
+# only as near-ties: the coarse similarities' for the headline
+# (``headline_swaps``), ``explain_stage``'s rule for rerank and the cascade
+# with the plain pipeline's scores where phase 4 reads JAX's
+# (``wide_explain``, ``BatchStages``), at WIDE_SWAP_TOL; one f32 training
+# step of each stage
+# against the same step on the plain versions, on the kernel step's piecewise
+# choices (``Decisions``), at phase 7's limits; each variant of the object
+# encoder trains (finite loss and gradients), and a class-embedding model
+# encodes the map and serves with no PointNet++ launch.
+WIDE_E = 300
+WIDE_SEED = 300
+# ``explain_stage``'s tolerance in phase 12 (phase 4's SWAP_REL_TOL, set on
+# the bench's trained weights against JAX, is 1e-5). At E=300 on these
+# random weights the kernels' and the plain versions' re-rank scores of one
+# candidate differ by up to 1.3e-4 relative without a flipped decision
+# (0.733101 against 0.733196 in one cascade row: the GNN's f32 sums in
+# another order, 3.8e-4 on scores of 150, carried through Sinkhorn into the
+# match confidences; chip_smoke phase 12's runs on an H100); a little over
+# twice that.
+WIDE_SWAP_TOL = 3e-4
+WIDE_LSTM = (96, 300, 384, 512)
+WIDE_GNN = ((300, 16, 6), (128, 24, 6), (256, 32, 8))
+WIDE_GNN_PAIRS = 4096      # pairs of the random-weight GNN shapes
+WIDE_GNN_BLOCKS = 4
+WIDE_FPS = (512, 1024)
+WIDE_FPS_OBJECTS = 1024
+VARIANTS = {"coarse": {"variation 1": dict(variation=1),
+                       "class_embed": dict(class_embed=True),
+                       "color_embed": dict(color_embed=True),
+                       "use_features class position":
+                           dict(use_features=("class", "position")),
+                       "use_features color": dict(use_features=("color",)),
+                       "pointnet_features 0": dict(pointnet_features=0),
+                       "pointnet_features 1": dict(pointnet_features=1)},
+            "fine": {"class_embed color_embed":
+                         dict(class_embed=True, color_embed=True),
+                     "use_features class position, pointnet_features 1":
+                         dict(use_features=("class", "position"),
+                              pointnet_features=1)}}
+
+
+def _chunked_gnn_plain(d0, d1, packed):
+    from text2pos_torch.ops.superglue_gnn import gnn_scores_plain
+
+    return torch.cat([gnn_scores_plain(d0[i:i + CHUNK_PAIRS],
+                                       d1[i:i + CHUNK_PAIRS], packed)
+                      for i in range(0, len(d0), CHUNK_PAIRS)])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the serving and training paths rebound to its
+    plain version (the GNN's over CHUNK_PAIRS pairs at a time): the
+    reference the kernels' pipeline is held to."""
+    import text2pos_torch.ops.fps as fps
+    import text2pos_torch.ops.lstm as lstm
+    import text2pos_torch.ops.sinkhorn as sinkhorn
+    import text2pos_torch.ops.superglue_gnn as gnn
+
+    saved = [(lstm, "_lstm_kernel", lstm.lstm_final_hidden_plain),
+             (sinkhorn, "_lot_kernel", sinkhorn.log_optimal_transport_plain),
+             (gnn, "_gnn_kernel", _chunked_gnn_plain),
+             (fps, "_fps_kernel", fps.farthest_point_sampling_plain)]
+    saved = [(m, n, getattr(m, n), f) for m, n, f in saved]
+    for m, n, _, f in saved:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, old, _ in saved:
+            setattr(m, n, old)
+
+
+class BatchStages:
+    """Every candidate's stage data (``stage_candidates``' fields) of the
+    fixture's queries in one batch, as ``serve_batch`` computes them: the
+    coarse top-rerank_k, the re-rank pass over them, and with ``cheap``
+    (q, scale, layers, iters) the cascade's cheap pass on the int8 bank,
+    its ``prune_m`` survivors (``kept``) and the full pass over those. A
+    row of a batch is the served computation's own, where a query
+    recomputed alone is not: the coarse similarities and the offset head
+    take other cuBLAS kernels at another batch size."""
+
+    def __init__(self, pipe, fx, cheap=None):
+        from text2pos_torch.ops.retrieval import topk_retrieval
+
+        rk, self.lam, self.gam = (float(v) for v in fx["rerank"])
+        self.pipe = pipe
+        q = [torch.as_tensor(fx[k], device=pipe.device)
+             for k in ("tokens", "lengths", "hint_tokens", "hint_lengths")]
+        with torch.inference_mode():
+            sims, cells = topk_retrieval(pipe.coarse.encode_text(q[0], q[1]),
+                                         pipe.cell_enc, int(rk))
+            self.hint_enc = pipe.fine.encode_hints(q[2], q[3])
+            self.stages = {"rerank": self._stage(cells, sims)}
+            if cheap is not None:
+                qb, qs, layers, iters = cheap
+                ch = self._stage(cells, sims, (qb, qs), layers, iters)
+                keep = torch.sort(-ch["scores"], dim=1, stable=True).indices[
+                    :, :int(fx["cascade"][1])]
+                self.stages["cheap"] = ch
+                self.stages["cascade"] = self._stage(
+                    torch.gather(cells, 1, keep), torch.gather(sims, 1, keep))
+
+    def _stage(self, cells, sims, cheap_bank=None, layers=None, iters=None):
+        from text2pos_torch.evaluation.pipeline import _match_results
+
+        pipe = self.pipe
+        if cheap_bank is None:
+            obj = pipe._gather(cells, pipe.fine_bank_enc)
+        else:
+            dt = pipe.fine.superglue.dtype or torch.float32
+            obj = (pipe._gather(cells, cheap_bank[0]).to(dt)
+                   * pipe._gather(cells, cheap_bank[1]).to(dt))
+        ctr = pipe._gather(cells, pipe.fine_bank_centers)
+        B, K = cells.shape
+        out = pipe.fine.match_encoded(
+            obj.flatten(0, 1), self.hint_enc.repeat_interleave(K, dim=0),
+            layers, iters)
+        *_, conf, spread = _match_results(out, ctr)
+        score = conf.float() + self.lam * sims.float() \
+            - self.gam * spread.float()
+        return {"cells": cells, "scores": score, "sims": sims,
+                "Z": out["log_P"].unflatten(0, (B, K)),
+                "offsets": out["offsets"].unflatten(0, (B, K)), "ctr": ctr}
+
+    def row(self, r: int, stage: str) -> dict:
+        st = self.stages[stage]
+        return {"cells": st["cells"][r].cpu().numpy(),
+                "scores": st["scores"][r].cpu().numpy(),
+                "sims": st["sims"][r].float().cpu(),
+                "Z": st["Z"][r].float().cpu(),
+                "offsets": st["offsets"][r].float().cpu(),
+                "ctr": st["ctr"][r].float().cpu()}
+
+
+def wide_explain(fx, got, want, mode, kernels: BatchStages,
+                 plain: BatchStages):
+    """``explain_swaps`` for phase 12: rows where the served ``got``
+    differs from the plain pipeline's ``want``, each with (row, ok, notes)
+    from ``explain_stage`` at WIDE_SWAP_TOL, the plain pipeline's batch
+    standing where phase 4 reads JAX's fixture ("JAX" in the notes)."""
+    pipe, out = kernels.pipe, []
+    for r in np.flatnonzero((got != want).any(1)):
+        r = int(r)
+        if mode == "rerank":
+            p = plain.row(r, "rerank")
+            ok, notes = explain_stage(pipe, fx, got[r], want[r],
+                                      kernels.row(r, "rerank"), p["cells"],
+                                      p["scores"], tol=WIDE_SWAP_TOL)
+            out.append((r, ok, notes))
+            continue
+        kc, pc = kernels.row(r, "cheap"), plain.row(r, "cheap")
+        kept = [int(c) for c in kernels.row(r, "cascade")["cells"]]
+        pf = plain.row(r, "cascade")
+        pkept = [int(c) for c in pf["cells"]]
+        ok, notes, excused = True, [], frozenset()
+        if set(kept) != set(pkept):
+            ok, notes = explain_stage(pipe, fx, kept, pkept, kc, pc["cells"],
+                                      pc["scores"], tol=WIDE_SWAP_TOL)
+            notes = [f"cheap pass: {n}" for n in notes]
+            excused = frozenset(kept) ^ frozenset(pkept)
+        ok2, notes2 = explain_stage(pipe, fx, got[r], want[r],
+                                    kernels.row(r, "cascade"), pkept,
+                                    pf["scores"], excused, tol=WIDE_SWAP_TOL)
+        out.append((r, ok and ok2,
+                    notes + [f"full pass: {n}" for n in notes2]))
+    return out
+
+
+def wide_models(pipe, dtype, seed=WIDE_SEED, coarse_opts=None,
+                fine_opts=None):
+    """Coarse and fine models at embed_dim 300 on the card, the bench
+    vocabularies, weights from ``init_parameters`` with seeds ``seed`` and
+    ``seed + 1``; the fine one uncalibrated (batch statistics, two
+    statistics rows a GNN BN)."""
+    from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
+    from text2pos_torch.models.matcher import SuperGlueMatch
+    from text2pos_torch.train.state import init_parameters
+
+    rows = lambda m: m.language_encoder.word_embedding.weight.shape[0]
+    coarse = CellRetrievalNetwork(rows(pipe.coarse), WIDE_E, dtype=dtype,
+                                  **(coarse_opts or {}))
+    fine = SuperGlueMatch(rows(pipe.fine), WIDE_E, num_layers=6,
+                          sinkhorn_iters=50, dtype=dtype, stat_groups=2,
+                          eval_batch_stats=True, **(fine_opts or {}))
+    return (init_parameters(coarse, seed).to(pipe.device),
+            init_parameters(fine, seed + 1).to(pipe.device))
+
+
+def wide_pipeline(pipe, bank, fx, dtype, pad=16, **opts):
+    """A calibrated serving pipeline of ``wide_models`` on the bench map:
+    the DB encode (launches read), then ``calibrated_for_serving`` on the
+    2048 queries' hints and the model's own top-10 cells, 128 cells.
+    Returns (pipeline, DB-encode launches, DB-encode s, calibration s)."""
+    from text2pos_torch.config import ServeConfig
+    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+    from text2pos_torch.ops import _build
+    from text2pos_torch.ops.retrieval import topk_retrieval
+
+    coarse, fine = wide_models(pipe, dtype, **opts)
+    base = LocalizationPipeline(coarse, fine, pipe.vocab, pipe.fine_vocab,
+                                cfg=ServeConfig(pad_size=pad))
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cell_enc = base.encode_database(bank)[0]
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    db_launches = dict(_build.LAUNCHES)
+    base = base.with_database(cell_enc, None, None)
+    with torch.inference_mode():
+        cal_idx = topk_retrieval(base.coarse.encode_text(
+            torch.as_tensor(fx["tokens"], device=pipe.device),
+            torch.as_tensor(fx["lengths"], device=pipe.device)), cell_enc,
+            TOP_K)[1]
+    t0 = time.perf_counter()
+    cal = base.calibrated_for_serving(bank, fx["hint_tokens"],
+                                      fx["hint_lengths"], cal_idx,
+                                      max_cells=128)
+    torch.cuda.synchronize()
+    return cal, db_launches, enc_s, time.perf_counter() - t0
+
+
+def headline_swaps(pipe, fx, got, want):
+    """Rows where the headline ``got`` differs from the plain pipeline's
+    ``want``, each with (row, ok, notes): the headline's order is the coarse
+    retrieval's, so a differing row passes only where the plain pipeline's
+    similarities of the candidates at the differing positions are within
+    SWAP_REL_TOL of each other."""
+    from text2pos_torch.ops.retrieval import topk_retrieval
+
+    out = []
+    for r in np.flatnonzero((got != want).any(1)):
+        r = int(r)
+        with torch.inference_mode(), plain_kernels():
+            q = [torch.as_tensor(fx[k][r:r + 1], device=pipe.device)
+                 for k in ("tokens", "lengths")]
+            sims, cells = topk_retrieval(pipe.coarse.encode_text(*q),
+                                         pipe.cell_enc, pipe.cell_enc.shape[0])
+        sim = dict(zip(cells[0].tolist(), sims[0].float().tolist()))
+        notes, ok = [], True
+        for a, b in zip(got[r], want[r]):
+            if a != b:
+                gap = abs(sim[int(a)] - sim[int(b)]) / max(
+                    abs(sim[int(a)]), abs(sim[int(b)]), 1e-30)
+                notes.append(f"{int(a)} for {int(b)}: the plain pipeline's "
+                             f"similarities differ by {gap:.3e} relative")
+                ok = ok and gap < SWAP_REL_TOL
+        out.append((r, ok, notes))
+    return out
+
+
+def wide_serving(pipe_bf16, bank, fx, failures):
+    """12.2-12.3: serving at embed_dim 300 (headline q/s in bf16 and f32,
+    launches, f32 headline, rerank@128 and cascade against the plain
+    pipeline), then the fine model at pad_size 24. Returns (report,
+    {path: launches}, the f32 and bf16 pipelines)."""
+    from text2pos_torch.evaluation.metrics import served_accuracies
+    from text2pos_torch.evaluation.pipeline import quantize_fine_bank
+    from text2pos_torch.ops import _build
+
+    report, by_path, pipes = {}, {}, {}
+    rk, lam, gam = fx["rerank"]
+    rr = (int(rk), float(lam), float(gam))
+    crk, cm, cL, cS, clam, cgam = fx["cascade"]
+    casc = (int(crk), float(clam), float(cgam), int(cm), int(cL), int(cS))
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        pipe, db, enc_s, cal_s = wide_pipeline(pipe_bf16, bank, fx, dtype)
+        pipes[label] = pipe
+        serve_all(pipe, fx, TOP_K)                              # warm-up
+        _build.LAUNCHES.clear()
+        ti, po, _ = serve_all(pipe, fx, TOP_K)
+        launches = dict(_build.LAUNCHES)
+        by_path[f"wide_serve_{label}"] = launches
+        by_path[f"wide_db_encode_{label}"] = db
+        ti, po, sec = serve_all(pipe, fx, TOP_K, reps=5)
+        accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
+        log(f"  12.2 E={WIDE_E} {label}: DB encode {enc_s:.3f} s (launches "
+            f"{db}), calibration {cal_s:.3f} s; headline {len(ti)} queries x "
+            f"top-{TOP_K} in {sec * 1e3:.2f} ms = {len(ti) / sec:.1f} q/s; "
+            f"top-10@15m {accs[TOP_K][15]:.4f} (random weights); launches "
+            f"of one batch {launches}")
+        report[f"headline_{label}"] = {"ms": sec * 1e3,
+                                       "qps": len(ti) / sec,
+                                       "launches": launches,
+                                       "db_encode_s": enc_s,
+                                       "calibrate_s": cal_s}
+        if not np.isfinite(po).all() or ti.shape != (len(fx["tokens"]),
+                                                     TOP_K):
+            failures.append(f"wide serve {label}: malformed output")
+        want = {"lstm": 2, "superglue_gnn_any": 1, "sinkhorn": 1}
+        if any(launches.get(k, 0) != n for k, n in want.items()) or \
+                launches.get("superglue_gnn", 0):
+            failures.append(f"wide serve {label}: launches {launches}, "
+                            f"want {want} and no tuned GNN launch")
+    pipe = pipes["f32"]
+    cheap = quantize_fine_bank(pipe.fine_bank_enc)
+    cheap4 = (*cheap, casc[4], casc[5])
+    kst = BatchStages(pipe, fx, cheap4)
+    with plain_kernels():
+        pst = BatchStages(pipe, fx, cheap4)
+    modes = (("headline", (), {}), ("rerank", rr, {}),
+             ("cascade", casc, dict(cheap_bank=cheap[0],
+                                    cheap_scale=cheap[1])))
+    for mode, args, kw in modes:
+        ti, po, sec = serve_all(pipe, fx, TOP_K, *args, **kw)
+        with plain_kernels():
+            pti, ppo, psec = serve_all(pipe, fx, TOP_K, *args, **kw)
+        swaps = (headline_swaps(pipe, fx, ti, pti) if mode == "headline"
+                 else wide_explain(fx, ti, pti, mode, kst, pst))
+        log(f"  12.3 f32 {mode} at E={WIDE_E}: kernels {sec * 1e3:.1f} ms, "
+            f"plain versions {psec * 1e3:.1f} ms; positions max difference "
+            f"{float(np.abs(po - ppo).max()):.3e}")
+        report_swaps(f"wide f32 {mode} (\"JAX\" in the notes: the plain "
+                     "versions)", swaps, len(ti), failures,
+                     "the plain versions'")
+        report[f"f32_{mode}"] = {"ms": sec * 1e3, "plain_ms": psec * 1e3,
+                                 "rows_differing": len(swaps)}
+    pipe24, db24, _, _ = wide_pipeline(pipe_bf16, bank, fx, None, pad=24)
+    serve_all(pipe24, fx, TOP_K)
+    _build.LAUNCHES.clear()
+    ti, po, sec = serve_all(pipe24, fx, TOP_K)
+    by_path["wide_serve_pad24_f32"] = launches = dict(_build.LAUNCHES)
+    with plain_kernels():
+        pti, ppo, _ = serve_all(pipe24, fx, TOP_K)
+    log(f"  12.3 f32 headline at E={WIDE_E}, pad_size 24: {sec * 1e3:.1f} "
+        f"ms; launches {launches}; positions max difference from the plain "
+        f"versions {float(np.abs(po - ppo).max()):.3e}")
+    report_swaps("wide f32 headline, pad_size 24",
+                 headline_swaps(pipe24, fx, ti, pti), len(ti), failures,
+                 "the plain versions'")
+    if launches.get("superglue_gnn_any", 0) != 1:
+        failures.append(f"wide serve pad_size 24: launches {launches}")
+    report["pad24_ms"] = sec * 1e3
+    return report, by_path, pipes
+
+
+def wide_kernel_checks(pipes, fx, failures):
+    """12.1: the kernels on the E=300 serving path's inputs (``lstm_checks``
+    and ``gnn_sinkhorn_checks`` on the wide pipelines), then at the other
+    phase-12 shapes on random inputs from seeds: the LSTM at WIDE_LSTM
+    beside cuDNN, the GNN at WIDE_GNN in bf16 and f32, FPS at WIDE_FPS."""
+    from text2pos_torch.ops.fps import (_fps_kernel,
+                                        farthest_point_sampling_plain)
+    from text2pos_torch.ops.lstm import _lstm_kernel, lstm_final_hidden_plain
+    from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
+                                                  gnn_scores_plain,
+                                                  pack_gnn_params,
+                                                  random_folded_params)
+
+    dev = torch.device("cuda")
+    out = {"lstm": lstm_checks(pipes["bf16"], fx, failures),
+           "gnn": gnn_sinkhorn_checks(pipes["bf16"], pipes["f32"], fx,
+                                      failures),
+           "lstm_widths": [], "gnn_shapes": [], "fps_widths": []}
+    tokens = torch.as_tensor(fx["tokens"], device=dev)
+    lengths = torch.as_tensor(fx["lengths"], device=dev)
+    B, T = tokens.shape
+    V = int(tokens.max()) + 1
+    g = torch.Generator(device=dev).manual_seed(12)
+    for H in WIDE_LSTM:
+        tables = [torch.randn(V, 4 * H, device=dev, generator=g) * 0.3
+                  for _ in range(2)]
+        w_hh = [(torch.rand(H, 4 * H, device=dev, generator=g) * 2 - 1)
+                / math.sqrt(H) for _ in range(2)]
+        with torch.inference_mode():
+            got = _lstm_kernel(tables, w_hh, tokens, lengths)
+            want = lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(f"12.1 lstm T={T} B={B} H={H} V={V} (random weights)", err,
+                  TOL["lstm"], failures)
+            ms = cuda_ms(lambda: _lstm_kernel(tables, w_hh, tokens, lengths))
+            plain_ms = cuda_ms(lambda: lstm_final_hidden_plain(
+                tables, w_hh, tokens, lengths), reps=3, warmup=1)
+            x = torch.randn(B, T, H, device=dev, generator=g)
+            lib = torch.nn.LSTM(H, H, bidirectional=True).to(dev)
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x.transpose(0, 1), lengths.clamp(1, T).cpu(),
+                enforce_sorted=False)
+            lib_ms = cuda_ms(lambda: lib(packed))
+        steps = float(lengths.clamp(0, T).sum())
+        flops = 2 * 2.0 * steps * H * 4 * H
+        nbytes = 4.0 * (B * T + B + 2 * V * 4 * H + 2 * H * 4 * H + 2 * B * H)
+        bnd, by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
+        log(f"  12.1 lstm H={H}: kernel {ms:.3f} ms, bound {bnd:.4f} ms "
+            f"({by}), plain {plain_ms:.3f} ms, cuDNN nn.LSTM "
+            f"(bidirectional, packed, E=H, projections included) "
+            f"{lib_ms:.3f} ms")
+        out["lstm_widths"].append({"H": H, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bnd, "bound_by": by,
+                                   "library_ms": lib_ms, "max_abs_err": err})
+    for E, T0, T1 in WIDE_GNN:
+        N = WIDE_GNN_PAIRS
+        d0 = torch.nn.functional.normalize(torch.randn(
+            N, T0, E, device=dev, generator=g), dim=-1)
+        d1 = torch.nn.functional.normalize(torch.randn(
+            N, T1, E, device=dev, generator=g), dim=-1)
+        row = {"E": E, "T0": T0, "T1": T1, "N": N}
+        for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            packed = pack_gnn_params(random_folded_params(
+                WIDE_GNN_BLOCKS, seed=E + T0, width=E), dt, dev)
+            with torch.inference_mode():
+                got = _gnn_kernel(d0, d1, packed)
+                want = gnn_scores_plain(d0, d1, packed)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                scale = float(want.abs().max())
+                check(f"12.1 superglue_gnn_any {label} N={N} {T0}x{T1} E={E} "
+                      f"blocks={WIDE_GNN_BLOCKS} (random weights; |scores| "
+                      f"max {scale:.2f})", err, GNN_REL_TOL[label] * scale,
+                      failures)
+                ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
+                plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
+                                   reps=3, warmup=1)
+            bnd, by, tflop = gnn_bound(d0, d1, packed, label)
+            log(f"  12.1 superglue_gnn_any {label} E={E} T0={T0} T1={T1}: "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bnd:.4f} ms ({by}, {tflop:.3f} TFLOP)")
+            row[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                          "bound_by": by, "max_abs_err": err}
+        out["gnn_shapes"].append(row)
+    for N in WIDE_FPS:
+        Bo, S = WIDE_FPS_OBJECTS, N // 2
+        base = torch.randn(Bo, 200, 3, device=dev, generator=g)
+        pick = torch.randint(0, 200, (Bo, N), device=dev, generator=g)
+        pos = torch.gather(base, 1, pick[..., None].expand(Bo, N, 3))
+        with torch.inference_mode():
+            idx, cent = _fps_kernel(pos, S)
+            widx, wcent = farthest_point_sampling_plain(pos, S)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: _fps_kernel(pos, S), reps=10)
+            plain_ms = cuda_ms(lambda: farthest_point_sampling_plain(pos, S),
+                               reps=2, warmup=1)
+        same = int((idx == widx).all(-1).sum())
+        err = max_err(cent, wcent)
+        ok = same == Bo and err == 0.0
+        bnd, by = bound_ms([(8.0 * Bo * N * (S - 1), PEAK_F32)],
+                           4.0 * 3 * Bo * N + (8 + 12) * Bo * S)
+        log(f"  12.1 fps B={Bo} N={N} S={S}: {same}/{Bo} objects with "
+            f"bit-identical indices, centroid max abs err {err:.1e} "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms = "
+            f"{1e3 * ms / (S - 1):.3f} us per dependent step, plain "
+            f"{plain_ms:.1f} ms, bound {bnd:.5f} ms ({by})")
+        if not ok:
+            failures.append(f"12.1 fps N={N}: {Bo - same} objects differ")
+        out["fps_widths"].append({"N": N, "B": Bo, "S": S, "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bnd,
+                                  "bound_by": by, "max_abs_err": err})
+    return out
+
+
+def wide_train_checks(train, vocab, failures):
+    """12.4: one f32 step of each stage at embed_dim 300 (phase 7's step
+    batches, weights from ``init_parameters``), its kernels against the same
+    step with ``plain_kernels`` on the kernel step's piecewise choices, at
+    phase 7's limits; the launches of the kernel step."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.coarse import CoarseTrainer
+    from text2pos_torch.train.fine import FineTrainer
+    from text2pos_torch.utils.float64 import Decisions
+
+    report, launches = {}, {}
+    for stage, cls in (("coarse", CoarseTrainer), ("fine", FineTrainer)):
+        cfg = TrainConfig(**dict(TRAIN_RECIPE[stage], embed_dim=WIDE_E,
+                                 batch_size=STEP_BATCH[stage],
+                                 device="cuda"))
+        batch = next(stage_loader(stage, train, vocab,
+                                  STEP_BATCH[stage]).epoch(seed=1))
+        rng = np.random.default_rng(3)
+        draws = host_draws(stage, batch, rng)
+        steps = []
+        decisions = Decisions()
+        for plain in (False, True):
+            trainer = cls(cfg, vocab)
+            state = trainer.init_state(1)
+            if plain:
+                with plain_kernels(), decisions.replay():
+                    steps.append(step_grads(stage, trainer, state, batch,
+                                            draws))
+            else:
+                _build.LAUNCHES.clear()
+                with decisions.record():
+                    steps.append(step_grads(stage, trainer, state, batch,
+                                            draws))
+                torch.cuda.synchronize()
+                launches[f"wide_train_{stage}"] = dict(_build.LAUNCHES)
+        c = compare_steps(summary(steps[0]), summary(steps[1]))
+        log(f"  12.4 train {stage} E={WIDE_E} batch {STEP_BATCH[stage]}: "
+            f"loss {steps[0][0]:.6f}, plain versions {steps[1][0]:.6f}; "
+            f"launches {launches[f'wide_train_{stage}']}; the plain step "
+            f"would have chosen otherwise at {decisions.flips} entries "
+            f"(margin {decisions.margin:.2e})")
+        gate_step(stage, f"E={WIDE_E}, the kernels' step vs the plain "
+                  "versions' on its choices", c, failures)
+        want = ("lstm", "fps") + (("sinkhorn",) if stage == "fine" else ())
+        if any(launches[f"wide_train_{stage}"].get(k, 0) < 1 for k in want):
+            failures.append(f"12.4 train {stage}: a kernel of {want} did "
+                            "not launch")
+        report[stage] = dict(c, flips=decisions.flips)
+    return report, launches
+
+
+def variant_checks(pipe_bf16, bank, fx, train, vocab, failures):
+    """12.5: one f32 training step of each variant of the object encoder
+    (VARIANTS; finite loss and gradients, the id embeddings trained), then
+    a class-embedding model's DB encode, calibration and headline serve:
+    no PointConv and no FPS launch, finite outputs."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.coarse import CoarseTrainer
+    from text2pos_torch.train.fine import FineTrainer
+
+    report, launches = {}, {}
+    for stage, variants in VARIANTS.items():
+        cls = CoarseTrainer if stage == "coarse" else FineTrainer
+        batch = next(stage_loader(stage, train, vocab,
+                                  STEP_BATCH[stage]).epoch(seed=2))
+        draws = host_draws(stage, batch, np.random.default_rng(4))
+        for name, opts in variants.items():
+            cfg = TrainConfig(**dict(TRAIN_RECIPE[stage],
+                                     batch_size=STEP_BATCH[stage],
+                                     device="cuda", **opts))
+            trainer = cls(cfg, vocab)
+            state = trainer.init_state(1)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            loss, grads, _ = step_grads(stage, trainer, state, batch, draws)
+            state.apply_gradients()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            finite = math.isfinite(loss) and all(
+                np.isfinite(np.asarray(v)).all() for v in grads.values())
+            emb = [k for k in grads if "_embedding/" in k and
+                   "word_embedding" not in k]
+            moved = all(float(np.abs(grads[k]).sum()) > 0 for k in emb)
+            ok = finite and moved
+            log(f"  12.5 {stage} variant {name}: a step in {ms:.1f} ms, loss "
+                f"{loss:.6f}, launches {dict(_build.LAUNCHES)}; finite "
+                f"{finite}, id embeddings {emb or 'none'} with gradient "
+                f"{moved} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"12.5 {stage} variant {name}: loss {loss}, "
+                                f"finite {finite}, embeddings moved {moved}")
+            report[f"{stage} {name}"] = {"loss": loss, "ms": ms}
+    opts = dict(coarse_opts=dict(class_embed=True),
+                fine_opts=dict(class_embed=True))
+    pipe, db, enc_s, cal_s = wide_pipeline(pipe_bf16, bank, fx,
+                                           torch.bfloat16, **opts)
+    launches["variant_db_encode"] = db
+    serve_all(pipe, fx, TOP_K)
+    _build.LAUNCHES.clear()
+    ti, po, sec = serve_all(pipe, fx, TOP_K)
+    launches["variant_serve"] = dict(_build.LAUNCHES)
+    ok = (db.get("pointconv", 0) == 0 and db.get("fps", 0) == 0
+          and np.isfinite(po).all() and launches["variant_serve"].get(
+              "superglue_gnn_any", 0) == 1)
+    log(f"  12.5 class_embed model (E={WIDE_E}, bf16): DB encode {enc_s:.3f} "
+        f"s with launches {db} (no PointConv, no FPS), calibration "
+        f"{cal_s:.3f} s, headline {sec * 1e3:.2f} ms with launches "
+        f"{launches['variant_serve']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"12.5 class_embed model: DB-encode launches {db}, "
+                        f"serve {launches['variant_serve']}")
+    report["class_embed_serve_ms"] = sec * 1e3
+    return report, launches
+
+
+def widths_phase(pipe_bf16, bank, fx, failures):
+    """Phase 12: JAX's default widths and the variants. Returns
+    ({path: launches}, the kernel readings, the report)."""
+    train, _, vocab = train_data()
+    report, by_path, pipes = wide_serving(pipe_bf16, bank, fx, failures)
+    kernels = wide_kernel_checks(pipes, fx, failures)
+    report["train"], launches = wide_train_checks(train, vocab, failures)
+    by_path.update(launches)
+    report["variants"], launches = variant_checks(pipe_bf16, bank, fx, train,
+                                                  vocab, failures)
+    by_path.update(launches)
+    return by_path, kernels, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4023,6 +4643,16 @@ def main() -> int:
     log(f"  phase 10 took {time.time() - t0:.1f} s; "
         f"{json.dumps(dp_report)}")
 
+    log("phase 12 JAX's default widths and the variants")
+    t0 = time.time()
+    wide_paths, wide, wide_report = widths_phase(pipe_bf16, bank, fx,
+                                                 failures)
+    by_path.update(wide_paths)
+    launches["superglue_gnn_any"] = wide_paths["wide_serve_bf16"].get(
+        "superglue_gnn_any", 0)
+    log(f"  phase 12 took {time.time() - t0:.1f} s; "
+        f"{json.dumps(wide_report, default=float)}")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -4034,8 +4664,15 @@ def main() -> int:
     lstm = dict(lstm, train_function={
         k[5:]: v for k, v in fn.items() if k.startswith("lstm_")})
     sinkhorn = dict(sinkhorn, train_function=fn.get("sinkhorn_fine"))
+    lstm["widths"] = {"path_E300": wide["lstm"],
+                      "random": wide["lstm_widths"]}
+    fps["widths"] = wide["fps_widths"]
+    gnn_any = dict(wide["gnn"]["bf16"], f32=wide["gnn"]["f32"],
+                   widths=wide["gnn_shapes"],
+                   sinkhorn_E300=wide["gnn"]["sinkhorn"])
     per_kernel = {"lstm": lstm, "sinkhorn": sinkhorn,
-                  "superglue_gnn": gnn, "pointconv": pointconv, "fps": fps}
+                  "superglue_gnn": gnn, "superglue_gnn_any": gnn_any,
+                  "pointconv": pointconv, "fps": fps}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,

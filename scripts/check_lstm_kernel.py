@@ -63,12 +63,13 @@ def build_variants():
 
 def launcher(lib, tables, w_hh, tokens, lengths, out):
     fn = lib.t2p_lstm_final_hidden
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     V, H4 = tables[0].shape
     B, T = tokens.shape
-    args = [t.data_ptr() for t in (*tables, *w_hh, tokens, lengths, out)]
+    args = [t.data_ptr() for t in (*tables, *w_hh)] + [None, None] \
+        + [t.data_ptr() for t in (tokens, lengths, out)]
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():

@@ -41,6 +41,12 @@ def _draws(key, n, pad, P):
 def tiny(synthetic_data, tmp_path_factory):
     """JAX's uncalibrated pipeline and inputs, the port's pipeline from the
     same checkpoints (f32, CPU) with JAX's cell encodings."""
+    return make_tiny(synthetic_data, tmp_path_factory.mktemp("cal"), TINY)
+
+
+def make_tiny(synthetic_data, d, config):
+    """``tiny``'s pipelines and inputs at the configuration ``config``
+    (``TrainConfig`` fields), checkpoints written under ``d``."""
     from text2pos_tpu.data.loaders import CoarseLoader, FineLoader
     from text2pos_tpu.evaluation.pipeline import LocalizationPipeline as JP
     from text2pos_tpu.ops.retrieval import topk_retrieval
@@ -49,7 +55,7 @@ def tiny(synthetic_data, tmp_path_factory):
     from text2pos_tpu.train.state import save_checkpoint
 
     cells, poses = synthetic_data
-    cfg = TrainConfig(**TINY)
+    cfg = TrainConfig(**config)
     vocab = Vocabulary(build_vocabulary(
         [create_hint_description(p) for p in poses]))
     rng = jax.random.PRNGKey(0)
@@ -63,7 +69,6 @@ def tiny(synthetic_data, tmp_path_factory):
                     cfg.max_hint_len)
     ft = FineTrainer(cfg, vocab)
     fstate = ft.init_state(next(fl.epoch(seed=0)), rng, 1)
-    d = tmp_path_factory.mktemp("cal")
     pc, pf = str(d / "coarse.msgpack"), str(d / "fine.msgpack")
     save_checkpoint(pc, cstate, extra={
         "known_words": vocab.known_words, "embed_dim": cfg.embed_dim,

@@ -82,7 +82,7 @@ def test_wrapper_cpu_path_is_plain_with_a_gather():
 
 
 @pytest.mark.parametrize("shape,S,dtype,err", [
-    ((2, 257, 3), 8, torch.float32, ValueError),    # over the kernel's 256
+    ((2, 1025, 3), 8, torch.float32, ValueError),   # over the kernel's 1024
     ((2, 16, 3), 17, torch.float32, ValueError),    # more samples than points
     ((2, 16, 3), 0, torch.float32, ValueError),
     ((2, 16, 3), 8, torch.float64, TypeError),

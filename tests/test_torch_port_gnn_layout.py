@@ -190,7 +190,9 @@ def test_kernel_wrapper_rejects_other_layouts():
     mixed = dict(packed, wm=packed["wm"].float())
     with pytest.raises(ValueError, match="wm"):
         tgnn._gnn_kernel(d0, d1, mixed)
-    with pytest.raises(ValueError, match="built for"):
+    # Width 64 goes to the second form, which takes it, but not with
+    # weights of width 128.
+    with pytest.raises(ValueError, match="weight wqkv"):
         tgnn._gnn_kernel(torch.zeros(2, T0, 64), torch.zeros(2, T1, 64),
                          packed)
     half = {k: v.half() for k, v in packed.items()}

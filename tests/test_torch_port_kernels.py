@@ -91,13 +91,13 @@ def test_lstm_kernel_generic_path(cuda):
 
 
 def test_lstm_kernel_rejects_unsupported_width(cuda):
-    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 48)
-    with pytest.raises(ValueError):        # H = 48: not a multiple of 32
+    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 0)
+    with pytest.raises(ValueError):        # H = 0
         tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
                                 [w.to(cuda) for w in w_hh], tokens.to(cuda),
                                 lengths.to(cuda))
-    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 288)
-    with pytest.raises(ValueError):        # H = 288: over 256
+    tables, w_hh, tokens, lengths = _lstm_case(3, 2, 544)
+    with pytest.raises(ValueError, match=r"\[1, 512\]"):   # over 512
         tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
                                 [w.to(cuda) for w in w_hh], tokens.to(cuda),
                                 lengths.to(cuda))
@@ -252,8 +252,8 @@ def test_gnn_kernel_layout_constants(cuda):
 def test_gnn_kernel_rejects_bad_input(cuda):
     packed = _packed(torch.bfloat16, cuda)
     d0 = torch.zeros(2, 16, 128, device=cuda)
-    with pytest.raises(ValueError):           # 8 hints: not the kernel's shape
-        tgnn.gnn_scores(d0, torch.zeros(2, 8, 128, device=cuda), packed)
+    with pytest.raises(ValueError, match="T1 <= T0"):   # more hints than
+        tgnn.gnn_scores(d0, torch.zeros(2, 17, 128, device=cuda), packed)
     with pytest.raises(ValueError):           # weights on another device
         tgnn.gnn_scores(d0, torch.zeros(2, 6, 128, device=cuda),
                         {k: v.cpu() for k, v in packed.items()})
@@ -463,7 +463,7 @@ def test_fps_kernel_chains_the_three_levels(cuda):
 
 def test_fps_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):       # more points than the kernel keeps
-        tfps.farthest_point_sampling(torch.zeros(2, 257, 3, device=cuda), 8)
+        tfps.farthest_point_sampling(torch.zeros(2, 1025, 3, device=cuda), 8)
     with pytest.raises(ValueError):       # more samples than points
         tfps.farthest_point_sampling(torch.zeros(2, 16, 3, device=cuda), 17)
     with pytest.raises(TypeError):        # f64 points

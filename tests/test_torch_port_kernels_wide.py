@@ -1,0 +1,184 @@
+"""The kernels at the widths JAX's configurations give, against their plain
+PyTorch versions: the LSTM past 256 units (JAX's default embed_dim 300, up
+to 512), the second GNN form (``csrc/superglue_gnn_any.cu``) at any E a
+multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32, FPS past 256 points.
+
+Imports only torch and numpy, so it also runs on a card machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_port_kernels_wide.py -q
+
+Without a CUDA device every test skips (the kernels have no CPU mode).
+"""
+
+import pytest
+import torch
+
+from text2pos_torch.ops import _build
+from text2pos_torch.ops import fps as tfps
+from text2pos_torch.ops import lstm as tlstm
+from text2pos_torch.ops import superglue_gnn as tgnn
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _launches(name, fn):
+    before = _build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    return out
+
+
+def _lstm_case(T, B, H, V=29, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    tables = [torch.randn(V, 4 * H, generator=g) for _ in range(2)]
+    w_hh = [(torch.rand(H, 4 * H, generator=g) - 0.5) / H ** 0.5
+            for _ in range(2)]
+    tokens = torch.randint(0, V, (B, T), generator=g, dtype=torch.int32)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0], lengths[-1] = 1, T
+    return tables, w_hh, tokens, lengths
+
+
+@pytest.mark.parametrize("T,B,H", [
+    (24, 70, 300),      # JAX's default width: padded to 320, 10 CTAs
+    (9, 33, 384),       # 12 CTAs
+    (12, 40, 512),      # the largest cluster, 16 CTAs
+    (7, 35, 100),       # padded to 128, W_hh on chip
+    (5, 3, 288),        # the first width past the on-chip form
+])
+def test_lstm_kernel_wide_matches_plain(cuda, T, B, H):
+    """Both directions in one launch against the plain version at the
+    unpadded width (f32 on both sides, other summation order)."""
+    tables, w_hh, tokens, lengths = _lstm_case(T, B, H, seed=H)
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    want = tlstm.lstm_final_hidden_plain(*args)
+    assert got.shape == (2, B, H)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_lstm_kernel_wide_generic_path(cuda):
+    """``bilstm_final_hidden`` (x·W_ih + b as a table of T·B rows) at
+    H = 300."""
+    g = torch.Generator().manual_seed(4)
+    B, T, E = 21, 10, 300
+    x = torch.randn(B, T, E, generator=g)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    params = [tlstm.LSTMParams(torch.randn(E, 4 * E, generator=g) / E ** 0.5,
+                               torch.randn(E, 4 * E, generator=g) / E ** 0.5,
+                               torch.randn(4 * E, generator=g))
+              for _ in range(2)]
+    on_card = [tlstm.LSTMParams(*(t.to(cuda) for t in p)) for p in params]
+    want = tlstm.bilstm_final_hidden(x, lengths, *params)
+    got = _launches("lstm", lambda: tlstm.bilstm_final_hidden(
+        x.to(cuda), lengths.to(cuda), *on_card))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+def test_lstm_kernel_wide_clusters_resident(cuda):
+    """The non-portable cluster sizes are accepted: at least one cluster of
+    each form fits on the card."""
+    import ctypes
+    fn = _build.entry("lstm", "t2p_lstm_max_active_clusters",
+                      [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)])
+    for H in (256, 320, 512):
+        n = ctypes.c_int(0)
+        assert fn(H, 2048, ctypes.byref(n)) == 0
+        assert n.value >= 1, H
+
+
+def _packed(E, dtype, device, L):
+    return tgnn.pack_gnn_params(tgnn.random_folded_params(L, width=E), dtype,
+                                device)
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("E,T0,T1,N,L", [
+    (300, 16, 6, 37, 4),         # JAX's default width
+    (128, 24, 6, 9, 4),          # pad_size 24 at the bench width
+    (256, 32, 8, 5, 4),          # the largest rows of the phase-12 shapes
+    (300, 16, 6, 3, 0),          # 0 blocks: the final projection alone
+    (512, 32, 32, 3, 2),         # the largest shape: a global workspace
+    (128, 16, 16, 4, 2),         # T1 = T0
+    (4, 1, 1, 2, 2),             # the smallest
+])
+def test_gnn_any_kernel_matches_plain(cuda, dtype, rel_tol, E, T0, T1, N, L):
+    """Tolerance relative to the largest score, as the tuned kernel's test:
+    both sides sum in f32 in different orders; in bf16 that can move a
+    value by one bf16 step."""
+    packed = _packed(E, dtype, cuda, L)
+    g = torch.Generator().manual_seed(E + T0)
+    d0 = torch.randn(N, T0, E, generator=g).to(cuda)
+    d1 = torch.randn(N, T1, E, generator=g).to(cuda)
+    got = _launches("superglue_gnn_any",
+                    lambda: tgnn.gnn_scores(d0, d1, packed))
+    want = tgnn.gnn_scores_plain(d0, d1, packed)
+    assert got.shape == (N, T0, T1) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel_tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gnn_any_kernel_keeps_exact_ties(cuda, dtype):
+    """Identical hints give bit-identical score columns at E = 300."""
+    packed = _packed(300, dtype, cuda, 2)
+    g = torch.Generator().manual_seed(3)
+    d0 = torch.randn(5, 24, 300, generator=g).to(cuda)
+    d1 = torch.randn(5, 6, 300, generator=g).to(cuda)
+    d1[:, 4] = d1[:, 1]
+    s = tgnn.gnn_scores(d0, d1, packed)
+    torch.testing.assert_close(s[:, :, 4], s[:, :, 1], atol=0, rtol=0)
+
+
+def test_gnn_any_kernel_takes_fragment_ordered_weights(cuda):
+    """At E = 128 bf16 weights come in the tuned kernel's fragment order;
+    at other set sizes the second form unpacks them."""
+    packed = _packed(128, torch.bfloat16, cuda, 2)
+    assert tgnn.fragment_ordered(packed)
+    g = torch.Generator().manual_seed(8)
+    d0 = torch.randn(6, 24, 128, generator=g).to(cuda)
+    d1 = torch.randn(6, 6, 128, generator=g).to(cuda)
+    got = _launches("superglue_gnn_any",
+                    lambda: tgnn.gnn_scores(d0, d1, packed))
+    want = tgnn.gnn_scores_plain(d0, d1, packed)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-2 * float(want.abs().max()))
+
+
+def test_gnn_any_kernel_rejects_bad_input(cuda):
+    packed = _packed(300, torch.float32, cuda, 2)
+    d0 = torch.zeros(2, 16, 300, device=cuda)
+    with pytest.raises(ValueError, match="T1 <= T0"):
+        tgnn.gnn_scores(d0, torch.zeros(2, 17, 300, device=cuda), packed)
+    with pytest.raises(ValueError):            # weights of another width
+        tgnn.gnn_scores(torch.zeros(2, 16, 296, device=cuda),
+                        torch.zeros(2, 6, 296, device=cuda), packed)
+
+
+@pytest.mark.parametrize("N", [1024, 512, 700, 257])
+def test_fps_kernel_wide_bit_equal_to_plain(cuda, N):
+    """Indices and centroids bit for bit past 256 points (12, 16, 24 and
+    32 points a lane), on ties everywhere (duplicated points)."""
+    g = torch.Generator().manual_seed(N)
+    base = torch.randn(9, 60, 3, generator=g)
+    pick = torch.randint(0, 60, (9, N), generator=g)
+    pts = torch.gather(base, 1, pick[..., None].expand(9, N, 3)).to(cuda)
+    for S in (N // 2, N):
+        idx, cent = _launches("fps",
+                              lambda: tfps.farthest_point_sampling(pts, S))
+        widx, wcent = tfps.farthest_point_sampling_plain(pts, S)
+        assert torch.equal(idx, widx)
+        assert torch.equal(cent, wcent)

@@ -228,17 +228,13 @@ def check_eval_ported(cfg: EvalConfig) -> None:
 
 
 def check_ported(cfg: TrainConfig, stage: str) -> None:
-    """Raise ``ValueError`` for the training options the port does not
-    have yet, each naming its ROADMAP item (the model variants, item 7),
-    and for the combinations the data-parallel step does not take;
-    nothing takes another path quietly. ``--fused``, ``--neg_bank``,
-    ``--remat``, ``--rank_weight``, ``--data_parallel`` and
-    ``--global_negatives`` are ported. ``stage`` is "coarse" or "fine"."""
-    def no(flag: str, item: str) -> ValueError:
-        return ValueError(f"{flag} is not ported to text2pos_torch yet "
-                          f"(ROADMAP Queue 1 item {item}); use "
-                          f"text2pos_tpu.train.{stage} for it")
-
+    """Raise ``ValueError`` for the combinations the data-parallel step does
+    not take and for an unknown ``--dtype``; nothing takes another path
+    quietly. ``--fused``, ``--neg_bank``, ``--remat``, ``--rank_weight``,
+    ``--data_parallel``, ``--global_negatives`` and the model variants
+    (``--variation``, ``--class_embed``, ``--color_embed``,
+    ``--use_features``, ``--pointnet_features``) are ported. ``stage`` is
+    "coarse" or "fine"."""
     if cfg.data_parallel > 1 and cfg.fused:
         # JAX asserts the same (train/coarse.py:289, train/fine.py:264).
         raise ValueError("--fused and --data_parallel exclude each other")
@@ -248,14 +244,6 @@ def check_ported(cfg: TrainConfig, stage: str) -> None:
         raise ValueError("--rank_weight > 0 and --data_parallel exclude "
                          "each other (the data-parallel fine step has no "
                          "rank-aware term)")
-    if cfg.variation != 0:
-        raise no("--variation 1 (EdgeConv mean aggregation)", "7")
-    if cfg.class_embed or cfg.color_embed:
-        raise no("--class_embed / --color_embed", "7")
-    if tuple(cfg.use_features) != ("class", "color", "position") \
-            or cfg.pointnet_features != 2:
-        raise no("--use_features other than class color position, and "
-                 "--pointnet_features other than 2", "7")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--dtype {cfg.dtype}: float32 or bfloat16")
 

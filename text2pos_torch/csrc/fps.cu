@@ -17,9 +17,10 @@
 // the normal case (resampling with replacement duplicates points; a padding
 // object has 8 distinct points), and the indices decide every later ball.
 //
-// Design. One warp per object, N <= 256: lane l owns points l, l + 32, ...
-// (P = ceil(N / 32) <= 8 of them), their coordinates and running minima in
-// registers. A step: each lane updates its minima and keeps its own largest
+// Design. One warp per object, N <= 1024: lane l owns points l, l + 32, ...
+// (P of them, a template parameter: ceil(N / 32) up to 8, then rounded up
+// to 12, 16, 24 or 32; slots past N hold -1 and never win), their
+// coordinates and running minima in registers (4·P of them). A step: each lane updates its minima and keeps its own largest
 // in index order (strictly larger replaces, so its first index wins); then
 // redux.sync takes the warp's largest value (distances are >= +0, so their
 // bits order as unsigned integers) and, among the lanes holding it, the
@@ -125,14 +126,15 @@ int launch(const void* points, void* idx, void* cent, int B, int N, int S,
 
 }  // namespace
 
-// Returns a cudaError_t; 0 means the launch was accepted. N in [1, 256],
+// Returns a cudaError_t; 0 means the launch was accepted. N in [1, 1024],
 // S in [1, N], B >= 1.
 extern "C" int t2p_fps(const void* points, void* idx, void* cent, int B, int N,
                        int S, void* stream) {
-  if (B < 1 || N < 1 || N > 256 || S < 1 || S > N)
+  if (B < 1 || N < 1 || N > 1024 || S < 1 || S > N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((N + 31) / 32) {
+  const int p = (N + 31) / 32;
+  switch (p) {
     case 1: return launch<1>(points, idx, cent, B, N, S, st);
     case 2: return launch<2>(points, idx, cent, B, N, S, st);
     case 3: return launch<3>(points, idx, cent, B, N, S, st);
@@ -140,6 +142,10 @@ extern "C" int t2p_fps(const void* points, void* idx, void* cent, int B, int N,
     case 5: return launch<5>(points, idx, cent, B, N, S, st);
     case 6: return launch<6>(points, idx, cent, B, N, S, st);
     case 7: return launch<7>(points, idx, cent, B, N, S, st);
-    default: return launch<8>(points, idx, cent, B, N, S, st);
+    case 8: return launch<8>(points, idx, cent, B, N, S, st);
   }
+  if (p <= 12) return launch<12>(points, idx, cent, B, N, S, st);
+  if (p <= 16) return launch<16>(points, idx, cent, B, N, S, st);
+  if (p <= 24) return launch<24>(points, idx, cent, B, N, S, st);
+  return launch<32>(points, idx, cent, B, N, S, st);
 }

@@ -61,6 +61,20 @@
 // direction visits t = maxlen-1 … 0, which equals the reference's scan over
 // the reversed padded sequence with reversed validity.
 //
+// Widths past 256 (the JAX default embed_dim is 300). The wrapper pads H
+// to Hp = 32·ceil(H/32) with zero gate columns and zero W_hh rows, which
+// keep every padded unit at exactly 0 (g = tanh(0) = 0, so c = 0 and
+// h = σ(0)·tanh(0) = 0) and leave the real units' sums unchanged. Up to
+// Hp = 256 the kernel above runs as it is. From 288 to 512 a cluster has
+// CS = Hp/32 = 9..16 CTAs, above the portable 8 (the launch allows the
+// non-portable size; H100 takes 16), and a CTA's W_hh slice (Hp·512 B,
+// 160 KiB at Hp = 320) no longer fits beside the h buffers at BT = 32. That
+// form (WSMEM = false) reads the slice's A fragments from global memory
+// (L2: both directions' W_hh are 0.8-4 MiB) each step instead, packed by
+// the wrapper in the same fragment order the smem form builds on chip
+// (ops/lstm.py w_hh_fragments), so the step's code is the same; shared
+// memory holds only the h buffers (80 KiB at Hp = 320, 128 at 512).
+//
 // Ablation builds for scripts/check_lstm_kernel.py (wrong results, timing
 // only): -DT2P_LSTM_NO_EXCHANGE sends no h between CTAs,
 // -DT2P_LSTM_NO_PRODUCT skips the recurrent product.
@@ -74,6 +88,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int UNITS = 32;                 // hidden units per CTA
+constexpr int SMEM_MAX_H = 8 * UNITS;     // W_hh slice on chip up to here
+constexpr int MAX_H = 16 * UNITS;         // the largest cluster, 16 CTAs
 constexpr int BT = 32;                    // sequences per cluster tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -81,6 +97,7 @@ constexpr int THREADS = WARPS * 32;
 struct Args {
   const float* table[2];   // per direction [V, 4H] (gate order i, f, g, o)
   const float* whh[2];     // per direction [H, 4H]
+  const float* wpack[2];   // per direction [CS][H/8][2][4][32][4], or null
   const int* tokens;       // [B, T]
   const int* lengths;      // [B]
   float* out;              // [2, B, H]
@@ -129,6 +146,9 @@ __device__ __forceinline__ int hpos(int u) {
   return ((u >> 3) * BT) * 8 + 2 * (u & 3) + ((u >> 2) & 1);
 }
 
+// WSMEM: W_hh's slice in shared memory (H <= 256), else read from the
+// wrapper's fragment-ordered copy in global memory each step.
+template <bool WSMEM>
 __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   __shared__ int len_s[BT];
@@ -147,14 +167,14 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
   const int unit = rank * UNITS + ug * 8 + gid;
 
   float* wf = reinterpret_cast<float*>(smem4);           // [H/8][2][4][32][4]
-  float* hbuf = wf + (size_t)H * UNITS * 4;              // [2][H/8][BT][8]
+  float* hbuf = wf + (WSMEM ? (size_t)H * UNITS * 4 : 0);  // [2][H/8][BT][8]
   const int HB = H * BT;                                  // floats a buffer
 
   const float* whh = dir ? a.whh[1] : a.whh[0];
   // Read in global order (u fastest: coalesced), store in A-fragment order
   // [k/8][mt][u/8][lane][4]: lane = 4·(row & 7) + (k & 3), element
   // 2·((k & 7) >> 2) + (row >> 3), row = 8·(gate & 1) + (u & 7).
-  for (int i = threadIdx.x; i < H * 4 * UNITS; i += THREADS) {
+  for (int i = threadIdx.x; WSMEM && i < H * 4 * UNITS; i += THREADS) {
     const int u = i % UNITS, gate = (i / UNITS) & 3, k = i / (4 * UNITS);
     const int row = 8 * (gate & 1) + (u & 7);
     const int ln = 4 * (row & 7) + (k & 3);
@@ -224,7 +244,10 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
     for (int e = 0; e < 2; ++e) c[nt][e] = h[nt][e] = 0.0f;
   if (maxlen > 0) gather(rev ? maxlen - 1 : 0);
 
-  const float4* wa = reinterpret_cast<const float4*>(wf) + ug * 32 + lane;
+  const float4* wa =
+      (WSMEM ? reinterpret_cast<const float4*>(wf)
+             : reinterpret_cast<const float4*>(a.wpack[dir]) +
+                   (size_t)rank * H * UNITS) + ug * 32 + lane;
   int cur = 0;
   for (int s = 0; s < maxlen; ++s) {
     const int t = rev ? maxlen - 1 - s : s;
@@ -245,12 +268,15 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
 
     const float* hs = hbuf + cur * HB + (sh * 16 + gid) * 8 + 2 * tid;
 #ifndef T2P_LSTM_NO_PRODUCT
-#pragma unroll 4
+    // The global-memory form keeps fewer k-steps in flight: at 4 its
+    // addresses and loads pass the 128 registers that two CTAs an SM allow.
+#pragma unroll(WSMEM ? 4 : 2)
     for (int kk = 0; kk < H / 8; ++kk) {
       unsigned abig[2][4], asml[2][4], bbig[2][2], bsml[2][2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const float4 w = wa[(kk * 2 + mt) * 4 * 32];
+        const float4 w = WSMEM ? wa[(kk * 2 + mt) * 4 * 32]
+                               : __ldg(wa + (kk * 2 + mt) * 4 * 32);
         split(w.x, abig[mt][0], asml[mt][0]);
         split(w.y, abig[mt][1], asml[mt][1]);
         split(w.z, abig[mt][2], asml[mt][2]);
@@ -352,8 +378,22 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
 
 namespace {
 
-// Shared memory a CTA takes at width H: its W_hh slice and two h buffers.
-int smem_bytes(int H) { return H * UNITS * 16 + 2 * H * BT * 4; }
+// Shared memory a CTA takes at width H: its W_hh slice (H <= 256) and two
+// h buffers.
+int smem_bytes(int H) {
+  return (H <= SMEM_MAX_H ? H * UNITS * 16 : 0) + 2 * H * BT * 4;
+}
+
+template <bool WSMEM>
+cudaError_t set_attributes(int H) {
+  cudaError_t e = cudaFuncSetAttribute(
+      lstm_kernel<WSMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(H));
+  if (e == cudaSuccess && H / UNITS > 8)
+    e = cudaFuncSetAttribute(lstm_kernel<WSMEM>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
 
 cudaLaunchConfig_t config(int H, int B, cudaStream_t stream,
                           cudaLaunchAttribute (&attr)[1]) {
@@ -376,28 +416,32 @@ cudaLaunchConfig_t config(int H, int B, cudaStream_t stream,
 
 // How many clusters of the kernel at width H the card holds at once.
 extern "C" int t2p_lstm_max_active_clusters(int H, int B, int* out) {
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(H));
+  if (H < UNITS || H > MAX_H || H % UNITS != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool wsmem = H <= SMEM_MAX_H;
+  cudaError_t e = wsmem ? set_attributes<true>(H) : set_attributes<false>(H);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(H, B, nullptr, attr);
-  return (int)cudaOccupancyMaxActiveClusters(out, lstm_kernel, &cfg);
+  return (int)(wsmem ? cudaOccupancyMaxActiveClusters(out, lstm_kernel<true>, &cfg)
+                     : cudaOccupancyMaxActiveClusters(out, lstm_kernel<false>, &cfg));
 }
 
-// Both directions in one launch. Returns a cudaError_t; 0 means the launch
-// was accepted.
+// Both directions in one launch. H a multiple of 32 in [32, 512]; past 256
+// wpack_f and wpack_b hold W_hh in fragment order (ops/lstm.py). Returns a
+// cudaError_t; 0 means the launch was accepted.
 extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
                                      const void* whh_f, const void* whh_b,
+                                     const void* wpack_f, const void* wpack_b,
                                      const void* tokens, const void* lengths,
                                      void* out, int V, int T, int B, int H,
                                      void* stream) {
-  if (H < UNITS || H > 8 * UNITS || H % UNITS != 0 || T < 1 || B < 1 ||
-      V < 1 || (B + BT - 1) / BT > 65535)
+  const bool wsmem = H <= SMEM_MAX_H;
+  if (H < UNITS || H > MAX_H || H % UNITS != 0 || T < 1 || B < 1 ||
+      V < 1 || (B + BT - 1) / BT > 65535 ||
+      (!wsmem && (wpack_f == nullptr || wpack_b == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(H);
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = wsmem ? set_attributes<true>(H) : set_attributes<false>(H);
   if (e != cudaSuccess) return (int)e;
 
   Args args;
@@ -405,6 +449,8 @@ extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
   args.table[1] = (const float*)table_b;
   args.whh[0] = (const float*)whh_f;
   args.whh[1] = (const float*)whh_b;
+  args.wpack[0] = (const float*)wpack_f;
+  args.wpack[1] = (const float*)wpack_b;
   args.tokens = (const int*)tokens;
   args.lengths = (const int*)lengths;
   args.out = (float*)out;
@@ -415,7 +461,8 @@ extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
 
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(H, B, (cudaStream_t)stream, attr);
-  e = cudaLaunchKernelEx(&cfg, lstm_kernel, args);
+  e = wsmem ? cudaLaunchKernelEx(&cfg, lstm_kernel<true>, args)
+            : cudaLaunchKernelEx(&cfg, lstm_kernel<false>, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

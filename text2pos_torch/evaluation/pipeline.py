@@ -63,14 +63,15 @@ import torch
 from torch.profiler import record_function
 
 from text2pos_torch.config import ServeConfig, TrainConfig
-from text2pos_torch.data.dense import CellBank
+from text2pos_torch.constants import PAD_LABEL
+from text2pos_torch.data.dense import CellBank, class_index
 from text2pos_torch.data.hints import Vocabulary, create_hint_description
 from text2pos_torch.device import resolve_device
 from text2pos_torch.evaluation.metrics import calc_accuracies
 from text2pos_torch.models.blocks import calibrating, set_eval_batch_stats
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
 from text2pos_torch.models.matcher import SuperGlueMatch, get_pos_in_cell
-from text2pos_torch.models.object_encoder import FEATURES
+from text2pos_torch.models.object_encoder import FEATURES, ID_KEYS
 from text2pos_torch.ops.retrieval import topk_retrieval
 from text2pos_torch.ops.superglue_gnn import widen_gnn_stats
 from text2pos_torch.ops.transforms import prepare_object_points, sum_points
@@ -86,7 +87,9 @@ PAD_POINTS = 8          # points of a padding object, uniform in [0, 0.001)³
 DB_CHUNK = 64           # cells per DB-encode step (precompute_fine_bank's)
 Draws = Tuple[torch.Tensor, torch.Tensor]   # (u, pad_pts) of fine_cell_points
 BANK_FIELDS = ("points_xyz", "points_rgb", "point_count", "centers", "colors",
-               "mask")
+               "mask", "class_idx", "color_idx")
+PAD_CLASS_IDX = class_index(PAD_LABEL)  # a padding object's ids: class "pad",
+PAD_COLOR_IDX = 5                       # colour "black" (zero RGB), as JAX's
 # JAX leaves that encoding never reads (PointNet's class and colour heads).
 _UNREAD = ("class_classifier", "color_classifier")
 
@@ -119,7 +122,7 @@ def _pad_filled_cell_tensors(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
     objects: ``PAD_POINTS`` points ``pad_pts`` [n, pad, 8, 3], black, their
     centre the points' mean."""
     xyz, rgb, count, centers, colors, mask = (
-        bt[k][idx][:, :pad] for k in BANK_FIELDS)
+        bt[k][idx][:, :pad] for k in BANK_FIELDS[:6])
     pad_xyz = torch.zeros_like(xyz)
     pad_xyz[:, :, :PAD_POINTS] = pad_pts
     m4 = mask[:, :, None, None]
@@ -156,6 +159,40 @@ def fine_cell_points(bt: Dict[str, torch.Tensor], idx: torch.Tensor,
     return xyz, rgb, centers, colors
 
 
+def checkpoint_encoder_options(params: Dict, extra: Dict) -> Dict:
+    """The object encoder's options of a checkpoint: ``use_features`` from
+    its ``extra`` (as JAX's ``build_pipeline_from_checkpoints`` reads it),
+    and what its parameter tree shows, which JAX's extras do not hold: an
+    id embedding (``class_embedding``, ``color_embedding``) and the width
+    ``mlp_pointnet`` reads (``pointnet_features`` 0, 1, 2: 1024, 512,
+    256)."""
+    oe = params["object_encoder"]
+    out = dict(use_features=tuple(extra.get("use_features", FEATURES)),
+               class_embed="class_embedding" in oe,
+               color_embed="color_embedding" in oe)
+    if "mlp_pointnet" in oe:
+        width = np.shape(oe["mlp_pointnet"]["dense_0"]["kernel"])[0]
+        out["pointnet_features"] = {1024: 0, 512: 1, 256: 2}[width]
+    return out
+
+
+def cell_ids(encoder, bt: Dict[str, torch.Tensor], idx: torch.Tensor,
+             pad: Optional[int] = None) -> Dict[str, Optional[torch.Tensor]]:
+    """``class_idx`` and ``color_idx`` of cells ``idx`` for ``encoder``'s
+    id-embedding variants (None for the others, which read none): the fine
+    tower's [n, pad] with empty slots the padding object's ids (``pad``
+    given), or the coarse tower's valid objects in ``coarse_cell_points``'
+    order."""
+    if not encoder.needs_ids:
+        return dict.fromkeys(ID_KEYS)
+    if pad is None:
+        cell, slot = bt["mask"][idx].nonzero(as_tuple=True)
+        return {k: bt[k][idx[cell], slot] for k in ID_KEYS}
+    mask = bt["mask"][idx][:, :pad]
+    return {k: torch.where(mask, bt[k][idx][:, :pad], fill)
+            for k, fill in zip(ID_KEYS, (PAD_CLASS_IDX, PAD_COLOR_IDX))}
+
+
 def encode_fine_cells(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
                       idx: torch.Tensor, pad: int,
                       generator: Optional[torch.Generator] = None,
@@ -170,7 +207,9 @@ def encode_fine_cells(fine: SuperGlueMatch, bt: Dict[str, torch.Tensor],
     xyz, rgb, centers, colors = fine_cell_points(bt, idx, pad, generator, u,
                                                  pad_pts, num_points,
                                                  no_pc_augment)
-    enc = fine.encode_cell_objects(xyz, rgb, centers, colors)
+    enc = fine.encode_cell_objects(
+        xyz, rgb, centers, colors,
+        **cell_ids(fine.object_encoder, bt, idx, pad))
     return enc, centers[..., 0:2]
 
 
@@ -205,7 +244,7 @@ def encode_coarse_cells(coarse: CellRetrievalNetwork,
     draws as in ``coarse_cell_points``."""
     return coarse.encode_objects(
         *coarse_cell_points(bt, idx, generator, u, num_points), len(idx),
-        bt["mask"].shape[1])
+        bt["mask"].shape[1], **cell_ids(coarse.object_encoder, bt, idx))
 
 
 def _db_chunks(bt: Dict[str, torch.Tensor]):
@@ -397,21 +436,18 @@ class LocalizationPipeline:
             return params["language_encoder"]["word_embedding"][
                 "embedding"].shape[0]
 
-        for path, x in ((coarse, cx), (fine, fx)):
-            if tuple(x.get("use_features", FEATURES)) != FEATURES:
-                raise ValueError(f"{path}: use_features "
-                                 f"{x['use_features']} (the port runs "
-                                 f"{FEATURES})")
         coarse_model = CellRetrievalNetwork(
             vocab_rows(cp["params"]), cx.get("embed_dim", 256),
-            dtype=_DTYPES[dtype])
+            dtype=_DTYPES[dtype], variation=cx.get("variation", 0),
+            **checkpoint_encoder_options(cp["params"], cx))
         _check_unread(load_jax_params(coarse_model, cp["params"],
                                       cp["batch_stats"]), coarse)
         fine_model = SuperGlueMatch(
             vocab_rows(fp["params"]), fx.get("embed_dim", 128),
             num_layers=fx.get("num_layers", 6),
             sinkhorn_iters=fx.get("sinkhorn_iters", 50),
-            dtype=_DTYPES[dtype], stat_groups=2, eval_batch_stats=True)
+            dtype=_DTYPES[dtype], stat_groups=2, eval_batch_stats=True,
+            **checkpoint_encoder_options(fp["params"], fx))
         widen_gnn_stats(fp["batch_stats"]["superglue"]["gnn"])
         _check_unread(load_jax_params(fine_model, fp["params"],
                                       fp["batch_stats"]), fine)
@@ -494,7 +530,8 @@ class LocalizationPipeline:
         points = fine_cell_points(bt, sample, cfg.pad_size, gen, u, pad_pts,
                                   cfg.pointnet_numpoints)
         with calibrating(fine.object_encoder):
-            fine.encode_cell_objects(*points)
+            fine.encode_cell_objects(*points, **cell_ids(
+                fine.object_encoder, bt, sample, cfg.pad_size))
 
         set_eval_batch_stats(fine, False)
         fb_enc, fb_ctr = encode_all_fine(fine, bt, cfg.pad_size, gen,
@@ -833,7 +870,9 @@ class LocalizationPipeline:
             cfg.pointnet_numpoints, cfg.no_pc_augment)
         out = self.fine(hint_tokens.repeat_interleave(K, dim=0),
                         hint_lengths.repeat_interleave(K, dim=0), xyz, rgb,
-                        centers, colors, train=False)
+                        centers, colors, train=False, **cell_ids(
+                            self.fine.object_encoder, bt, top_idx.reshape(-1),
+                            cfg.pad_size))
         return _match_results(out, centers[..., 0:2].reshape(
             B, K, cfg.pad_size, 2))
 

@@ -17,14 +17,17 @@ model has ``eval_batch_stats``, ``stat_groups=1``: the checkpoints' flat
 statistics). ``forward_rank`` adds the transport of each query's hints
 against R other cells of the batch, for the rank-aware loss. ``remat``
 (JAX's flag) recomputes the object encoder's PointNet++ in the backward
-pass, a level at a time (``PointNet2.remat``). ``get_pos_in_cell_intersect`` is the
+pass, a level at a time (``PointNet2.remat``). The object encoder's options
+(``use_features``, ``class_embed``, ``color_embed``, ``pointnet_features``)
+are ``ObjectEncoder``'s; ``class_idx`` and ``color_idx`` [B, O] reach it for
+the id-embedding variants. ``get_pos_in_cell_intersect`` is the
 least-squares intersection of matched direction rays, which the offsets
 trainer's evaluation uses."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +35,7 @@ from torch import nn
 from text2pos_torch.models.blocks import (HeadMLP, l2_normalize,
                                          set_eval_batch_stats, train_mode)
 from text2pos_torch.models.language import LanguageEncoder
-from text2pos_torch.models.object_encoder import ObjectEncoder
+from text2pos_torch.models.object_encoder import FEATURES, ObjectEncoder
 from text2pos_torch.models.superglue import SuperGlue
 
 
@@ -42,11 +45,15 @@ class SuperGlueMatch(nn.Module):
                  dtype: Optional[torch.dtype] = None, stat_groups: int = 2,
                  eval_batch_stats: bool = False,
                  pointnet_heads: Optional[Tuple[int, int]] = None,
-                 remat: bool = False):
+                 remat: bool = False, use_features: Sequence[str] = FEATURES,
+                 class_embed: bool = False, color_embed: bool = False,
+                 pointnet_features: int = 2):
         super().__init__()
         self.embed_dim = embed_dim
         self.language_encoder = LanguageEncoder(vocab_size, embed_dim)
-        self.object_encoder = ObjectEncoder(embed_dim, dtype, pointnet_heads)
+        self.object_encoder = ObjectEncoder(
+            embed_dim, dtype, pointnet_heads, use_features, class_embed,
+            color_embed, pointnet_features)
         self.superglue = SuperGlue(embed_dim, num_layers, sinkhorn_iters,
                                    match_threshold, dtype, stat_groups)
         self.mlp_offsets = HeadMLP(embed_dim, (embed_dim // 2, 2))
@@ -55,11 +62,11 @@ class SuperGlueMatch(nn.Module):
 
     @property
     def remat(self) -> bool:
-        return self.object_encoder.pointnet.remat
+        return self.object_encoder.remat
 
     @remat.setter
     def remat(self, on: bool) -> None:
-        self.object_encoder.pointnet.remat = on
+        self.object_encoder.remat = on
 
     def encode_hints(self, hint_tokens: torch.Tensor,
                      hint_lengths: torch.Tensor) -> torch.Tensor:
@@ -69,15 +76,20 @@ class SuperGlueMatch(nn.Module):
                                     hint_lengths.reshape(B * H))
         return l2_normalize(enc.reshape(B, H, self.embed_dim))
 
-    def encode_cell_objects(self, points_xyz, points_rgb, centers, colors
+    def encode_cell_objects(self, points_xyz, points_rgb, centers, colors,
+                            class_idx: Optional[torch.Tensor] = None,
+                            color_idx: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
         """[B, O, ...] padded cell objects (every slot a real or padding
-        object) → [B, O, E] L2-normalized encodings, f32."""
+        object; ``class_idx``, ``color_idx`` [B, O] for the id-embedding
+        variants) → [B, O, E] L2-normalized encodings, f32."""
         B, O, P, _ = points_xyz.shape
+        flat = lambda t: None if t is None else t.reshape(B * O)
         enc = self.object_encoder(points_xyz.reshape(B * O, P, 3),
                                   points_rgb.reshape(B * O, P, 3),
                                   centers.reshape(B * O, 3),
-                                  colors.reshape(B * O, 3))
+                                  colors.reshape(B * O, 3), flat(class_idx),
+                                  flat(color_idx))
         return l2_normalize(enc.reshape(B, O, self.embed_dim))
 
     def match_encoded(self, obj_enc: torch.Tensor, hint_enc: torch.Tensor,
@@ -92,7 +104,9 @@ class SuperGlueMatch(nn.Module):
         return out
 
     def forward(self, hint_tokens: torch.Tensor, hint_lengths: torch.Tensor,
-                points_xyz, points_rgb, centers, colors, train: bool = True
+                points_xyz, points_rgb, centers, colors, train: bool = True,
+                class_idx: Optional[torch.Tensor] = None,
+                color_idx: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """[B, H, T] hints against [B, O, ...] cell objects → P, log_P,
         matches0/1, matching_scores0/1 and offsets; in train mode with
@@ -100,12 +114,15 @@ class SuperGlueMatch(nn.Module):
         with train_mode(self, train):
             hint_enc = self.encode_hints(hint_tokens, hint_lengths)
             obj_enc = self.encode_cell_objects(points_xyz, points_rgb,
-                                               centers, colors)
+                                               centers, colors, class_idx,
+                                               color_idx)
             return self.match_encoded(obj_enc, hint_enc)
 
     def forward_rank(self, hint_tokens: torch.Tensor,
                      hint_lengths: torch.Tensor, points_xyz, points_rgb,
-                     centers, colors, num_negs: int, train: bool = True
+                     centers, colors, num_negs: int, train: bool = True,
+                     class_idx: Optional[torch.Tensor] = None,
+                     color_idx: Optional[torch.Tensor] = None
                      ) -> Dict[str, torch.Tensor]:
         """``forward``'s outputs plus ``neg_P`` [R, B, M+1, N+1]: each
         query's hints matched against the objects of the cell r places
@@ -116,7 +133,8 @@ class SuperGlueMatch(nn.Module):
         with train_mode(self, train):
             hint_enc = self.encode_hints(hint_tokens, hint_lengths)
             obj_enc = self.encode_cell_objects(points_xyz, points_rgb,
-                                               centers, colors)
+                                               centers, colors, class_idx,
+                                               color_idx)
             neg_P = [self.superglue(torch.roll(obj_enc, r, 0), hint_enc)["P"]
                      for r in range(1, num_negs + 1)]
             out = self.match_encoded(obj_enc, hint_enc)

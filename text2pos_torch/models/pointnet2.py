@@ -178,16 +178,22 @@ class PointNet2(nn.Module):
                 "class_pred": dense(self.class_classifier, f2),
                 "color_pred": dense(self.color_classifier, f2)}
 
-    def forward(self, xyz: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
-        """With ``remat`` and a gradient wanted, each abstraction level is
-        recomputed in the backward pass (``blocks.checkpointed``), one at a
-        time, so that no more than one level's activations are held."""
+    def forward(self, xyz: torch.Tensor, rgb: torch.Tensor,
+                level: int = 2) -> torch.Tensor:
+        """``features{level}``: the global abstraction's ``features0``
+        [B, 1024], ``features1`` [B, 512] after ``lin1`` or ``features2``
+        [B, 256] after ``lin2`` (JAX's three outputs; the object encoder's
+        ``pointnet_features``). With ``remat`` and a gradient wanted, each
+        abstraction level is recomputed in the backward pass
+        (``blocks.checkpointed``), one at a time, so that no more than one
+        level's activations are held."""
         run = (checkpointed if self.remat and torch.is_grad_enabled()
                else lambda m, *a: m(*a))
         x, pos = rgb, xyz.float()
         for sa in (self.sa1, self.sa2, self.sa3):
             x, pos = run(sa, x, pos)
         with record_function("pointnet.head"):
-            f0 = run(self.ga, x, pos)
-            f1 = torch.relu(dense(self.lin1, f0, self.dtype))
-            return torch.relu(dense(self.lin2, f1, self.dtype))
+            f = run(self.ga, x, pos)
+            for lin in (self.lin1, self.lin2)[:level]:
+                f = torch.relu(dense(lin, f, self.dtype))
+            return f

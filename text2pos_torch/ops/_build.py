@@ -31,7 +31,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("lstm", "sinkhorn", "superglue_gnn", "pointconv", "fps")
+SOURCES = ("lstm", "sinkhorn", "superglue_gnn", "superglue_gnn_any",
+           "pointconv", "fps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,7 +24,7 @@ import torch
 from text2pos_torch.ops import _build
 from text2pos_torch.ops.neighbors import fma3
 
-MAX_POINTS = 256   # the kernel keeps at most 8 points a lane
+MAX_POINTS = 1024  # the kernel keeps at most 32 points a lane
 
 
 def _check(points: torch.Tensor, num_samples: int) -> None:

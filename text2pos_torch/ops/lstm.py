@@ -12,6 +12,13 @@ steps with ``t >= length`` leave h and c unchanged, and the backward
 direction runs over the reversed padded sequence with reversed validity. All
 f32, as in JAX.
 
+The kernel takes H in [1, 512]. The wrapper pads H to a multiple of 32
+(``kernel_width``) with zero gate columns and zero W_hh rows, which keep
+the padded units at exactly 0 (``pad_gates``, ``pad_w_hh``), and cuts the
+padding off the result: JAX's default width 300 runs at 320. Past 256 it
+also hands the kernel W_hh in fragment order (``w_hh_fragments``), which
+that form reads from global memory each step.
+
 On CPU tensors ``lstm_final_hidden`` runs its plain PyTorch version; on CUDA
 tensors it launches the kernel or raises. Where grad mode is on and the
 tables or ``w_hh`` require grad (a training step), it goes through
@@ -27,9 +34,12 @@ Function, so gradients reach the embedding, W_ih and b through them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from text2pos_torch.ops import _build
@@ -81,23 +91,71 @@ def lstm_final_hidden_plain(tables: Sequence[torch.Tensor],
         for d in (0, 1)])
 
 
+MAX_HIDDEN = 512     # a cluster of 16 CTAs of 32 units
+SMEM_HIDDEN = 256    # W_hh's slices in the cluster's shared memory up to here
+
+
+def kernel_width(hidden: int) -> int:
+    """The width the kernel runs at: ``hidden`` padded to a multiple of 32
+    (a CTA's 32 units)."""
+    return 32 * -(-hidden // 32)
+
+
 def check_kernel_width(hidden: int) -> None:
-    """Raise ``ValueError`` unless the kernel takes hidden width ``hidden``
-    (a multiple of 32 in [32, 256]: W_hh of both directions in a cluster's
-    shared memory)."""
-    if hidden % 32 or not 32 <= hidden <= 256:
+    """Raise ``ValueError`` unless the kernel takes hidden width ``hidden``:
+    [1, 512], run padded to a multiple of 32."""
+    if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(
-            f"the LSTM kernel takes a hidden width (embed_dim) that is a "
-            f"multiple of 32 in [32, 256], not {hidden}; use --embed_dim "
-            "256 or 128 on the card, or --device cpu")
+            f"the LSTM kernel takes a hidden width (embed_dim) in [1, "
+            f"{MAX_HIDDEN}], not {hidden}")
+
+
+def pad_gates(x: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
+    """``[..., 4·hidden]`` gate columns (i|f|g|o) → ``[..., 4·width]``, each
+    gate block padded with zero columns."""
+    if width == hidden:
+        return x
+    return F.pad(x.unflatten(-1, (4, hidden)), (0, width - hidden)).flatten(-2)
+
+
+def pad_w_hh(w: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
+    """W_hh ``[hidden, 4·hidden]`` → ``[width, 4·width]``: zero gate columns
+    and zero rows. A padded unit then stays exactly 0 (its gates are σ(0),
+    tanh(0) = 0, so c and h stay 0) and adds nothing to the real units'
+    sums."""
+    return F.pad(pad_gates(w, hidden, width), (0, 0, 0, width - hidden))
+
+
+@functools.lru_cache(maxsize=None)
+def _fragment_perm(H: int) -> np.ndarray:
+    """Source index into W_hh ``[H, 4H]`` (flat) of each element of its
+    fragment order ``[H/32][H/8][2][4][32][4]``: the order in which
+    ``csrc/lstm.cu`` stores CTA r's slice in shared memory (its fill
+    loop), one slice after the other."""
+    k, gate, r, u = np.meshgrid(np.arange(H), np.arange(4), np.arange(H // 32),
+                                np.arange(32), indexing="ij")
+    row = 8 * (gate & 1) + (u & 7)
+    ln = 4 * (row & 7) + (k & 3)
+    j = 2 * ((k & 7) >> 2) + (row >> 3)
+    dest = r * H * 32 * 4 + (((((k >> 3) * 2 + (gate >> 1)) * 4 + (u >> 3))
+                              * 32 + ln) * 4 + j)
+    perm = np.empty(4 * H * H, np.int64)
+    perm[dest.ravel()] = (k * 4 * H + gate * H + r * 32 + u).ravel()
+    return perm
+
+
+def w_hh_fragments(w: torch.Tensor) -> torch.Tensor:
+    """W_hh ``[H, 4H]`` (H a multiple of 32) in the kernel's A-fragment
+    order, flat: what the kernel reads from global memory past
+    ``SMEM_HIDDEN``."""
+    perm = torch.as_tensor(_fragment_perm(w.shape[0]), device=w.device)
+    return w.reshape(-1)[perm]
 
 
 def _lstm_kernel(tables, w_hh, tokens, lengths):
     _build.refuse_grad("LSTM kernel", *tables, *w_hh)
     dev = tokens.device
     B, T = tokens.shape
-    tables = [t.contiguous() for t in tables]
-    w_hh = [w.contiguous() for w in w_hh]
     V, H4 = tables[0].shape
     H = H4 // 4
     for t in (*tables, *w_hh):
@@ -108,11 +166,16 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
                              "different devices")
     if len(tables) != 2 or len(w_hh) != 2 or tables[1].shape != (V, H4) \
             or any(tuple(w.shape) != (H, H4) for w in w_hh) or H4 % 4 \
-            or H % 32 or not 32 <= H <= 256:
+            or not 1 <= H <= MAX_HIDDEN:
         raise ValueError(
             f"LSTM kernel: unsupported tables {[tuple(t.shape) for t in tables]}"
-            f" / w_hh {[tuple(w.shape) for w in w_hh]} (two directions; H a "
-            "multiple of 32 in [32, 256])")
+            f" / w_hh {[tuple(w.shape) for w in w_hh]} (two directions; H in "
+            f"[1, {MAX_HIDDEN}])")
+    Hp = kernel_width(H)
+    tables = [pad_gates(t, H, Hp).contiguous() for t in tables]
+    w_hh = [pad_w_hh(w, H, Hp).contiguous() for w in w_hh]
+    wpack = ([w_hh_fragments(w) for w in w_hh] if Hp > SMEM_HIDDEN
+             else None)
     if tokens.dtype not in (torch.int32, torch.int64) or \
             tuple(lengths.shape) != (B,):
         raise ValueError("LSTM kernel: tokens must be [B, T] integers and "
@@ -122,16 +185,19 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
                          "devices")
     tokens = tokens.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(2, B, H, device=dev, dtype=torch.float32)
+    out = torch.empty(2, B, Hp, device=dev, dtype=torch.float32)
     fn = _build.entry("lstm", "t2p_lstm_final_hidden",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
     _build.launch(fn, dev, "lstm_final_hidden", tables[0].data_ptr(),
                   tables[1].data_ptr(), w_hh[0].data_ptr(),
-                  w_hh[1].data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
-                  out.data_ptr(), V, T, B, H)
+                  w_hh[1].data_ptr(),
+                  *((None, None) if wpack is None
+                    else (wpack[0].data_ptr(), wpack[1].data_ptr())),
+                  tokens.data_ptr(), lengths.data_ptr(), out.data_ptr(), V, T,
+                  B, Hp)
     _build.LAUNCHES["lstm"] += 1
-    return out
+    return out if Hp == H else out[..., :H]
 
 
 class LSTMFinalHidden(torch.autograd.Function):

@@ -25,6 +25,16 @@ live here, in index code that runs anywhere:
   only needs the pair count a CTA takes to say what "ragged" means.
 
 The f32 kernel (f32 FMAs on the CUDA cores) keeps row-major weights.
+
+Both kernels of ``csrc/superglue_gnn.cu`` are built for ``KERNEL_SHAPE``
+alone. Every other shape JAX's configurations give (E a multiple of 4 up to
+``MAX_WIDTH``, 1 ≤ T1 ≤ T0 ≤ ``MAX_SET``: JAX's default E = 300, ``pad_size``
+24) goes to the second form, ``csrc/superglue_gnn_any.cu``, in f32 or bf16,
+with row-major weights (``pack_gnn_params`` gives bf16 weights fragment
+order where E is a multiple of 16, and the wrapper unpacks them for that
+form). That
+form pads nothing: its heads are E/4 channels wide, the scales 1/√(E/4)
+and 1/√E.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from text2pos_torch.ops import _build
 
 HEADS = 4
 KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
+MAX_WIDTH = 512               # superglue_gnn_any.cu: E a multiple of 4
+MAX_SET = 32                  # and 1 <= T1 <= T0 <= MAX_SET
 TC_PAIRS = 4                  # pairs per CTA of the bf16 kernel
 MATMUL_WEIGHTS = ("wqkv", "wm", "w0", "w1", "wf")
 UNSTACKED = ("wf", "bf")      # the final projection; the rest are per block
@@ -157,13 +169,15 @@ def pack_gnn_params(folded: Dict[str, np.ndarray], dtype: torch.dtype,
                     device) -> Dict[str, torch.Tensor]:
     """Kernel layout: q|k|v fused to ``wqkv`` ([L, E, 3E] before ordering);
     matmul weights in the compute dtype, row-major ``[.., K, N]`` in f32 and
-    in fragment order ``[.., N/8, K/16, 32, 4]`` in bf16; biases and BN
-    affines in f32."""
+    at widths that are no multiple of 16 (300), in fragment order
+    ``[.., N/8, K/16, 32, 4]`` in bf16 otherwise (the tuned kernel's at
+    E = 128); biases and BN affines in f32."""
     def t(a, dt=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
                                                            dtype=dt)
 
-    order = to_fragment_order if dtype == torch.bfloat16 else (lambda a: a)
+    frag = dtype == torch.bfloat16 and folded["wq"].shape[-1] % 16 == 0
+    order = to_fragment_order if frag else (lambda a: a)
     out = {
         "wqkv": np.concatenate([folded["wq"], folded["wk"], folded["wv"]],
                                axis=2),
@@ -175,11 +189,17 @@ def pack_gnn_params(folded: Dict[str, np.ndarray], dtype: torch.dtype,
             for k, a in out.items()}
 
 
+def fragment_ordered(packed: Dict[str, torch.Tensor]) -> bool:
+    """Whether ``packed``'s matmul weights are in fragment order (stacked
+    ``[L, N/8, K/16, 32, 4]``) rather than row-major ``[L, K, N]``."""
+    return packed["wqkv"].dim() == 5
+
+
 def matmul_weights(packed: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """The packed matmul weights as row-major ``[.., K, N]`` f32."""
-    bf16 = packed["wqkv"].dtype == torch.bfloat16
-    return {k: (from_fragment_order(packed[k]) if bf16 else packed[k]).float()
+    frag = fragment_ordered(packed)
+    return {k: (from_fragment_order(packed[k]) if frag else packed[k]).float()
             for k in MATMUL_WEIGHTS}
 
 
@@ -227,23 +247,22 @@ def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
     return md[:, :T0] @ md[:, T0:].transpose(1, 2) / math.sqrt(E)
 
 
-def _gnn_kernel(desc0, desc1, packed):
-    _build.refuse_grad("GNN kernel", desc0, desc1, *packed.values())
+def _check_any_shape(desc0, desc1) -> None:
     N, T0, E = desc0.shape
     T1 = desc1.shape[1]
-    if (E, T0, T1) != KERNEL_SHAPE or tuple(desc1.shape) != (N, T1, E):
-        raise ValueError(f"GNN kernel is built for [N, {KERNEL_SHAPE[1]}, "
-                         f"{KERNEL_SHAPE[0]}] x [N, {KERNEL_SHAPE[2]}, "
-                         f"{KERNEL_SHAPE[0]}], got {tuple(desc0.shape)} x "
-                         f"{tuple(desc1.shape)}")
-    dt = packed["wqkv"].dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
-    L = packed["wqkv"].shape[0]
+    if tuple(desc1.shape) != (N, T1, E) or E % 4 or not 4 <= E <= MAX_WIDTH \
+            or not 1 <= T1 <= T0 <= MAX_SET:
+        raise ValueError(
+            f"GNN kernel takes [N, T0, E] x [N, T1, E] with E a multiple of 4 "
+            f"in [4, {MAX_WIDTH}] and 1 <= T1 <= T0 <= {MAX_SET}, got "
+            f"{tuple(desc0.shape)} x {tuple(desc1.shape)}")
+
+
+def _check_weights(packed, E, L, dt, frag, desc0) -> None:
     kn = {"wqkv": (E, 3 * E), "wm": (E, E), "w0": (2 * E, 2 * E),
           "w1": (2 * E, E), "wf": (E, E)}
     for name, (k, n) in kn.items():
-        want = (n // 8, k // 16, 32, 4) if dt == torch.bfloat16 else (k, n)
+        want = (n // 8, k // 16, 32, 4) if frag else (k, n)
         want = want if name == "wf" else (L, *want)
         if packed[name].dtype != dt or tuple(packed[name].shape) != want:
             raise ValueError(f"GNN kernel: weight {name} must be {dt} "
@@ -253,6 +272,72 @@ def _gnn_kernel(desc0, desc1, packed):
         if x.device != desc0.device or not x.is_contiguous():
             raise ValueError(f"GNN kernel: weight {name} must be contiguous "
                              "on the descriptors' device")
+
+
+def _gnn_any_kernel(desc0, desc1, packed):
+    """``csrc/superglue_gnn_any.cu``: any shape ``_check_any_shape`` takes,
+    row-major weights (fragment-ordered ones unpacked first)."""
+    _build.refuse_grad("GNN kernel", desc0, desc1, *packed.values())
+    _check_any_shape(desc0, desc1)
+    N, T0, E = desc0.shape
+    T1 = desc1.shape[1]
+    dt = packed["wqkv"].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
+    L = packed["wqkv"].shape[0]
+    frag = fragment_ordered(packed)
+    _check_weights(packed, E, L, dt, frag, desc0)
+    if frag:
+        packed = dict(packed, **{k: v.to(dt).contiguous()
+                                 for k, v in matmul_weights(packed).items()})
+    if desc1.device != desc0.device:
+        raise ValueError("GNN kernel: desc0 and desc1 on different devices")
+    desc0 = desc0.float().contiguous()
+    desc1 = desc1.float().contiguous()
+    out = torch.empty(N, T0, T1, device=desc0.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    bf16 = int(dt == torch.bfloat16)
+    nbytes = ctypes.c_longlong(0)
+    size = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any_workspace",
+                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(desc0.device):
+        _build.check(size(E, T0, T1, bf16, N, ctypes.byref(nbytes)),
+                     "superglue_gnn_any workspace")
+    ws = (torch.empty(nbytes.value, dtype=torch.uint8, device=desc0.device)
+          if nbytes.value else None)
+    fn = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any",
+                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p] * 3)
+    p = packed
+    _build.launch(fn, desc0.device, "superglue_gnn_any", desc0.data_ptr(),
+                  desc1.data_ptr(), p["wqkv"].data_ptr(),
+                  p["bqkv"].data_ptr(), p["wm"].data_ptr(),
+                  p["bm"].data_ptr(), p["w0"].data_ptr(),
+                  p["s0"].data_ptr(), p["t0"].data_ptr(),
+                  p["w1"].data_ptr(), p["b1"].data_ptr(),
+                  p["wf"].data_ptr(), p["bf"].data_ptr(), L, N, E, T0, T1,
+                  bf16, None if ws is None else ws.data_ptr(),
+                  out.data_ptr())
+    _build.LAUNCHES["superglue_gnn_any"] += 1
+    return out
+
+
+def _gnn_kernel(desc0, desc1, packed):
+    """The tuned kernel at ``KERNEL_SHAPE``, the second form elsewhere."""
+    N, T0, E = desc0.shape
+    T1 = desc1.shape[1]
+    if (E, T0, T1) != KERNEL_SHAPE:
+        return _gnn_any_kernel(desc0, desc1, packed)
+    _build.refuse_grad("GNN kernel", desc0, desc1, *packed.values())
+    if tuple(desc1.shape) != (N, T1, E):
+        raise ValueError(f"GNN kernel: desc1 {tuple(desc1.shape)} does not "
+                         f"pair with desc0 {tuple(desc0.shape)}")
+    dt = packed["wqkv"].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
+    L = packed["wqkv"].shape[0]
+    _check_weights(packed, E, L, dt, dt == torch.bfloat16, desc0)
     if desc1.device != desc0.device:
         raise ValueError("GNN kernel: desc0 and desc1 on different devices")
     desc0 = desc0.float().contiguous()
@@ -278,8 +363,9 @@ def _gnn_kernel(desc0, desc1, packed):
 
 def gnn_scores(desc0: torch.Tensor, desc1: torch.Tensor,
                packed: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """All GNN blocks + final projection + score matrix; the CUDA kernel on
-    the card, the plain version on the CPU."""
+    """All GNN blocks + final projection + score matrix; a CUDA kernel on
+    the card (the tuned one at ``KERNEL_SHAPE``, ``superglue_gnn_any.cu``
+    at other shapes), the plain version on the CPU."""
     if desc0.is_cuda:
         return _gnn_kernel(desc0, desc1, packed)
     return gnn_scores_plain(desc0, desc1, packed)

@@ -41,6 +41,7 @@ from text2pos_torch.data.hints import Vocabulary
 from text2pos_torch.data.loaders import CoarseLoader
 from text2pos_torch.device import resolve_device
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
+from text2pos_torch.models.object_encoder import ID_KEYS
 from text2pos_torch.ops.lstm import check_kernel_width
 from text2pos_torch.ops.retrieval import topk_retrieval
 from text2pos_torch.ops.transforms import prepare_object_points
@@ -53,7 +54,7 @@ from text2pos_torch.train.state import (TrainState, init_parameters,
 
 DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 OBJECT_KEYS = ("points_xyz", "points_rgb", "point_count", "centers",
-               "colors", "cell_idx", "slot_idx")
+               "colors", "cell_idx", "slot_idx") + ID_KEYS
 
 
 def step_generator(device: torch.device, *seeds: int) -> torch.Generator:
@@ -64,11 +65,19 @@ def step_generator(device: torch.device, *seeds: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def encoder_options(cfg: TrainConfig) -> Dict:
+    """The object encoder's options of a configuration (ROADMAP item 7a's
+    variants; the defaults are the bench checkpoints')."""
+    return dict(use_features=tuple(cfg.use_features),
+                class_embed=cfg.class_embed, color_embed=cfg.color_embed,
+                pointnet_features=cfg.pointnet_features)
+
+
 def build_model(cfg: TrainConfig, vocab_size: int) -> CellRetrievalNetwork:
     return CellRetrievalNetwork(
         vocab_size, cfg.embed_dim, DTYPES[cfg.dtype],
         pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES),
-        remat=cfg.remat)
+        remat=cfg.remat, variation=cfg.variation, **encoder_options(cfg))
 
 
 class CoarseTrainer:
@@ -168,7 +177,8 @@ class CoarseTrainer:
         return state.model(
             tok, ln, pts, cols, obj["centers"], obj["colors"],
             obj["cell_idx"].long(), obj["slot_idx"].long(),
-            len(batch["tokens"]), cfg.coarse_max_objects, train=True)
+            len(batch["tokens"]), cfg.coarse_max_objects, train=True,
+            class_idx=obj["class_idx"], color_idx=obj["color_idx"])
 
     def forward_loss(self, state: TrainState, batch: Dict[str, np.ndarray],
                      generator: Optional[torch.Generator] = None,
@@ -264,7 +274,7 @@ class CoarseTrainer:
         return model.encode_objects(
             pts, cols, obj["centers"], obj["colors"],
             obj["cell_idx"].long(), obj["slot_idx"].long(), num_cells,
-            self.cfg.coarse_max_objects)
+            self.cfg.coarse_max_objects, obj["class_idx"], obj["color_idx"])
 
     def eval_epoch(self, state: TrainState, loader: CoarseLoader,
                    top_k: Tuple[int, ...], return_encodings: bool = False,

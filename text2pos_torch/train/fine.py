@@ -47,9 +47,11 @@ from text2pos_torch.data.hints import Vocabulary
 from text2pos_torch.data.loaders import FineLoader
 from text2pos_torch.device import on_device, resolve_device
 from text2pos_torch.models.matcher import SuperGlueMatch
+from text2pos_torch.models.object_encoder import ID_KEYS
 from text2pos_torch.ops.lstm import check_kernel_width
 from text2pos_torch.ops.transforms import prepare_object_points
-from text2pos_torch.train.coarse import DTYPES, step_generator
+from text2pos_torch.train.coarse import (DTYPES, encoder_options,
+                                         step_generator)
 from text2pos_torch.train.losses import (calc_pose_error,
                                          calc_recall_precision,
                                          listwise_rank_loss, matching_loss,
@@ -63,7 +65,8 @@ WARMUP_EPOCHS = 3
 OFFSET_LOSS_WEIGHT = 5.0
 TENSOR_KEYS = ("points_xyz", "points_rgb", "point_count", "centers",
                "colors", "hint_tokens", "hint_lengths", "gt_obj_for_hint",
-               "all_matches", "all_matches_count", "offsets", "pose_in_cell")
+               "all_matches", "all_matches_count", "offsets",
+               "pose_in_cell") + ID_KEYS
 
 
 def build_model(cfg: TrainConfig, vocab_size: int) -> SuperGlueMatch:
@@ -71,7 +74,7 @@ def build_model(cfg: TrainConfig, vocab_size: int) -> SuperGlueMatch:
         vocab_size, cfg.embed_dim, cfg.num_layers, cfg.sinkhorn_iters,
         dtype=DTYPES[cfg.dtype], stat_groups=1, eval_batch_stats=True,
         pointnet_heads=(NUM_CLASS_INDICES, NUM_COLOR_INDICES),
-        remat=cfg.remat)
+        remat=cfg.remat, **encoder_options(cfg))
 
 
 def warmup_schedule(learning_rate: float, lr_gamma: float,
@@ -148,10 +151,11 @@ class FineTrainer:
                  rank: bool = False):
         args = (tb["hint_tokens"], tb["hint_lengths"], pts, cols,
                 tb["centers"], tb["colors"])
+        ids = {k: tb[k] for k in ID_KEYS}
         if rank and self.rank_negatives:
             return state.model.forward_rank(*args, self.rank_negatives,
-                                            train=train)
-        return state.model(*args, train=train)
+                                            train=train, **ids)
+        return state.model(*args, train=train, **ids)
 
     def loss(self, out: Dict[str, torch.Tensor], tb
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -55,7 +55,7 @@ from text2pos_torch.train.state import TrainState
 
 _SWAPS = {1: (("east", "west"),), -1: (("north", "south"),)}
 BANK_KEYS = ("points_xyz", "points_rgb", "point_count", "centers", "colors",
-             "mask")
+             "mask", "class_idx", "color_idx")
 
 
 def build_token_swap(vocab: Vocabulary, direction: int) -> np.ndarray:
@@ -257,7 +257,9 @@ class FusedCoarseTrainer(CoarseTrainer):
                "points_rgb": flat(dev["points_rgb"][cell_idx]),
                "point_count": flat(dev["point_count"][cell_idx]),
                "centers": flat(ctr), "colors": flat(dev["colors"][cell_idx]),
-               "cell_idx": rows // O, "slot_idx": rows % O}
+               "cell_idx": rows // O, "slot_idx": rows % O,
+               "class_idx": flat(dev["class_idx"][cell_idx]),
+               "color_idx": flat(dev["color_idx"][cell_idx])}
         for k in ("idx", "angles"):
             if k in draws:
                 out[k] = flat(draws[k])
@@ -298,7 +300,7 @@ class FusedCoarseTrainer(CoarseTrainer):
         text, cells = state.model(
             a["tokens"], a["lengths"], pts, cols, a["centers"], a["colors"],
             a["cell_idx"], a["slot_idx"], B, cfg.coarse_max_objects,
-            train=True)
+            train=True, class_idx=a["class_idx"], color_idx=a["color_idx"])
         loss = self.loss(text, cells)
         if cfg.neg_bank:
             loss = loss + self.neg_weight * self._neg_bank_loss(
@@ -370,7 +372,8 @@ class FusedCoarseTrainer(CoarseTrainer):
             no_pc_augment=cfg.no_pc_augment, idx=flat(sample))
         return state.model.encode_objects(
             pts, cols, flat(dev["centers"][idx]), flat(dev["colors"][idx]),
-            rows // O, rows % O, B, O)
+            rows // O, rows % O, B, O, flat(dev["class_idx"][idx]),
+            flat(dev["color_idx"][idx]))
 
     def refresh_chunks(self) -> np.ndarray:
         """The refresh's chunks [n, B] of bank cells: ``arange(n·B) % C``."""
