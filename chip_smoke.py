@@ -157,15 +157,25 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    ``max_abs_err_by_dp_path`` and phase 12's readings under ``widths``),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    as the last line; ``superglue_gnn_any`` (the GNN's second form) has the
-   E=300 headline's launches and times.
+   E=300 headline's launches and times, and under ``routes`` each of its
+   routes (``superglue_gnn_any``: bf16 on the tensor cores, f32 on the
+   CUDA cores; ``superglue_gnn_any_wide``) with every phase-12.1 timing that
+   ran on it, its share of the bound and its launches by path.
 12. JAX's default widths and the variants (run before the line of 11):
    models at embed_dim 300 from seeded generators, the bench map
    encoded and calibrated, then 12.1 the widened kernels against their
    plain versions on the E=300 serving path's inputs (LSTM both encoders
    beside cuDNN, the GNN's second form in bf16 and f32 with ragged counts
-   and ties, Sinkhorn) and on seeded random inputs at LSTM H in
-   {96, 300, 384, 512} beside cuDNN, GNN (E, T0, T1) in {(300, 16, 6),
-   (128, 24, 6), (256, 32, 8)} and FPS N in {512, 1024}; 12.2 the E=300
+   around its pairs a CTA and ties, Sinkhorn) and on seeded random inputs
+   at LSTM H in {96, 300, 384, 512} beside cuDNN, GNN (E, T0, T1) in
+   {(300, 16, 6), (128, 24, 6), (256, 32, 8)} and, on the wide route,
+   (300, 32, 32) f32 and (512, 32, 32), each launch counted under its
+   route (bf16 at E <= 320 on the tensor cores), and FPS N in {512, 1024};
+   then the GNN's second form in bf16 at 12 blocks on the E=300 bf16
+   pipelines at pad_size 16 and 24 ((300, 16, 6), (300, 24, 6) and
+   (300, 32, 32), the latter two in CTAs of 4 m-tiles), each within
+   GNN_REL_TOL of the plain version or no farther than it from a float64
+   evaluation (``gnn_depth_check``); 12.2 the E=300
    headline in bf16 and f32 (q/s, launches: no tuned-GNN launch); 12.3
    the f32 headline, rerank@128 and cascade against the same pipeline
    with every kernel wrapper rebound to its plain version (differing rows
@@ -403,7 +413,9 @@ def lstm_checks(pipe, fx, failures):
 
 def gnn_bound(d0, d1, packed, label: str):
     """(bound ms, what bounds it, TFLOP) of one GNN kernel launch on
-    d0 [N, T0, E], d1 [N, T1, E] with the blocks of ``packed``."""
+    d0 [N, T0, E], d1 [N, T1, E] with the blocks of ``packed``, at the real
+    widths: a padded pack's zero rows and columns are work and bytes no
+    caller needs."""
     N, T0, E = d0.shape
     T1 = d1.shape[1]
     L = packed["wqkv"].shape[0]
@@ -417,11 +429,30 @@ def gnn_bound(d0, d1, packed, label: str):
         + 2.0 * P * E * E
     attn = 2 * 2.0 * E * (L // 2) * (T0 * T0 + T1 * T1 + 2 * T0 * T1) \
         + 2.0 * E * T0 * T1
-    wbytes = sum(t.numel() * t.element_size() for t in packed.values())
+    # Weights at the real width: 10·E² matmul values and 13·E vector
+    # values a block (f32), then the final projection.
+    size = packed["wqkv"].element_size()
+    wbytes = L * (10 * E * E * size + 13 * E * 4) + E * E * size + E * 4
     nbytes = d0.numel() * 4 + d1.numel() * 4 + wbytes + N * T0 * T1 * 4
     rate = PEAK_BF16 if label == "bf16" else PEAK_F32
     return (*bound_ms([(N * (mm + attn), rate)], nbytes),
             N * (mm + attn) / 1e12)
+
+
+def gnn_route(E: int, T0: int, T1: int, dtype):
+    """(launch name, pairs a CTA, first hint row or None) of the GNN kernel
+    that takes this shape: the tuned kernel at its shape, else the second
+    form's plan (``any_plan``). The first hint row is that of the
+    tensor-core layouts (objects of the CTA's pairs, then their hints, in
+    16-row tiles); the f32 routes keep rows pair by pair."""
+    from text2pos_torch.ops.superglue_gnn import (KERNEL_SHAPE, TC_PAIRS,
+                                                  any_plan)
+
+    if (E, T0, T1) == KERNEL_SHAPE:
+        bf16 = dtype == torch.bfloat16
+        return "superglue_gnn", TC_PAIRS, TC_PAIRS * T0 if bf16 else None
+    plan = any_plan(E, T0, T1, dtype)
+    return plan.route, plan.pairs, plan.hint_row
 
 
 def sinkhorn_bound(B: int, M: int, N: int, iters: int):
@@ -439,6 +470,7 @@ def sinkhorn_bound(B: int, M: int, N: int, iters: int):
 def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
     """Kernel vs plain for the GNN (bf16 and f32) and Sinkhorn at the
     headline serve's pose-cell pairs (the JAX top-10 cells)."""
+    from text2pos_torch.ops import _build
     from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
                                                   gnn_scores_plain)
 
@@ -458,13 +490,18 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
     scores_bf16 = None
     for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
         packed = pipe.fine.superglue.packed_kernel_params()
+        route = gnn_route(E, T0, T1, packed["wqkv"].dtype)[0]
+        before = _build.LAUNCHES[route]
         with torch.inference_mode():
             got = _gnn_kernel(d0, d1, packed)
             want = gnn_scores_plain(d0, d1, packed)
             torch.cuda.synchronize()
+        if _build.LAUNCHES[route] != before + 1:
+            failures.append(f"GNN {label} at {E}, {T0}x{T1}: no launch of "
+                            f"{route}")
         err = max_err(got, want)
         scale = float(want.abs().max())
-        check(f"superglue_gnn {label} N={N} {T0}x{T1} E={E} "
+        check(f"{route} {label} N={N} {T0}x{T1} E={E} "
               f"blocks={packed['wqkv'].shape[0]} (|scores| max {scale:.2f})",
               err, GNN_REL_TOL[label] * scale, failures)
         ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
@@ -472,17 +509,18 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
             plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
                                reps=3, warmup=1)
         bnd, by, tflop = gnn_bound(d0, d1, packed, label)
-        log(f"  superglue_gnn {label}: kernel {ms:.3f} ms, plain "
+        log(f"  {route} {label}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bnd:.4f} ms "
-            f"({tflop:.3f} TFLOP)")
+            f"({tflop:.3f} TFLOP; {100 * bnd / ms:.1f}% of the bound)")
         results[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                           "bound_by": by, "library_ms": None,
-                          "max_abs_err": err}
+                          "max_abs_err": err, "route": route,
+                          "bound_share": bnd / ms}
         gnn_edge_checks(label, d0, d1, packed, got, failures)
         if label == "bf16":
             scores_bf16 = got
     ratio = results["f32"]["ms"] / results["bf16"]["ms"]
-    log(f"  superglue_gnn at N={N}: f32 (CUDA cores) "
+    log(f"  GNN at N={N}, E={E}: f32 (CUDA cores) "
         f"{results['f32']['ms']:.3f} ms, bf16 (tensor cores) "
         f"{results['bf16']['ms']:.3f} ms, f32 / bf16 = {ratio:.2f}")
 
@@ -524,44 +562,109 @@ def sinkhorn_checks(pipe, scores, failures):
             "library_ms": None, "max_abs_err": err, "bound_ms_all_f32": old}
 
 
-def gnn_edge_checks(label, d0, d1, packed, got, failures):
-    """Ragged pair counts around a CTA's load against the plain version, and
-    exact ties: wherever a headline pair's query holds equal hints, their
-    score columns must be bit-identical (match extraction then takes the
-    first, as JAX does), whichever tiles of the kernel's layout they lie
-    in."""
-    from text2pos_torch.ops.superglue_gnn import (TC_PAIRS, _gnn_kernel,
-                                                  gnn_scores_plain)
+def gnn_depth_check(name, got, d0, d1, packed, failures):
+    """The gate of the second form's bf16 scores at serving depth on the
+    pad_size-24 path (``wide_pad_gnn_checks``): within GNN_REL_TOL of the
+    plain version, or no farther from the float64 evaluation
+    (``gnn_scores_plain(..., acc=torch.float64)``, the same rounding
+    points) than the plain f32 version itself is, in the largest error and
+    in the pairs past GNN_REL_TOL of it. There, 12 blocks of bf16
+    roundings carry any change of summation order to about 1% of the
+    largest score: the plain version on the CPU and on the card differ by
+    that much, and it lies 1.145 of the tolerance from the float64
+    evaluation at (300, 24, 6) (PERF.md §6, PR 12), so the first test
+    alone cannot tell a faithful kernel from one that drifts; the second
+    holds the kernel to the plain version's own faithfulness to the
+    arithmetic. Returns the readings."""
+    from text2pos_torch.ops.superglue_gnn import gnn_scores_plain
 
-    for n in (1, TC_PAIRS - 1, TC_PAIRS + 1):
+    with torch.inference_mode():
+        want = gnn_scores_plain(d0, d1, packed)
+        ref = torch.cat([gnn_scores_plain(d0[i:i + 4096], d1[i:i + 4096],
+                                          packed, acc=torch.float64)
+                         for i in range(0, len(d0), 4096)])
+        torch.cuda.synchronize()
+    tol = GNN_REL_TOL["bf16"] * float(want.abs().max())
+    tol64 = GNN_REL_TOL["bf16"] * float(ref.abs().max())
+
+    def pairs(a, b, t):
+        d = (a - b).abs().amax((1, 2))
+        return float(d.max()), int((d > t).sum())
+
+    err, over = pairs(got, want, tol)
+    err64, over64 = pairs(got, ref, tol64)
+    plain64, plain_over64 = pairs(want, ref, tol64)
+    ok = err <= tol or (err64 <= plain64 and over64 <= plain_over64)
+    log(f"  {name}: against the plain version max_abs_err={err:.4e} "
+        f"({err / tol:.3f} of GNN_REL_TOL, {over} of {len(d0)} pairs past "
+        f"it); against the float64 evaluation {err64:.4e} ({err64 / tol64:.3f}"
+        f", {over64} pairs past), the plain version's {plain64:.4e} "
+        f"({plain64 / tol64:.3f}, {plain_over64} pairs past) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}: {err:.4e} from the plain version "
+                        f"(tolerance {tol:.4e}) and {err64:.4e} from the "
+                        f"float64 evaluation, farther than the plain "
+                        f"version's {plain64:.4e}")
+    return {"max_abs_err": err, "tolerance": tol, "pairs_past": over,
+            "max_abs_err_f64": err64, "pairs_past_f64": over64,
+            "plain_max_abs_err_f64": plain64,
+            "plain_pairs_past_f64": plain_over64, "tolerance_f64": tol64}
+
+
+def gnn_edge_checks(label, d0, d1, packed, got, failures, depth=False):
+    """Ragged pair counts around a CTA's load against the plain version
+    (with ``depth``, bit for bit against the same pairs of the whole
+    batch ``got``, which sit in the same CTA slots: a pair's sums do not
+    depend on its CTA's other pairs, and the batch itself is held to
+    ``gnn_depth_check``), and exact ties: wherever a headline pair's query
+    holds equal hints, their score columns must be bit-identical (match
+    extraction then takes the first, as JAX does), whichever tiles of the
+    kernel's layout they lie in."""
+    from text2pos_torch.ops.superglue_gnn import _gnn_kernel, gnn_scores_plain
+
+    N, T0, E = d0.shape
+    T1 = d1.shape[1]
+    route, G, objr = gnn_route(E, T0, T1, packed["wqkv"].dtype)
+    for n in sorted({1, max(G - 1, 1), G + 1}):
+        name = f"{route} {label} ragged N={n} ({G} pairs a CTA)"
         with torch.inference_mode():
             g = _gnn_kernel(d0[:n].contiguous(), d1[:n].contiguous(), packed)
+            torch.cuda.synchronize()
+        if depth:
+            same = bool(torch.equal(g, got[:n]))
+            log(f"  {name}: bit-identical to those pairs of the whole batch "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                failures.append(f"{name}: differs from the whole batch")
+            continue
+        with torch.inference_mode():
             w = gnn_scores_plain(d0[:n], d1[:n], packed)
             torch.cuda.synchronize()
-        check(f"superglue_gnn {label} ragged N={n}", max_err(g, w),
-              GNN_REL_TOL[label] * float(w.abs().max()), failures)
+        check(name, max_err(g, w), GNN_REL_TOL[label] * float(w.abs().max()),
+              failures)
     # Equal hint rows (i < j) of a pair, over all pairs.
-    T1 = d1.shape[1]
     i, j = torch.triu_indices(T1, T1, 1, device=d1.device)
     same = (d1[:, i] == d1[:, j]).all(-1)                     # [N, pairs]
     col_same = (got[:, :, i] == got[:, :, j]).all(1)          # [N, pairs]
     broken = int((same & ~col_same).sum())
-    # The 16-row tile of hint j of a pair in the bf16 kernel's CTA: its
-    # hint rows follow the CTA's TC_PAIRS x T0 object rows, pair by pair.
-    T0 = d0.shape[1]
-    pair = torch.arange(d1.shape[0], device=d1.device)[:, None]
-    tiles = (TC_PAIRS * T0 + T1 * (pair % TC_PAIRS)
-             + torch.arange(T1, device=d1.device)) // 16
-    across = int((same & (tiles[:, i] != tiles[:, j])).sum())
-    log(f"  superglue_gnn {label} exact ties: {int(same.sum())} duplicate "
+    # The 16-row tile of hint j of a pair in a tensor-core CTA: its hint
+    # rows follow the CTA's object rows, pair by pair.
+    across = 0
+    if objr is not None:
+        pair = torch.arange(d1.shape[0], device=d1.device)[:, None]
+        tiles = (objr + T1 * (pair % G)
+                 + torch.arange(T1, device=d1.device)) // 16
+        across = int((same & (tiles[:, i] != tiles[:, j])).sum())
+    log(f"  {route} {label} exact ties: {int(same.sum())} duplicate "
         f"hint pairs in {int(same.any(-1).sum())} of {d1.shape[0]} pose-cell "
         f"pairs ({across} across two 16-row tiles), {broken} with differing "
         f"score columns {'ok' if broken == 0 else 'FAIL'}")
     if broken:
-        failures.append(f"superglue_gnn {label}: {broken} duplicate hint "
+        failures.append(f"{route} {label}: {broken} duplicate hint "
                         "pairs lost their exact tie")
     if not int(same.sum()):
-        failures.append(f"superglue_gnn {label}: the headline inputs hold "
+        failures.append(f"{route} {label}: the headline inputs hold "
                         "no duplicate hints to check ties on")
 
 
@@ -3910,8 +4013,13 @@ WIDE_SEED = 300
 # twice that.
 WIDE_SWAP_TOL = 3e-4
 WIDE_LSTM = (96, 300, 384, 512)
-WIDE_GNN = ((300, 16, 6), (128, 24, 6), (256, 32, 8))
 WIDE_GNN_PAIRS = 4096      # pairs of the random-weight GNN shapes
+WIDE_GNN = tuple((E, T0, T1, WIDE_GNN_PAIRS)
+                 for E, T0, T1 in ((300, 16, 6), (128, 24, 6), (256, 32, 8)))
+# Shapes of the second form's wide route (a pair's rows past shared memory:
+# f32 at E = 300 with 64 rows, bf16 past E = 448 with both sets over 16),
+# at fewer pairs: it runs a CTA a pair.
+WIDE_GNN_WIDE = ((300, 32, 32, 512), (512, 32, 32, 512))
 WIDE_GNN_BLOCKS = 4
 WIDE_FPS = (512, 1024)
 WIDE_FPS_OBJECTS = 1024
@@ -4233,6 +4341,7 @@ def wide_kernel_checks(pipes, fx, failures):
     and ``gnn_sinkhorn_checks`` on the wide pipelines), then at the other
     phase-12 shapes on random inputs from seeds: the LSTM at WIDE_LSTM
     beside cuDNN, the GNN at WIDE_GNN in bf16 and f32, FPS at WIDE_FPS."""
+    from text2pos_torch.ops import _build
     from text2pos_torch.ops.fps import (_fps_kernel,
                                         farthest_point_sampling_plain)
     from text2pos_torch.ops.lstm import _lstm_kernel, lstm_final_hidden_plain
@@ -4283,23 +4392,34 @@ def wide_kernel_checks(pipes, fx, failures):
         out["lstm_widths"].append({"H": H, "ms": ms, "plain_ms": plain_ms,
                                    "bound_ms": bnd, "bound_by": by,
                                    "library_ms": lib_ms, "max_abs_err": err})
-    for E, T0, T1 in WIDE_GNN:
-        N = WIDE_GNN_PAIRS
+    for E, T0, T1, N in WIDE_GNN + WIDE_GNN_WIDE:
         d0 = torch.nn.functional.normalize(torch.randn(
             N, T0, E, device=dev, generator=g), dim=-1)
         d1 = torch.nn.functional.normalize(torch.randn(
             N, T1, E, device=dev, generator=g), dim=-1)
         row = {"E": E, "T0": T0, "T1": T1, "N": N}
         for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            route = gnn_route(E, T0, T1, dt)[0]
+            if (E, T0, T1, N) in WIDE_GNN_WIDE and \
+                    route != "superglue_gnn_any_wide":
+                continue
             packed = pack_gnn_params(random_folded_params(
                 WIDE_GNN_BLOCKS, seed=E + T0, width=E), dt, dev)
+            before = _build.LAUNCHES[route]
             with torch.inference_mode():
                 got = _gnn_kernel(d0, d1, packed)
                 want = gnn_scores_plain(d0, d1, packed)
                 torch.cuda.synchronize()
+                if _build.LAUNCHES[route] != before + 1:
+                    failures.append(f"12.1 GNN {label} at {E}, {T0}x{T1}: "
+                                    f"no launch of {route}")
+                if label == "bf16" and E <= 320 and \
+                        route != "superglue_gnn_any":
+                    failures.append(f"12.1 GNN bf16 at {E}, {T0}x{T1} ran "
+                                    f"{route}, not the tensor-core route")
                 err = max_err(got, want)
                 scale = float(want.abs().max())
-                check(f"12.1 superglue_gnn_any {label} N={N} {T0}x{T1} E={E} "
+                check(f"12.1 {route} {label} N={N} {T0}x{T1} E={E} "
                       f"blocks={WIDE_GNN_BLOCKS} (random weights; |scores| "
                       f"max {scale:.2f})", err, GNN_REL_TOL[label] * scale,
                       failures)
@@ -4307,11 +4427,14 @@ def wide_kernel_checks(pipes, fx, failures):
                 plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
                                    reps=3, warmup=1)
             bnd, by, tflop = gnn_bound(d0, d1, packed, label)
-            log(f"  12.1 superglue_gnn_any {label} E={E} T0={T0} T1={T1}: "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bnd:.4f} ms ({by}, {tflop:.3f} TFLOP)")
+            log(f"  12.1 {route} {label} E={E} T0={T0} T1={T1} N={N}: "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                f"({'faster' if ms < plain_ms else 'SLOWER'} than plain), "
+                f"bound {bnd:.4f} ms ({by}, {tflop:.3f} TFLOP; "
+                f"{100 * bnd / ms:.1f}% of the bound)")
             row[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                          "bound_by": by, "max_abs_err": err}
+                          "bound_by": by, "max_abs_err": err,
+                          "route": route, "bound_share": bnd / ms}
         out["gnn_shapes"].append(row)
     for N in WIDE_FPS:
         Bo, S = WIDE_FPS_OBJECTS, N // 2
@@ -4340,6 +4463,80 @@ def wide_kernel_checks(pipes, fx, failures):
         out["fps_widths"].append({"N": N, "B": Bo, "S": S, "ms": ms,
                                   "plain_ms": plain_ms, "bound_ms": bnd,
                                   "bound_by": by, "max_abs_err": err})
+    return out
+
+
+def wide_pad_gnn_checks(pipes, pipe_bf16, bank, fx, failures):
+    """12.1: the second form in bf16 at serving depth (12 blocks) on the
+    E=300 bf16 serving pipelines' inputs, at ``gnn_depth_check``'s gate
+    with ragged pair counts and exact ties: (300, 16, 6), the headline's
+    pose-cell pairs (JAX's top-10 cells) with their hints at pad_size 16
+    (CTAs of 3 m-tiles, also held to GNN_REL_TOL alone by
+    ``gnn_sinkhorn_checks``); then on a pipeline at pad_size 24, whose
+    CTAs hold 4 m-tiles, (300, 24, 6) the same way and (300, 32, 32): 32
+    object rows (the cell's 24 and 8 of the next pair's cell; the bench
+    map holds at most 28 objects a cell, so no pipeline serves pad_size 32
+    on it, in JAX either) against 32 mentioned objects (the hints of the
+    pair's query and of the next five queries, cut to 32). Timed against
+    the plain version. Returns the readings."""
+    from text2pos_torch.ops import _build
+    from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
+                                                  gnn_scores_plain)
+
+    dev = pipe_bf16.device
+    idx = torch.as_tensor(fx["jax_top_idx"].astype("int64"),
+                          device=dev).reshape(-1)
+    K = fx["jax_top_idx"].shape[1]
+    pipe24 = wide_pipeline(pipe_bf16, bank, fx, torch.bfloat16, pad=24)[0]
+    inputs = {}
+    for pad, pipe in ((16, pipes["bf16"]), (24, pipe24)):
+        enc = pipe.fine_bank_enc
+        with torch.inference_mode():
+            hints = pipe.fine.encode_hints(
+                torch.as_tensor(fx["hint_tokens"], device=dev),
+                torch.as_tensor(fx["hint_lengths"], device=dev))
+        inputs[f"pad_size {pad} path"] = (
+            pipe, enc[idx], hints.repeat_interleave(K, dim=0))
+    with torch.inference_mode():
+        hints32 = torch.cat([hints.roll(-q, 0) for q in range(6)], 1)
+        inputs["pad_size 24 path, 32 objects and hints"] = (
+            pipe24, torch.cat([enc[idx], enc[idx.roll(-1)][:, :8]], 1),
+            hints32[:, :32].repeat_interleave(K, dim=0))
+    out = []
+    for what, (pipe, d0, d1) in inputs.items():
+        packed = pipe.fine.superglue.packed_kernel_params()
+        d0, d1 = d0.contiguous(), d1.contiguous()
+        N, T0, E = d0.shape
+        T1 = d1.shape[1]
+        route = gnn_route(E, T0, T1, torch.bfloat16)[0]
+        before = _build.LAUNCHES[route]
+        with torch.inference_mode():
+            got = _gnn_kernel(d0, d1, packed)
+            torch.cuda.synchronize()
+        if _build.LAUNCHES[route] != before + 1:
+            failures.append(f"12.1 GNN bf16 {what}: no launch of {route}")
+        if route != "superglue_gnn_any":
+            failures.append(f"12.1 GNN bf16 at {E}, {T0}x{T1} ran {route}, "
+                            "not the tensor-core route")
+        errs = gnn_depth_check(
+            f"12.1 {route} bf16 {what} N={N} {T0}x{T1} E={E} "
+            f"blocks={packed['wqkv'].shape[0]}", got, d0, d1, packed,
+            failures)
+        gnn_edge_checks("bf16", d0, d1, packed, got, failures, depth=True)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
+            plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
+                               reps=3, warmup=1)
+        bnd, by, tflop = gnn_bound(d0, d1, packed, "bf16")
+        log(f"  12.1 {route} bf16 {what} E={E} T0={T0} T1={T1} N={N}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"({'faster' if ms < plain_ms else 'SLOWER'} than plain), bound "
+            f"{bnd:.4f} ms ({by}, {tflop:.3f} TFLOP; {100 * bnd / ms:.1f}% "
+            "of the bound)")
+        out.append({"E": E, "T0": T0, "T1": T1, "N": N, "inputs": what,
+                    "bf16": dict(errs, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bnd, bound_by=by, route=route,
+                                 bound_share=bnd / ms)})
     return out
 
 
@@ -4466,12 +4663,40 @@ def widths_phase(pipe_bf16, bank, fx, failures):
     train, _, vocab = train_data()
     report, by_path, pipes = wide_serving(pipe_bf16, bank, fx, failures)
     kernels = wide_kernel_checks(pipes, fx, failures)
+    kernels["gnn_pad_paths"] = wide_pad_gnn_checks(pipes, pipe_bf16, bank,
+                                                   fx, failures)
     report["train"], launches = wide_train_checks(train, vocab, failures)
     by_path.update(launches)
     report["variants"], launches = variant_checks(pipe_bf16, bank, fx, train,
                                                   vocab, failures)
     by_path.update(launches)
     return by_path, kernels, report
+
+
+def gnn_routes(wide, by_path):
+    """The second form's routes: for each, every timing of phase 12.1 that
+    ran on it (the E=300 serving path's inputs, then the random shapes)
+    with its share of the bound, and its launches by path."""
+    runs = [("E300 path", {"E": WIDE_E}, wide["gnn"])] + [
+        ("E300 bf16 " + row["inputs"], row, row)
+        for row in wide["gnn_pad_paths"]] + [
+        ("random", row, row) for row in wide["gnn_shapes"]]
+    routes = {}
+    for what, shape, res in runs:
+        for label in ("bf16", "f32"):
+            r = res.get(label)
+            if not r:
+                continue
+            entry = routes.setdefault(r["route"], {"runs": []})
+            entry["runs"].append(dict(
+                inputs=what, dtype=label, ms=r["ms"], bound_ms=r["bound_ms"],
+                bound_share=r["bound_share"], plain_ms=r["plain_ms"],
+                **{k: shape[k] for k in ("E", "T0", "T1", "N") if k in shape}))
+    for name, entry in routes.items():
+        entry["launches_by_path"] = {p: n.get(name, 0)
+                                     for p, n in by_path.items()
+                                     if n.get(name, 0)}
+    return routes
 
 
 def main() -> int:
@@ -4669,7 +4894,9 @@ def main() -> int:
     fps["widths"] = wide["fps_widths"]
     gnn_any = dict(wide["gnn"]["bf16"], f32=wide["gnn"]["f32"],
                    widths=wide["gnn_shapes"],
-                   sinkhorn_E300=wide["gnn"]["sinkhorn"])
+                   pad_paths=wide["gnn_pad_paths"],
+                   sinkhorn_E300=wide["gnn"]["sinkhorn"],
+                   routes=gnn_routes(wide, by_path))
     per_kernel = {"lstm": lstm, "sinkhorn": sinkhorn,
                   "superglue_gnn": gnn, "superglue_gnn_any": gnn_any,
                   "pointconv": pointconv, "fps": fps}

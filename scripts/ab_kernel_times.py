@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the LSTM and FPS kernels built from two source trees, in
-one process on one card, in the order A, B, B, A.
+"""Device times of the LSTM, FPS and GNN kernels built from two source trees,
+in one process on one card, in the order A, B, B, A.
 
     python3 scripts/ab_kernel_times.py OTHER_CSRC_DIR
 
@@ -11,10 +11,20 @@ port's ``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
 (2048 queries x 64 tokens at H = 256; 12,288 hints x 16 tokens at H = 128;
 seeded random weights, the bench's lengths are not needed for a timing),
 FPS at the six launches of a DB-encode step (1024 and 787 objects at 256,
-128 and 64 points, half sampled, points with duplicates). Prints the
+128 and 64 points, half sampled, points with duplicates), the tuned GNN
+(``superglue_gnn.cu``) at the bench headline's 20,480 pairs of (128, 16, 6)
+in bf16 and f32, and the GNN's second form (``superglue_gnn_any.cu``) at
+the E = 300 headline's size in bf16 and f32 and at pad_size 24 in bf16
+(its CTAs hold 4 m-tiles) (12 blocks, seeded random
+weights; each side gets the weight layout its own source reads: the
+padded pack of ``pack_gnn_params``, or the unpadded row-major one of the
+form before it). Prints the
 median device time a launch (10 repeats of 20 launches back to back
-between two CUDA events) and the card's name and power limit. Needs a CUDA
-card and ``nvcc``.
+between two CUDA events; for the second form 3 of 2) and the card's name
+and power limit, and for the second form each side's largest error and
+the plain f32 version's against a float64 evaluation of the same inputs
+(``gnn_scores_plain(..., acc=torch.float64)``, the same rounding points).
+Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -34,9 +44,14 @@ sys.path.insert(0, str(ROOT))
 from text2pos_torch.ops import _build  # noqa: E402
 
 
+KERNELS = ("lstm", "fps", "superglue_gnn", "superglue_gnn_any")
+GNN_WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "w0", "s0", "t0", "w1", "b1",
+               "wf", "bf")
+
+
 def build(csrc: Path, out: Path, tag: str):
     procs = {}
-    for name in ("lstm", "fps"):
+    for name in KERNELS:
         so = out / f"lib{name}_{tag}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
@@ -49,6 +64,8 @@ def build(csrc: Path, out: Path, tag: str):
             raise RuntimeError(f"nvcc {tag} {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
     libs["wide_lstm"] = "wpack_f" in (csrc / "lstm.cu").read_text()
+    libs["padded_gnn"] = ("int pairs_per_cta"
+                          in (csrc / "superglue_gnn_any.cu").read_text())
     return libs
 
 
@@ -115,6 +132,104 @@ def fps_call(libs, B, N, seed=0):
     return call
 
 
+def gnn_descs(N, T0, T1, E, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.nn.functional.normalize(torch.randn(
+        N, T, E, device="cuda", generator=g), dim=-1) for T in (T0, T1))
+
+
+def tuned_gnn_call(libs, dtype, N=20480, L=12):
+    from text2pos_torch.ops import superglue_gnn as tgnn
+
+    E, T0, T1 = tgnn.KERNEL_SHAPE
+    d0, d1 = gnn_descs(N, T0, T1, E, 5)
+    packed = tgnn.pack_gnn_params(tgnn.random_folded_params(L, width=E),
+                                  dtype, "cuda")
+    out = torch.empty(N, T0, T1, device="cuda")
+    fn = libs["superglue_gnn"].t2p_superglue_gnn
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 2
+    args = [d0.data_ptr(), d1.data_ptr(),
+            *(packed[k].data_ptr() for k in GNN_WEIGHTS), L, N,
+            int(dtype == torch.bfloat16), out.data_ptr()]
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"superglue_gnn launch: CUDA error {err}")
+    return call
+
+
+def any_gnn_call(libs, dtype, N=20480, L=12, E=300, T0=16, T1=6):
+    """The second form at (E, T0, T1): the padded pack and the wrapper's
+    plan for a side built from this checkout's kind of source, the
+    unpadded row-major weights for the form before it."""
+    from text2pos_torch.ops import superglue_gnn as tgnn
+
+    d0, d1 = gnn_descs(N, T0, T1, E, 6)
+    packed = tgnn.pack_gnn_params(tgnn.random_folded_params(L, width=E),
+                                  dtype, "cuda")
+    lib = libs["superglue_gnn_any"]
+    bf16 = int(dtype == torch.bfloat16)
+    out = torch.empty(N, T0, T1, device="cuda")
+    nbytes = ctypes.c_longlong(0)
+    size, fn = lib.t2p_superglue_gnn_any_workspace, lib.t2p_superglue_gnn_any
+    if libs["padded_gnn"]:
+        plan = tgnn.any_plan(E, T0, T1, dtype)
+        route = int(plan.route.endswith("wide"))
+        size.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        _build.check(size(E, plan.width, T0, T1, bf16, route, plan.pairs, N,
+                          ctypes.byref(nbytes)), "workspace")
+        weights = packed
+        ints = [L, N, E, plan.width, T0, T1, bf16, route, plan.pairs]
+    else:
+        size.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _build.check(size(E, T0, T1, bf16, N, ctypes.byref(nbytes)),
+                     "workspace")
+        weights = {k: (v.to(dtype) if k in tgnn.MATMUL_WEIGHTS else v)
+                   .contiguous()
+                   for k, v in tgnn.gnn_weights(packed).items()}
+        ints = [L, N, E, T0, T1, bf16]
+    ws = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device="cuda")
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * len(ints) \
+        + [ctypes.c_void_p] * 3
+    args = [d0.data_ptr(), d1.data_ptr(),
+            *(weights[k].data_ptr() for k in GNN_WEIGHTS), *ints,
+            ws.data_ptr(), out.data_ptr()]
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"superglue_gnn_any launch: CUDA error {err}")
+    call.keep = (d0, d1, weights, ws, out)
+    call.inputs, call.out = (d0, d1, packed), out
+    return call
+
+
+def f64_errors(calls):
+    """Each side's scores (its last launch) and the plain f32 version's
+    against the float64 evaluation of the same inputs and weights
+    (``gnn_scores_plain(..., acc=torch.float64)``), as the largest error
+    over the checks' tolerance (1% of the largest score in bf16, 1e-5 in
+    f32) and the pairs past it."""
+    from text2pos_torch.ops import superglue_gnn as tgnn
+
+    d0, d1, packed = calls["A"].inputs
+    rel = 1e-2 if packed["wqkv"].dtype == torch.bfloat16 else 1e-5
+    with torch.inference_mode():
+        ref = torch.cat([tgnn.gnn_scores_plain(
+            d0[i:i + 4096], d1[i:i + 4096], packed, acc=torch.float64)
+            for i in range(0, len(d0), 4096)])
+        outs = {k: c.out for k, c in calls.items()}
+        outs["plain"] = tgnn.gnn_scores_plain(d0, d1, packed)
+    tol = rel * float(ref.abs().max())
+    out = {}
+    for k, v in outs.items():
+        d = (v - ref).abs().amax((1, 2))
+        out[k] = (float(d.max()) / tol, int((d > tol).sum()))
+    return out
+
+
 def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -131,16 +246,31 @@ def main() -> int:
                  for B, T, H in ((2048, 64, 256), (12288, 16, 128))]
         cases += [(f"fps B={B} N={N}", lambda L, a=(B, N): fps_call(L, *a))
                   for B in (1024, 787) for N in (256, 128, 64)]
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt)[6:]
+            cases += [(f"superglue_gnn {name} N=20480 (128, 16, 6) L=12",
+                       lambda L, d=dt: tuned_gnn_call(L, d)),
+                      (f"superglue_gnn_any {name} N=20480 (300, 16, 6) L=12",
+                       lambda L, d=dt: any_gnn_call(L, d))]
+        cases += [("superglue_gnn_any bfloat16 N=20480 (300, 24, 6) L=12",
+                   lambda L: any_gnn_call(L, torch.bfloat16, T0=24))]
         print(f"# {gpu}; A = {_build.CSRC}, B = {other}")
         for label, make in cases:
             calls = {k: make(v) for k, v in sides.items()}
             ms = {k: [] for k in calls}
+            slow = label.startswith("superglue_gnn_any")
             for k in ("A", "B", "B", "A"):
-                ms[k].append(timed(calls[k]))
+                ms[k].append(timed(calls[k], reps=3 if slow else 10,
+                                   launches=2 if slow else 20))
             a, b = (statistics.mean(ms[k]) for k in ("A", "B"))
             print(f"{label}: A {ms['A'][0]:.4f} {ms['A'][1]:.4f} ms, "
                   f"B {ms['B'][0]:.4f} {ms['B'][1]:.4f} ms, A/B "
                   f"{a / b:.4f}")
+            if slow:
+                errs = f64_errors(calls)
+                print("  against the float64 evaluation (largest error "
+                      "over the tolerance, pairs past it): " + ", ".join(
+                          f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
     return 0
 
 

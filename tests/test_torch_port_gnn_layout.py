@@ -93,8 +93,9 @@ def test_unpacking_gives_the_folded_weights_back(dtype):
     packed = tgnn.pack_gnn_params(folded, dtype, "cpu")
     assert packed["wqkv"].shape[0] == 2 and packed["wqkv"].dtype == dtype
     if dtype == torch.bfloat16:
-        assert packed["w0"].shape == (2, 8, 4, 32, 4)
-        assert packed["wf"].shape == (4, 2, 32, 4)
+        # Heads of 8 channels padded to 16: the width 32 is packed as 64.
+        assert packed["w0"].shape == (2, 16, 8, 32, 4)
+        assert packed["wf"].shape == (8, 4, 32, 4)
     else:
         assert packed["w0"].shape == (2, 64, 64)
     mats = tgnn.matmul_weights(packed)
@@ -103,9 +104,10 @@ def test_unpacking_gives_the_folded_weights_back(dtype):
     for name in tgnn.MATMUL_WEIGHTS:
         w = torch.from_numpy(want[name]).to(dtype).float()
         torch.testing.assert_close(mats[name], w, atol=0, rtol=0)
+    stripped = tgnn.gnn_weights(packed)
     for name in ("bm", "s0", "t0", "b1", "bf"):
         assert packed[name].dtype == torch.float32
-        np.testing.assert_array_equal(packed[name].numpy(), folded[name])
+        np.testing.assert_array_equal(stripped[name].numpy(), folded[name])
 
 
 @pytest.mark.parametrize("dtype,jdtype,tol", [

@@ -1,7 +1,10 @@
 """The kernels at the widths JAX's configurations give, against their plain
 PyTorch versions: the LSTM past 256 units (JAX's default embed_dim 300, up
 to 512), the second GNN form (``csrc/superglue_gnn_any.cu``) at any E a
-multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32, FPS past 256 points.
+multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32 on each of its routes
+(``any_plan``: bf16 on the tensor cores and f32 on the CUDA cores, both
+``superglue_gnn_any``, and ``superglue_gnn_any_wide``), FPS past 256
+points.
 
 Imports only torch and numpy, so it also runs on a card machine without JAX:
 
@@ -104,50 +107,126 @@ def _packed(E, dtype, device, L):
                                 device)
 
 
-@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
-                                           (torch.bfloat16, 1e-2)])
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _gnn_case(cuda, dtype, E, T0, T1, N, L, seed=None):
+    """Kernel against plain on seeded descriptors; the launch is counted
+    under the name of the route ``any_plan`` gives. Tolerance relative to
+    the largest score, as the tuned kernel's test: both sides sum in f32 in
+    different orders; in bf16 that can move a value by one bf16 step."""
+    packed = _packed(E, dtype, cuda, L)
+    g = torch.Generator().manual_seed(E + T0 + T1 if seed is None else seed)
+    d0 = torch.randn(N, T0, E, generator=g).to(cuda)
+    d1 = torch.randn(N, T1, E, generator=g).to(cuda)
+    route = tgnn.any_plan(E, T0, T1, dtype).route
+    got = _launches(route, lambda: tgnn.gnn_scores(d0, d1, packed))
+    want = tgnn.gnn_scores_plain(d0, d1, packed)
+    assert got.shape == (N, T0, T1) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=REL_TOL[dtype]
+                               * float(want.abs().max()))
+    return route
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("E,T0,T1,N,L", [
     (300, 16, 6, 37, 4),         # JAX's default width
     (128, 24, 6, 9, 4),          # pad_size 24 at the bench width
     (256, 32, 8, 5, 4),          # the largest rows of the phase-12 shapes
     (300, 16, 6, 3, 0),          # 0 blocks: the final projection alone
-    (512, 32, 32, 3, 2),         # the largest shape: a global workspace
+    (300, 32, 32, 3, 0),
+    (512, 32, 32, 3, 2),         # the largest shape: the wide route
     (128, 16, 16, 4, 2),         # T1 = T0
     (4, 1, 1, 2, 2),             # the smallest
 ])
-def test_gnn_any_kernel_matches_plain(cuda, dtype, rel_tol, E, T0, T1, N, L):
-    """Tolerance relative to the largest score, as the tuned kernel's test:
-    both sides sum in f32 in different orders; in bf16 that can move a
-    value by one bf16 step."""
-    packed = _packed(E, dtype, cuda, L)
-    g = torch.Generator().manual_seed(E + T0)
-    d0 = torch.randn(N, T0, E, generator=g).to(cuda)
-    d1 = torch.randn(N, T1, E, generator=g).to(cuda)
-    got = _launches("superglue_gnn_any",
-                    lambda: tgnn.gnn_scores(d0, d1, packed))
-    want = tgnn.gnn_scores_plain(d0, d1, packed)
-    assert got.shape == (N, T0, T1) and bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=rel_tol * float(want.abs().max()))
+def test_gnn_any_kernel_matches_plain(cuda, dtype, E, T0, T1, N, L):
+    _gnn_case(cuda, dtype, E, T0, T1, N, L)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gnn_any_kernel_keeps_exact_ties(cuda, dtype):
-    """Identical hints give bit-identical score columns at E = 300."""
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T0,T1", [(16, 6), (24, 6), (32, 32)])
+@pytest.mark.parametrize("which", ["one", "G+1", "37"])
+def test_gnn_any_ragged_pair_counts(cuda, dtype, T0, T1, which):
+    """N not a multiple of the pairs a CTA takes: one pair, G + 1, 37."""
+    G = tgnn.any_plan(300, T0, T1, dtype).pairs
+    N = {"one": 1, "G+1": G + 1, "37": 37}[which]
+    _gnn_case(cuda, dtype, 300, T0, T1, N, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T0", [16, 24, 32])
+@pytest.mark.parametrize("T1", ["1", "6", "T0"])
+def test_gnn_any_set_sizes(cuda, dtype, T0, T1):
+    T1 = T0 if T1 == "T0" else int(T1)
+    _gnn_case(cuda, dtype, 300, T0, T1, 5, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E", [4, 300, 320, 512])
+@pytest.mark.parametrize("T0,T1", [(16, 6), (32, 32)])
+def test_gnn_any_widths(cuda, dtype, E, T0, T1):
+    _gnn_case(cuda, dtype, E, T0, T1, 3, 2)
+
+
+@pytest.mark.parametrize("E,T0,T1", [
+    (E, T0, T1) for E in (64, 128, 192, 256, 300, 320)
+    for T0, T1 in ((16, 6), (16, 16), (24, 6), (32, 32))
+    if (E, T0, T1) != tgnn.KERNEL_SHAPE])
+def test_gnn_any_bf16_takes_the_tensor_cores(cuda, E, T0, T1):
+    """Every bf16 shape at E <= 320 but the tuned kernel's runs on the
+    second form's tensor-core route."""
+    wide = tgnn.any_plan(E, T0, T1, torch.bfloat16).route
+    before = _build.LAUNCHES["superglue_gnn_any_wide"]
+    route = _gnn_case(cuda, torch.bfloat16, E, T0, T1, 4, 2)
+    assert route == wide == "superglue_gnn_any"
+    assert _build.LAUNCHES["superglue_gnn_any_wide"] == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T0,T1,dup", [(24, 6, (1, 4)), (16, 12, (3, 4))])
+def test_gnn_any_kernel_keeps_exact_ties(cuda, dtype, T0, T1, dup):
+    """Identical hints give bit-identical score columns at E = 300; at
+    (16, 12) in bf16, hints 3 and 4 of a CTA's second pair lie in different
+    16-row tiles."""
     packed = _packed(300, dtype, cuda, 2)
     g = torch.Generator().manual_seed(3)
-    d0 = torch.randn(5, 24, 300, generator=g).to(cuda)
-    d1 = torch.randn(5, 6, 300, generator=g).to(cuda)
-    d1[:, 4] = d1[:, 1]
+    d0 = torch.randn(5, T0, 300, generator=g).to(cuda)
+    d1 = torch.randn(5, T1, 300, generator=g).to(cuda)
+    i, j = dup
+    d1[:, j] = d1[:, i]
     s = tgnn.gnn_scores(d0, d1, packed)
-    torch.testing.assert_close(s[:, :, 4], s[:, :, 1], atol=0, rtol=0)
+    torch.testing.assert_close(s[:, :, j], s[:, :, i], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("T0,T1", [(16, 6), (24, 6), (16, 12)])
+def test_gnn_any_bf16_scores_do_not_depend_on_pairs_a_cta(cuda, monkeypatch,
+                                                          T0, T1):
+    """Every m-tile count sums each k-step's products with the same rounded
+    adds, so a pair's bf16 scores are bit-identical whether its CTA holds
+    the plan's G = 2 pairs (3 m-tiles at (16, 6), 4 at (24, 6) and
+    (16, 12)) or one pair (2 or 3 m-tiles)."""
+    packed = _packed(300, torch.bfloat16, cuda, 2)
+    g = torch.Generator().manual_seed(5)
+    d0 = torch.randn(7, T0, 300, generator=g).to(cuda)
+    d1 = torch.randn(7, T1, 300, generator=g).to(cuda)
+    plan = tgnn.any_plan(300, T0, T1, torch.bfloat16)
+    assert plan.pairs == 2
+    got = tgnn.gnn_scores(d0, d1, packed)
+    monkeypatch.setattr(tgnn, "any_plan",
+                        lambda *args: plan._replace(pairs=1))
+    alone = _launches("superglue_gnn_any",
+                      lambda: tgnn.gnn_scores(d0, d1, packed))
+    torch.testing.assert_close(alone, got, atol=0, rtol=0)
 
 
 def test_gnn_any_kernel_takes_fragment_ordered_weights(cuda):
-    """At E = 128 bf16 weights come in the tuned kernel's fragment order;
-    at other set sizes the second form unpacks them."""
+    """At E = 128 bf16 weights come in the tuned kernel's fragment order,
+    and the second form reads the same pack at other set sizes."""
     packed = _packed(128, torch.bfloat16, cuda, 2)
-    assert tgnn.fragment_ordered(packed)
+    assert tgnn.fragment_ordered(packed) and tgnn.packed_width(packed) == 128
     g = torch.Generator().manual_seed(8)
     d0 = torch.randn(6, 24, 128, generator=g).to(cuda)
     d1 = torch.randn(6, 6, 128, generator=g).to(cuda)

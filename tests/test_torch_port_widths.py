@@ -8,9 +8,11 @@ port at JAX's default embed_dim 300 against the JAX package on the CPU.
   after the real ones, which leaves them bit for bit). Past 256 the kernel
   reads W_hh in the fragment order ``w_hh_fragments`` packs, held against a
   Python mirror of the kernel's own fill loop.
-- The second GNN form pads nothing: its plain version at E = 300 (heads of
-  75, scales 1/√75 and 1/√300), T0 = 24 and T0 = 32 against JAX's Pallas
-  kernel in interpret mode, f32 within 1e-5 (as ``test_torch_port_ops``).
+- The GNN's plain version, on a pack padded to heads of 76 (f32) and
+  stripped back to the real width: at E = 300 (heads of 75, scales 1/√75
+  and 1/√300), T0 = 24 and T0 = 32 against JAX's Pallas kernel in
+  interpret mode, f32 within 1e-5 (as ``test_torch_port_ops``); the padded
+  layout itself is ``test_torch_port_gnn_padded``'s.
 - The wrappers' range checks raise ``ValueError`` naming the range, before
   any build.
 - At embed_dim 300, pad_size 24: ``encode_text`` against JAX's, the
@@ -131,18 +133,26 @@ def test_fps_plain_past_256_points_matches_first_index_rule():
 
 
 def test_pack_layout_follows_the_width():
-    """bf16 weights in fragment order where E is a multiple of 16 (the
-    tuned kernel's E = 128), row-major at E = 300; f32 always row-major."""
+    """bf16 weights in fragment order at every width, padded to heads of a
+    multiple of 16 channels (E = 300 as 320; the tuned kernel's E = 128 as
+    it is); f32 always row-major, heads padded to a multiple of 4 (300 as
+    304)."""
     wide = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=300),
                                 torch.bfloat16, "cpu")
-    assert not tgnn.fragment_ordered(wide)
-    assert wide["wqkv"].shape == (1, 300, 900)
+    assert tgnn.fragment_ordered(wide)
+    assert wide["wqkv"].shape == (1, 960 // 8, 320 // 16, 32, 4)
+    assert tgnn.packed_width(wide) == 320 and tgnn.real_width(wide) == 300
     bench = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=128),
                                  torch.bfloat16, "cpu")
     assert tgnn.fragment_ordered(bench)
+    assert bench["wqkv"].shape == (1, 384 // 8, 128 // 16, 32, 4)
     f32 = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=128),
                                torch.float32, "cpu")
     assert not tgnn.fragment_ordered(f32)
+    wide32 = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=300),
+                                  torch.float32, "cpu")
+    assert not tgnn.fragment_ordered(wide32)
+    assert wide32["wqkv"].shape == (1, 304, 912)
 
 
 def _gnn_trees(E, layers, seed=0):

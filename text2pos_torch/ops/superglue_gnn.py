@@ -3,45 +3,53 @@
 
 ``fold_gnn_params`` stacks the 2·num_layers blocks' weights and folds the
 calibrated per-set BatchNorm (``bn_stat_groups=2``) into per-set affines
-``s0``/``t0``; ``pack_gnn_params`` lays them out for the kernel. The kernel
-``csrc/superglue_gnn.cu`` (replacing the Pallas kernel
-``superglue_gnn_pallas.py:253``) runs every self/cross block, the final
-projection and the ``[N, 16, 6]`` score matrix scaled by 1/√E in one launch.
-``gnn_scores_plain`` repeats its arithmetic, rounding included, in PyTorch.
+``s0``/``t0``; ``pack_gnn_params`` lays them out for the kernels. Two CUDA
+forms replace the Pallas kernel ``superglue_gnn_pallas.py:253``; each runs
+every self/cross block, the final projection and the ``[N, T0, T1]`` score
+matrix scaled by 1/√E in one launch. ``gnn_scores_plain`` repeats their
+arithmetic, rounding included, in PyTorch.
 
-Operations bound the function on the H100 (about 89 MFLOP a pair against
-14.7 KB moved), so the bf16 kernel runs its dense products on the tensor
-cores (``mma.sync`` m16n8k16, f32 accumulation). Two things of its design
-live here, in index code that runs anywhere:
+- ``csrc/superglue_gnn.cu``, tuned for ``KERNEL_SHAPE`` (E = 128, 16
+  objects, 6 hints): bf16 on the tensor cores (``mma.sync`` m16n8k16, f32
+  accumulation, ``TC_PAIRS`` pairs a CTA), f32 on the CUDA cores.
+- ``csrc/superglue_gnn_any.cu`` at every other shape JAX's configurations
+  give (E a multiple of 4 up to ``MAX_WIDTH``, 1 ≤ T1 ≤ T0 ≤ ``MAX_SET``:
+  JAX's default E = 300, ``pad_size`` 24 and 32). ``any_plan`` picks its
+  route and the pairs a CTA holds: bf16 on the tensor cores, f32 on the
+  CUDA cores with G pairs sharing each weight read (both counted as
+  ``superglue_gnn_any``), and ``superglue_gnn_any_wide`` where a pair's rows
+  do not fit in shared memory.
 
+Operations bound the function on the H100 (about 20·E²·(T0 + T1) a block a
+pair against (T0 + T1)·E·4 bytes of descriptors). The layout the kernels
+read is decided here, in index code that runs anywhere:
+
+- every head is padded to ``Dp`` channels, a multiple of 16 in bf16 (so
+  that QKᵀ's depth and P·V's width fit ``m16n8k16``) and of 4 in f32 (16-byte
+  loads), the model width to ``Ep = 4·Dp`` (``padded_width``: 320 and 304 at
+  E = 300; multiples of 64 are not padded). The pads are zero in every
+  weight, bias and BN affine, so padded channels stay exactly 0 through
+  every block; q|k|v and the messages are laid out by head, the residual,
+  the merge output, h1 and the final projection with their real channels
+  first.
 - bf16 matmul weights are stored in the order of the instruction's B
   fragments (``to_fragment_order``), so that a warp reads its operand from
   global memory as one contiguous 8-byte load per lane and keeps no weight
-  in shared memory; ``from_fragment_order`` is the inverse, which the plain
-  version uses.
-- a CTA holds ``TC_PAIRS`` pairs' rows set-major: all object rows, then all
-  hint rows, then zero rows up to a multiple of 16, so that a 16-row tile
-  belongs to one set. The kernel computes that layout itself; the wrapper
-  only needs the pair count a CTA takes to say what "ragged" means.
+  in shared memory. At E = 128 the pack is the tuned kernel's, and both
+  forms read the same one. f32 weights are row-major.
+- a CTA of the tensor-core kernels holds its pairs' rows set-major: all
+  object rows, then all hint rows, each set padded to a multiple of 16, so
+  that a 16-row tile belongs to one set.
 
-The f32 kernel (f32 FMAs on the CUDA cores) keeps row-major weights.
-
-Both kernels of ``csrc/superglue_gnn.cu`` are built for ``KERNEL_SHAPE``
-alone. Every other shape JAX's configurations give (E a multiple of 4 up to
-``MAX_WIDTH``, 1 ≤ T1 ≤ T0 ≤ ``MAX_SET``: JAX's default E = 300, ``pad_size``
-24) goes to the second form, ``csrc/superglue_gnn_any.cu``, in f32 or bf16,
-with row-major weights (``pack_gnn_params`` gives bf16 weights fragment
-order where E is a multiple of 16, and the wrapper unpacks them for that
-form). That
-form pads nothing: its heads are E/4 channels wide, the scales 1/√(E/4)
-and 1/√E.
+``gnn_weights`` strips the pads again: the plain version runs at the real
+widths, at unchanged arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,9 +60,11 @@ HEADS = 4
 KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
 MAX_WIDTH = 512               # superglue_gnn_any.cu: E a multiple of 4
 MAX_SET = 32                  # and 1 <= T1 <= T0 <= MAX_SET
-TC_PAIRS = 4                  # pairs per CTA of the bf16 kernel
+TC_PAIRS = 4                  # pairs per CTA of the tuned bf16 kernel
+SMEM_OPTIN = 232448           # an H100 CTA's dynamic shared memory, bytes
 MATMUL_WEIGHTS = ("wqkv", "wm", "w0", "w1", "wf")
-UNSTACKED = ("wf", "bf")      # the final projection; the rest are per block
+# The final projection and the pack's real width; the rest are per block.
+UNSTACKED = ("wf", "bf", "width")
 
 
 def fold_gnn_params(params: Dict, batch_stats: Dict, num_layers: int,
@@ -165,28 +175,78 @@ def random_folded_params(num_blocks: int, seed: int = 1,
             for k, s in shapes.items()}
 
 
+def padded_width(E: int, dtype: torch.dtype) -> int:
+    """``Ep``: E with every head padded to a multiple of 16 channels in bf16
+    (a multiple of 64 in all) and of 4 in f32 (a multiple of 16)."""
+    unit = 64 if dtype == torch.bfloat16 else 16
+    return -(-E // unit) * unit
+
+
+def head_index(E: int, Ep: int) -> np.ndarray:
+    """Where the real channel c of q, k, v and the messages lies in the
+    padded width: head c // (E/4) at a stride of Ep/4."""
+    D, Dp = E // HEADS, Ep // HEADS
+    c = np.arange(E)
+    return (c // D) * Dp + c % D
+
+
+def _pad_index(E: int, Ep: int) -> Dict[str, tuple]:
+    """(rows, columns) in the padded pack of each folded array's last two
+    axes (a vector's single axis as columns): head layout (q|k|v, messages),
+    real channels first (residual, m, h1, md), [a | m] as two halves."""
+    hi = head_index(E, Ep)
+    real, real2 = np.arange(E), np.arange(2 * E)
+    am = np.concatenate([real, Ep + real])
+    qkv = np.concatenate([hi, Ep + hi, 2 * Ep + hi])
+    return {"wqkv": (real, qkv), "bqkv": (None, qkv), "wm": (hi, real),
+            "bm": (None, real), "w0": (am, real2), "s0": (None, real2),
+            "t0": (None, real2), "w1": (real2, real), "b1": (None, real),
+            "wf": (real, real), "bf": (None, real)}
+
+
+def _padded_shape(name: str, lead, Ep: int):
+    kn = {"wqkv": (Ep, 3 * Ep), "wm": (Ep, Ep), "w0": (2 * Ep, 2 * Ep),
+          "w1": (2 * Ep, Ep), "wf": (Ep, Ep)}
+    n = {"bqkv": 3 * Ep, "bm": Ep, "s0": 2 * Ep, "t0": 2 * Ep, "b1": Ep,
+         "bf": Ep}
+    return (*lead, *kn[name]) if name in kn else (*lead, n[name])
+
+
 def pack_gnn_params(folded: Dict[str, np.ndarray], dtype: torch.dtype,
                     device) -> Dict[str, torch.Tensor]:
-    """Kernel layout: q|k|v fused to ``wqkv`` ([L, E, 3E] before ordering);
-    matmul weights in the compute dtype, row-major ``[.., K, N]`` in f32 and
-    at widths that are no multiple of 16 (300), in fragment order
-    ``[.., N/8, K/16, 32, 4]`` in bf16 otherwise (the tuned kernel's at
-    E = 128); biases and BN affines in f32."""
-    def t(a, dt=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
-                                                           dtype=dt)
-
-    frag = dtype == torch.bfloat16 and folded["wq"].shape[-1] % 16 == 0
-    order = to_fragment_order if frag else (lambda a: a)
-    out = {
+    """Kernel layout, padded to ``Ep = padded_width(E, dtype)`` with zeros:
+    q|k|v fused to ``wqkv`` ([L, Ep, 3Ep] before ordering); matmul weights
+    in the compute dtype, in fragment order ``[.., N/8, K/16, 32, 4]`` in
+    bf16 (at E = 128 the tuned kernel's) and row-major ``[.., K, N]`` in
+    f32; biases and BN affines in f32; ``width`` the real E (a 0-d int64
+    tensor on the CPU, so that reading it does not synchronize)."""
+    E = folded["wq"].shape[-1]
+    Ep = padded_width(E, dtype)
+    fused = {
         "wqkv": np.concatenate([folded["wq"], folded["wk"], folded["wv"]],
                                axis=2),
         "bqkv": np.concatenate([folded["bq"], folded["bk"], folded["bv"]],
                                axis=1),
         **{k: folded[k] for k in ("wm", "bm", "w0", "s0", "t0", "w1", "b1",
                                   "wf", "bf")}}
-    return {k: t(order(a), dtype) if k in MATMUL_WEIGHTS else t(a)
-            for k, a in out.items()}
+    out = {}
+    for name, (rows, cols) in _pad_index(E, Ep).items():
+        a = np.asarray(fused[name], np.float32)
+        lead = a.shape[:-2] if rows is not None else a.shape[:-1]
+        p = np.zeros(_padded_shape(name, lead, Ep), np.float32)
+        if rows is None:
+            p[..., cols] = a
+        else:
+            p[..., rows[:, None], cols[None, :]] = a
+        if name in MATMUL_WEIGHTS:
+            if dtype == torch.bfloat16:
+                p = to_fragment_order(p)
+            out[name] = torch.as_tensor(np.ascontiguousarray(p)).to(
+                device=device, dtype=dtype)
+        else:
+            out[name] = torch.as_tensor(p).to(device=device)
+    out["width"] = torch.tensor(E)
+    return out
 
 
 def fragment_ordered(packed: Dict[str, torch.Tensor]) -> bool:
@@ -195,33 +255,115 @@ def fragment_ordered(packed: Dict[str, torch.Tensor]) -> bool:
     return packed["wqkv"].dim() == 5
 
 
+def packed_width(packed: Dict[str, torch.Tensor]) -> int:
+    """``Ep``, the padded width of a pack."""
+    return packed["bf"].shape[-1]
+
+
+def real_width(packed: Dict[str, torch.Tensor]) -> int:
+    """E, the width the pack was made at."""
+    return int(packed["width"])
+
+
+def gnn_weights(packed: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every array of ``packed`` as f32 at its real width, the pads stripped:
+    matmul weights row-major ``[.., K, N]`` (the folded weights rounded to
+    the pack's dtype, ``wqkv`` fused), biases and BN affines."""
+    E, Ep = real_width(packed), packed_width(packed)
+    frag = fragment_ordered(packed)
+    out = {}
+    for name, (rows, cols) in _pad_index(E, Ep).items():
+        x = packed[name]
+        if name in MATMUL_WEIGHTS and frag:
+            x = from_fragment_order(x)
+        x = x.float()
+        if rows is not None:
+            x = x.index_select(-2, torch.as_tensor(rows, device=x.device))
+        out[name] = x.index_select(-1, torch.as_tensor(cols, device=x.device))
+    return out
+
+
 def matmul_weights(packed: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """The packed matmul weights as row-major ``[.., K, N]`` f32."""
-    frag = fragment_ordered(packed)
-    return {k: (from_fragment_order(packed[k]) if frag else packed[k]).float()
-            for k in MATMUL_WEIGHTS}
+    """The packed matmul weights as row-major ``[.., K, N]`` f32 at the real
+    width."""
+    w = gnn_weights(packed)
+    return {k: w[k] for k in MATMUL_WEIGHTS}
+
+
+class AnyPlan(NamedTuple):
+    """How ``csrc/superglue_gnn_any.cu`` runs a shape: the route (also the
+    launch's name), the padded width, the pairs a CTA holds, its rows, its
+    shared memory in bytes (0 on the wide route), and the row of the CTA's
+    first hint on the tensor-core route, whose rows are set-major (objects
+    of all its pairs, then their hints; ``None`` where rows go pair by
+    pair)."""
+    route: str
+    width: int
+    pairs: int
+    rows: int
+    smem: int
+    hint_row: Optional[int]
+
+
+MAX_TC_ROWS = 64    # 4 m-tiles: the tensor-core route's accumulators
+MAX_F32_ROWS = 64   # 8 row lanes of 8 rows: the f32 route's thread tiles
+
+
+def any_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
+    """The second form's route at (E, T0, T1): the most pairs G whose rows
+    fit in a CTA's rows and in an H100 CTA's shared memory (bf16: objects
+    then hints, each set padded to a multiple of 16, at most 64 rows of
+    2·(2·Ep + 8) bf16; f32: G·(T0 + T1) rows of 2·(2·Ep + 4) floats, at
+    most 64), or the wide route (a pair a CTA, its rows in global memory)
+    where not even one pair fits. The kernel computes its layout from G and
+    fails a launch whose rows it has no instantiation for."""
+    Ep = padded_width(E, dtype)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        def rows(g):
+            return 16 * (-(-g * T0 // 16) + -(-g * T1 // 16))
+        cap, row_bytes = MAX_TC_ROWS, 2 * (2 * Ep + 8) * 2
+    else:
+        def rows(g):
+            return g * (T0 + T1)
+        cap, row_bytes = MAX_F32_ROWS, 2 * (2 * Ep + 4) * 4
+    g = 0
+    while rows(g + 1) <= cap and rows(g + 1) * row_bytes <= SMEM_OPTIN:
+        g += 1
+    if g == 0:
+        return AnyPlan("superglue_gnn_any_wide", Ep, 1, T0 + T1, 0, None)
+    return AnyPlan("superglue_gnn_any", Ep, g, rows(g), rows(g) * row_bytes,
+                   16 * -(-g * T0 // 16) if bf16 else None)
 
 
 def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
-                     packed: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: desc0 [N, T0, E], desc1 [N, T1, E]
-    → scores [N, T0, T1] f32. The residual stream is f32; values the JAX
-    eval path rounds to the compute dtype are rounded here too."""
+                     packed: Dict[str, torch.Tensor],
+                     acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch twin of the kernels: desc0 [N, T0, E], desc1 [N, T1, E]
+    → scores [N, T0, T1] f32, on the pack's weights stripped to the real
+    width E. The residual stream is f32; values the JAX eval path rounds to
+    the compute dtype are rounded here too. ``acc=torch.float64`` keeps the
+    sums and the residual in float64, at the same rounding points: an
+    evaluation nearly free of summation-order error, against which checks
+    on the card weigh the kernels and this f32 version alike."""
     dt = packed["wqkv"].dtype
 
     def rnd(x):
-        return x.to(dt).float()
-
-    mats = matmul_weights(packed)
-
-    def w(name, l=None):
-        x = mats[name] if name in mats else packed[name].float()
-        return x if l is None else x[l]
+        return x.to(dt).to(acc)
 
     N, T0, E = desc0.shape
+    if real_width(packed) != E:
+        raise ValueError(f"GNN weights of width {real_width(packed)} on "
+                         f"descriptors of width {E}")
+    weights = {k: v.to(acc) for k, v in gnn_weights(packed).items()}
+
+    def w(name, l=None):
+        x = weights[name]
+        return x if l is None else x[l]
+
     D = E // HEADS
-    res = torch.cat([desc0, desc1], dim=1).float()     # [N, T0+T1, E]
+    res = torch.cat([desc0, desc1], dim=1).to(acc)     # [N, T0+T1, E]
     set1 = torch.arange(res.shape[1], device=res.device) >= T0
     L = packed["wqkv"].shape[0]
     for l in range(L):
@@ -244,7 +386,7 @@ def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
         h1 = rnd(torch.relu(h * s0 + t0))
         res = res + rnd(h1 @ w("w1", l) + w("b1", l))
     md = rnd(rnd(res) @ w("wf") + w("bf"))
-    return md[:, :T0] @ md[:, T0:].transpose(1, 2) / math.sqrt(E)
+    return (md[:, :T0] @ md[:, T0:].transpose(1, 2) / math.sqrt(E)).float()
 
 
 def _check_any_shape(desc0, desc1) -> None:
@@ -258,25 +400,43 @@ def _check_any_shape(desc0, desc1) -> None:
             f"{tuple(desc0.shape)} x {tuple(desc1.shape)}")
 
 
-def _check_weights(packed, E, L, dt, frag, desc0) -> None:
-    kn = {"wqkv": (E, 3 * E), "wm": (E, E), "w0": (2 * E, 2 * E),
-          "w1": (2 * E, E), "wf": (E, E)}
-    for name, (k, n) in kn.items():
+def _check_weights(packed, E, L, dt, desc0) -> int:
+    """Raises unless ``packed`` is a pack of width E in dtype ``dt``, L
+    blocks, on the descriptors' device; returns its padded width."""
+    Ep = padded_width(E, dt)
+    frag = dt == torch.bfloat16
+    for name in MATMUL_WEIGHTS:
+        k, n = _padded_shape(name, (), Ep)
         want = (n // 8, k // 16, 32, 4) if frag else (k, n)
         want = want if name == "wf" else (L, *want)
         if packed[name].dtype != dt or tuple(packed[name].shape) != want:
             raise ValueError(f"GNN kernel: weight {name} must be {dt} "
                              f"{want}, got {packed[name].dtype} "
                              f"{tuple(packed[name].shape)}")
+    for name in ("bqkv", "bm", "s0", "t0", "b1", "bf"):
+        lead = () if name == "bf" else (L, 2) if name in ("s0", "t0") \
+            else (L,)
+        want = _padded_shape(name, lead, Ep)
+        if packed[name].dtype != torch.float32 or \
+                tuple(packed[name].shape) != want:
+            raise ValueError(f"GNN kernel: {name} must be float32 {want}, "
+                             f"got {packed[name].dtype} "
+                             f"{tuple(packed[name].shape)}")
+    if real_width(packed) != E:
+        raise ValueError(f"GNN kernel: weights of width {real_width(packed)}"
+                         f" on descriptors of width {E}")
     for name, x in packed.items():
-        if x.device != desc0.device or not x.is_contiguous():
+        if name != "width" and (x.device != desc0.device
+                                or not x.is_contiguous()):
             raise ValueError(f"GNN kernel: weight {name} must be contiguous "
                              "on the descriptors' device")
+    return Ep
 
 
 def _gnn_any_kernel(desc0, desc1, packed):
     """``csrc/superglue_gnn_any.cu``: any shape ``_check_any_shape`` takes,
-    row-major weights (fragment-ordered ones unpacked first)."""
+    on the route ``any_plan`` gives; the launch is counted under the
+    route's name."""
     _build.refuse_grad("GNN kernel", desc0, desc1, *packed.values())
     _check_any_shape(desc0, desc1)
     N, T0, E = desc0.shape
@@ -285,11 +445,7 @@ def _gnn_any_kernel(desc0, desc1, packed):
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
     L = packed["wqkv"].shape[0]
-    frag = fragment_ordered(packed)
-    _check_weights(packed, E, L, dt, frag, desc0)
-    if frag:
-        packed = dict(packed, **{k: v.to(dt).contiguous()
-                                 for k, v in matmul_weights(packed).items()})
+    Ep = _check_weights(packed, E, L, dt, desc0)
     if desc1.device != desc0.device:
         raise ValueError("GNN kernel: desc0 and desc1 on different devices")
     desc0 = desc0.float().contiguous()
@@ -297,29 +453,32 @@ def _gnn_any_kernel(desc0, desc1, packed):
     out = torch.empty(N, T0, T1, device=desc0.device, dtype=torch.float32)
     if N == 0:
         return out
+    plan = any_plan(E, T0, T1, dt)
     bf16 = int(dt == torch.bfloat16)
+    route = int(plan.route == "superglue_gnn_any_wide")
     nbytes = ctypes.c_longlong(0)
     size = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any_workspace",
-                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                        [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(desc0.device):
-        _build.check(size(E, T0, T1, bf16, N, ctypes.byref(nbytes)),
-                     "superglue_gnn_any workspace")
+        _build.check(size(E, Ep, T0, T1, bf16, route, plan.pairs, N,
+                          ctypes.byref(nbytes)),
+                     f"{plan.route} workspace")
     ws = (torch.empty(nbytes.value, dtype=torch.uint8, device=desc0.device)
           if nbytes.value else None)
     fn = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any",
-                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                      [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p] * 3)
     p = packed
-    _build.launch(fn, desc0.device, "superglue_gnn_any", desc0.data_ptr(),
+    _build.launch(fn, desc0.device, plan.route, desc0.data_ptr(),
                   desc1.data_ptr(), p["wqkv"].data_ptr(),
                   p["bqkv"].data_ptr(), p["wm"].data_ptr(),
                   p["bm"].data_ptr(), p["w0"].data_ptr(),
                   p["s0"].data_ptr(), p["t0"].data_ptr(),
                   p["w1"].data_ptr(), p["b1"].data_ptr(),
-                  p["wf"].data_ptr(), p["bf"].data_ptr(), L, N, E, T0, T1,
-                  bf16, None if ws is None else ws.data_ptr(),
-                  out.data_ptr())
-    _build.LAUNCHES["superglue_gnn_any"] += 1
+                  p["wf"].data_ptr(), p["bf"].data_ptr(), L, N, E, Ep, T0,
+                  T1, bf16, route, plan.pairs,
+                  None if ws is None else ws.data_ptr(), out.data_ptr())
+    _build.LAUNCHES[plan.route] += 1
     return out
 
 
@@ -337,7 +496,7 @@ def _gnn_kernel(desc0, desc1, packed):
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"GNN kernel: unsupported compute dtype {dt}")
     L = packed["wqkv"].shape[0]
-    _check_weights(packed, E, L, dt, dt == torch.bfloat16, desc0)
+    _check_weights(packed, E, L, dt, desc0)
     if desc1.device != desc0.device:
         raise ValueError("GNN kernel: desc0 and desc1 on different devices")
     desc0 = desc0.float().contiguous()
