@@ -27,10 +27,14 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    levels of both object towers on the bench map's first DB-encode step of
    64 cells (JAX's draws from ``fixtures/bench_db_subset.npz``): the fine
    tower's 1024 objects and the coarse tower's valid objects; these are the
-   six launches of each kernel in the DB encode's first step. FPS: indices
-   and centroids bit-identical to the plain loop, and an object of one
-   repeated point; its bound is latency, so the time per dependent step is
-   printed beside it. PointConv: bf16 (tensor cores) and f32 (CUDA cores).
+   six launches of PointConv in the DB encode's first step, and its two
+   of FPS (one a PointNet++ forward, all three levels). FPS: indices and
+   centroids bit-identical to the plain loop, level by level (one launch
+   a level) and through the levels entry the model calls, and an object of
+   one repeated point; its bound is latency, so the time per dependent
+   step of each level is printed beside the latency floor (the steps
+   times the dependent chain a step cannot avoid, a clock64
+   microbenchmark). PointConv: bf16 (tensor cores) and f32 (CUDA cores).
 4. End to end: ``LocalizationPipeline.serve_batch`` on the 2048 committed
    bench queries at top_k=10, bf16 bodies (the headline, whose kernel launch
    counts are read) and f32, then the rerank@128 batch (λ=4, γ=6);
@@ -170,7 +174,9 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    at LSTM H in {96, 300, 384, 512} beside cuDNN, GNN (E, T0, T1) in
    {(300, 16, 6), (128, 24, 6), (256, 32, 8)} and, on the wide route,
    (300, 32, 32) f32 and (512, 32, 32), each launch counted under its
-   route (bf16 at E <= 320 on the tensor cores), and FPS N in {512, 1024};
+   route (bf16 at E <= 320 on the tensor cores), and FPS N in {512, 1024,
+   2048, 4096} at 1024 objects and N = 40,000 at 4 (minima in global
+   memory);
    then the GNN's second form in bf16 at 12 blocks on the E=300 bf16
    pipelines at pad_size 16 and 24 ((300, 16, 6), (300, 24, 6) and
    (300, 32, 32), the latter two in CTAs of 4 m-tiles), each within
@@ -300,6 +306,21 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 50, reps: int = 5) -> float:
+    """Device time of one ``fn()`` (kernel launches into buffers it owns,
+    no allocation) in ms: a CUDA graph of ``launches`` calls, captured once
+    and replayed between two events, over ``launches``. Launches back to
+    back without the host's gaps, for kernels of tens of microseconds,
+    whose issue from Python could otherwise hold the card back."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(g.replay, reps=reps) / launches
 
 
 def bound_ms(flops_by_rate, nbytes: float, overlap: bool = False):
@@ -728,31 +749,51 @@ def tower_points(bt, dbx, dev):
 
 
 def fps_checks(bt, dbx, failures):
-    """The FPS kernel against the plain loop at the three levels of both
-    towers (each level on the centroids of the level before): indices and
-    centroids bit for bit, times summed over the six launches of a step:
-    one wrapper call between two events (the host's work in the wrapper
-    included, as for every kernel here) and the device's time a launch over
-    50 launches back to back (preallocated outputs, no wrapper), from which
-    the time per dependent step is read. Then an object of one repeated
-    point (every step ties everywhere)."""
-    from text2pos_torch.ops.fps import (_fps_kernel, _launch,
-                                        farthest_point_sampling_plain)
+    """The FPS kernel against the plain loop on a DB-encode step's points of
+    both towers. Each level alone (``t2p_fps``, JAX's per-level contract;
+    each level on the centroids of the level before): indices and
+    centroids bit for bit, one wrapper call between two events (the host's
+    work in the wrapper included, as for every kernel here) and the
+    device's time a launch from a CUDA graph of 50 launches (``graph_ms``:
+    preallocated outputs, no wrapper, no host gaps; issued from the host,
+    the launches of sa2 and sa3 wait on it). Then the levels entry the
+    model calls (one launch
+    a forward for the three levels): bit for bit against the per-level
+    plain loop, one wrapper call, the device's time a launch in a graph,
+    and the time per dependent step of each level, read as the difference
+    between launches of its first one, two and three levels; beside it the
+    latency floor, the steps times the dependent chain a step cannot avoid
+    (``chain_step_time``, a clock64 microbenchmark). Then an object of one
+    repeated point (every step ties everywhere) through both entries."""
+    from text2pos_torch.ops.fps import (_buffers, _fps_kernel,
+                                        _fps_levels_kernel, _launch,
+                                        chain_step_time,
+                                        farthest_point_sampling_plain,
+                                        level_sizes)
 
     dev = torch.device("cuda")
+    ratios = (0.5, 0.5, 0.5)
+    chain = sorted(chain_step_time(dev) for _ in range(3))[1]
+    log(f"  fps dependent chain a step (shuffle, sub, mul, 2 FMA, min, warp "
+        f"max, ballot, ffs; clock64 over 65,536 steps of one warp): "
+        f"{chain[0]:.1f} clocks = {chain[1]:.2f} ns")
     res = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "library_ms": None, "max_abs_err": 0.0, "detail": []}
-    for tower, pos, _ in tower_points(bt, dbx, dev):
-        for level in ("sa1", "sa2", "sa3"):
-            B, N, _ = pos.shape
-            S = N // 2
+           "library_ms": None, "max_abs_err": 0.0, "latency_floor_ms": 0.0,
+           "chain_clocks_per_step": chain[0], "chain_ns_per_step": chain[1],
+           "levels": [], "per_level": []}
+    for tower, pos0, _ in tower_points(bt, dbx, dev):
+        B, N, _ = pos0.shape
+        sizes = level_sizes(N, ratios)
+        pos, wants = pos0, []
+        for level, S in zip(("sa1", "sa2", "sa3"), sizes):
+            N = pos.shape[1]
             with torch.inference_mode():
                 idx, cent = _fps_kernel(pos, S)
                 widx, wcent = farthest_point_sampling_plain(pos, S)
                 torch.cuda.synchronize()
                 ms = cuda_ms(lambda: _fps_kernel(pos, S), reps=20)
-                dev_ms = cuda_ms(lambda: [_launch(pos, idx, cent)
-                                          for _ in range(50)], reps=5) / 50
+                bufs = _buffers(pos, (S,))[:3]
+                dev_ms = graph_ms(lambda: _launch(pos, *bufs, (S,)))
                 plain_ms = cuda_ms(lambda: farthest_point_sampling_plain(
                     pos, S), reps=3, warmup=1)
             same = int((idx == widx).all(-1).sum())
@@ -766,33 +807,73 @@ def fps_checks(bt, dbx, failures):
             step_us = 1e3 * dev_ms / max(S - 1, 1)
             log(f"  fps {tower} {level} B={B} N={N} S={S}: {same}/{B} "
                 f"objects with bit-identical indices, centroid max abs err "
-                f"{err:.1e} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms a "
-                f"call, {dev_ms:.4f} ms a launch back to back = "
-                f"{step_us:.3f} us per dependent step, plain {plain_ms:.3f} "
-                f"ms, bound {bnd:.5f} ms ({by})")
+                f"{err:.1e} {'ok' if ok else 'FAIL'}; one level a launch: "
+                f"kernel {ms:.4f} ms a call, {dev_ms:.4f} ms a launch in a "
+                f"graph = {step_us:.3f} us per dependent step, plain "
+                f"{plain_ms:.3f} ms, bound {bnd:.5f} ms ({by})")
             if not ok:
                 failures.append(f"fps {tower} {level}: {B - same} objects "
                                 f"differ from the plain loop, centroid error "
                                 f"{err}")
-            res["ms"] += ms
-            res["device_ms"] += dev_ms
             res["plain_ms"] += plain_ms
             sum_bound(res, bnd, by)
             res["max_abs_err"] = max(res["max_abs_err"], err)
-            res["detail"].append({"level": f"{tower} {level}", "B": B, "N": N,
-                                  "S": S, "ms": ms, "device_ms": dev_ms,
-                                  "us_per_step": step_us,
-                                  "plain_ms": plain_ms, "bound_ms": bnd,
-                                  "bound_by": by, "identical": same})
+            res["per_level"].append({
+                "level": f"{tower} {level}", "B": B, "N": N, "S": S,
+                "ms": ms, "device_ms": dev_ms, "us_per_step": step_us,
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                "identical": same})
+            wants.append((widx, wcent))
             pos = wcent
+        with torch.inference_mode():
+            got = _fps_levels_kernel(pos0, ratios)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: _fps_levels_kernel(pos0, ratios), reps=20)
+            bufs = _buffers(pos0, sizes)[:3]
+            lv_ms = [graph_ms(lambda: _launch(pos0, *bufs, sizes[:L]))
+                     for L in (1, 2, 3)]
+        same = [int(((i == wi).all(-1) & (c == wc).all(-1).all(-1)).sum())
+                for (i, c), (wi, wc) in zip(got, wants)]
+        err = max(max_err(c, wc) for (_, c), (_, wc) in zip(got, wants))
+        ok = same == [B] * 3 and err == 0.0
+        step_us = [1e3 * (t - (lv_ms[l - 1] if l else 0.0)) / max(S - 1, 1)
+                   for l, (t, S) in enumerate(zip(lv_ms, sizes))]
+        floor = sum(S - 1 for S in sizes) * chain[1] * 1e-6
+        log(f"  fps levels {tower} B={B} N={pos0.shape[1]} S={sizes}: "
+            f"{same} objects bit-identical to the per-level plain loop, "
+            f"centroid max abs err {err:.1e} {'ok' if ok else 'FAIL'}; "
+            f"kernel {ms:.4f} ms a call, {lv_ms[-1]:.4f} ms a launch in a "
+            f"graph (first level {lv_ms[0]:.4f}, two {lv_ms[1]:.4f}); us per "
+            f"dependent step "
+            + ", ".join(f"{u:.3f}" for u in step_us)
+            + f"; latency floor {floor:.4f} ms")
+        if not ok:
+            failures.append(f"fps levels {tower}: {same} of {B} objects "
+                            f"equal the plain loop, centroid error {err}")
+        res["ms"] += ms
+        res["device_ms"] += lv_ms[-1]
+        res["latency_floor_ms"] += floor
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["levels"].append({"tower": tower, "B": B, "sizes": sizes,
+                              "ms": ms, "device_ms": lv_ms[-1],
+                              "device_ms_first_levels": lv_ms[:2],
+                              "us_per_step": step_us,
+                              "latency_floor_ms": floor, "identical": same})
+    log(f"  fps a DB-encode step (two launches of the levels entry): kernel "
+        f"{res['ms']:.4f} ms in two calls, {res['device_ms']:.4f} ms of "
+        f"device time; latency floor {res['latency_floor_ms']:.4f} ms, bound "
+        f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
     one = torch.full((3, 256, 3), 0.25, device=dev)
     one[1] = torch.randn(256, 3, device=dev)
     idx, cent = _fps_kernel(one, 128)
     widx, wcent = farthest_point_sampling_plain(one, 128)
+    got = _fps_levels_kernel(one, ratios)
     ok = bool((idx == widx).all()) and bool((idx[0] == 0).all()) and \
-        bool((cent == wcent).all())
+        bool((cent == wcent).all()) and torch.equal(got[0][0], widx) and \
+        all(bool((i[0] == 0).all()) for i, _ in got)
     log(f"  fps, an object of one repeated point: every index 0 and equal "
-        f"to the plain loop's {'ok' if ok else 'FAIL'}")
+        f"to the plain loop's, one level and the levels entry "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("fps: the all-duplicate object differs")
     return res
@@ -1047,6 +1128,12 @@ def db_encode_and_serve(pipe_bf16, bank, bt, fx, cache_top_idx, failures):
         if launches.get(name, 0) < 1:
             failures.append(f"kernel {name} was not launched by the DB "
                             "encode")
+    # One FPS launch a PointNet++ forward, whose three levels each launch
+    # the PointConv kernel.
+    if 3 * launches.get("fps", 0) != launches.get("pointconv", 0):
+        failures.append(f"the DB encode made {launches.get('fps', 0)} FPS "
+                        f"launches for {launches.get('pointconv', 0)} "
+                        "PointConv launches, not one a forward")
     # Two more calls with other draws: the spread of the wall time, and a
     # second database for the resampling noise below.
     walls = [wall]
@@ -2366,6 +2453,8 @@ EVAL_WRAPPERS = (
     ("sinkhorn", "sinkhorn", "_lot_kernel", "log_optimal_transport_plain"),
     ("sinkhorn", "sinkhorn", "_sinkhorn_kernel", "log_sinkhorn_plain"),
     ("fps", "fps", "_fps_kernel", "farthest_point_sampling_plain"),
+    ("fps", "fps", "_fps_levels_kernel",
+     "farthest_point_sampling_levels_plain"),
     ("pointconv", "pointconv", "_pointconv_kernel", "pointconv_max_plain"),
     ("superglue_gnn", "superglue_gnn", "_gnn_kernel", "gnn_scores_plain"),
 )
@@ -2426,8 +2515,10 @@ def kept_checks(stage: str, store: dict, failures: list) -> dict:
                     *(args[:10] if kernel == "pointconv" else args))
                 torch.cuda.synchronize()
             if kernel == "fps":
-                err = max_err(got[1], want[1]) + float(
-                    (got[0] != want[0]).sum())
+                pairs = (zip(got, want, strict=True)
+                         if isinstance(got, list) else [(got, want)])
+                err = sum(max_err(g[1], w[1]) + float((g[0] != w[0]).sum())
+                          for g, w in pairs)
                 tol, what = 0.0, "differing indices + centroid error"
             elif kernel in ("pointconv", "superglue_gnn"):
                 dt = (args[2]["wqkv"] if kernel == "superglue_gnn"
@@ -2800,9 +2891,9 @@ BANK_TOL = 1e-6
 F64_CELLS = 32
 # Launches a single call makes, as the code predicts them (the refresh's
 # per chunk of cells).
-PREDICTED = {"fused coarse step": {"lstm": 1, "fps": 3, "pointconv": 0},
-             "refresh": {"pointconv": 3, "fps": 3},
-             "rank step": {"sinkhorn": 5, "lstm": 1, "fps": 3}}
+PREDICTED = {"fused coarse step": {"lstm": 1, "fps": 1, "pointconv": 0},
+             "refresh": {"pointconv": 3, "fps": 1},
+             "rank step": {"sinkhorn": 5, "lstm": 1, "fps": 1}}
 
 
 def grads_stats(model):
@@ -4021,8 +4112,10 @@ WIDE_GNN = tuple((E, T0, T1, WIDE_GNN_PAIRS)
 # at fewer pairs: it runs a CTA a pair.
 WIDE_GNN_WIDE = ((300, 32, 32, 512), (512, 32, 32, 512))
 WIDE_GNN_BLOCKS = 4
-WIDE_FPS = (512, 1024)
-WIDE_FPS_OBJECTS = 1024
+# FPS (B, N, S) past the DB encode's 256 points: a warp an object up to
+# 1024, a CTA an object up to 4096, then the minima in global memory.
+WIDE_FPS = ((1024, 512, 256), (1024, 1024, 512), (1024, 2048, 1024),
+            (1024, 4096, 2048), (4, 40000, 256))
 VARIANTS = {"coarse": {"variation 1": dict(variation=1),
                        "class_embed": dict(class_embed=True),
                        "color_embed": dict(color_embed=True),
@@ -4059,7 +4152,9 @@ def plain_kernels():
     saved = [(lstm, "_lstm_kernel", lstm.lstm_final_hidden_plain),
              (sinkhorn, "_lot_kernel", sinkhorn.log_optimal_transport_plain),
              (gnn, "_gnn_kernel", _chunked_gnn_plain),
-             (fps, "_fps_kernel", fps.farthest_point_sampling_plain)]
+             (fps, "_fps_kernel", fps.farthest_point_sampling_plain),
+             (fps, "_fps_levels_kernel",
+              fps.farthest_point_sampling_levels_plain)]
     saved = [(m, n, getattr(m, n), f) for m, n, f in saved]
     for m, n, _, f in saved:
         setattr(m, n, f)
@@ -4436,8 +4531,7 @@ def wide_kernel_checks(pipes, fx, failures):
                           "bound_by": by, "max_abs_err": err,
                           "route": route, "bound_share": bnd / ms}
         out["gnn_shapes"].append(row)
-    for N in WIDE_FPS:
-        Bo, S = WIDE_FPS_OBJECTS, N // 2
+    for Bo, N, S in WIDE_FPS:
         base = torch.randn(Bo, 200, 3, device=dev, generator=g)
         pick = torch.randint(0, 200, (Bo, N), device=dev, generator=g)
         pos = torch.gather(base, 1, pick[..., None].expand(Bo, N, 3))

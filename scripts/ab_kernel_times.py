@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Device times of the LSTM, FPS and GNN kernels built from two source trees,
-in one process on one card, in the order A, B, B, A.
+"""Device times of the port's kernels built from two source trees, in one
+process on one card, in the order A, B, B, A.
 
     python3 scripts/ab_kernel_times.py OTHER_CSRC_DIR
 
 A is this checkout's ``text2pos_torch/csrc``, B the other directory (for
 example the parent commit's ``text2pos_torch/csrc``, unpacked with
-``git archive``). Each side's ``lstm.cu`` and ``fps.cu`` are built with the
-port's ``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
+``git archive``). Each side's ``csrc/*.cu`` are built with the port's
+``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
 (2048 queries x 64 tokens at H = 256; 12,288 hints x 16 tokens at H = 128;
 seeded random weights, the bench's lengths are not needed for a timing),
-FPS at the six launches of a DB-encode step (1024 and 787 objects at 256,
-128 and 64 points, half sampled, points with duplicates), the tuned GNN
+FPS at the six levels of a DB-encode step (1024 and 787 objects at 256,
+128 and 64 points, half sampled, points with duplicates) one launch a
+level (``t2p_fps``), then a forward's three levels as the model runs them:
+one ``t2p_fps_levels`` launch where the side has it, else three
+``t2p_fps`` launches, each on the last one's centroids; Sinkhorn at the
+headline's 20,480 pairs (16 x 6 scores, dustbins, 50 iterations);
+PointConv at the DB encode's sa1 level (1024 objects, 256 -> 128 points,
+32 -> 64 channels) in bf16 and f32; the tuned GNN
 (``superglue_gnn.cu``) at the bench headline's 20,480 pairs of (128, 16, 6)
 in bf16 and f32, and the GNN's second form (``superglue_gnn_any.cu``) at
 the E = 300 headline's size in bf16 and f32 and at pad_size 24 in bf16
@@ -20,7 +26,9 @@ weights; each side gets the weight layout its own source reads: the
 padded pack of ``pack_gnn_params``, or the unpadded row-major one of the
 form before it). Prints the
 median device time a launch (10 repeats of 20 launches back to back
-between two CUDA events; for the second form 3 of 2) and the card's name
+between two CUDA events; for the second form 3 of 2; for FPS, whose
+launches take tens of microseconds, from a CUDA graph of the 20) and the
+card's name
 and power limit, and for the second form each side's largest error and
 the plain f32 version's against a float64 evaluation of the same inputs
 (``gnn_scores_plain(..., acc=torch.float64)``, the same rounding points).
@@ -44,7 +52,8 @@ sys.path.insert(0, str(ROOT))
 from text2pos_torch.ops import _build  # noqa: E402
 
 
-KERNELS = ("lstm", "fps", "superglue_gnn", "superglue_gnn_any")
+KERNELS = ("lstm", "sinkhorn", "superglue_gnn", "superglue_gnn_any",
+           "pointconv", "fps")
 GNN_WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "w0", "s0", "t0", "w1", "b1",
                "wf", "bf")
 
@@ -85,6 +94,19 @@ def timed(fn, reps=10, launches=20):
         b.synchronize()
         out.append(a.elapsed_time(b) / launches)
     return statistics.median(out)
+
+
+def graph_timed(fn, reps=10, launches=20):
+    """``timed`` from a CUDA graph of ``launches`` calls replayed between
+    two events: the device's time without the host's gaps, for kernels
+    short enough that issuing them from Python could hold the card back."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return timed(g.replay, reps, 1) / launches
 
 
 def lstm_call(libs, B, T, H, V=512, seed=0):
@@ -129,6 +151,100 @@ def fps_call(libs, B, N, seed=0):
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"fps launch: CUDA error {err}")
+    return call
+
+
+def fps_levels_call(libs, B, N=256, seed=0):
+    """A forward's three levels (S = N/2, N/4, N/8): one launch of the
+    levels entry, or three of ``t2p_fps`` where the side lacks it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn(B, 60, 3, device="cuda", generator=g)
+    pick = torch.randint(0, 60, (B, N), device="cuda", generator=g)
+    pts = torch.gather(base, 1, pick[..., None].expand(B, N, 3)).contiguous()
+    sizes = (N // 2, N // 4, N // 8)
+    idx = [torch.empty(B, S, dtype=torch.long, device="cuda") for S in sizes]
+    cent = [torch.empty(B, S, 3, device="cuda") for S in sizes]
+    lib = libs["fps"]
+    if hasattr(lib, "t2p_fps_levels"):
+        fn = lib.t2p_fps_levels
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        # One buffer each, level-major, as the kernel writes them.
+        idx = torch.empty(B * sum(sizes), dtype=torch.long, device="cuda")
+        cent = torch.empty(3 * B * sum(sizes), device="cuda")
+
+        def call():
+            err = fn(pts.data_ptr(), idx.data_ptr(), cent.data_ptr(), None,
+                     B, N, 3, *sizes, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"fps levels launch: CUDA error {err}")
+        return call
+    fn = lib.t2p_fps
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+
+    def call():
+        src, n = pts, N
+        for i, c, S in zip(idx, cent, sizes):
+            err = fn(src.data_ptr(), i.data_ptr(), c.data_ptr(), B, n, S,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"fps launch: CUDA error {err}")
+            src, n = c, S
+    return call
+
+
+def sinkhorn_call(libs, B=20480, M=16, N=6, iters=50, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.randn(B, M, N, device="cuda", generator=g) * 5
+    alpha = torch.ones(1, device="cuda")
+    out = torch.empty(B, M + 1, N + 1, device="cuda")
+    fn = libs["sinkhorn"].t2p_log_sinkhorn
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+
+    def call():
+        err = fn(scores.data_ptr(), None, None, alpha.data_ptr(),
+                 out.data_ptr(), B, M + 1, N + 1, iters, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sinkhorn launch: CUDA error {err}")
+    return call
+
+
+def pointconv_call(libs, dtype, B=1024, N=256, S=128, C1=32, C2=64,
+                   radius=0.2, seed=0):
+    """One sa1 level: resampled points (duplicates), the first S as
+    centroids, random projections and BN affines; bf16 W2 in fragment
+    order, as both sides' sources read it."""
+    from text2pos_torch.ops.pointconv import w2_fragments
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.rand(B, 60, 3, device="cuda", generator=g) - 0.5
+    pick = torch.randint(0, 60, (B, N), device="cuda", generator=g)
+    pos = torch.gather(base, 1, pick[..., None].expand(B, N, 3)).contiguous()
+    cent = pos[:, :S].contiguous()
+    a = torch.randn(B, N, C1, device="cuda", generator=g).to(dtype)
+    c = (0.3 * torch.randn(B, S, C1, device="cuda", generator=g)).to(dtype)
+    w2 = (torch.randn(C1, C2, device="cuda", generator=g) / C1 ** 0.5).to(
+        dtype)
+    if dtype == torch.bfloat16:
+        w2 = w2_fragments(w2)
+    vecs = [torch.rand(n, device="cuda", generator=g) + o for n, o in
+            ((C1, 0.5), (C1, -0.5), (C2, -0.5), (C2, 0.5), (C2, -0.5))]
+    out = torch.empty(B, S, C2, device="cuda", dtype=dtype)
+    fn = libs["pointconv"].t2p_pointconv_max
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    args = [t.data_ptr() for t in (a, pos, c, cent, vecs[0], vecs[1], w2,
+                                   vecs[2], vecs[3], vecs[4], out)] + [
+        B, N, S, C1, C2, radius * radius, 32, int(dtype == torch.bfloat16)]
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"pointconv launch: CUDA error {err}")
+    call.keep = (a, pos, c, cent, w2, vecs, out)
     return call
 
 
@@ -246,6 +362,12 @@ def main() -> int:
                  for B, T, H in ((2048, 64, 256), (12288, 16, 128))]
         cases += [(f"fps B={B} N={N}", lambda L, a=(B, N): fps_call(L, *a))
                   for B in (1024, 787) for N in (256, 128, 64)]
+        cases += [(f"fps three levels B={B} N=256",
+                   lambda L, b=B: fps_levels_call(L, b)) for B in (1024, 787)]
+        cases += [("sinkhorn N=20480 (16, 6) 50 iterations", sinkhorn_call)]
+        cases += [(f"pointconv {str(dt)[6:]} B=1024 sa1",
+                   lambda L, d=dt: pointconv_call(L, d))
+                  for dt in (torch.bfloat16, torch.float32)]
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt)[6:]
             cases += [(f"superglue_gnn {name} N=20480 (128, 16, 6) L=12",
@@ -259,9 +381,10 @@ def main() -> int:
             calls = {k: make(v) for k, v in sides.items()}
             ms = {k: [] for k in calls}
             slow = label.startswith("superglue_gnn_any")
+            how = graph_timed if label.startswith("fps") else timed
             for k in ("A", "B", "B", "A"):
-                ms[k].append(timed(calls[k], reps=3 if slow else 10,
-                                   launches=2 if slow else 20))
+                ms[k].append(how(calls[k], reps=3 if slow else 10,
+                                 launches=2 if slow else 20))
             a, b = (statistics.mean(ms[k]) for k in ("A", "B"))
             print(f"{label}: A {ms['A'][0]:.4f} {ms['A'][1]:.4f} ms, "
                   f"B {ms['B'][0]:.4f} {ms['B'][1]:.4f} ms, A/B "

@@ -75,8 +75,9 @@ def test_run_coarse_launches_lstm_fps_pointconv(bench):
     (top_idx, accs), n = launched(lambda: pipe.run_coarse(loader, poses))
     assert top_idx.shape == (16, 32)
     assert 0.0 <= accs[10][15] <= 1.0
-    # 16 queries in one step of 32; 64 cells in two: 3 levels each
-    assert n.get("lstm") == 1 and n.get("fps") == 6 and n.get("pointconv") == 6
+    # 16 queries in one step of 32; 64 cells in two: one FPS launch a
+    # PointNet forward, 3 PointConv levels
+    assert n.get("lstm") == 1 and n.get("fps") == 2 and n.get("pointconv") == 6
 
 
 def test_run_fine_batch_statistics_launches(bench):
@@ -88,7 +89,7 @@ def test_run_fine_batch_statistics_launches(bench):
                                              fine_vocab))
     assert set(accs[2]) == {1}
     assert n.get("lstm") == 2 and n.get("sinkhorn") == 2   # 2 chunks of 8
-    assert n.get("fps") == 3 and not n.get("superglue_gnn")
+    assert n.get("fps") == 1 and not n.get("superglue_gnn")
     assert not n.get("pointconv")
 
 
@@ -115,6 +116,6 @@ def test_fine_in_isolation_launches():
     out, n = launched(lambda: main(["--dataset", "SYNTHETIC-FINE",
                                     "--path_fine", CKPT[1]]))
     assert 0.0 <= out["stats"]["recall"] <= 1.0
-    # 64 validation poses in two batches of 32
+    # 64 validation poses in two batches of 32, one FPS launch a batch
     assert n.get("lstm") == 2 and n.get("sinkhorn") == 2
-    assert n.get("fps") == 6
+    assert n.get("fps") == 2

@@ -461,9 +461,39 @@ def test_fps_kernel_chains_the_three_levels(cuda):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("N,S", [(1025, 512), (2048, 1024), (4097, 64),
+                                 (4096, 4096)])
+def test_fps_kernel_past_1024_points_bit_equal_to_plain(cuda, N, S):
+    """A CTA an object (up to 4096 points in registers), then the minima in
+    global memory; ties everywhere."""
+    pts = _fps_points(9, N, N).to(cuda)
+    idx, cent = _launches("fps", lambda: tfps.farthest_point_sampling(pts, S))
+    widx, wcent = tfps.farthest_point_sampling_plain(pts, S)
+    assert torch.equal(idx, widx) and torch.equal(cent, wcent)
+
+
+@pytest.mark.parametrize("B,N,ratios", [
+    (300, 256, (0.5, 0.5, 0.5)),    # the DB encode's levels
+    (37, 64, (0.5, 0.5, 0.5)),      # sa3-sized: half a warp where packed
+    (5, 2048, (0.25, 0.5, 0.5)),    # a CTA an object at every level
+    (3, 5000, (0.01, 0.5)),         # global memory, then registers
+])
+def test_fps_levels_kernel_one_launch_bit_equal_to_plain(cuda, B, N, ratios):
+    """The levels entry makes one launch and equals the plain loop level by
+    level (each level on the last one's centroids), bit for bit."""
+    pts = _fps_points(B, N, B + N).to(cuda)
+    got = _launches("fps", lambda: tfps.farthest_point_sampling_levels(
+        pts, ratios))
+    want = tfps.farthest_point_sampling_levels_plain(pts, ratios)
+    assert len(got) == len(want) == len(ratios)
+    for (idx, cent), (widx, wcent) in zip(got, want):
+        assert idx.dtype == torch.long and idx.shape == widx.shape
+        assert torch.equal(idx, widx) and torch.equal(cent, wcent)
+
+
 def test_fps_kernel_rejects_bad_input(cuda):
-    with pytest.raises(ValueError):       # more points than the kernel keeps
-        tfps.farthest_point_sampling(torch.zeros(2, 1025, 3, device=cuda), 8)
+    with pytest.raises(ValueError):       # no object
+        tfps.farthest_point_sampling(torch.zeros(0, 16, 3, device=cuda), 8)
     with pytest.raises(ValueError):       # more samples than points
         tfps.farthest_point_sampling(torch.zeros(2, 16, 3, device=cuda), 17)
     with pytest.raises(TypeError):        # f64 points

@@ -281,6 +281,68 @@ def test_pointnet2_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
 
 
+def _level_by_level(tm, xyz, rgb):
+    """PointNet2's forward with each level running its own FPS (no
+    centroids handed in), as before the levels entry."""
+    x, pos = rgb, xyz.float()
+    for sa in (tm.sa1, tm.sa2, tm.sa3):
+        x, pos = sa(x, pos)
+    f = tm.ga(x, pos)
+    for lin in (tm.lin1, tm.lin2):
+        f = torch.relu(lin(f))
+    return f
+
+
+@pytest.mark.parametrize("mode", ["eval", "train", "remat"])
+def test_pointnet2_one_fps_call_equals_level_by_level(monkeypatch, mode):
+    """The forward calls the levels entry once and no per-level FPS, in
+    eval mode, on batch statistics, and rematerialised (whose backward
+    recomputes the levels without rerunning FPS); features and gradients
+    equal the level-by-level path's bit for bit, and the features JAX's
+    PointNet++ forward within F32_TOL (eval)."""
+    import text2pos_torch.models.pointnet2 as pn
+    from text2pos_torch.models.blocks import train_mode
+
+    rng = np.random.default_rng(6)
+    xyz, rgb, counts, _, key = _objects(rng, 6, P=64)
+    pos, col = jtf.prepare_object_points(xyz, rgb, counts, 64, key,
+                                         augment=False)
+    jm = JPointNet2(23, 9)
+    v = _variables(jm, 6, pos, col, train=False)
+    tm = PointNet2()
+    load_jax_params(tm, v["params"], v["batch_stats"])
+    tm.remat = mode == "remat"
+    calls = {"levels": 0, "level": 0}
+    levels, level = pn.farthest_point_sampling_levels, \
+        pn.farthest_point_sampling
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    def run(fn):
+        rgb_t = _t(col).requires_grad_(True)
+        with train_mode(tm, mode != "eval"):
+            out = fn(_t(pos), rgb_t)
+            out.sum().backward()
+        return out.detach(), rgb_t.grad
+
+    monkeypatch.setattr(pn, "farthest_point_sampling_levels",
+                        count("levels", levels))
+    monkeypatch.setattr(pn, "farthest_point_sampling", count("level", level))
+    got, ggot = run(tm)
+    assert calls == {"levels": 1, "level": 0}
+    want, gwant = run(lambda a, b: _level_by_level(tm, a, b))
+    assert calls == {"levels": 1, "level": 3}
+    assert torch.equal(got, want) and torch.equal(ggot, gwant)
+    if mode == "eval":
+        jwant = _jit(jm.apply, v, pos, col, train=False)["features2"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant),
+                                   atol=F32_TOL)
+
+
 @pytest.fixture(scope="module")
 def encoder_case():
     rng = np.random.default_rng(7)

@@ -3,8 +3,10 @@
 
 Three set-abstraction levels (FPS ratio 0.5, ball radii 0.2/0.3/0.4, at
 most 32 neighbours, first by index), a global abstraction MLP with a max
-over points, then ``lin1`` and ``lin2``. In each level FPS picks the
-centroids (``ops.fps``: one CUDA kernel a level on the card), the
+over points, then ``lin1`` and ``lin2``. FPS picks every level's
+centroids at once, before the first level (``ops.fps``
+``farthest_point_sampling_levels``: one CUDA launch a forward on the card,
+level l + 1 on level l's centroids), and each level takes its own; the
 separable first layer is two matmuls (``a = [x, pos]·W1 + b1`` per point,
 ``c = cent·W1[-3:]`` per centroid), and the rest of the level (ball query,
 ``a_n − c_s``, BN0, ReLU, the second layer, BN1, ReLU, max over
@@ -28,7 +30,8 @@ does not apply, as JAX trains through its unfused PointNet++ too, and FPS,
 which chooses centroids and needs no gradient, keeps its kernel.
 
 Module names follow the flax tree (``sa1.conv_mlp.dense_0`` ↔
-``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps``,
+``sa1/conv_mlp/dense_0``). Profiler ranges ``pointnet.fps`` (the one
+launch a forward),
 ``pointnet.first_layer``, ``pointnet.pointconv`` and ``pointnet.head``
 (global abstraction MLP, ``lin1``, ``lin2``) let a trace attribute time.
 """
@@ -43,7 +46,8 @@ from torch.profiler import record_function
 
 from text2pos_torch.models.blocks import (MLP, MaskedBatchNorm, bn_affine,
                                          checkpointed, dense, weights_key)
-from text2pos_torch.ops.fps import farthest_point_sampling
+from text2pos_torch.ops.fps import (farthest_point_sampling,
+                                   farthest_point_sampling_levels)
 from text2pos_torch.ops.pointconv import (ball_neighbors, pointconv_max,
                                           w2_fragments)
 from text2pos_torch.ops.pooling import gather_neighbors, masked_max
@@ -85,14 +89,17 @@ class SetAbstraction(nn.Module):
                 self._w2f = key, w2_fragments(w.t().to(torch.bfloat16))
         return self._w2f[1]
 
-    def pointconv_args(self, x: torch.Tensor, pos: torch.Tensor) -> tuple:
+    def pointconv_args(self, x: torch.Tensor, pos: torch.Tensor,
+                       cent: Optional[torch.Tensor] = None) -> tuple:
         """FPS and the separable first layer: the arguments of
         ``pointconv_max`` (all but the radius and the cap) for x [B, N, C],
         pos [B, N, 3] f32; their fourth, ``cent`` [B, S, 3], is the level's
-        output positions, S = N·ratio."""
-        S = max(1, int(pos.shape[1] * self.ratio))
-        with record_function("pointnet.fps"):
-            _, cent = farthest_point_sampling(pos, S)
+        output positions, S = N·ratio: the given ones (``PointNet2``'s one
+        FPS launch), else FPS of this level alone."""
+        if cent is None:
+            S = max(1, int(pos.shape[1] * self.ratio))
+            with record_function("pointnet.fps"):
+                _, cent = farthest_point_sampling(pos, S)
         m = self.conv_mlp
         xpos = torch.cat([x.float(), pos], dim=-1)
         dt = self.dtype or xpos.dtype
@@ -103,13 +110,14 @@ class SetAbstraction(nn.Module):
                 m.dense_1.weight.t().to(dt), m.dense_1.bias.to(dt).float(),
                 bn_affine(m.bn_1))
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor
+    def forward(self, x: torch.Tensor, pos: torch.Tensor,
+                cent: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, N, C], pos [B, N, 3] f32 → (x' [B, S, C2], cent [B, S, 3])
-        with S = N·ratio."""
+        with S = N·ratio; ``cent``, if given, is the level's FPS output."""
         if self.eval_batch_stats or self.train_stats:
-            return self.forward_batch_stats(x, pos)
-        args = self.pointconv_args(x, pos)
+            return self.forward_batch_stats(x, pos, cent)
+        args = self.pointconv_args(x, pos, cent)
         a = args[0]
         w2f = (self.w2_fragments()
                if a.is_cuda and a.dtype == torch.bfloat16 else None)
@@ -117,12 +125,13 @@ class SetAbstraction(nn.Module):
             out = pointconv_max(*args, self.radius, K_CAP, w2f=w2f)
         return out, args[3]
 
-    def forward_batch_stats(self, x: torch.Tensor, pos: torch.Tensor
+    def forward_batch_stats(self, x: torch.Tensor, pos: torch.Tensor,
+                            cent: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``forward`` with both BNs on the statistics of the selected
         neighbour rows (JAX's ``nb_valid`` mask), as PyTorch ops; rounded
         where ``pointconv_max_plain`` rounds."""
-        a, pos, c, cent = self.pointconv_args(x, pos)[:4]
+        a, pos, c, cent = self.pointconv_args(x, pos, cent)[:4]
         m = self.conv_mlp
         dt = a.dtype
         with record_function("pointnet.pointconv"):
@@ -186,12 +195,17 @@ class PointNet2(nn.Module):
         ``pointnet_features``). With ``remat`` and a gradient wanted, each
         abstraction level is recomputed in the backward pass
         (``blocks.checkpointed``), one at a time, so that no more than one
-        level's activations are held."""
+        level's activations are held; the levels' centroids come from the
+        one FPS launch before them, so a recomputed level reruns no FPS."""
         run = (checkpointed if self.remat and torch.is_grad_enabled()
                else lambda m, *a: m(*a))
         x, pos = rgb, xyz.float()
-        for sa in (self.sa1, self.sa2, self.sa3):
-            x, pos = run(sa, x, pos)
+        sas = (self.sa1, self.sa2, self.sa3)
+        with record_function("pointnet.fps"):
+            levels = farthest_point_sampling_levels(
+                pos, [sa.ratio for sa in sas])
+        for sa, (_, cent) in zip(sas, levels):
+            x, pos = run(sa, x, pos, cent)
         with record_function("pointnet.head"):
             f = run(self.ga, x, pos)
             for lin in (self.lin1, self.lin2)[:level]:

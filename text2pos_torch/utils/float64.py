@@ -65,20 +65,22 @@ class Decisions:
 
     @staticmethod
     @contextlib.contextmanager
-    def _patched(relu, amax, fps, ball, knn):
+    def _patched(relu, amax, fps, levels, ball, knn):
         import text2pos_torch.models.cell_retrieval as cr
         import text2pos_torch.models.pointnet2 as pn
 
         saved = (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
-                 pn.ball_neighbors, cr.masked_knn)
+                 pn.farthest_point_sampling_levels, pn.ball_neighbors,
+                 cr.masked_knn)
         torch.relu, torch.Tensor.amax = relu, amax
         pn.farthest_point_sampling, pn.ball_neighbors = fps, ball
-        cr.masked_knn = knn
+        pn.farthest_point_sampling_levels, cr.masked_knn = levels, knn
         try:
             yield
         finally:
             (torch.relu, torch.Tensor.amax, pn.farthest_point_sampling,
-             pn.ball_neighbors, cr.masked_knn) = saved
+             pn.farthest_point_sampling_levels, pn.ball_neighbors,
+             cr.masked_knn) = saved
 
     def record(self):
         import text2pos_torch.models.cell_retrieval as cr
@@ -86,7 +88,7 @@ class Decisions:
 
         relu, amax = torch.relu, torch.Tensor.amax
         fps, ball = pn.farthest_point_sampling, pn.ball_neighbors
-        knn = cr.masked_knn
+        levels, knn = pn.farthest_point_sampling_levels, cr.masked_knn
 
         def rec_relu(x):
             self.log.append(("relu", x.detach() > 0))
@@ -102,6 +104,11 @@ class Decisions:
             self.log.append(("fps", idx))
             return idx, cent
 
+        def rec_levels(pos, ratios):
+            out = levels(pos, ratios)
+            self.log.extend(("fps", idx) for idx, _ in out)
+            return out
+
         def rec_ball(*a):
             out = ball(*a)
             self.log.append(("ball", out))
@@ -111,7 +118,8 @@ class Decisions:
             out = knn(*a)
             self.log.append(("knn", out))
             return out
-        return self._patched(rec_relu, rec_amax, rec_fps, rec_ball, rec_knn)
+        return self._patched(rec_relu, rec_amax, rec_fps, rec_levels,
+                             rec_ball, rec_knn)
 
     def _next(self, kind, shape=None):
         k, v = self.log[self._i]
@@ -155,9 +163,17 @@ class Decisions:
             return idx, torch.gather(pos, 1, idx[..., None].expand(
                 *idx.shape, 3))
 
+        def rep_levels(pos, ratios):
+            out = []
+            for _ in ratios:
+                out.append(rep_fps(pos, None))
+                pos = out[-1][1]
+            return out
+
         def rep_ball(*a):
             return self._next("ball")
 
         def rep_knn(*a):
             return self._next("knn")
-        return self._patched(rep_relu, rep_amax, rep_fps, rep_ball, rep_knn)
+        return self._patched(rep_relu, rep_amax, rep_fps, rep_levels,
+                             rep_ball, rep_knn)
