@@ -156,9 +156,11 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    path: headline, cascade, DB encode, calibration, server, the two
    evaluation epochs, the two trainings, phase 8's stages,
    ``evaluator_*``, phase 9's, ``recipe_*``, phase 10's, ``dp_*``, and
-   phase 12's, ``wide_*`` and ``variant_*``, with the errors on phase 9's
-   and phase 10's inputs under ``max_abs_err_by_training_path`` and
-   ``max_abs_err_by_dp_path`` and phase 12's readings under ``widths``),
+   phase 12's, ``wide_*`` and ``variant_*``, and phase 13's, ``k360_*``,
+   ``converted_*`` and ``transformer_*``, with the errors on phase 9's,
+   phase 10's and phase 13's inputs under ``max_abs_err_by_training_path``,
+   ``max_abs_err_by_dp_path`` and ``max_abs_err_by_last_modules_path`` and
+   phase 12's readings under ``widths``),
    the card's name and power limit, and ``{"ok": true, "device": {...}}``
    as the last line; ``superglue_gnn_any`` (the GNN's second form) has the
    E=300 headline's launches and times, and under ``routes`` each of its
@@ -190,6 +192,38 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    choices, at phase 7's limits; 12.5 one step of each variant of the
    object encoder, and a class-embedding model's DB encode (no PointConv
    or FPS launch) and serving.
+13. The last modules (run before the line of 11). 13.1: a seeded
+   KITTI360-layout drive named ``2013_05_28_drive_0010_sync`` (the val
+   split) over its ``SCENE_SIZES`` x extent, y cut to 3 of its 6 streets
+   (printed), binary PLYs and ``poses.txt``, prepared by ``python -m
+   text2pos_torch.data.prepare`` in a subprocess (the port's C++ host
+   library: voxels and DBSCAN; its wall time, cells and poses), the C++
+   library's voxel, DBSCAN and host-FPS outputs on the scene's objects
+   equal to their numpy twins; then from ``--base_path`` with the bench
+   checkpoints the evaluator with ``--dataset K360`` in f32 (tables parsed,
+   wall time; accuracy only read: the weights never saw the drive) and the
+   server's CLI with ``--base_path --scenes`` on queries from the prepared
+   poses' descriptions, its stream equal to ``localize`` (``serve_batch``)
+   on the same server. 13.2: reference-style whole-model pickles at the
+   bench widths and a PointNet++ state dict from seeds, BN statistics
+   calibrated on a synthetic map (``utils/reference_models.py``),
+   converted by the port's two CLIs; the GNN kernel on the converted
+   weights against the reference module's own forward (interleaved heads);
+   the bench map encoded with the converted towers and PointNet++,
+   calibrated and served (2048 queries, top-10) in bf16 (ms beside phase
+   4's) and f32 (``top_idx`` against the plain versions' but for phase 4's
+   relative near-ties), every kernel against its plain version on the
+   served inputs; the converted coarse tower's text and cell encodings
+   against the reference module's own forward in float64, and its
+   similarities' spread. 13.3: ``python -m text2pos_torch.train.transformer``
+   at JAX's default widths (E=300, 6 blocks, 50 iterations, batch 32) for a
+   few steps (exit 0, finite losses); in process one f32 step against the
+   plain versions' on its choices (phase 7's limits), ms a step, busy
+   share, launches, the LSTM, Sinkhorn and FPS kernels against their plain
+   versions on the step's inputs. 13.4: calibrated f32 serving with
+   ``T2P_FAST_GRAPH=1`` gives the same ``top_idx`` (the calibration's wall
+   time with the switch off and on, in turns); ``--plot_retrievals``
+   without ``cv2`` raises an ``ImportError`` naming it (a checked note).
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -4322,7 +4356,7 @@ def headline_swaps(pipe, fx, got, want):
     ``want``, each with (row, ok, notes): the headline's order is the coarse
     retrieval's, so a differing row passes only where the plain pipeline's
     similarities of the candidates at the differing positions are within
-    SWAP_REL_TOL of each other."""
+    ``SWAP_REL_TOL`` of each other, relative to the larger of the two."""
     from text2pos_torch.ops.retrieval import topk_retrieval
 
     out = []
@@ -4334,13 +4368,16 @@ def headline_swaps(pipe, fx, got, want):
             sims, cells = topk_retrieval(pipe.coarse.encode_text(*q),
                                          pipe.cell_enc, pipe.cell_enc.shape[0])
         sim = dict(zip(cells[0].tolist(), sims[0].float().tolist()))
+        top = float(sims[0].float().abs().max())
         notes, ok = [], True
         for a, b in zip(got[r], want[r]):
             if a != b:
-                gap = abs(sim[int(a)] - sim[int(b)]) / max(
-                    abs(sim[int(a)]), abs(sim[int(b)]), 1e-30)
+                sa, sb = sim[int(a)], sim[int(b)]
+                gap = abs(sa - sb) / max(abs(sa), abs(sb), 1e-30)
                 notes.append(f"{int(a)} for {int(b)}: the plain pipeline's "
-                             f"similarities differ by {gap:.3e} relative")
+                             f"similarities ({sa:.6g}, {sb:.6g}; the row's "
+                             f"largest {top:.6g}) differ by {gap:.3e} "
+                             "relative")
                 ok = ok and gap < SWAP_REL_TOL
         out.append((r, ok, notes))
     return out
@@ -4793,6 +4830,774 @@ def gnn_routes(wide, by_path):
     return routes
 
 
+# Phase 13: the last modules. A seeded KITTI360-layout drive prepared by the
+# port's data preparation (its C++ host library) and evaluated and served
+# from --base_path; reference-style checkpoints made from seeds, converted
+# and served; the transformer matcher ablation at JAX's default widths; the
+# fast module form of the GNN and the drawing tools' cv2 check.
+K360_SCENE = "2013_05_28_drive_0010_sync"     # the val split's one drive
+K360_STREET_GAP = 240.0   # streets of the serpentine drive, metres apart
+K360_ROAD_HALF = 6.0
+# The extent holds 6 streets; the host's prepare takes about 70 s at 3 of
+# them (cells at the sampled locations, one pose a location and method) and
+# grows with the square of the streets (cells x points each one scans).
+K360_STREETS = 3
+K360_PREPARE = {"shift_poses": True, "pose_count": 1}
+K360_PREPARE_FLAGS = tuple(a for k, v in K360_PREPARE.items()
+                           for a in ((f"--{k}",) if v is True
+                                     else (f"--{k}", str(v))))
+K360_SERVE_QUERIES = 256
+# The transformer ablation at JAX's default widths (text2pos_tpu/config.py)
+TRANSFORMER = dict(embed_dim=300, num_layers=6, sinkhorn_iters=50,
+                   batch_size=32, pad_size=16, num_mentioned=6,
+                   pointnet_numpoints=256, max_hint_len=16)
+TRANSFORMER_STEPS = 8
+TRANSFORMER_CLI_BATCHES = 4
+# The GNN kernel on the converted weights against the fabricated reference
+# module's own forward (Conv1d projections, interleaved heads), f32:
+# relative to the largest score, f32 sums in another order through 12
+# blocks.
+CONVERTED_GNN_REL_TOL = 1e-4
+# The converted coarse tower against the reference module's forward in
+# float64: f32 unit encodings (the DB encode's gate, tests/
+# test_torch_port_db.py), on the first 64 cells of the bench map.
+CONVERTED_REF_TOL = 1e-4
+CONVERTED_REF_CELLS = 64
+# A query's similarities must spread: the near-tie rule below is relative.
+CONVERTED_MIN_SPREAD = 1e-2
+
+
+def _ply(path, xyz, rgb, sem, inst):
+    """A binary little-endian PLY in KITTI360's vertex layout."""
+    dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                   ("red", "u1"), ("green", "u1"), ("blue", "u1"),
+                   ("semanticID", "<i4"), ("instanceID", "<i4")])
+    rec = np.zeros(len(xyz), dt)
+    rec["x"], rec["y"], rec["z"] = xyz.T
+    rec["red"], rec["green"], rec["blue"] = rgb.T
+    rec["semanticID"], rec["instanceID"] = sem, inst
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(rec)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+              "property int semanticID\nproperty int instanceID\n"
+              "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def write_k360_scene(root, streets, seed=0):
+    """A seeded KITTI360-layout drive over SCENE_SIZES[K360_SCENE]'s x
+    extent: ``streets`` streets K360_STREET_GAP apart joined into one
+    serpentine drive, with road and sidewalk strips, vegetation and terrain
+    patches (stuff, instance 0 as in KITTI360) and buildings, poles, lamps,
+    signs, traffic lights, small poles, trash bins and boxes (instances)
+    along them; binary PLYs of 250 m of x each under
+    data_3d_semantics/<scene>/static/ (objects span files) and the
+    trajectory, a frame every 2 m, in data_poses/<scene>/poses.txt. Returns
+    (points, frames)."""
+    from text2pos_torch.constants import CLASS_TO_LABEL, SCENE_SIZES
+
+    rng = np.random.default_rng(seed)
+    X = SCENE_SIZES[K360_SCENE][0]
+    ys = K360_STREET_GAP / 2 + K360_STREET_GAP * np.arange(streets)
+    x0, x1 = 20.0, X - 20.0
+    parts, next_id = [], [1000]
+
+    def add(xyz, rgb, label, instance=None):
+        if instance is None:
+            instance, next_id[0] = next_id[0], next_id[0] + 1
+        col = np.clip(np.asarray(rgb) + rng.normal(0, 8, (len(xyz), 3)),
+                      0, 255)
+        parts.append((xyz, col.astype(np.uint8), CLASS_TO_LABEL[label],
+                      instance))
+
+    def box(cx, cy, w, d, h, density):
+        n = max(int(w * d * max(h, 0.3) * density), 30)
+        return rng.random((n, 3)) * [w, d, h] + [cx - w / 2, cy - d / 2, 0]
+
+    furniture = ("pole", "lamp", "traffic sign", "smallpole", "trash bin",
+                 "box", "traffic light")
+    for si, y in enumerate(ys):
+        L = x1 - x0
+        n = int(L * 2 * K360_ROAD_HALF * 3)
+        add(np.stack([x0 + rng.random(n) * L,
+                      y + (rng.random(n) * 2 - 1) * K360_ROAD_HALF,
+                      rng.normal(0, 0.03, n)], 1), (128, 64, 128), "road", 0)
+        for side in (-1, 1):
+            n = int(L * 3 * 3)
+            add(np.stack([x0 + rng.random(n) * L,
+                          y + side * (K360_ROAD_HALF + rng.random(n) * 3),
+                          0.15 + rng.normal(0, 0.03, n)], 1),
+                (244, 35, 232), "sidewalk", 0)
+            for bx in np.arange(x0 + 10, x1 - 10, 30.0) + rng.uniform(-4, 4):
+                w, d, h = (rng.uniform(8, 16), rng.uniform(6, 10),
+                           rng.uniform(5, 12))
+                add(box(bx, y + side * (K360_ROAD_HALF + 5 + d / 2), w, d, h,
+                        0.6), rng.integers(40, 200, 3), "building")
+            for j, fx_ in enumerate(np.arange(x0 + 3, x1 - 3, 7.0)):
+                lab = furniture[(j + si + (side > 0)) % len(furniture)]
+                fy = y + side * (K360_ROAD_HALF + 1.5)
+                tall = lab in ("pole", "lamp", "smallpole", "traffic light")
+                add(box(fx_, fy, 0.3, 0.3, rng.uniform(3, 7), 150) if tall
+                    else box(fx_, fy, rng.uniform(0.5, 1.2),
+                             rng.uniform(0.5, 1.2), rng.uniform(0.6, 1.5),
+                             150), rng.integers(0, 255, 3), lab)
+            for vx in np.arange(x0 + 25, x1 - 25, 60.0):
+                vy = y + side * (K360_ROAD_HALF + 21 + rng.uniform(0, 6))
+                add(box(vx, vy, 12, 8, 4, 1.5), (107, 142, 35), "vegetation",
+                    0)
+                add(box(vx + 20, vy, 14, 10, 0.2, 12), (152, 251, 152),
+                    "terrain", 0)
+    xyz = np.concatenate([p[0] for p in parts]).astype(np.float32)
+    rgb = np.concatenate([p[1] for p in parts])
+    sem = np.concatenate([np.full(len(p[0]), p[2], np.int32) for p in parts])
+    ins = np.concatenate([np.full(len(p[0]), p[3], np.int32) for p in parts])
+    static = os.path.join(root, "data_3d_semantics", K360_SCENE, "static")
+    os.makedirs(static, exist_ok=True)
+    key = np.floor(xyz[:, 0] / 250.0).astype(int)
+    for k in np.unique(key):
+        m = key == k
+        _ply(os.path.join(static, f"{k * 1000:010d}_{k * 1000 + 999:010d}"
+                                  ".ply"), xyz[m], rgb[m], sem[m], ins[m])
+    track = []
+    for si, y in enumerate(ys):
+        xs = np.arange(x0, x1, 2.0)[::(-1 if si % 2 else 1)]
+        track.append(np.stack([xs, y + 1.5 * np.sin(xs / 40.0),
+                               np.full(len(xs), 1.7)], 1))
+        if si + 1 < streets:
+            yy = np.arange(y, ys[si + 1], 2.0)[1:]
+            track.append(np.stack([np.full(len(yy), xs[-1]), yy,
+                                   np.full(len(yy), 1.7)], 1))
+    track = np.concatenate(track)
+    rows = [np.concatenate([[i], np.hstack([np.eye(3), t[:, None]]).ravel()])
+            for i, t in enumerate(track)]
+    pose_dir = os.path.join(root, "data_poses", K360_SCENE)
+    os.makedirs(pose_dir, exist_ok=True)
+    np.savetxt(os.path.join(pose_dir, "poses.txt"), np.array(rows))
+    return len(xyz), len(track)
+
+
+def _popen(args, cwd):
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd,
+                            env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(label, proc, t0, failures, timeout=600):
+    """(stdout, wall s) of a started subprocess; a non-zero exit fails."""
+    try:
+        out, err = proc.communicate(timeout=max(1.0, timeout -
+                                                (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        failures.append(f"{label}: timed out")
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        failures.append(f"{label}: exit {proc.returncode}; {err[-2000:]}")
+    return out, wall
+
+
+def _cli(argv_fn, argv, stdin_text=""):
+    """``argv_fn(argv)`` in-process with stdin, stdout and stderr captured:
+    (stdout, stderr)."""
+    sys_stdin, out, err = sys.stdin, io.StringIO(), io.StringIO()
+    sys.stdin = io.StringIO(stdin_text)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            argv_fn(argv)
+    finally:
+        sys.stdin = sys_stdin
+    return out.getvalue(), err.getvalue()
+
+
+def fabricate_reference(scratch, words):
+    """Reference-style whole-model pickles at the bench widths
+    (``CellRetrievalNetwork`` E=256; ``SuperGlueMatch`` E=128, 6 block
+    pairs, 50 Sinkhorn iterations) and a PointNet++ state dict, from seeds
+    (``utils/reference_models.py``), both models holding that PointNet++;
+    returns their paths and the coarse and fine models."""
+    from text2pos_torch.utils import reference_models as rm
+
+    paths = {k: os.path.join(scratch, f"ref_{k}.pth")
+             for k in ("coarse", "fine", "pointnet")}
+    pn = rm.make_pointnet_state_dict(seed=13)
+    torch.save(pn, paths["pointnet"])
+    coarse, reg = rm.make_coarse_model(256, words, seed=11, pointnet=pn)
+    rm.save_whole_model(coarse, reg, paths["coarse"])
+    fine, reg = rm.make_fine_model(128, 6, words, seed=12, pointnet=pn)
+    rm.save_whole_model(fine, reg, paths["fine"])
+    return paths, coarse, fine
+
+
+def converted_gnn_check(fine_ref, conv_fine, failures, device):
+    """The GNN kernel (f32, the tuned form) on the converted SuperGlue's
+    packed weights against the fabricated reference module's own forward
+    on the card: the reference's interleaved heads must reach the kernel's
+    pack through ``_attn_head_perm``."""
+    from text2pos_torch.models.superglue import SuperGlue
+    from text2pos_torch.ops import _build
+    from text2pos_torch.train.state import load_checkpoint
+    from text2pos_torch.utils.convert_jax import load_jax_params
+
+    payload = load_checkpoint(conv_fine)
+    sg = SuperGlue(128, 6, 50).eval()
+    unused = load_jax_params(sg, payload["params"]["superglue"],
+                             payload["batch_stats"]["superglue"])
+    sg = sg.to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    d0 = torch.randn(512, 16, 128, device=device, generator=gen)
+    d1 = torch.randn(512, 6, 128, device=device, generator=gen)
+    ref = fine_ref.superglue.to(device).eval()
+    with torch.inference_mode():
+        _build.LAUNCHES.clear()
+        got = sg.scores(d0, d1)
+        launched = _build.LAUNCHES.get("superglue_gnn", 0)
+        x0, x1 = d0.transpose(1, 2), d1.transpose(1, 2)
+        for i, lyr in enumerate(ref.gnn.layers):
+            s0, s1 = (x1, x0) if i % 2 else (x0, x1)
+            m = [_ref_attention(lyr, a, b) for a, b in ((x0, s0), (x1, s1))]
+            x0 = x0 + lyr.mlp(torch.cat([x0, m[0]], 1))
+            x1 = x1 + lyr.mlp(torch.cat([x1, m[1]], 1))
+        want = torch.einsum("bdm,bdn->bmn", ref.final_proj(x0),
+                            ref.final_proj(x1)) / 128 ** 0.5
+    err = max_err(got, want)
+    check("13.2 the GNN kernel on the converted weights vs the reference "
+          "module's forward (f32, 512 pairs, 12 blocks; "
+          f"{CONVERTED_GNN_REL_TOL:g} of |score| max; launches {launched})",
+          err, CONVERTED_GNN_REL_TOL * float(want.abs().max()), failures)
+    if launched != 1 or unused:
+        failures.append(f"13.2 converted GNN: {launched} launches, unused "
+                        f"{unused}")
+    return err
+
+
+def converted_coarse_check(coarse_ref, base, bank, fx, failures, device):
+    """The converted coarse tower (f32, its kernels) against the fabricated
+    reference module's own forward in float64 on the card: the bench
+    queries' text encodings and the first ``CONVERTED_REF_CELLS`` cells'
+    encodings on the same prepared points (``reference_models``' forward:
+    the reference's modules, the port's sampling decisions). Returns the
+    largest error and the coarse similarities' spread."""
+    import copy
+
+    from text2pos_torch.evaluation.pipeline import (bank_tensors,
+                                                    coarse_cell_points)
+    from text2pos_torch.utils import reference_models as rm
+
+    ref = copy.deepcopy(coarse_ref).to(device, torch.float64).eval()
+    bt = bank_tensors(bank, device)
+    idx = torch.arange(CONVERTED_REF_CELLS, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    with torch.inference_mode():
+        tok, ln = (torch.as_tensor(fx[k], device=device)
+                   for k in ("tokens", "lengths"))
+        text = base.coarse.encode_text(tok, ln)
+        rtext = rm.reference_encode_text(ref, tok, ln)
+        flat = coarse_cell_points(bt, idx, gen,
+                                  num_points=base.cfg.pointnet_numpoints)
+        cells = base.coarse.encode_objects(*flat, len(idx),
+                                           bt["mask"].shape[1])
+        rcells = rm.reference_encode_cells(
+            ref, *(t.double() for t in flat[:4]), flat[4], len(idx))
+        sims = text @ base.cell_enc.T
+    err = {"text": max_err(text, rtext), "cells": max_err(cells, rcells)}
+    rows = {"text": len(rtext), "cells": len(idx)}
+    for k, e in err.items():
+        check(f"13.2 converted coarse tower vs the reference module's "
+              f"forward in float64: {k} ({rows[k]} rows, unit encodings)",
+              e, CONVERTED_REF_TOL, failures)
+    off = cells @ cells.T - 2 * torch.eye(len(idx), device=device)
+    spread = float((sims.amax(1) - sims.amin(1)).median())
+    log(f"    coarse similarities: {float(sims.min()):.4f} to "
+        f"{float(sims.max()):.4f}, a query's spread (median) {spread:.4f}; "
+        f"cells' largest cosine {float(off.max()):.4f}")
+    if spread < CONVERTED_MIN_SPREAD:
+        failures.append(f"13.2 converted coarse similarities degenerate: a "
+                        f"query's spread {spread:.3e}")
+    return max(err.values()), spread
+
+
+def _ref_attention(lyr, x, src, heads=4):
+    """The reference's MultiHeadedAttention (its superglue.py:103-115):
+    Conv1d projections, ``view(B, dim, heads, N)``, merge. [B, D, N]."""
+    B, D, _ = x.shape
+    dim = D // heads
+    q = lyr.attn.proj[0](x).view(B, dim, heads, -1)
+    k = lyr.attn.proj[1](src).view(B, dim, heads, -1)
+    v = lyr.attn.proj[2](src).view(B, dim, heads, -1)
+    prob = torch.softmax(torch.einsum("bdhn,bdhm->bhnm", q, k) / dim ** 0.5,
+                         dim=-1)
+    out = torch.einsum("bhnm,bdhm->bdhn", prob, v)
+    return lyr.attn.merge(out.contiguous().view(B, dim * heads, -1))
+
+
+def converted_pipeline(paths, dtype, bank, fx, device):
+    """The converted checkpoints served: the converted PointNet++ loaded
+    into both towers, the bench map encoded, calibrated on the bench's
+    calibration set. Returns (pipeline, {path: launches}, encode s,
+    calibrate s)."""
+    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+    from text2pos_torch.ops.retrieval import topk_retrieval
+    from text2pos_torch.train.state import load_checkpoint
+    from text2pos_torch.utils.convert_jax import load_jax_params
+
+    base = LocalizationPipeline.from_checkpoints(
+        paths["coarse"], paths["fine"], None, dtype=dtype, device=device)
+    pn = load_checkpoint(paths["pointnet"])
+    for tower in (base.coarse, base.fine):
+        unused = load_jax_params(tower.object_encoder.pointnet, pn["params"],
+                                 pn["batch_stats"])
+        assert all(u.split("/")[1] in ("class_classifier", "color_classifier")
+                   for u in unused), unused
+    (cell_enc, _, _), enc_s, db = timed(lambda: base.encode_database(bank))
+    base = base.with_database(cell_enc, None, None)
+    with torch.inference_mode():
+        enc = base.coarse.encode_text(
+            torch.as_tensor(fx["tokens"], device=device),
+            torch.as_tensor(fx["lengths"], device=device))
+        cal_idx = topk_retrieval(enc, cell_enc, TOP_K)[1]
+    pipe, cal_s, cal = timed(lambda: base.calibrated_for_serving(
+        bank, fx["hint_tokens"], fx["hint_lengths"], cal_idx, max_cells=128))
+    return pipe, base, cal_idx, {"db_encode": db, "calibrate": cal}, enc_s, \
+        cal_s
+
+
+def converted_checks(paths, coarse_ref, fine_ref, bank, fx, headline_ms,
+                     by_path, errs, report, failures, device):
+    """13.2 and 13.4's fast graph: the converted checkpoints encoded,
+    calibrated and served in bf16 and f32, every kernel against its plain
+    version on the served inputs."""
+    report["converted_gnn_err"] = converted_gnn_check(fine_ref,
+                                                      paths["conv_fine"],
+                                                      failures, device)
+    conv = {"coarse": paths["conv_coarse"], "fine": paths["conv_fine"],
+            "pointnet": paths["conv_pointnet"]}
+    bases = {}
+    for label, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        pipe, base, cal_idx, launches, enc_s, cal_s = converted_pipeline(
+            conv, dtype, bank, fx, device)
+        bases[label] = (base, cal_idx, pipe)
+        for k, v in launches.items():
+            by_path[f"converted_{k}_{label}"] = v
+        serve_all(pipe, fx, TOP_K)                             # warm-up
+        store = {}
+        (ti, po, _), _, launches = timed(lambda: serve_all(pipe, fx, TOP_K),
+                                         store)
+        by_path[f"converted_serve_{label}"] = launches
+        errs[f"converted_serve_{label}"] = kept_checks(
+            f"13.2 converted serve {label}", store, failures)
+        _, _, sec = serve_all(pipe, fx, TOP_K, reps=5)
+        log(f"  13.2 converted {label}: DB encode {enc_s:.3f} s (launches "
+            f"{by_path[f'converted_db_encode_{label}']}), calibration "
+            f"{cal_s:.3f} s; headline {len(ti)} queries x top-{TOP_K} in "
+            f"{sec * 1e3:.2f} ms = {len(ti) / sec:.1f} q/s (phase 4's bench "
+            f"weights: {headline_ms[label]:.2f} ms); launches {launches}")
+        report[f"headline_{label}_ms"] = sec * 1e3
+        if not np.isfinite(po).all() or ti.shape != fx["jax_top_idx"].shape:
+            failures.append(f"13.2 converted serve {label}: malformed")
+        for k in ("lstm", "superglue_gnn", "sinkhorn"):
+            if launches.get(k, 0) < 1:
+                failures.append(f"13.2 converted serve {label}: {k} did not "
+                                "launch")
+        if label == "f32":
+            with plain_kernels():
+                pti, ppo, _ = serve_all(pipe, fx, TOP_K)
+            report["converted_ref_err"], report["converted_spread"] = \
+                converted_coarse_check(coarse_ref, base, bank, fx, failures,
+                                       device)
+            report_swaps("13.2 converted f32 headline (\"JAX\" in the notes:"
+                         " the plain versions)",
+                         headline_swaps(pipe, fx, ti, pti),
+                         len(ti), failures, "the plain versions'")
+            log(f"    positions max difference from the plain versions "
+                f"{float(np.abs(po - ppo).max()):.3e}")
+            fast_graph_check(bank, fx, base, cal_idx, pipe, ti, po, report,
+                             failures)
+
+
+def fast_graph_check(bank, fx, base, cal_idx, plain, ti, po, report,
+                     failures):
+    """13.4: calibrated f32 serving with ``T2P_FAST_GRAPH=1`` (the GNN's
+    fast module form in the batch-statistics calibration; the kernel reads
+    the same folded weights) gives the same ``top_idx``; the calibration's
+    wall time with the switch off and on, in turns."""
+    def calibrate(on):
+        if on:
+            os.environ["T2P_FAST_GRAPH"] = "1"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe = base.calibrated_for_serving(
+                bank, fx["hint_tokens"], fx["hint_lengths"], cal_idx,
+                max_cells=128)
+            torch.cuda.synchronize()
+            return pipe, time.perf_counter() - t0
+        finally:
+            os.environ.pop("T2P_FAST_GRAPH", None)
+
+    walls = {False: [], True: []}
+    for on in (False, True, True, False):
+        pipe, wall = calibrate(on)
+        walls[on].append(wall)
+        if on:
+            fast = pipe
+    log(f"  13.4 calibrated_for_serving wall s, in turns: plain form "
+        f"{walls[False]}, T2P_FAST_GRAPH=1 {walls[True]}")
+    fti, fpo, _ = serve_all(fast, fx, TOP_K)
+    stats = max(r[2] for r in stats_vs_cache(fast.batch_stats(),
+                                             plain.batch_stats()))
+    same = bool(np.array_equal(fti, ti))
+    dpos = float(np.abs(fpo - po).max())
+    log(f"  13.4 T2P_FAST_GRAPH=1: calibrated f32 serving, the GNN in the "
+        f"fast form ({fast.fine.superglue.fast_graph}): top_idx equal to the "
+        f"plain form's: {same}; calibrated statistics at most {stats:.3e} "
+        f"of each leaf's scale apart; positions max difference {dpos:.3e} "
+        f"{'ok' if same else 'FAIL'}")
+    report["fast_graph"] = {"top_idx_equal": same, "positions_max": dpos,
+                            "statistics_max": stats,
+                            "calibrate_s": {"plain": walls[False],
+                                            "fast": walls[True]}}
+    if not same or not fast.fine.superglue.fast_graph:
+        failures.append("13.4 T2P_FAST_GRAPH=1 changed the served top_idx")
+
+
+def transformer_checks(by_path, errs, report, failures, device):
+    """13.3 in process: one f32 step at JAX's default widths against the
+    same step with the plain versions on its choices (phase 7's limits);
+    ms a step, busy share, the launches of one step, the LSTM, Sinkhorn and
+    FPS kernels against their plain versions on the step's inputs."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.data.hints import (Vocabulary, build_vocabulary,
+                                           create_hint_description)
+    from text2pos_torch.data.loaders import FineLoader
+    from text2pos_torch.train.coarse import step_generator
+    from text2pos_torch.train.transformer import TransformerTrainer
+    from text2pos_torch.utils.cli import load_split
+    from text2pos_torch.utils.float64 import Decisions
+
+    cfg = TrainConfig(**TRANSFORMER, dataset="SYNTHETIC-FINE",
+                      device=device)
+    cells, poses = load_split(cfg, "train")
+    vocab = Vocabulary(build_vocabulary([create_hint_description(p)
+                                         for p in poses]))
+    loader = FineLoader(cells, poses, vocab, cfg.batch_size, cfg.pad_size,
+                        cfg.num_mentioned, cfg.pointnet_numpoints,
+                        cfg.max_hint_len)
+    batches = list(itertools.islice(loader.epoch(seed=1),
+                                    TRANSFORMER_STEPS))
+    draws = host_draws("fine", batches[0], np.random.default_rng(3))
+    steps, decisions = [], Decisions()
+    for plain in (False, True):
+        trainer = TransformerTrainer(cfg, vocab)
+        state = trainer.init_state(1)
+        with (plain_kernels() if plain else contextlib.nullcontext()), \
+                (decisions.replay() if plain else decisions.record()):
+            steps.append(step_grads("fine", trainer, state, batches[0],
+                                    draws))
+    c = compare_steps(summary(steps[0]), summary(steps[1]))
+    log(f"  13.3 transformer E={cfg.embed_dim}, {cfg.num_layers} blocks, "
+        f"{cfg.sinkhorn_iters} iterations, batch {cfg.batch_size}: loss "
+        f"{steps[0][0]:.6f}, plain versions {steps[1][0]:.6f}; the plain "
+        f"step would have chosen otherwise at {decisions.flips} entries "
+        f"(margin {decisions.margin:.2e})")
+    gate_step("transformer", "the kernels' step vs the plain versions' on "
+              "its choices", c, failures)
+    trainer = TransformerTrainer(cfg, vocab)
+    state = trainer.init_state(len(batches))
+    gen = lambda i: step_generator(trainer.device, 6, 0, 0, i)
+    store = {}
+    _, _, launches = timed(lambda: trainer.train_step(state, batches[0],
+                                                      gen(0)), store)
+    by_path["transformer_step"] = launches
+    errs["transformer_step"] = kept_checks("13.3 transformer step", store,
+                                           failures)
+    ms, out = timed_steps(lambda i: trainer.train_step(
+        state, batches[i % len(batches)], gen(i)), TRANSFORMER_STEPS)
+    losses = [float(m["loss"]) for m in out]
+    prof = busy_profile(lambda: trainer.train_step(state, batches[1],
+                                                   gen(99)))
+    busy = None if prof is None else prof["busy_ms"] / prof["wall_ms"]
+    log(f"  13.3 transformer train_step: {ms:.1f} ms a step (median of the "
+        f"last {TRANSFORMER_STEPS - 1} of {TRANSFORMER_STEPS}); busy "
+        f"{'not measured' if busy is None else f'{busy:.3f}'} of a step's "
+        f"wall; launches of one step {launches}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    report["transformer"] = dict(c, step_ms=ms, busy=busy,
+                                 launches=launches, flips=decisions.flips)
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"13.3 transformer: losses {losses}")
+    for k in ("lstm", "sinkhorn", "fps"):
+        if launches.get(k, 0) < 1:
+            failures.append(f"13.3 transformer step: {k} did not launch")
+
+
+def k360_checks(scratch, prep_dir, by_path, errs, report, failures, device):
+    """13.1 on the prepared drive: the C++ host library against its numpy
+    twins on the scene's objects, the evaluator with ``--dataset K360``
+    (f32, its tables parsed) and the server's CLI with ``--base_path``
+    (its stream against ``localize``, i.e. ``serve_batch``, on the same
+    server), then 13.4's ``--plot_retrievals``."""
+    from text2pos_torch import serving
+    from text2pos_torch.data import cluster, legacy, native
+    from text2pos_torch.data.hints import create_hint_description
+    from text2pos_torch.data.ply import load_points
+    from text2pos_torch.data.voxel import voxel_downsample_indices
+    from text2pos_torch.evaluation import pipeline
+
+    lib = native.get_lib()
+    objects = legacy.load_pickle(os.path.join(scratch, "k360_in",
+                                              f"objects_{K360_SCENE}.pkl"))
+    static = os.path.join(scratch, "k360_in", "data_3d_semantics",
+                          K360_SCENE, "static")
+    raw = load_points(os.path.join(static, sorted(os.listdir(static))[0]))
+    def patch(label):
+        """A 30 m cell's worth of the stuff object ``label``, as
+        ``create_cell`` crops it before DBSCAN."""
+        xyz = next(o for o in objects if o.label == label).xyz
+        return xyz[(np.abs(xyz[:, :2] - xyz[0, :2]) <= 15).all(1)]
+
+    road, veg = patch("road"), patch("vegetation")
+    bld = max((o for o in objects if o.label == "building"),
+              key=lambda o: len(o.xyz))
+    t0 = time.perf_counter()
+    pairs = {
+        "voxel (0.25 m, a file's points)": (
+            voxel_downsample_indices(raw[0], 0.25),
+            voxel_downsample_indices(raw[0], 0.25, force_numpy=True)),
+        "DBSCAN (a cell's road)": (
+            cluster.dbscan_labels(road),
+            cluster.dbscan_labels(road, backend="numpy")),
+        "DBSCAN (a cell's vegetation)": (
+            cluster.dbscan_labels(veg),
+            cluster.dbscan_labels(veg, backend="numpy")),
+        "host FPS (256 of a building)": (
+            native.fps_indices(bld.xyz, 256),
+            native.fps_indices_numpy(bld.xyz, 256)),
+    }
+    host_s = time.perf_counter() - t0
+    for what, (got, want) in pairs.items():
+        same = bool(np.array_equal(got, want))
+        log(f"  13.1 {what}: the C++ library ({len(got)} outputs) equals "
+            f"its numpy twin: {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"13.1 {what} differs from the numpy twin")
+    log(f"    (the C++ library {lib._name}; with the twins {host_s:.1f} s)")
+
+    argv = ["--dataset", "K360", "--base_path", prep_dir, "--path_coarse",
+            CKPT_COARSE, "--path_fine", CKPT_FINE, "--dtype", "float32",
+            "--device", device]
+    store = {}
+    (text, _), wall, launches = timed(lambda: _cli(pipeline.main, argv),
+                                      store)
+    by_path["k360_eval"] = launches
+    errs["k360_eval"] = kept_checks("13.1 K360 evaluator", store, failures)
+    tables = parse_tables(text)
+    want = ("Coarse", "Fine (mean)", "Fine (offsets)", "Fine (mean-conf)")
+    ok = all(len(tables.get(t, [])) in (3, 9) and
+             all(0.0 <= v <= 1.0 for v in tables[t]) for t in want)
+    log(f"  13.1 evaluator --dataset K360 (f32, JAX's CLI defaults, the "
+        f"bench checkpoints: they never saw this drive): {wall:.2f} s; "
+        f"{ {t: tables.get(t) for t in want} } {'ok' if ok else 'FAIL'}; "
+        f"launches {launches}")
+    report["k360_eval"] = {"wall_s": wall, "tables": tables}
+    if not ok:
+        failures.append(f"13.1 K360 evaluator tables: {text[-2000:]}")
+
+    cells, poses = legacy.load_scenes(prep_dir, [K360_SCENE])
+    lines = [json.dumps({"hints": create_hint_description(p), "id": i})
+             for i, p in enumerate(poses[:K360_SERVE_QUERIES])]
+    made = []
+
+    class Recorded(serving.LocalizationServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    real, serving.LocalizationServer = serving.LocalizationServer, Recorded
+    store = {}
+    try:
+        (cli, _), wall, launches = timed(lambda: _cli(serving.main, [
+            "--path_coarse", CKPT_COARSE, "--path_fine", CKPT_FINE,
+            "--base_path", prep_dir, "--scenes", K360_SCENE, "--batch",
+            "64", "--device", device], "\n".join(lines)), store)
+    finally:
+        serving.LocalizationServer = real
+    by_path["k360_server"] = launches
+    errs["k360_server"] = kept_checks("13.1 K360 server", store, failures)
+    report["k360_lstm_forms"] = lstm_forms_reading(store)
+    res = [json.loads(x) for x in cli.splitlines()]
+    srv = made[0]
+    hints = [json.loads(x)["hints"] for x in lines]
+    outs = [srv.localize(hints[i:i + 64]) for i in range(0, len(hints), 64)]
+    pos = np.concatenate([o["positions"] for o in outs])
+    ids = sum((list(o["cell_ids"]) for o in outs), [])
+    equal = (len(res) == len(lines)
+             and [r["id"] for r in res] == list(range(len(lines)))
+             and np.array_equal(np.array([r["position"] for r in res]),
+                                pos.astype(np.float64))
+             and [r["cell_id"] for r in res] == ids)
+    log(f"  13.1 server CLI --base_path --scenes {K360_SCENE} (bf16, "
+        f"calibrated): {len(cells)} cells, {len(res)} answers to "
+        f"{len(lines)} queries from the prepared poses' descriptions in "
+        f"{wall:.2f} s (build included); stream equal to localize "
+        f"(serve_batch) on the same server: {equal} "
+        f"{'ok' if equal else 'FAIL'}; launches {launches}")
+    if not equal:
+        failures.append("13.1 K360 server stream differs from localize")
+
+    cwd = os.getcwd()
+    os.chdir(scratch)
+    try:
+        _cli(pipeline.main, argv + ["--plot_retrievals"])
+        pngs = os.listdir(os.path.join(scratch, "plots", "retrievals"))
+        log(f"  13.4 --plot_retrievals: cv2 present, {len(pngs)} images")
+        if not pngs:
+            failures.append("13.4 --plot_retrievals wrote no image")
+    except ImportError as e:
+        named = "cv2" in str(e)
+        log(f"  13.4 --plot_retrievals without cv2 raises ImportError "
+            f"naming cv2 ({e}): {'ok (checked note)' if named else 'FAIL'}")
+        if not named:
+            failures.append(f"13.4 --plot_retrievals: {e}")
+    finally:
+        os.chdir(cwd)
+
+
+def lstm_forms_reading(store):
+    """The LSTM kernel's two forms on the K360 server's kept coarse inputs
+    (H = 256; its calibration text is where the truncated 3xTF32
+    arithmetic was 1.4e-4 from float64): as they are (W_hh in shared
+    memory) and zero-padded to H = 300 (W_hh read from L2; the padded units
+    stay 0 and add nothing to the real ones), each against the plain
+    version evaluated in float64, the plain f32 version beside them. A
+    reading: the L2 form keeps the older arithmetic (ROADMAP Queue 3).
+    Returns {form: largest error}."""
+    from text2pos_torch.ops import lstm as m
+    from text2pos_torch.utils.float64 import float64_pins
+
+    worst = {"shared": 0.0, "l2_padded_300": 0.0, "plain_f32": 0.0}
+    for args in store.get(("lstm", "_lstm_kernel"), {}).values():
+        tables, w_hh, tokens, lengths = args
+        if w_hh[0].shape[0] != 256:
+            continue
+        with torch.inference_mode():
+            with float64_pins():
+                ref = m.lstm_final_hidden_plain(
+                    [t.double() for t in tables], [w.double() for w in w_hh],
+                    tokens, lengths)
+            outs = {
+                "shared": m._lstm_kernel(tables, w_hh, tokens, lengths),
+                "l2_padded_300": m._lstm_kernel(
+                    [m.pad_gates(t, 256, 300) for t in tables],
+                    [m.pad_w_hh(w, 256, 300) for w in w_hh], tokens,
+                    lengths)[..., :256],
+                "plain_f32": m.lstm_final_hidden_plain(tables, w_hh, tokens,
+                                                       lengths)}
+        for k, v in outs.items():
+            worst[k] = max(worst[k], float((v.double() - ref).abs().max()))
+    log("  13.1 the LSTM kernel's forms on the K360 server's coarse inputs, "
+        "largest error against float64 (a reading): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def last_modules_phase(bank, fx, headline_ms, failures, device="cuda"):
+    """Phase 13 (``device`` "cpu" for a dry run of its pieces). Returns ({path: launches}, {path: {kernel: error}},
+    report)."""
+    import tempfile
+
+    from text2pos_torch.train.state import load_checkpoint
+
+    from text2pos_torch.config import PrepareConfig
+    from text2pos_torch.constants import SCENE_SIZES
+
+    by_path, errs, report = {}, {}, {}
+    # The transformer CLI below runs in a process of its own on the same
+    # card: hand back the cached blocks of the phases before.
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".train_smoke_k360_")
+    scratch = tmp.name
+    try:
+        t0 = time.time()
+        points, frames = write_k360_scene(os.path.join(scratch, "k360_in"),
+                                          K360_STREETS)
+        X, Y, _ = SCENE_SIZES[K360_SCENE]
+        log(f"  13.1 scene {K360_SCENE}: {points} points, {frames} frames "
+            f"in {time.time() - t0:.1f} s; x spans the drive's {X} m, y cut "
+            f"to {K360_STREETS} of its {int(Y // K360_STREET_GAP)} streets "
+            f"({K360_STREETS * K360_STREET_GAP:.0f} of {Y} m: the host's "
+            "prepare grows with the square of the streets)")
+        t_prep = time.time()
+        prep = _popen(["text2pos_torch.data.prepare", "--path_in",
+                       os.path.join(scratch, "k360_in"), "--path_out",
+                       os.path.join(scratch, "k360_out"), "--scene_name",
+                       K360_SCENE, *K360_PREPARE_FLAGS], ROOT)
+        words = load_checkpoint(CKPT_COARSE)["extra"]["known_words"]
+        paths, coarse_ref, fine_ref = fabricate_reference(scratch, words)
+        t_conv = time.time()
+        convs = {}
+        mods = {"coarse": "convert_whole_model",
+                "fine": "convert_whole_model", "pointnet": "convert_torch"}
+        for k, mod in mods.items():
+            paths[f"conv_{k}"] = os.path.join(scratch, f"conv_{k}.msgpack")
+            convs[k] = _popen([f"text2pos_torch.utils.{mod}", "--path_in",
+                               paths[k], "--path_out", paths[f"conv_{k}"]],
+                              ROOT)
+        t_tf = time.time()
+        tf = _popen(["text2pos_torch.train.transformer", "--dataset",
+                     "SYNTHETIC-FINE", "--epochs", "1", "--max_batches",
+                     str(TRANSFORMER_CLI_BATCHES),
+                     "--device", device,
+                     *[a for k, v in TRANSFORMER.items()
+                       for a in (f"--{k}", str(v))]], ROOT)
+        for k, p in convs.items():
+            out, wall = _finish(f"13.2 converter {k}", p, t_conv, failures)
+            log(f"  13.2 python -m text2pos_torch.utils.{mods[k]} ({k}): exit {p.returncode} in {wall:.1f} s: "
+                f"{out.strip()[-160:]}")
+        out, wall = _finish("13.3 transformer CLI", tf, t_tf, failures)
+        losses = [float(ln.split()[3]) for ln in out.splitlines()
+                  if ln.startswith("epoch ")]
+        ok = tf.returncode == 0 and losses and all(map(math.isfinite,
+                                                        losses))
+        log(f"  13.3 python -m text2pos_torch.train.transformer (E="
+            f"{TRANSFORMER['embed_dim']}, {TRANSFORMER['num_layers']} blocks,"
+            f" batch {TRANSFORMER['batch_size']}, {TRANSFORMER_CLI_BATCHES} "
+            f"steps, SYNTHETIC-FINE): exit {tf.returncode} in {wall:.1f} s; "
+            f"losses {losses} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"13.3 transformer CLI: {out[-500:]}")
+
+        if all(p.returncode == 0 for p in convs.values()):
+            converted_checks(paths, coarse_ref, fine_ref, bank, fx,
+                             headline_ms, by_path, errs, report, failures,
+                             device)
+        transformer_checks(by_path, errs, report, failures, device)
+
+        out, wall = _finish("13.1 prepare", prep, t_prep, failures)
+        counts = [ln for ln in out.splitlines() if ln.startswith("created")]
+        log(f"  13.1 python -m text2pos_torch.data.prepare "
+            f"{' '.join(K360_PREPARE_FLAGS)}: exit {prep.returncode} in "
+            f"{wall:.1f} s (beside 13.2-13.3 on the same host); {counts}")
+        report["prepare_s"] = wall
+        prep_dir = os.path.join(scratch, "k360_out",
+                                PrepareConfig(**K360_PREPARE).dirname)
+        if not os.path.isdir(os.path.join(prep_dir, "cells")):
+            failures.append(f"13.1 prepare wrote no {prep_dir}/cells")
+        elif prep.returncode == 0:
+            k360_checks(scratch, prep_dir, by_path, errs, report, failures,
+                        device)
+        for k in ("k360_eval", "k360_server"):
+            if k not in by_path:
+                failures.append(f"13.1 the {k} path was not run")
+    finally:
+        tmp.cleanup()
+    return by_path, errs, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4886,8 +5691,10 @@ def main() -> int:
         failures.append(f"the LSTM kernel ran {launches.get('lstm', 0)} "
                         "times in a headline batch, not 2 (one per encoder)")
     jax_t10 = float(fx["jax_top10_at_15m"])
+    headline_ms = {}
     for label, pipe in (("bf16", pipe_bf16), ("f32", pipe_f32)):
         ti, po, sec = serve_all(pipe, fx, TOP_K, reps=5)
+        headline_ms[label] = sec * 1e3
         accs = served_accuracies(fx, ti, po, (1, 5, TOP_K))
         same = float((ti == fx["jax_top_idx"]).mean())
         dpos = np.abs(po - fx["jax_pos_offsets"].astype(np.float32)).max(-1)
@@ -4972,6 +5779,14 @@ def main() -> int:
     log(f"  phase 12 took {time.time() - t0:.1f} s; "
         f"{json.dumps(wide_report, default=float)}")
 
+    log("phase 13 the last modules")
+    t0 = time.time()
+    last_paths, last_errs, last_report = last_modules_phase(
+        bank, fx, headline_ms, failures)
+    by_path.update(last_paths)
+    log(f"  phase 13 took {time.time() - t0:.1f} s; "
+        f"{json.dumps(last_report, default=float)}")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -5002,7 +5817,9 @@ def main() -> int:
                                       for p, n in by_path.items()},
                  "max_abs_err_by_evaluator_path": eval_errs.get(name, {}),
                  "max_abs_err_by_training_path": recipe_errs.get(name, {}),
-                 "max_abs_err_by_dp_path": dp_errs.get(name, {})}
+                 "max_abs_err_by_dp_path": dp_errs.get(name, {}),
+                 "max_abs_err_by_last_modules_path": {
+                     p: e[name] for p, e in last_errs.items() if name in e}}
         entry.update(per_kernel[name])
         kernels.append(entry)
     log(f"total {time.time() - t_start:.1f} s; failures: {failures or 'none'}")

@@ -9,7 +9,11 @@ example the parent commit's ``text2pos_torch/csrc``, unpacked with
 ``git archive``). Each side's ``csrc/*.cu`` are built with the port's
 ``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
 (2048 queries x 64 tokens at H = 256; 12,288 hints x 16 tokens at H = 128;
-seeded random weights, the bench's lengths are not needed for a timing),
+and both at H = 300, JAX's default width, where W_hh is read from L2;
+seeded random weights, the bench's lengths are not needed for a timing;
+each side's error and the plain f32 version's against a float64
+evaluation), and the bench's bf16 headline with each side's LSTM (the
+other kernels A's),
 FPS at the six levels of a DB-encode step (1024 and 787 objects at 256,
 128 and 64 points, half sampled, points with duplicates) one launch a
 level (``t2p_fps``), then a forward's three levels as the model runs them:
@@ -110,6 +114,12 @@ def graph_timed(fn, reps=10, launches=20):
 
 
 def lstm_call(libs, B, T, H, V=512, seed=0):
+    """A launch at hidden width H, run as the port's wrapper runs it:
+    padded to a multiple of 32 and, past 256, W_hh also in fragment order
+    for the L2 form. ``call.inputs`` and ``call.out`` (its [2, B, H]
+    view) for ``lstm_f64_errors``."""
+    from text2pos_torch.ops import lstm as tlstm
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     tables = [torch.randn(V, 4 * H, device="cuda", generator=g) * 0.3
               for _ in range(2)]
@@ -119,19 +129,46 @@ def lstm_call(libs, B, T, H, V=512, seed=0):
                            dtype=torch.int32)
     lengths = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g,
                             dtype=torch.int32)
-    out = torch.empty(2, B, H, device="cuda")
+    Hp = tlstm.kernel_width(H)
+    ptab = [tlstm.pad_gates(t, H, Hp).contiguous() for t in tables]
+    pw = [tlstm.pad_w_hh(w, H, Hp).contiguous() for w in w_hh]
+    wpack = ([tlstm.w_hh_fragments(w) for w in pw]
+             if Hp > tlstm.SMEM_HIDDEN else None)
+    out = torch.empty(2, B, Hp, device="cuda")
     fn = libs["lstm"].t2p_lstm_final_hidden
-    extra = [None, None] if libs["wide_lstm"] else []
+    extra = ([None, None] if wpack is None else
+             [w.data_ptr() for w in wpack]) if libs["wide_lstm"] else []
     fn.argtypes = [ctypes.c_void_p] * (7 + len(extra)) + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
-    args = [t.data_ptr() for t in (*tables, *w_hh)] + extra + [
-        t.data_ptr() for t in (tokens, lengths, out)] + [V, T, B, H]
+    args = [t.data_ptr() for t in (*ptab, *pw)] + extra + [
+        t.data_ptr() for t in (tokens, lengths, out)] + [V, T, B, Hp]
 
     def call():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"lstm launch: CUDA error {err}")
+    call.keep = (ptab, pw, wpack, out)
+    call.inputs, call.out = (tables, w_hh, tokens, lengths), out[..., :H]
     return call
+
+
+def lstm_f64_errors(calls):
+    """Each side's final h (its last launch) and the plain f32 version's
+    largest error against the plain version evaluated in float64 on the
+    same inputs."""
+    from text2pos_torch.ops import lstm as tlstm
+    from text2pos_torch.utils.float64 import float64_pins
+
+    tables, w_hh, tokens, lengths = calls["A"].inputs
+    with torch.inference_mode():
+        with float64_pins():
+            ref = tlstm.lstm_final_hidden_plain(
+                [t.double() for t in tables], [w.double() for w in w_hh],
+                tokens, lengths)
+        outs = {k: c.out for k, c in calls.items()}
+        outs["plain"] = tlstm.lstm_final_hidden_plain(tables, w_hh, tokens,
+                                                      lengths)
+    return {k: float((v.double() - ref).abs().max()) for k, v in outs.items()}
 
 
 def fps_call(libs, B, N, seed=0):
@@ -273,6 +310,7 @@ def tuned_gnn_call(libs, dtype, N=20480, L=12):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"superglue_gnn launch: CUDA error {err}")
+    call.keep = (d0, d1, packed, out)
     return call
 
 
@@ -346,6 +384,28 @@ def f64_errors(calls):
     return out
 
 
+def headline_ms(sides):
+    """chip_smoke phase 4's bf16 headline (the bench fixture's 2048
+    queries, top-10, one ``serve_batch``; the median of 5) with each side's
+    LSTM library, in the order A, B, B, A; the other kernels are A's."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+
+    _build._LIBS.update({k: sides["A"][k] for k in KERNELS})
+    fx = dict(np.load(cs.FIXTURE))
+    pipe = LocalizationPipeline.from_checkpoints(
+        cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
+        device="cuda")
+    out = {"A": [], "B": []}
+    for k in ("A", "B", "B", "A"):
+        _build._LIBS["lstm"] = sides[k]["lstm"]
+        cs.serve_all(pipe, fx, cs.TOP_K)
+        out[k].append(cs.serve_all(pipe, fx, cs.TOP_K, reps=5)[2] * 1e3)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -359,7 +419,8 @@ def main() -> int:
                  "B": build(other, Path(d), "B")}
         cases = [(f"lstm B={B} T={T} H={H}", lambda L, a=(B, T, H):
                   lstm_call(L, *a))
-                 for B, T, H in ((2048, 64, 256), (12288, 16, 128))]
+                 for B, T, H in ((2048, 64, 256), (12288, 16, 128),
+                                 (2048, 64, 300), (12288, 16, 300))]
         cases += [(f"fps B={B} N={N}", lambda L, a=(B, N): fps_call(L, *a))
                   for B in (1024, 787) for N in (256, 128, 64)]
         cases += [(f"fps three levels B={B} N=256",
@@ -389,11 +450,18 @@ def main() -> int:
             print(f"{label}: A {ms['A'][0]:.4f} {ms['A'][1]:.4f} ms, "
                   f"B {ms['B'][0]:.4f} {ms['B'][1]:.4f} ms, A/B "
                   f"{a / b:.4f}")
+            if label.startswith("lstm"):
+                print("  largest error against float64: " + ", ".join(
+                    f"{k} {e:.3e}" for k, e in lstm_f64_errors(calls).items()))
             if slow:
                 errs = f64_errors(calls)
                 print("  against the float64 evaluation (largest error "
                       "over the tolerance, pairs past it): " + ", ".join(
                           f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
+        ms = headline_ms(sides)
+        print("bf16 headline (2048 queries, top-10) with each side's LSTM: "
+              + ", ".join(f"{k} {v[0]:.3f} {v[1]:.3f} ms"
+                          for k, v in ms.items()))
     return 0
 
 

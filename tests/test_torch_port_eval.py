@@ -318,10 +318,10 @@ def test_print_accuracies_matches_jax(name):
         accs, name, log=lambda s: None)
 
 
-def test_eval_config_takes_jax_flags():
-    """Every field of JAX's ``EvalConfig`` with its default; the flags
-    the port does not run raise a ``ValueError`` naming their item, and
-    ``--data_parallel`` is taken (``test_torch_port_dp.py`` runs it)."""
+def test_eval_config_takes_jax_flags(tmp_path):
+    """Every field of JAX's ``EvalConfig`` with its default; every flag is
+    taken: ``--data_parallel`` (``test_torch_port_dp.py`` runs it),
+    ``--plot_retrievals`` and ``--dataset K360``, whose reader runs."""
     from text2pos_torch.config import check_eval_ported
 
     ours = {f.name: f for f in dataclasses.fields(EvalConfig)}
@@ -334,10 +334,13 @@ def test_eval_config_takes_jax_flags():
             cfg.street_oracle, cfg.dtype) == ((1, 3), (5,), 128, 6.0, True,
                                               "bfloat16")
     check_eval_ported(parse_config(EvalConfig, ["--data_parallel", "2"]))
-    with pytest.raises(ValueError, match="item 7"):
-        check_eval_ported(parse_config(EvalConfig, ["--plot_retrievals"]))
-    with pytest.raises(ValueError, match="item 8"):
-        tpipeline.main(["--dataset", "K360", "--device", "cpu"])
+    # --plot_retrievals is taken; --dataset K360 runs the KITTI360 reader
+    # on the val scene under --base_path (which holds none here;
+    # test_torch_port_dataprep.py evaluates a prepared one).
+    check_eval_ported(parse_config(EvalConfig, ["--plot_retrievals"]))
+    with pytest.raises(FileNotFoundError, match="2013_05_28_drive_0010_sync"):
+        tpipeline.main(["--dataset", "K360", "--device", "cpu",
+                        "--base_path", str(tmp_path)])
 
 
 def test_main_needs_cuda_unless_told_cpu(tiny):

@@ -190,8 +190,9 @@ def test_prune_zero_is_always_allowed():
 
 def test_not_ported_options_raise(server, monkeypatch):
     """JAX's two refusals of data-parallel serving (the int8 cheap bank,
-    batch statistics) and the KITTI360 reader raise, naming the missing
-    piece; nothing falls back."""
+    batch statistics) raise, naming the missing piece; nothing falls back.
+    ``--base_path`` runs the KITTI360 reader, which raises for a scene it
+    does not find (``test_torch_port_dataprep.py`` serves prepared ones)."""
     srv, cells, _, (pc, pf, _) = server
     for kw, msg in (({"int8_cheap_bank": True}, "single-device only"),
                     ({"calibrate": False}, "requires calibrate=True")):
@@ -203,8 +204,9 @@ def test_not_ported_options_raise(server, monkeypatch):
                                    rerank_k=8, prune_m=5, prune_layers=3,
                                    device="cpu")
     monkeypatch.setattr(sys, "stdin", io.StringIO(""))
-    with pytest.raises(ValueError, match="data/legacy.py"):
-        serving.main(_cli_args(pc, pf, "--base_path", "/nonexistent"))
+    with pytest.raises(FileNotFoundError, match="missing_scene"):
+        serving.main(_cli_args(pc, pf, "--base_path", "/nonexistent",
+                               "--scenes", "missing_scene"))
 
 
 # ---------------------------------------------------------------------------

@@ -443,11 +443,17 @@ def test_data_parallel_exclusions_raise(stage, flag):
             cfg, Vocabulary(["a"]))
 
 
-def test_k360_and_kernel_width_raise():
+def test_k360_and_kernel_width_raise(tmp_path):
+    """``--dataset K360`` (the default) reads the split's scenes from
+    ``--base_path``: with none there the reader raises for the first train
+    scene (``test_torch_port_dataprep.py`` loads prepared ones); the LSTM
+    kernel's width range."""
+    from text2pos_torch.constants import SCENE_NAMES_TRAIN
     from text2pos_torch.utils.cli import load_split
 
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
-        load_split(TrainConfig(dataset="K360", device="cpu"), "train")
+    with pytest.raises(FileNotFoundError, match=SCENE_NAMES_TRAIN[0]):
+        load_split(TrainConfig(dataset="K360", base_path=str(tmp_path),
+                               device="cpu"), "train")
     from text2pos_torch.ops.lstm import check_kernel_width
 
     check_kernel_width(256)

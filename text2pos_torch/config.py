@@ -214,15 +214,52 @@ class EvalConfig:
             assert not self.coarse_oracle and not self.fine_oracle
 
 
+@dataclass
+class PrepareConfig:
+    """Data-preparation configuration: a copy of ``text2pos_tpu/config.py``'s
+    ``PrepareConfig`` (the reference's datapreparation/args.py:7-76)."""
+
+    path_in: str = "./data/kitti360"
+    path_out: str = "./data/k360_prepared"
+    scene_name: str = ""
+    cell_size: float = 30.0
+    cell_dist: float = 10.0     # cell-center spacing (grid step)
+    pose_dist: float = 10.0     # min distance between sampled pose locations
+    pose_count: int = 4         # poses sampled per location
+    shift_poses: bool = False
+    shift_cells: bool = False
+    grid_cells: bool = False
+    all_cells: bool = False
+    num_mentioned: int = 6
+    describe_by: str = "all"
+    describe_best_cell: bool = False
+    no_ontop: bool = False      # drop the "on-top" direction (ref args.py:28)
+    seed: int = 4096            # reference prepare.py:435
+
+    def __post_init__(self):
+        assert self.describe_by in ("closest", "class", "direction", "random",
+                                    "all")
+
+    @property
+    def dirname(self) -> str:
+        """Output-directory name encoding the configuration (the
+        reference's datapreparation/args.py:41-54)."""
+        sc = "Y" if self.shift_cells else ("G" if self.grid_cells else "N")
+        sp = "Y" if self.shift_poses else "N"
+        bc = "_bestCell" if self.describe_best_cell else ""
+        ac = "_all" if self.all_cells else ""
+        nt = "_noOntop" if self.no_ontop else ""  # reference args.py:52
+        return (
+            f"k360_{self.cell_size:0.0f}-{self.cell_dist:0.0f}_sc{sc}"
+            f"_pd{self.pose_dist:0.0f}_pc{self.pose_count}_sp{sp}{ac}"
+            f"_nm{self.num_mentioned}_{self.describe_by}{bc}{nt}"
+        )
+
+
 def check_eval_ported(cfg: EvalConfig) -> None:
-    """Raise ``ValueError`` for the evaluation options the port does not
-    have yet, each naming its ROADMAP item (``--dataset K360`` raises in
-    ``utils.cli.load_split``)."""
-    if cfg.plot_retrievals:
-        raise ValueError("--plot_retrievals is not ported to text2pos_torch "
-                         "yet (ROADMAP Queue 1 item 7: utils/drawing.py, "
-                         "which needs cv2); use text2pos_tpu.evaluation for "
-                         "it")
+    """Raise ``ValueError`` for an unknown ``--dtype``; every evaluation
+    option of the JAX package is ported (``--plot_retrievals`` needs
+    ``cv2`` where it draws)."""
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--dtype {cfg.dtype}: float32 or bfloat16")
 

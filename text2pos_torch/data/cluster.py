@@ -1,12 +1,19 @@
-"""DBSCAN clustering for stuff-object splitting (host-side data prep).
+"""DBSCAN clustering for stuff-object splitting (host-side data prep;
+counterpart of ``text2pos_tpu/data/cluster.py``).
 
 The reference calls sklearn's DBSCAN with eps=0.75 and default
-min_samples=5 (the Text2Pos reference code, datapreparation/kitti360pose/descriptions.py:43).
-We prefer sklearn when present and otherwise fall back to a grid-bucketed
-union-find implementation with identical cluster semantics (label ≥ 0 per
-cluster, −1 for noise). The JAX package's C++ backend (its
-``data/native.py``) is not carried over; the bench map has no stuff
-objects and never clusters.
+min_samples=5 (the Text2Pos reference code,
+datapreparation/kitti360pose/descriptions.py:43). Three backends give the
+same clusters (label ≥ 0 per cluster, −1 for noise), in JAX's order of
+preference under ``auto``: the port's C++ library (``data/native.py``),
+sklearn, then a grid-bucketed union-find in NumPy. The C++ library does not
+fail quietly: where it cannot be built, ``auto`` raises with the
+compiler's message, so ``auto`` is the C++ library, and sklearn and NumPy
+are taken only by name (``backend=``, or ``force_numpy``). The C++ and
+NumPy backends number clusters alike, by their first core point; the
+descriptions read that numbering (``descriptions.py`` splits stuff objects
+by it, in label order), so a prepared cell equals JAX's only under the
+same backend.
 """
 
 from __future__ import annotations
@@ -25,15 +32,25 @@ def dbscan_labels(points: np.ndarray, eps: float = 0.75, min_samples: int = 5,
                   force_numpy: bool = False, backend: str = "auto") -> np.ndarray:
     """Cluster labels per point: 0..K-1 for clusters, −1 for noise.
 
-    Backends, in order of preference under ``auto``: sklearn, pure NumPy.
+    ``backend``: "auto" or "native" (the C++ library), "sklearn" or
+    "numpy"; ``force_numpy`` means "numpy".
     """
     points = np.asarray(points, dtype=np.float64)
     if points.shape[0] == 0:
         return np.zeros((0,), dtype=np.int64)
     if force_numpy:
         backend = "numpy"
-    if backend in ("auto", "sklearn") and _HAVE_SKLEARN:
-        return _SkDBSCAN(eps=eps, min_samples=min_samples, n_jobs=-1).fit(points).labels_
+    if backend in ("auto", "native"):
+        from text2pos_torch.data import native
+
+        return native.dbscan_labels(points, eps, min_samples)
+    if backend == "sklearn":
+        if not _HAVE_SKLEARN:
+            raise ImportError("backend='sklearn' needs scikit-learn")
+        return _SkDBSCAN(eps=eps, min_samples=min_samples,
+                         n_jobs=-1).fit(points).labels_
+    if backend != "numpy":
+        raise ValueError(f"unknown DBSCAN backend {backend!r}")
     return _dbscan_numpy(points, eps, min_samples)
 
 

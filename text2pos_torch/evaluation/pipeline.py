@@ -71,6 +71,8 @@ from text2pos_torch.evaluation.metrics import calc_accuracies
 from text2pos_torch.models.blocks import calibrating, set_eval_batch_stats
 from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
 from text2pos_torch.models.matcher import SuperGlueMatch, get_pos_in_cell
+from text2pos_torch.models.superglue import (fast_graph_requested,
+                                             with_fast_graph)
 from text2pos_torch.models.object_encoder import FEATURES, ID_KEYS
 from text2pos_torch.ops.retrieval import topk_retrieval
 from text2pos_torch.ops.superglue_gnn import widen_gnn_stats
@@ -484,6 +486,7 @@ class LocalizationPipeline:
         fine.load_state_dict(jax_to_state_dict(
             fine, module_to_jax(fine)[0], batch_stats))
         set_eval_batch_stats(fine, False)
+        _switch_fast_graph(fine)
         return LocalizationPipeline(self.coarse, fine, self.vocab,
                                     self.fine_vocab, self.cell_enc,
                                     self.fine_bank_enc,
@@ -523,6 +526,7 @@ class LocalizationPipeline:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         bt = bank_tensors(bank, dev)
         fine = set_eval_batch_stats(copy.deepcopy(self.fine), True)
+        _switch_fast_graph(fine)
 
         sample = torch.arange(min(bank.num_cells, max_cells), device=dev)
         u, pad_pts = sample_draws if sample_draws is not None else (None,
@@ -966,6 +970,15 @@ def encode_database(coarse: str, fine: str, db_cache: str, bank: CellBank,
         coarse, fine, db_cache, dtype, device).encode_database(bank, seed)
 
 
+def _switch_fast_graph(fine: SuperGlueMatch) -> None:
+    """The fine model's GNN in the module form JAX's switch asks for
+    (``T2P_FAST_GRAPH=1``: the fast graph; read where JAX reads it, when a
+    serving pipeline is calibrated or restored)."""
+    on = fast_graph_requested()
+    if fine.superglue.fast_graph != on:
+        fine.superglue = with_fast_graph(fine.superglue, on)
+
+
 def build_pipeline_from_checkpoints(cfg, path_coarse: str, path_fine: str,
                                     dtype: Optional[str] = None
                                     ) -> Tuple[LocalizationPipeline,
@@ -990,8 +1003,11 @@ def build_pipeline_from_checkpoints(cfg, path_coarse: str, path_fine: str,
 def main(argv: Optional[Sequence[str]] = None, draws: Optional[Dict] = None
          ) -> None:
     """``python -m text2pos_torch.evaluation.pipeline``: JAX's evaluation
-    CLI (its flags, plus ``--dtype`` and ``--device``): the coarse stage's
-    accuracy table, then the fine stage's (mean, offsets and mean-conf
+    CLI (its flags, plus ``--dtype`` and ``--device``) on the split's
+    scenes (``--dataset K360``: ``--base_path``'s val scene, or its test
+    scenes with ``--use_test_set``): the coarse stage's accuracy table
+    (with ``--plot_retrievals`` then retrieval examples under
+    ``./plots/retrievals``, and no fine stage), then the fine stage's (mean, offsets and mean-conf
     positions, re-ranked with ``--rerank``) or the fine oracle's. ``draws``
     hands over the coarse cell steps' (``cells``) and the fine bank's
     (``bank``) resampling draws."""
@@ -1014,6 +1030,22 @@ def main(argv: Optional[Sequence[str]] = None, draws: Optional[Dict] = None
 
     top_idx, coarse_accs = pipe.run_coarse(loader, poses, draws.get("cells"))
     print_accuracies(coarse_accs, "Coarse")
+    if cfg.plot_retrievals:
+        # Success and failure examples, then stop (the reference's
+        # pipeline.py:325-328).
+        from text2pos_torch.utils.drawing import plot_retrievals, require_cv2
+
+        cv2 = require_cv2()
+        retrievals = [[loader.bank.cell_ids[ci] for ci in row]
+                      for row in np.asarray(top_idx)]
+        out_dir = "./plots/retrievals"
+        os.makedirs(out_dir, exist_ok=True)
+        for i, (ok, img) in enumerate(plot_retrievals(retrievals, cells,
+                                                      poses)):
+            cv2.imwrite(f"{out_dir}/{'success' if ok else 'fail'}_{i}.png",
+                        img)
+        print(f"wrote retrieval examples to {out_dir}")
+        return
     if cfg.coarse_only:
         return
     if cfg.fine_oracle or cfg.fine_random:

@@ -312,3 +312,39 @@ class SuperGlueMLP(nn.Module):
             if i < self.n - 1:
                 x = torch.relu(getattr(self, f"bn_{i}")(x, stat_group))
         return x
+
+
+class DenseParams(nn.Linear):
+    """An ``nn.Linear`` whose owner fuses it with others instead of applying
+    it (JAX's ``DenseParams``: ``nn.Dense``'s parameter tree, not applied):
+    calling it returns ``(kernel [in, out], bias)``. Its state and its JAX
+    tree are ``nn.Linear``'s, so a checkpoint loads into either form."""
+
+    def forward(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.weight.t(), self.bias
+
+
+class FastSuperGlueMLP(SuperGlueMLP):
+    """Concat-free ``SuperGlueMLP((2E, E))`` of the fast graph (JAX's
+    ``FastSuperGlueMLP``): ``x·W0[:E] + msg·W0[E:] + b0`` instead of
+    ``dense_0(concat([x, msg]))``, two K=E products summed in f32 instead of
+    one K=2E product, each rounded to the compute dtype. The same
+    parameters as ``SuperGlueMLP`` (``dense_0``, ``bn_0``, ``dense_1``)."""
+
+    def __init__(self, feature_dim: int, dtype: Optional[torch.dtype] = None,
+                 stat_groups: int = 1):
+        super().__init__(2 * feature_dim, (2 * feature_dim, feature_dim),
+                         dtype, stat_groups)
+        self.dense_0 = DenseParams(2 * feature_dim, 2 * feature_dim)
+        self.feature_dim = feature_dim
+
+    def forward(self, x: torch.Tensor, msg: torch.Tensor,
+                stat_group: int = 0) -> torch.Tensor:
+        E, dt = self.feature_dim, self.dtype or torch.float32
+        k0, b0 = self.dense_0()
+        k0 = k0.to(dt)
+        h = ((x.to(dt) @ k0[:E]).float() + (msg.to(dt) @ k0[E:]).float()
+             + b0.to(dt).float())
+        h = torch.relu(self.bn_0(h, stat_group))
+        return dense(self.dense_1, h, self.dtype)
+

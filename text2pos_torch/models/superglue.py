@@ -18,9 +18,14 @@ calibrated per-set statistics into its weights and cannot take those, and
 JAX runs no Pallas GNN kernel in that mode either, so the module form then
 runs on the card too; Sinkhorn still runs its kernel. ``calibrating``
 (``blocks.py``) writes the two sets' statistics into the BN rows 0 and 1
-(``stat_groups=2``). JAX's opt-in ``fast_graph`` form is not ported: the
-kernel fuses q/k/v already, and the form changes only the module form's
-arithmetic order.
+(``stat_groups=2``). ``fast_graph`` is JAX's opt-in module form: q/k/v as
+one product over the concatenated kernels (k/v as one in cross-attention,
+``blocks.DenseParams``) and the concat-free block MLP
+(``blocks.FastSuperGlueMLP``), the same parameters and the same function up
+to f32 reassociation. The serving pipeline takes it under JAX's switch
+``T2P_FAST_GRAPH=1`` (``with_fast_graph``). The kernel reads the same
+folded weights either way, so the form changes the module form's
+arithmetic only: the plain path and the batch-statistics calibration.
 
 In train mode (``blocks.train_mode``) the GNN runs as PyTorch ops on batch
 statistics, as JAX trains it, and the Sinkhorn goes through its autograd
@@ -33,12 +38,15 @@ a running-statistics update makes the next eval-mode call fold again.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from text2pos_torch.models.blocks import (SuperGlueMLP, dense, tensor_slots,
+from text2pos_torch.models.blocks import (DenseParams, FastSuperGlueMLP,
+                                          SuperGlueMLP, dense,
+                                          set_eval_batch_stats, tensor_slots,
                                           weights_key)
 from text2pos_torch.ops.sinkhorn import extract_matches, log_optimal_transport
 from text2pos_torch.ops.superglue_gnn import (UNSTACKED, fold_gnn_params,
@@ -48,22 +56,44 @@ from text2pos_torch.ops.superglue_gnn import (UNSTACKED, fold_gnn_params,
 
 class MultiHeadedAttention(nn.Module):
     def __init__(self, num_heads: int, d_model: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 fast_graph: bool = False):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
-        for name in ("proj_q", "proj_k", "proj_v", "merge"):
-            self.add_module(name, nn.Linear(d_model, d_model))
+        self.fast_graph = fast_graph
+        proj = DenseParams if fast_graph else nn.Linear
+        for name in ("proj_q", "proj_k", "proj_v"):
+            self.add_module(name, proj(d_model, d_model))
+        self.merge = nn.Linear(d_model, d_model)
+
+    def _fused(self, query, key):
+        """q, k, v [B, N, E] in the compute dtype from one product over the
+        concatenated kernels (self-attention), or q alone and k|v as one
+        (cross-attention)."""
+        dt = self.dtype or torch.float32
+        (kq, bq), (kk, bk), (kv, bv) = (self.proj_q(), self.proj_k(),
+                                        self.proj_v())
+
+        def mm(x, w, b):
+            return ((x.to(dt) @ w.to(dt)).float() + b.to(dt).float()).to(dt)
+
+        if query is key:
+            return mm(query, torch.cat([kq, kk, kv], 1),
+                      torch.cat([bq, bk, bv])).chunk(3, -1)
+        k, v = mm(key, torch.cat([kk, kv], 1), torch.cat([bk, bv])).chunk(
+            2, -1)
+        return mm(query, kq, bq), k, v
 
     def forward(self, query, key, value):
         dim = query.shape[-1] // self.num_heads
         dt = self.dtype or torch.float32
-
-        def proj(layer, x):
-            return dense(layer, x, dt).to(dt).unflatten(
-                -1, (self.num_heads, dim))
-
-        q, k, v = (proj(self.proj_q, query), proj(self.proj_k, key),
-                   proj(self.proj_v, value))
+        heads = lambda h: h.unflatten(-1, (self.num_heads, dim))
+        if self.fast_graph:
+            q, k, v = map(heads, self._fused(query, key))
+        else:
+            q, k, v = (heads(dense(layer, x, dt).to(dt)) for layer, x in (
+                (self.proj_q, query), (self.proj_k, key),
+                (self.proj_v, value)))
         # Logits and softmax in f32 whatever the compute dtype.
         scores = torch.einsum("bnhd,bmhd->bnmh", q.float(), k.float())
         prob = torch.softmax(scores / math.sqrt(dim), dim=2).to(v.dtype)
@@ -75,15 +105,22 @@ class AttentionalPropagation(nn.Module):
     """delta = MLP([x, attn(x, source)])."""
 
     def __init__(self, feature_dim: int, num_heads: int = 4,
-                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1):
+                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1,
+                 fast_graph: bool = False):
         super().__init__()
-        self.attn = MultiHeadedAttention(num_heads, feature_dim, dtype)
-        self.mlp = SuperGlueMLP(2 * feature_dim,
-                                (2 * feature_dim, feature_dim), dtype,
-                                stat_groups)
+        self.fast_graph = fast_graph
+        self.attn = MultiHeadedAttention(num_heads, feature_dim, dtype,
+                                         fast_graph)
+        self.mlp = (FastSuperGlueMLP(feature_dim, dtype, stat_groups)
+                    if fast_graph else
+                    SuperGlueMLP(2 * feature_dim,
+                                 (2 * feature_dim, feature_dim), dtype,
+                                 stat_groups))
 
     def forward(self, x, source, stat_group: int = 0):
         message = self.attn(x, source, source)
+        if self.fast_graph:
+            return self.mlp(x, message.to(x.dtype), stat_group)
         return self.mlp(torch.cat([x, message.to(x.dtype)], dim=-1),
                         stat_group)
 
@@ -93,12 +130,14 @@ class AttentionalGNN(nn.Module):
     each set normalized by its own statistics row."""
 
     def __init__(self, feature_dim: int, num_blocks: int,
-                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1):
+                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1,
+                 fast_graph: bool = False):
         super().__init__()
         self.num_blocks, self.stat_groups = num_blocks, stat_groups
         for i in range(num_blocks):
             self.add_module(f"layer_{i}", AttentionalPropagation(
-                feature_dim, dtype=dtype, stat_groups=stat_groups))
+                feature_dim, dtype=dtype, stat_groups=stat_groups,
+                fast_graph=fast_graph))
 
     def forward(self, desc0, desc1, num_blocks: Optional[int] = None):
         """The first ``num_blocks`` blocks (all when None)."""
@@ -119,15 +158,17 @@ class SuperGlue(nn.Module):
 
     def __init__(self, descriptor_dim: int, num_layers: int = 6,
                  sinkhorn_iterations: int = 50, match_threshold: float = 0.2,
-                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1):
+                 dtype: Optional[torch.dtype] = None, stat_groups: int = 1,
+                 fast_graph: bool = False):
         super().__init__()
+        self.fast_graph = fast_graph
         self.descriptor_dim, self.num_layers = descriptor_dim, num_layers
         self.sinkhorn_iterations = sinkhorn_iterations
         self.match_threshold, self.dtype = match_threshold, dtype
         self.eval_batch_stats = False      # blocks.set_eval_batch_stats
         self.train_stats = False           # blocks.train_mode
         self.gnn = AttentionalGNN(descriptor_dim, 2 * num_layers, dtype,
-                                  stat_groups)
+                                  stat_groups, fast_graph)
         self.final_proj = nn.Linear(descriptor_dim, descriptor_dim)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
         self._packed = None
@@ -195,3 +236,24 @@ class SuperGlue(nn.Module):
         out["P"] = Z.exp()
         out["log_P"] = Z
         return out
+
+
+def fast_graph_requested() -> bool:
+    """JAX's switch for the fast module form: ``T2P_FAST_GRAPH=1``."""
+    return os.environ.get("T2P_FAST_GRAPH", "0") == "1"
+
+
+def with_fast_graph(sg: SuperGlue, on: bool = True) -> SuperGlue:
+    """A copy of ``sg`` in the fast module form (``on``) or the plain one:
+    the same parameters and statistics, BN mode and device."""
+    new = SuperGlue(sg.descriptor_dim, sg.num_layers, sg.sinkhorn_iterations,
+                    sg.match_threshold, sg.dtype, sg.gnn.stat_groups,
+                    fast_graph=on)
+    new.load_state_dict(sg.state_dict())
+    new.to(sg.final_proj.weight.device)
+    set_eval_batch_stats(new, sg.eval_batch_stats)
+    for m in new.modules():
+        if hasattr(m, "train_stats"):
+            m.train_stats = sg.train_stats
+    return new.train(sg.training)
+

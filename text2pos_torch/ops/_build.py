@@ -8,6 +8,10 @@ flags, and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per
 source at once. A failed build raises; nothing falls back to the plain
 versions.
 
+``host_library`` builds the port's C++ host library for data preparation
+(``native/<name>.cpp``, with ``g++``) the same way, into
+``_build/host-<hash>/``; it needs no card.
+
 ``launch`` makes the tensors' device current around the call, so each
 kernel runs on the card its tensors lie on. ``LAUNCHES`` counts kernel
 launches by name: each wrapper adds one where it launches its kernel, so a
@@ -35,6 +39,13 @@ SOURCES = ("lstm", "sinkhorn", "superglue_gnn", "superglue_gnn_any",
            "pointconv", "fps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_SRC = PKG / "native"
+# The JAX package's own host library is built with these flags; the same
+# flags give the same floating-point results (no FMA contraction under ISO
+# C++), so DBSCAN's neighbourhoods and labels match element for element.
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+             "-shared")
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -111,6 +122,48 @@ def library(name: str) -> ctypes.CDLL:
             build_all((name,))
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LIBS[name]
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (empty where it cannot be read)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((ln for ln in f if ln.startswith("model name")), "")
+    except OSError:
+        return ""
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The C++ host library ``native/<name>.cpp``, compiled by ``g++`` at
+    first use into ``_build/host-<hash>/lib<name>.so`` and loaded. Raises
+    RuntimeError with the compiler's output when it cannot be built; no
+    caller falls back to another implementation on its own."""
+    key = f"host:{name}"
+    if key in _LIBS:
+        return _LIBS[key]
+    src = HOST_SRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    h.update(_cpu_model().encode())     # -march=native: one build a CPU
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if not lib.is_file():
+        gxx = os.environ.get("CXX") or shutil.which("g++")
+        if not gxx:
+            raise RuntimeError(f"g++ not found: the host library {name} "
+                               "cannot be built")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for {src.name} (rc "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+    _LIBS[key] = ctypes.CDLL(str(lib))
+    return _LIBS[key]
 
 
 def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -17,34 +17,26 @@ splits each batch's queries over a mesh of N shards (``parallel.dp``:
 cards 0 … N-1, or card 0 N times on a machine with fewer), and with
 ``shard_db`` the map too, served by two ring passes; both need
 ``calibrate``. ``python -m text2pos_torch.serving`` serves JSON lines from
-stdin.
-
-Not in this package yet: maps read from a KITTI360-format dataset
-(``--base_path``, which needs ``data/legacy.py``). Asking for it raises.
+stdin; its map is a cells pickle, prepared KITTI360 scenes
+(``--base_path`` with ``--scenes``, in the reference's format or either
+package's, read by ``data/legacy.py``) or a synthetic map.
 """
 
 from __future__ import annotations
 
-import io
-import pickle
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from text2pos_torch.config import ServeConfig
-from text2pos_torch.data import structs
 from text2pos_torch.data.dense import build_cell_bank
+from text2pos_torch.data.legacy import load_pickle
 from text2pos_torch.evaluation.pipeline import (LocalizationPipeline,
                                                 bank_tensors,
                                                 encode_all_coarse,
                                                 quantize_fine_bank)
 from text2pos_torch.ops.retrieval import topk_retrieval
-
-
-def _not_ported(what: str, needs: str) -> ValueError:
-    return ValueError(f"{what} is not ported to text2pos_torch yet (it "
-                      f"needs {needs}); use text2pos_tpu.serving for it")
 
 
 class LocalizationServer:
@@ -313,34 +305,13 @@ class LocalizationServer:
 # ----------------------------------------------------------------------
 # Maps pickled by either package.
 # ----------------------------------------------------------------------
-_STRUCTS = ("Object3d", "Cell", "Pose", "DescriptionPoseCell",
-            "DescriptionBestCell")
-_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
-          ("numpy.core.multiarray", "_reconstruct"),
-          ("numpy._core.multiarray", "_reconstruct"),
-          ("numpy.core.multiarray", "scalar"),
-          ("numpy._core.multiarray", "scalar")}
-
-
-class _CellUnpickler(pickle.Unpickler):
-    """Loads a pickled map: the data structs of either package resolve to
-    ``text2pos_torch.data.structs`` (so no JAX-package module is imported),
-    numpy arrays to numpy; any other global is refused."""
-
-    def find_class(self, module: str, name: str):
-        if (module in ("text2pos_tpu.data.structs",
-                       "text2pos_torch.data.structs") and name in _STRUCTS):
-            return getattr(structs, name)
-        if (module, name) in _NUMPY:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"refusing to load {module}.{name} "
-                                     "from a cells pickle")
-
-
 def load_cells(path: str):
-    """The map pickled at ``path`` (a list of ``Cell``s)."""
-    with open(path, "rb") as f:
-        return _CellUnpickler(io.BytesIO(f.read())).load()
+    """The map pickled at ``path`` (a list of ``Cell``s), read by the
+    restricted unpickler of ``data/legacy.py``: the data structs of either
+    package resolve to ``text2pos_torch.data.structs`` (so no JAX-package
+    module is imported), numpy arrays to numpy; any other global is
+    refused."""
+    return load_pickle(path)
 
 
 # ----------------------------------------------------------------------
@@ -476,11 +447,13 @@ def main(argv=None):
         ap.add_argument(f"--{f}", type=int, default=getattr(proto, f))
     args = ap.parse_args(argv)
 
-    if args.base_path:
-        raise _not_ported("--base_path",
-                          "the KITTI360 reader data/legacy.py")
     if args.cells_pickle:
         cells = load_cells(args.cells_pickle)
+    elif args.base_path:
+        from text2pos_torch.data.legacy import load_scenes
+
+        cells, _ = load_scenes(args.base_path,
+                               [s for s in args.scenes.split(",") if s])
     else:
         from text2pos_torch.data.synthetic import make_synthetic_dataset
 

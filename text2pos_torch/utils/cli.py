@@ -1,11 +1,11 @@
-"""Data loading for the training entry points (counterpart of
-``text2pos_tpu/utils/cli.py``).
+"""Data loading for the training and evaluation entry points (counterpart
+of ``text2pos_tpu/utils/cli.py``).
 
 ``--dataset SYNTHETIC`` and ``SYNTHETIC-FINE`` generate the JAX package's
 synthetic datasets with the port's copy of the generator (the same cells
-and poses from the same seeds). ``K360`` reads prepared KITTI360 scenes
-from ``--base_path``, which needs the data-preparation modules: it raises
-until they are ported (ROADMAP Queue 1 item 8).
+and poses from the same seeds). ``K360`` (the default) reads prepared
+KITTI360 scenes from ``--base_path`` (``data/legacy.py``: the reference's
+pickles or either package's) under the standard scene splits.
 """
 
 from __future__ import annotations
@@ -32,7 +32,10 @@ def load_split(cfg, split: str):
             seed=seed, scene_name=f"999{seed}",
             extent=240.0 if split == "train" else 120.0,
             num_mentioned=cfg.num_mentioned, poses_per_cell=3)
-    raise ValueError(
-        f"--dataset {cfg.dataset} is not ported to text2pos_torch yet: it "
-        "needs the KITTI360 reader data/legacy.py (ROADMAP Queue 1 item 8); "
-        "use --dataset SYNTHETIC, or text2pos_tpu's trainers")
+    from text2pos_torch.constants import (SCENE_NAMES_TEST,
+                                          SCENE_NAMES_TRAIN, SCENE_NAMES_VAL)
+    from text2pos_torch.data.legacy import load_scenes
+
+    scenes = {"train": SCENE_NAMES_TRAIN, "val": SCENE_NAMES_VAL,
+              "test": SCENE_NAMES_TEST}[split]
+    return load_scenes(cfg.base_path, scenes)
