@@ -9,7 +9,8 @@ example the parent commit's ``text2pos_torch/csrc``, unpacked with
 ``git archive``). Each side's ``csrc/*.cu`` are built with the port's
 ``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
 (2048 queries x 64 tokens at H = 256; 12,288 hints x 16 tokens at H = 128;
-and both at H = 300, JAX's default width, where W_hh is read from L2;
+both at H = 300, JAX's default width, where W_hh is read from L2, and the
+queries at H = 384 and 512;
 seeded random weights, the bench's lengths are not needed for a timing;
 each side's error and the plain f32 version's against a float64
 evaluation), and the bench's bf16 headline with each side's LSTM (the
@@ -36,6 +37,23 @@ card's name
 and power limit, and for the second form each side's largest error and
 the plain f32 version's against a float64 evaluation of the same inputs
 (``gnn_scores_plain(..., acc=torch.float64)``, the same rounding points).
+
+Then the drift readings of the second form's bf16 route: each side's GNN
+and the plain f32 version against the float64 evaluation on the E = 300
+serving path's own inputs (chip_smoke's ``wide_pipeline`` at pad_size 16
+and 24: seeded E = 300 models calibrated on the bench map, the
+headline's 20,480 pose-cell pairs, 12 blocks), over draws of the hint
+encodings: the pipelines built and the hints encoded with side B's LSTM,
+side A's and the plain LSTM, and, with side A's, the hints of every
+query in seeded permutations (which move the readings by little: the
+kernel sums a query's keys in one exact tensor-core sum) and models from
+other seeds. For each draw and each of the three: the largest per-pair
+error (over GNN_REL_TOL of the float64 scores' largest), the pairs past
+it, the median and the 99.9th percentile of the per-pair errors, and the
+largest error against the plain f32 version (over GNN_REL_TOL of its
+largest score, ``gnn_sinkhorn_checks``' rule). With ``--drift`` only
+these readings run.
+
 Needs a CUDA card and ``nvcc``.
 """
 
@@ -384,6 +402,100 @@ def f64_errors(calls):
     return out
 
 
+DRIFT_PERMUTATIONS = (1, 2)
+DRIFT_SEEDS = (310, 320, 330, 340)
+
+
+def drift_readings(sides, fx=None, bank=None, device="cuda"):
+    """The second form's bf16 drift on the E = 300 serving inputs (see the
+    module's docstring); prints a line a draw and pad_size. ``fx``,
+    ``bank`` and ``device`` (the bench fixture, the bench map, the card by
+    default) let a dry run on the CPU cut them."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from text2pos_torch.data.bench import bench_cell_bank, make_bench_dataset
+    from text2pos_torch.evaluation.pipeline import LocalizationPipeline
+    from text2pos_torch.ops import lstm as tlstm
+    from text2pos_torch.ops import superglue_gnn as tgnn
+
+    _build._LIBS.update({k: sides["A"][k] for k in KERNELS})
+    fx = dict(np.load(cs.FIXTURE)) if fx is None else fx
+    pipe = LocalizationPipeline.from_checkpoints(
+        cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
+        device=device)
+    bank = bench_cell_bank(make_bench_dataset()[0]) if bank is None else bank
+    idx = torch.as_tensor(fx["jax_top_idx"].astype("int64"),
+                          device=device).reshape(-1)
+    K = fx["jax_top_idx"].shape[1]
+    kernel = tlstm._lstm_kernel
+    rel = cs.GNN_REL_TOL["bf16"]
+
+    def readings(got, ref, plain):
+        d = (got - ref).abs().amax((1, 2)).double()
+        tol = rel * float(ref.abs().max())
+        q = torch.quantile(d, torch.tensor([0.5, 0.999], device=d.device,
+                                           dtype=d.dtype))
+        gate = float((got - plain).abs().max()) / (
+            rel * float(plain.abs().max()))
+        return (f"{float(d.max()) / tol:.3f} {int((d > tol).sum())} "
+                f"{float(q[0]) / tol:.4f} {float(q[1]) / tol:.4f} "
+                f"{gate:.3f}")
+
+    print("drift of the second form's bf16 route against the float64 "
+          "evaluation, 20,480 pairs, 12 blocks; per side: largest per-pair "
+          "error / tol, pairs past tol, median / tol, 99.9th percentile / "
+          "tol, largest error against the plain f32 version / its tol")
+    draws = [(lstm, None, None) for lstm in ("B", "A", "plain")]
+    draws += [("A", None, perm) for perm in DRIFT_PERMUTATIONS]
+    draws += [("A", seed, None) for seed in DRIFT_SEEDS]
+    for lstm, seed, perm in draws:
+        if lstm == "plain":
+            tlstm._lstm_kernel = tlstm.lstm_final_hidden_plain
+        else:
+            _build._LIBS["lstm"] = sides[lstm]["lstm"]
+        try:
+            for pad in (16, 24):
+                wide = cs.wide_pipeline(pipe, bank, fx, torch.bfloat16,
+                                        pad=pad, **({} if seed is None else
+                                                    {"seed": seed}))[0]
+                packed = wide.fine.superglue.packed_kernel_params()
+                d0 = wide.fine_bank_enc[idx].contiguous()
+                ht, hl = fx["hint_tokens"], fx["hint_lengths"]
+                if perm is not None:
+                    order = np.random.default_rng(perm).permuted(
+                        np.tile(np.arange(ht.shape[1]), (len(ht), 1)),
+                        axis=1)
+                    ht = np.take_along_axis(ht, order[..., None], 1)
+                    hl = np.take_along_axis(hl, order, 1)
+                with torch.inference_mode():
+                    d1 = wide.fine.encode_hints(
+                        torch.as_tensor(ht, device=device),
+                        torch.as_tensor(hl, device=device)
+                    ).repeat_interleave(K, dim=0).contiguous()
+                    ref = torch.cat([tgnn.gnn_scores_plain(
+                        d0[i:i + 4096], d1[i:i + 4096], packed,
+                        acc=torch.float64)
+                        for i in range(0, len(d0), 4096)])
+                    plain = tgnn.gnn_scores_plain(d0, d1, packed)
+                    outs = {}
+                    for side in ("A", "B"):
+                        _build._LIBS["superglue_gnn_any"] = \
+                            sides[side]["superglue_gnn_any"]
+                        outs[side] = tgnn._gnn_any_kernel(d0, d1, packed)
+                    _build._LIBS["superglue_gnn_any"] = \
+                        sides["A"]["superglue_gnn_any"]
+                draw = f"LSTM {lstm}" + (
+                    "" if perm is None else f", hints permuted (seed {perm})"
+                ) + ("" if seed is None else f", model seed {seed}")
+                print(f"  pad_size {pad}, {draw}: " + "; ".join(
+                    f"{k} {readings(v, ref, plain)}" for k, v in
+                    (*outs.items(), ("plain", plain))), flush=True)
+        finally:
+            tlstm._lstm_kernel = kernel
+            _build._LIBS["lstm"] = sides["A"]["lstm"]
+
+
 def headline_ms(sides):
     """chip_smoke phase 4's bf16 headline (the bench fixture's 2048
     queries, top-10, one ``serve_batch``; the median of 5) with each side's
@@ -407,10 +519,11 @@ def headline_ms(sides):
 
 
 def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = [a for a in sys.argv[1:] if a != "--drift"]
+    if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    other = Path(sys.argv[1]).resolve()
+    other = Path(args[0]).resolve()
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -420,7 +533,8 @@ def main() -> int:
         cases = [(f"lstm B={B} T={T} H={H}", lambda L, a=(B, T, H):
                   lstm_call(L, *a))
                  for B, T, H in ((2048, 64, 256), (12288, 16, 128),
-                                 (2048, 64, 300), (12288, 16, 300))]
+                                 (2048, 64, 300), (12288, 16, 300),
+                                 (2048, 64, 384), (2048, 64, 512))]
         cases += [(f"fps B={B} N={N}", lambda L, a=(B, N): fps_call(L, *a))
                   for B in (1024, 787) for N in (256, 128, 64)]
         cases += [(f"fps three levels B={B} N=256",
@@ -438,6 +552,8 @@ def main() -> int:
         cases += [("superglue_gnn_any bfloat16 N=20480 (300, 24, 6) L=12",
                    lambda L: any_gnn_call(L, torch.bfloat16, T0=24))]
         print(f"# {gpu}; A = {_build.CSRC}, B = {other}")
+        if "--drift" in sys.argv:
+            cases = []
         for label, make in cases:
             calls = {k: make(v) for k, v in sides.items()}
             ms = {k: [] for k in calls}
@@ -458,10 +574,12 @@ def main() -> int:
                 print("  against the float64 evaluation (largest error "
                       "over the tolerance, pairs past it): " + ", ".join(
                           f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
-        ms = headline_ms(sides)
-        print("bf16 headline (2048 queries, top-10) with each side's LSTM: "
-              + ", ".join(f"{k} {v[0]:.3f} {v[1]:.3f} ms"
-                          for k, v in ms.items()))
+        if cases:
+            ms = headline_ms(sides)
+            print("bf16 headline (2048 queries, top-10) with each side's "
+                  "LSTM: " + ", ".join(f"{k} {v[0]:.3f} {v[1]:.3f} ms"
+                                       for k, v in ms.items()))
+        drift_readings(sides)
     return 0
 
 

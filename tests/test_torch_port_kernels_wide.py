@@ -4,7 +4,8 @@ to 512), the second GNN form (``csrc/superglue_gnn_any.cu``) at any E a
 multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32 on each of its routes
 (``any_plan``: bf16 on the tensor cores and f32 on the CUDA cores, both
 ``superglue_gnn_any``, and ``superglue_gnn_any_wide``), FPS past 256
-points.
+points; and the LSTM's shared-memory form against a float64 evaluation on
+long, sensitive text (the bench text encoder).
 
 Imports only torch and numpy, so it also runs on a card machine without JAX:
 
@@ -100,6 +101,61 @@ def test_lstm_kernel_wide_clusters_resident(cuda):
         n = ctypes.c_int(0)
         assert fn(H, 2048, ctypes.byref(n)) == 0
         assert n.value >= 1, H
+
+
+def _bench_text():
+    """The bench coarse model's text encoder on long, sensitive text: its
+    gate-input tables and W_hh (``checkpoints/bench_coarse.msgpack``,
+    H = 256) and the bench fixture's 2048 queries (48-54 tokens), with
+    6.4% of the tokens (seeded) made the unknown word (row 0: the bias
+    alone), the share in the KITTI360 server's calibration text, where
+    the earlier 3xTF32 arithmetic lay 1.4e-4 from float64."""
+    import os
+
+    import numpy as np
+
+    from text2pos_torch.train.state import load_checkpoint
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir)
+    le = load_checkpoint(os.path.join(root, "checkpoints",
+                                      "bench_coarse.msgpack"))["params"][
+        "language_encoder"]
+    params = [tlstm.LSTMParams(*(torch.as_tensor(np.array(
+        le[f"lstm_{d}_{k}"]), dtype=torch.float32)
+        for k in ("w_ih", "w_hh", "b"))) for d in ("fwd", "bwd")]
+    tables = tlstm.token_tables(torch.as_tensor(np.array(
+        le["word_embedding"]["embedding"]), dtype=torch.float32), *params)
+    fx = np.load(os.path.join(root, "text2pos_torch", "fixtures",
+                              "bench_queries.npz"))
+    tokens = fx["tokens"].astype(np.int32)
+    rng = np.random.default_rng(0)
+    tokens = np.where(rng.random(tokens.shape) < 0.064, 0, tokens)
+    return (tables, [p.w_hh for p in params], torch.as_tensor(tokens),
+            torch.as_tensor(fx["lengths"].astype(np.int64)))
+
+
+def test_lstm_shared_form_holds_float64_on_text(cuda):
+    """The shared-memory form (H = 256, the rounded 3xTF32 arithmetic) on
+    the bench text encoder: within 2e-5 of the plain recurrence evaluated
+    in float64 (1.28e-5 on the KITTI360 text, where the plain f32 version
+    lies 8.1e-6 and the earlier arithmetic 1.4e-4) and within 1e-4
+    (chip_smoke's TOL["lstm"]) of the plain f32 version."""
+    from text2pos_torch.utils.float64 import float64_pins
+
+    tables, w_hh, tokens, lengths = _bench_text()
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    assert got.shape == (2, len(tokens), 256)
+    plain = tlstm.lstm_final_hidden_plain(*args)
+    with float64_pins():
+        ref = tlstm.lstm_final_hidden_plain(
+            [t.double() for t in args[0]], [w.double() for w in args[1]],
+            args[2], args[3])
+    err64 = float((got.double() - ref).abs().max())
+    assert err64 <= 2e-5, (err64, float((plain.double() - ref).abs().max()))
+    assert float((got - plain).abs().max()) <= 1e-4
 
 
 def _packed(E, dtype, device, L):

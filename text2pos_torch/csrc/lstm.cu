@@ -37,10 +37,12 @@
 //   8.1e-6 and this one 1.28e-5, at 1.19-1.20x the time (H100 80GB HBM3,
 //   700.00 W). The form that reads W_hh from L2 (H > 256) keeps the
 //   earlier arithmetic: big truncated, small exact, the three products in
-//   three chains on top of the gate inputs. With the repair it takes
-//   1.25-1.26x the time at H = 300 and changes the E = 300 hint encodings
-//   enough to move chip_smoke phase 12's 12-block bf16 GNN checks past
-//   their gate; phase 13.1 reads its error on the K360 calibration text,
+//   three chains on top of the gate inputs. The repair there takes 1.25x
+//   the time at H = 300 and 384 and 1.17x at 512, and holds long text
+//   within 2e-5 of float64, but it changes the E = 300 hint encodings,
+//   and chip_smoke phase 12's 12-block bf16 GNN checks, which sit at the
+//   noise floor of any f32 arithmetic there, then fail (PERF.md §6);
+//   phase 13.1 reads its error on the K360 calibration text,
 //   zero-padded to H = 300. Plain TF32 would not hold f32 serving's top-k.
 //   Warp w takes units 8·(w % 4) … +7 (m-tile 0: their i and f rows,
 //   m-tile 1: g and o) and sequences 16·(w / 4) … +15 (two n-tiles), so

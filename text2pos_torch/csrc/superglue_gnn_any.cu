@@ -83,6 +83,16 @@
 //    adds' registers set G = 2 at the headline (48 rows); splitting a CTA's
 //    m-tiles over two warps that share n-tiles (3 and 2 m-tiles at G = 3,
 //    weight loads twice from L1) was slower: 125.8 ms and still spilling.
+//    The tensor cores align a k-step's products to the largest operand
+//    exponent, keep 2 bits below the 24-bit significand and truncate the
+//    sum toward zero (scripts/probe_mma_rounding.py, bit for bit). With
+//    that, this route flips ~20% fewer bf16 roundings than f32 products do
+//    (tests/test_torch_port_tc_arith.py). Tried: the k-step adds by
+//    two-sum (each add's error kept in a second register) halve the flips
+//    and lower the median per-pair error at 12 blocks by 13-18%, at 2.43x
+//    the time at (300, 16, 6); the 12-block gates against the plain f32
+//    version, which itself lies up to 1.57 of them from float64, do not
+//    gain margin from it (PERF.md §6).
 //  - On an H100 80GB HBM3 at 700 W, 20,480 pairs, 12 blocks: (300, 16, 6)
 //    98.1 ms, (300, 24, 6) 134.0 (105.9 with the tensor cores'
 //    accumulation at 4 m-tiles), (300, 32, 32) 264.5; at (300, 16, 6) the
