@@ -13,8 +13,9 @@ both at H = 300, JAX's default width, where W_hh is read from L2, and the
 queries at H = 384 and 512;
 seeded random weights, the bench's lengths are not needed for a timing;
 each side's error and the plain f32 version's against a float64
-evaluation), and the bench's bf16 headline with each side's LSTM (the
-other kernels A's),
+evaluation), and the bench's bf16 headline and the E = 300 one
+(chip_smoke's ``wide_pipeline``) with each side's LSTM (the other kernels
+A's),
 FPS at the six levels of a DB-encode step (1024 and 787 objects at 256,
 128 and 64 points, half sampled, points with duplicates) one launch a
 level (``t2p_fps``), then a forward's three levels as the model runs them:
@@ -51,8 +52,13 @@ other seeds. For each draw and each of the three: the largest per-pair
 error (over GNN_REL_TOL of the float64 scores' largest), the pairs past
 it, the median and the 99.9th percentile of the per-pair errors, and the
 largest error against the plain f32 version (over GNN_REL_TOL of its
-largest score, ``gnn_sinkhorn_checks``' rule). With ``--drift`` only
-these readings run.
+largest score, the earlier ``gnn_sinkhorn_checks`` rule), and for each
+side the verdict of chip_smoke's ``depth_gate`` (the second form's bf16
+gate at serving depth) with the conditions that fail and its reading at
+the cut depth. With ``--drift`` only these readings run. Each LSTM case
+also says whether the two sides' outputs are bit-identical, and the
+header prints each side's ``ptxas`` lines of ``lstm.cu`` (registers,
+spills).
 
 Needs a CUDA card and ``nvcc``.
 """
@@ -94,6 +100,9 @@ def build(csrc: Path, out: Path, tag: str):
         if proc.returncode:
             raise RuntimeError(f"nvcc {tag} {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
+        if name == "lstm":
+            libs["lstm_ptxas"] = [ln.strip() for ln in log.splitlines()
+                                  if "registers" in ln or "spill" in ln]
     libs["wide_lstm"] = "wpack_f" in (csrc / "lstm.cu").read_text()
     libs["padded_gnn"] = ("int pairs_per_cta"
                           in (csrc / "superglue_gnn_any.cu").read_text())
@@ -384,14 +393,13 @@ def f64_errors(calls):
     (``gnn_scores_plain(..., acc=torch.float64)``), as the largest error
     over the checks' tolerance (1% of the largest score in bf16, 1e-5 in
     f32) and the pairs past it."""
+    import chip_smoke as cs
     from text2pos_torch.ops import superglue_gnn as tgnn
 
     d0, d1, packed = calls["A"].inputs
     rel = 1e-2 if packed["wqkv"].dtype == torch.bfloat16 else 1e-5
     with torch.inference_mode():
-        ref = torch.cat([tgnn.gnn_scores_plain(
-            d0[i:i + 4096], d1[i:i + 4096], packed, acc=torch.float64)
-            for i in range(0, len(d0), 4096)])
+        ref = cs.f64_scores(d0, d1, packed)
         outs = {k: c.out for k, c in calls.items()}
         outs["plain"] = tgnn.gnn_scores_plain(d0, d1, packed)
     tol = rel * float(ref.abs().max())
@@ -431,21 +439,30 @@ def drift_readings(sides, fx=None, bank=None, device="cuda"):
     kernel = tlstm._lstm_kernel
     rel = cs.GNN_REL_TOL["bf16"]
 
-    def readings(got, ref, plain):
+    def readings(got, ref, plain, cut=None):
         d = (got - ref).abs().amax((1, 2)).double()
         tol = rel * float(ref.abs().max())
         q = torch.quantile(d, torch.tensor([0.5, 0.999], device=d.device,
                                            dtype=d.dtype))
         gate = float((got - plain).abs().max()) / (
             rel * float(plain.abs().max()))
-        return (f"{float(d.max()) / tol:.3f} {int((d > tol).sum())} "
-                f"{float(q[0]) / tol:.4f} {float(q[1]) / tol:.4f} "
-                f"{gate:.3f}")
+        out = (f"{float(d.max()) / tol:.3f} {int((d > tol).sum())} "
+               f"{float(q[0]) / tol:.4f} {float(q[1]) / tol:.4f} "
+               f"{gate:.3f}")
+        if cut is None:
+            return out
+        ok, r = cs.depth_gate(got, plain, ref, *cut)
+        return (out + f" [depth gate {'pass' if ok else 'FAIL'}: "
+                + " ".join(k for k in "abcd" if not r[k])
+                + f" cut {r['cut_max']:.3f}]")
 
     print("drift of the second form's bf16 route against the float64 "
           "evaluation, 20,480 pairs, 12 blocks; per side: largest per-pair "
           "error / tol, pairs past tol, median / tol, 99.9th percentile / "
-          "tol, largest error against the plain f32 version / its tol")
+          "tol, largest error against the plain f32 version / its tol, "
+          "and chip_smoke's depth_gate: its verdict, the conditions that "
+          f"fail, the largest error at {cs.DEPTH_CUT_BLOCKS} blocks against "
+          "the plain version / GNN_REL_TOL")
     draws = [(lstm, None, None) for lstm in ("B", "A", "plain")]
     draws += [("A", None, perm) for perm in DRIFT_PERMUTATIONS]
     draws += [("A", seed, None) for seed in DRIFT_SEEDS]
@@ -473,23 +490,24 @@ def drift_readings(sides, fx=None, bank=None, device="cuda"):
                         torch.as_tensor(ht, device=device),
                         torch.as_tensor(hl, device=device)
                     ).repeat_interleave(K, dim=0).contiguous()
-                    ref = torch.cat([tgnn.gnn_scores_plain(
-                        d0[i:i + 4096], d1[i:i + 4096], packed,
-                        acc=torch.float64)
-                        for i in range(0, len(d0), 4096)])
+                    ref = cs.f64_scores(d0, d1, packed)
                     plain = tgnn.gnn_scores_plain(d0, d1, packed)
-                    outs = {}
+                    cut = cs.first_blocks(packed)
+                    cut_plain = tgnn.gnn_scores_plain(d0, d1, cut)
+                    outs, cuts = {}, {}
                     for side in ("A", "B"):
                         _build._LIBS["superglue_gnn_any"] = \
                             sides[side]["superglue_gnn_any"]
                         outs[side] = tgnn._gnn_any_kernel(d0, d1, packed)
+                        cuts[side] = (tgnn._gnn_any_kernel(d0, d1, cut),
+                                      cut_plain)
                     _build._LIBS["superglue_gnn_any"] = \
                         sides["A"]["superglue_gnn_any"]
                 draw = f"LSTM {lstm}" + (
                     "" if perm is None else f", hints permuted (seed {perm})"
                 ) + ("" if seed is None else f", model seed {seed}")
                 print(f"  pad_size {pad}, {draw}: " + "; ".join(
-                    f"{k} {readings(v, ref, plain)}" for k, v in
+                    f"{k} {readings(v, ref, plain, cuts.get(k))}" for k, v in
                     (*outs.items(), ("plain", plain))), flush=True)
         finally:
             tlstm._lstm_kernel = kernel
@@ -498,11 +516,14 @@ def drift_readings(sides, fx=None, bank=None, device="cuda"):
 
 def headline_ms(sides):
     """chip_smoke phase 4's bf16 headline (the bench fixture's 2048
-    queries, top-10, one ``serve_batch``; the median of 5) with each side's
-    LSTM library, in the order A, B, B, A; the other kernels are A's."""
+    queries, top-10, one ``serve_batch``; the median of 5) and phase 12.2's
+    at E = 300 (``wide_pipeline``, pad_size 16, built with A's kernels),
+    each with each side's LSTM library, in the order A, B, B, A; the other
+    kernels are A's."""
     import numpy as np
 
     import chip_smoke as cs
+    from text2pos_torch.data.bench import bench_cell_bank, make_bench_dataset
     from text2pos_torch.evaluation.pipeline import LocalizationPipeline
 
     _build._LIBS.update({k: sides["A"][k] for k in KERNELS})
@@ -510,11 +531,16 @@ def headline_ms(sides):
     pipe = LocalizationPipeline.from_checkpoints(
         cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
         device="cuda")
-    out = {"A": [], "B": []}
-    for k in ("A", "B", "B", "A"):
-        _build._LIBS["lstm"] = sides[k]["lstm"]
-        cs.serve_all(pipe, fx, cs.TOP_K)
-        out[k].append(cs.serve_all(pipe, fx, cs.TOP_K, reps=5)[2] * 1e3)
+    wide = cs.wide_pipeline(pipe, bench_cell_bank(make_bench_dataset()[0]),
+                            fx, torch.bfloat16)[0]
+    out = {}
+    for what, p in (("bench", pipe), ("E=300", wide)):
+        ms = out[what] = {"A": [], "B": []}
+        for k in ("A", "B", "B", "A"):
+            _build._LIBS["lstm"] = sides[k]["lstm"]
+            cs.serve_all(p, fx, cs.TOP_K)
+            ms[k].append(cs.serve_all(p, fx, cs.TOP_K, reps=5)[2] * 1e3)
+    _build._LIBS["lstm"] = sides["A"]["lstm"]
     return out
 
 
@@ -552,6 +578,8 @@ def main() -> int:
         cases += [("superglue_gnn_any bfloat16 N=20480 (300, 24, 6) L=12",
                    lambda L: any_gnn_call(L, torch.bfloat16, T0=24))]
         print(f"# {gpu}; A = {_build.CSRC}, B = {other}")
+        for k, v in sides.items():
+            print(f"# ptxas lstm.cu {k}: " + " | ".join(v["lstm_ptxas"]))
         if "--drift" in sys.argv:
             cases = []
         for label, make in cases:
@@ -568,17 +596,20 @@ def main() -> int:
                   f"{a / b:.4f}")
             if label.startswith("lstm"):
                 print("  largest error against float64: " + ", ".join(
-                    f"{k} {e:.3e}" for k, e in lstm_f64_errors(calls).items()))
+                    f"{k} {e:.3e}" for k, e in lstm_f64_errors(calls).items())
+                    + "; A and B bit-identical: "
+                    + str(torch.equal(calls["A"].out, calls["B"].out)))
             if slow:
                 errs = f64_errors(calls)
                 print("  against the float64 evaluation (largest error "
                       "over the tolerance, pairs past it): " + ", ".join(
                           f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
         if cases:
-            ms = headline_ms(sides)
-            print("bf16 headline (2048 queries, top-10) with each side's "
-                  "LSTM: " + ", ".join(f"{k} {v[0]:.3f} {v[1]:.3f} ms"
-                                       for k, v in ms.items()))
+            for what, ms in headline_ms(sides).items():
+                print(f"{what} bf16 headline (2048 queries, top-10) with "
+                      "each side's LSTM: " + ", ".join(
+                          f"{k} {v[0]:.3f} {v[1]:.3f} ms"
+                          for k, v in ms.items()))
         drift_readings(sides)
     return 0
 

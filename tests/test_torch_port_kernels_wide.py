@@ -4,8 +4,9 @@ to 512), the second GNN form (``csrc/superglue_gnn_any.cu``) at any E a
 multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32 on each of its routes
 (``any_plan``: bf16 on the tensor cores and f32 on the CUDA cores, both
 ``superglue_gnn_any``, and ``superglue_gnn_any_wide``), FPS past 256
-points; and the LSTM's shared-memory form against a float64 evaluation on
-long, sensitive text (the bench text encoder).
+points; and both LSTM forms (W_hh in shared memory, and from L2 past 256
+units) against a float64 evaluation on long, sensitive text (the bench
+text encoder, zero-padded to the wider widths).
 
 Imports only torch and numpy, so it also runs on a card machine without JAX:
 
@@ -135,27 +136,52 @@ def _bench_text():
             torch.as_tensor(fx["lengths"].astype(np.int64)))
 
 
+def _text_errors(cuda, H):
+    """The kernel on ``_bench_text`` zero-padded from 256 to H units
+    (``pad_gates``, ``pad_w_hh``: the padded units stay 0 and add nothing
+    to the real ones): its largest error on the real units against the
+    plain recurrence in float64 and against the plain f32 version, and the
+    plain f32 version's against float64."""
+    from text2pos_torch.utils.float64 import float64_pins
+
+    tables, w_hh, tokens, lengths = _bench_text()
+    args = ([tlstm.pad_gates(t, 256, H).to(cuda) for t in tables],
+            [tlstm.pad_w_hh(w, 256, H).to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    assert got.shape == (2, len(tokens), H)
+    got = got[..., :256]
+    plain = tlstm.lstm_final_hidden_plain(*args)[..., :256]
+    with float64_pins():
+        ref = tlstm.lstm_final_hidden_plain(
+            [t.double() for t in args[0]], [w.double() for w in args[1]],
+            args[2], args[3])[..., :256]
+    return (float((got.double() - ref).abs().max()),
+            float((got - plain).abs().max()),
+            float((plain.double() - ref).abs().max()))
+
+
 def test_lstm_shared_form_holds_float64_on_text(cuda):
     """The shared-memory form (H = 256, the rounded 3xTF32 arithmetic) on
     the bench text encoder: within 2e-5 of the plain recurrence evaluated
     in float64 (1.28e-5 on the KITTI360 text, where the plain f32 version
     lies 8.1e-6 and the earlier arithmetic 1.4e-4) and within 1e-4
     (chip_smoke's TOL["lstm"]) of the plain f32 version."""
-    from text2pos_torch.utils.float64 import float64_pins
+    err64, err, plain64 = _text_errors(cuda, 256)
+    assert err64 <= 2e-5, (err64, plain64)
+    assert err <= 1e-4
 
-    tables, w_hh, tokens, lengths = _bench_text()
-    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
-            tokens.to(cuda), lengths.to(cuda))
-    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
-    assert got.shape == (2, len(tokens), 256)
-    plain = tlstm.lstm_final_hidden_plain(*args)
-    with float64_pins():
-        ref = tlstm.lstm_final_hidden_plain(
-            [t.double() for t in args[0]], [w.double() for w in args[1]],
-            args[2], args[3])
-    err64 = float((got.double() - ref).abs().max())
-    assert err64 <= 2e-5, (err64, float((plain.double() - ref).abs().max()))
-    assert float((got - plain).abs().max()) <= 1e-4
+
+@pytest.mark.parametrize("H", [300, 384, 512])
+def test_lstm_l2_form_holds_float64_on_text(cuda, H):
+    """The form that reads W_hh from L2 (H > 256: clusters of 10, 12 and
+    16 CTAs), which shares the shared-memory form's arithmetic, on the same
+    text zero-padded to H: within 2e-5 of float64 (the arithmetic it had
+    before lay 1.4e-4 from float64 on the KITTI360 text padded to H = 300)
+    and within 1e-4 of the plain f32 version."""
+    err64, err, plain64 = _text_errors(cuda, H)
+    assert err64 <= 2e-5, (err64, plain64)
+    assert err <= 1e-4
 
 
 def _packed(E, dtype, device, L):

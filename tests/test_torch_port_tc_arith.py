@@ -12,11 +12,11 @@ emulations below follow the kernels' sources step by step:
   below that exponent's 24-bit significand, added exactly, and the sum
   truncated toward zero to f32 (the tensor cores' rounding toward zero).
 - ``lstm_emulated``: ``csrc/lstm.cu``'s recurrence in 3xTF32
-  (``mma.sync.m16n8k8`` on TF32 operands), in its current arithmetic (both
-  TF32 parts rounded to nearest, small·big and big·small in one chain,
-  each k-step's big·big product from zero added in f32) and in the one its
-  L2 form had before (big truncated, small left for the tensor cores to
-  truncate, three chains).
+  (``mma.sync.m16n8k8`` on TF32 operands), in its arithmetic (both TF32
+  parts rounded to nearest, small·big and big·small in one chain, each
+  k-step's big·big product from zero added in f32) and in the one its L2
+  form had before its repair (big truncated, small left for the tensor
+  cores to truncate, three chains), which the kernel no longer has.
 - ``gnn_tc_emulated``: the bf16 route of ``csrc/superglue_gnn_any.cu``
   (``mma.sync.m16n8k16``, each k-step's sum added to the running sum in
   f32, bf16 rounding points of ``gnn_scores_plain``), with the options
@@ -208,9 +208,10 @@ def lstm_emulated(table, w_hh, tokens, lengths, arithmetic: str = "rounded",
     """Final h [B, H] of one direction as ``csrc/lstm.cu`` computes it: the
     gate sums W^T·h in 3xTF32 on ``mma.sync.m16n8k8`` (k-steps of 8), on
     top of the gate inputs ``table[tokens]``. ``arithmetic`` "rounded"
-    (both forms now): both parts rounded, small·big and big·small in one
+    (both forms): both parts rounded, small·big and big·small in one
     chain from zero, each k-step's big·big product from zero added in f32,
-    the chain added last; "truncated" (the L2 form before): big truncated,
+    the chain added last; "truncated" (the L2 form before its repair, no
+    longer in the kernel): big truncated,
     small = x - big (truncated by the tensor cores), small·big, big·small
     and big·big in three chains, big·big's on top of the gate inputs."""
     B, T = tokens.shape
@@ -354,13 +355,15 @@ def _softmax(s, nk, D, arith):
     return bf16(rn32(e / total[..., None]))
 
 
-def gnn_emulated(d0, d1, W, E, arith, trace=None, record=None):
+def gnn_emulated(d0, d1, W, E, arith, trace=None, record=None, cut=None):
     """Scores [N, T0, T1] of the GNN in the arithmetic ``arith`` (KERNEL,
     FLOAT64 or a variant of KERNEL), at the pack's padded width with the
     kernel's layout: the same bf16 rounding points as ``gnn_scores_plain``
     (``FLOAT64`` is its float64 evaluation). With ``trace`` (a ``record``
     of another run), each stage takes that run's inputs, and ``record``
-    collects every stage's output by block."""
+    collects every stage's output by block. With ``cut``, returns also the
+    scores after the first ``cut`` blocks (the pack cut to that depth, its
+    final projection shared), from the same run."""
     N, T0, _ = d0.shape
     T1 = d1.shape[1]
     Ep = W["bf"].shape[-1]
@@ -380,6 +383,7 @@ def gnn_emulated(d0, d1, W, E, arith, trace=None, record=None):
         return out
 
     sets = ((slice(0, T0), slice(T0, R)), (slice(T0, R), slice(0, T0)))
+    scores = lambda res: _final_scores(res, W, E, T0, arith)
     for l in range(L):
         a = bf16(res)
         qkv = stage("qkv", l, lambda a: bf16(r32(mm(a, W["wqkv"][l])
@@ -419,11 +423,20 @@ def gnn_emulated(d0, d1, W, E, arith, trace=None, record=None):
         upd = stage("upd", l, lambda h1: bf16(r32(mm(h1, W["w1"][l])
                                                   + W["b1"][l])), h1)
         res = r32(res + upd)
-    md = bf16(r32(mm(bf16(res), W["wf"]) + W["bf"]))
+        if l + 1 == cut:
+            cut_scores = scores(res)
+    return scores(res) if cut is None else (scores(res), cut_scores)
+
+
+def _final_scores(res, W, E, T0, arith):
+    """The final projection of the residual ``res`` [N, T0 + T1, Ep] and
+    the score matrix scaled by 1/sqrt(E), in ``arith``."""
+    r32 = lambda x: _round32(x, arith)
+    md = bf16(r32(_matmul(bf16(res), W["wf"], arith["mm"]) + W["bf"]))
     if arith["mm"] == "f64":
         return md[:, :T0] @ md[:, T0:].transpose(0, 2, 1) / math.sqrt(E)
-    dot = np.zeros((N, T0, T1))
-    for c in range(Ep):                         # fmaf, channel by channel
+    dot = np.zeros((res.shape[0], T0, res.shape[1] - T0))
+    for c in range(res.shape[2]):               # fmaf, channel by channel
         dot = rn32(md[:, :T0, None, c] * md[:, None, T0:, c] + dot)
     return rn32(dot / rn32(math.sqrt(E)))
 
@@ -536,7 +549,10 @@ def test_lstm_l2_arithmetic_holds_float64(direction):
     in float64, as JAX's f32 recurrence is (on the KITTI360 text the card
     read 1.284e-5 for the shared form's identical arithmetic and 8.1e-6 for
     the plain f32 version); the earlier arithmetic at least 5x farther
-    (the card read 1.396e-4 there)."""
+    (the card read 1.396e-4 there). The "truncated" arm emulates that
+    earlier arithmetic, which ``csrc/lstm.cu`` no longer has (both forms
+    round both parts since the L2 form's repair): it stays as the record
+    of what the repair removed."""
     table, w, tokens, lengths = _bench_lstm(8, direction)
     T = tokens.shape[1]
     valid = np.arange(T)[None] < lengths[:, None]

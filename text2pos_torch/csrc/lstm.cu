@@ -28,22 +28,19 @@
 //   small rest (the tensor cores read 10 mantissa bits), and the kernel
 //   adds small·big, big·small and big·big. The tensor cores truncate a
 //   TF32 operand's low bits and their accumulation rounds toward zero at
-//   the magnitude of what it holds, so with W_hh in shared memory
-//   (H <= 256) both parts are rounded to nearest, small·big and big·small
-//   share one accumulator chain, and each k-step's big·big product starts
-//   from zero and joins the gate sum by an f32 add. On the K360 server's
-//   calibration text (H = 256, 64 tokens) the earlier arithmetic put a
-//   final h 1.396e-4 from a float64 evaluation, the plain f32 recurrence
-//   8.1e-6 and this one 1.28e-5, at 1.19-1.20x the time (H100 80GB HBM3,
-//   700.00 W). The form that reads W_hh from L2 (H > 256) keeps the
-//   earlier arithmetic: big truncated, small exact, the three products in
-//   three chains on top of the gate inputs. The repair there takes 1.25x
-//   the time at H = 300 and 384 and 1.17x at 512, and holds long text
-//   within 2e-5 of float64, but it changes the E = 300 hint encodings,
-//   and chip_smoke phase 12's 12-block bf16 GNN checks, which sit at the
-//   noise floor of any f32 arithmetic there, then fail (PERF.md §6);
-//   phase 13.1 reads its error on the K360 calibration text,
-//   zero-padded to H = 300. Plain TF32 would not hold f32 serving's top-k.
+//   the magnitude of what it holds, so both parts are rounded to nearest,
+//   small·big and big·small share one accumulator chain, and each k-step's
+//   big·big product starts from zero and joins the gate sum by an f32 add:
+//   one arithmetic for both forms below. On the K360 server's calibration
+//   text (H = 256, 64 tokens) an earlier arithmetic (big truncated, small
+//   exact, three chains on top of the gate inputs) put a final h 1.396e-4
+//   from a float64 evaluation, the plain f32 recurrence 8.1e-6 and this
+//   one 1.28e-5 (also zero-padded to H = 300, where W_hh is read from
+//   L2), at 1.17-1.20x that arithmetic's time with W_hh in shared memory
+//   and, reading it from L2, 1.25x at H = 300 and 384 and 1.18x at 512
+//   (7.33 against 5.86 ms at H = 300, 2048 sequences of 64 tokens; 124
+//   registers, no spill; H100 80GB HBM3, 700.00 W; PERF.md §6). Plain
+//   TF32 would not hold f32 serving's top-k.
 //   Warp w takes units 8·(w % 4) … +7 (m-tile 0: their i and f rows,
 //   m-tile 1: g and o) and sequences 16·(w / 4) … +15 (two n-tiles), so
 //   each lane's accumulators hold all four gates of one unit for 4
@@ -141,17 +138,13 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
-// x = big + small. ROUND: big is x rounded to TF32's 10 mantissa bits, to
+// x = big + small: big is x rounded to TF32's 10 mantissa bits, to
 // nearest (an integer add and AND; a carry into the exponent is the right
-// result), and small = x - big rounded the same way, which the tensor
-// cores would otherwise truncate. Else big is x truncated to TF32 and small
-// = x - big, exact in f32 (the tensor cores truncate it).
-template <bool ROUND>
+// result), and small = x - big rounded the same way, which the tensor cores
+// would otherwise truncate.
 __device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
-  const unsigned bits = __float_as_uint(x);
-  big = (ROUND ? bits + 0x1000u : bits) & 0xffffe000u;
-  const unsigned rest = __float_as_uint(x - __uint_as_float(big));
-  small = ROUND ? (rest + 0x1000u) & 0xffffe000u : rest;
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
@@ -286,14 +279,14 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
         acc[1][nt][e] = xin[nt][e][2];
         acc[1][nt][2 + e] = xin[nt][e][3];
       }
-    float acc2[2][2][4] = {}, acc3[2][2][4] = {};
+    float acc2[2][2][4] = {};
     if (s + 1 < maxlen) gather(rev ? t - 1 : t + 1);
 
     const float* hs = hbuf + cur * HB + (sh * 16 + gid) * 8 + 2 * tid;
 #ifndef T2P_LSTM_NO_PRODUCT
-    // Two k-steps in flight: at 4 the global-memory form's addresses and
-    // loads, and the shared-memory form's rounded split and f32 adds, pass
-    // the 128 registers that two CTAs an SM allow.
+    // Two k-steps in flight: at 4 the rounded split and f32 adds, with the
+    // global-memory form's addresses and loads, pass the 128 registers that
+    // two CTAs an SM allow.
 #pragma unroll 2
     for (int kk = 0; kk < H / 8; ++kk) {
       unsigned abig[2][4], asml[2][4], bbig[2][2], bsml[2][2];
@@ -301,32 +294,27 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
       for (int mt = 0; mt < 2; ++mt) {
         const float4 w = WSMEM ? wa[(kk * 2 + mt) * 4 * 32]
                                : __ldg(wa + (kk * 2 + mt) * 4 * 32);
-        split<WSMEM>(w.x, abig[mt][0], asml[mt][0]);
-        split<WSMEM>(w.y, abig[mt][1], asml[mt][1]);
-        split<WSMEM>(w.z, abig[mt][2], asml[mt][2]);
-        split<WSMEM>(w.w, abig[mt][3], asml[mt][3]);
+        split(w.x, abig[mt][0], asml[mt][0]);
+        split(w.y, abig[mt][1], asml[mt][1]);
+        split(w.z, abig[mt][2], asml[mt][2]);
+        split(w.w, abig[mt][3], asml[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const float2 hv = *reinterpret_cast<const float2*>(hs + (kk * BT + nt * 8) * 8);
-        split<WSMEM>(hv.x, bbig[nt][0], bsml[nt][0]);
-        split<WSMEM>(hv.y, bbig[nt][1], bsml[nt][1]);
+        split(hv.x, bbig[nt][0], bsml[nt][0]);
+        split(hv.y, bbig[nt][1], bsml[nt][1]);
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           mma(acc2[mt][nt], asml[mt], bbig[nt][0], bbig[nt][1]);
-          if constexpr (WSMEM) {
-            mma(acc2[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma(part, abig[mt], bbig[nt][0], bbig[nt][1]);
+          mma(acc2[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma(part, abig[mt], bbig[nt][0], bbig[nt][1]);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
-          } else {
-            mma(acc3[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
-            mma(acc[mt][nt], abig[mt], bbig[nt][0], bbig[nt][1]);
-          }
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
         }
     }
 #endif
@@ -336,8 +324,7 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          acc[mt][nt][q] += WSMEM ? acc2[mt][nt][q]
-                                  : acc2[mt][nt][q] + acc3[mt][nt][q];
+          acc[mt][nt][q] += acc2[mt][nt][q];
 
     float* hn = hbuf + (cur ^ 1) * HB;
 #pragma unroll
