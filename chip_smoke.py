@@ -158,8 +158,9 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    path: headline, cascade, DB encode, calibration, server, the two
    evaluation epochs, the two trainings, phase 8's stages,
    ``evaluator_*``, phase 9's, ``recipe_*``, phase 10's, ``dp_*``, and
-   phase 12's, ``wide_*`` and ``variant_*``, and phase 13's, ``k360_*``,
-   ``converted_*`` and ``transformer_*``, with the errors on phase 9's,
+   phase 12's, ``wide_*`` and ``variant_*``, phase 13's, ``k360_*``,
+   ``converted_*`` and ``transformer_*``, and phase 14's, ``widest_*``,
+   with the errors on phase 9's,
    phase 10's and phase 13's inputs under ``max_abs_err_by_training_path``,
    ``max_abs_err_by_dp_path`` and ``max_abs_err_by_last_modules_path`` and
    phase 12's readings under ``widths``),
@@ -167,8 +168,11 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    as the last line; ``superglue_gnn_any`` (the GNN's second form) has the
    E=300 headline's launches and times, and under ``routes`` each of its
    routes (``superglue_gnn_any``: bf16 on the tensor cores, f32 on the
-   CUDA cores; ``superglue_gnn_any_wide``) with every phase-12.1 timing that
-   ran on it, its share of the bound and its launches by path.
+   CUDA cores; ``superglue_gnn_any_wide``) with every phase-12.1 and
+   phase-14 timing that ran on it, its share of the bound and its launches
+   by path; ``lstm_grid`` (the LSTM's form past H = 512) and
+   ``sinkhorn_wide`` (Sinkhorn's form past 32 x 16 couplings) have phase
+   14's path launches, times and bounds.
 12. JAX's default widths and the variants (run before the line of 11):
    models at embed_dim 300 from seeded generators, the bench map
    encoded and calibrated, then 12.1 the widened kernels against their
@@ -229,6 +233,23 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    ``T2P_FAST_GRAPH=1`` gives the same ``top_idx`` (the calibration's wall
    time with the switch off and on, in turns); ``--plot_retrievals``
    without ``cv2`` raises an ``ImportError`` naming it (a checked note).
+14. Widths past JAX's defaults (run before the line of 11): a seeded dense
+   map (one scene of 16 x 16 cells of 30 m at 48 objects an area; most
+   cells past 48 objects) and 128 of its poses' descriptions; coarse and
+   fine models at embed_dim 768, pad_size 48, 6 block pairs, from seeded
+   generators (``wide_models``, ``wide_pipeline``): the DB encode,
+   ``calibrated_for_serving`` and ``serve_batch`` at top-10 in bf16 and
+   f32 (launches of a batch exactly: the LSTM's grid form twice, the GNN's
+   wide route and Sinkhorn's wide form once each; q/s), the f32 serve
+   against the plain versions' (differing rows only as near-ties). 14.2:
+   the kernels on the path's inputs: the LSTM (H = 768, both encoders)
+   beside cuDNN and, with the bench text encoder zero-padded to 768 and
+   1024, within LSTM_F64_TOL of float64; the GNN at (768, 48, 6) in bf16
+   through ``depth_gate`` with ragged counts bit for bit and ties, in f32
+   within GNN_REL_TOL; Sinkhorn on [N, 49, 7]. 14.3: seeded random inputs:
+   the LSTM at H in {544, 768, 1024, 2048} (2048 queries x 64 tokens)
+   beside cuDNN, the GNN at (516, 16, 6), (768, 16, 6), (1024, 64, 16),
+   (300, 48, 6), (300, 64, 64) and (128, 128, 6) in both dtypes.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -327,6 +348,12 @@ KERNEL_SOURCES = {
                   "text2pos_tpu/ops/pointconv_pallas.py:91"),
     "fps": ("text2pos_torch/csrc/fps.cu",
             "text2pos_tpu/ops/fps.py:21 (lax.fori_loop; no Pallas kernel)"),
+    # The LSTM's grid form (H > 512) and Sinkhorn's wide form (couplings
+    # past 32 x 16): kernels of their own in the same sources.
+    "lstm_grid": ("text2pos_torch/csrc/lstm.cu",
+                  "text2pos_tpu/ops/lstm_pallas.py:60"),
+    "sinkhorn_wide": ("text2pos_torch/csrc/sinkhorn.cu",
+                      "text2pos_tpu/ops/sinkhorn_pallas.py:51"),
 }
 
 
@@ -539,21 +566,23 @@ def sinkhorn_bound(B: int, M: int, N: int, iters: int):
                     nbytes, overlap=True)
 
 
-def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
+def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures, top_idx=None,
+                        reps=5):
     """Kernel vs plain for the GNN (bf16 and f32) and Sinkhorn at the
-    headline serve's pose-cell pairs (the JAX top-10 cells): within
-    GNN_REL_TOL of the plain version with ragged pair counts against it,
-    but the second form's bf16 route (the E=300 pipelines), which takes
-    ``gnn_depth_check`` with ragged counts bit for bit against the whole
-    batch."""
+    headline serve's pose-cell pairs (the JAX top-10 cells, or ``top_idx``
+    [Q, K] of a path without JAX's): within GNN_REL_TOL of the plain
+    version with ragged pair counts against it, but the second form's bf16
+    routes (the E=300 and wider pipelines), which take ``gnn_depth_check``
+    with ragged counts bit for bit against the whole batch. The kernel's
+    time: the median of ``reps`` calls."""
     from text2pos_torch.ops import _build
     from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
                                                   gnn_scores_plain)
 
     dev = pipe_bf16.device
-    idx = torch.as_tensor(fx["jax_top_idx"].astype("int64"),
-                          device=dev).reshape(-1)
-    K = fx["jax_top_idx"].shape[1]
+    top = fx["jax_top_idx"] if top_idx is None else top_idx
+    idx = torch.as_tensor(top.astype("int64"), device=dev).reshape(-1)
+    K = top.shape[1]
     with torch.inference_mode():
         hint_enc = pipe_bf16.fine.encode_hints(
             torch.as_tensor(fx["hint_tokens"], device=dev),
@@ -576,9 +605,9 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
                             f"{route}")
         what = (f"{route} {label} N={N} {T0}x{T1} E={E} "
                 f"blocks={packed['wqkv'].shape[0]}")
-        # The second form's bf16 route at serving depth (the E=300
-        # pipelines of phase 12.1) takes the depth gate.
-        at_depth = label == "bf16" and route == "superglue_gnn_any"
+        # The second form's bf16 routes at serving depth (the E=300
+        # pipelines of phase 12.1, phase 14's) take the depth gate.
+        at_depth = label == "bf16" and route != "superglue_gnn"
         if at_depth:
             gate = gnn_depth_check(what, got, d0, d1, packed, failures)
             err = gate["max_abs_err"]
@@ -589,7 +618,8 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
             scale = float(want.abs().max())
             check(f"{what} (|scores| max {scale:.2f})", err,
                   GNN_REL_TOL[label] * scale, failures)
-        ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
+        ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=reps,
+                     warmup=2 if reps > 1 else 0)
         with torch.inference_mode():
             plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
                                reps=3, warmup=1)
@@ -607,8 +637,8 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures):
         if label == "bf16":
             scores_bf16 = got
     ratio = results["f32"]["ms"] / results["bf16"]["ms"]
-    log(f"  GNN at N={N}, E={E}: f32 (CUDA cores) "
-        f"{results['f32']['ms']:.3f} ms, bf16 (tensor cores) "
+    log(f"  GNN at N={N}, E={E}: f32 ({results['f32']['route']}) "
+        f"{results['f32']['ms']:.3f} ms, bf16 ({results['bf16']['route']}) "
         f"{results['bf16']['ms']:.3f} ms, f32 / bf16 = {ratio:.2f}")
 
     results["sinkhorn"] = sinkhorn_checks(pipe_bf16, scores_bf16, failures)
@@ -4452,36 +4482,37 @@ def wide_explain(fx, got, want, mode, kernels: BatchStages,
 
 
 def wide_models(pipe, dtype, seed=WIDE_SEED, coarse_opts=None,
-                fine_opts=None):
-    """Coarse and fine models at embed_dim 300 on the card, the bench
-    vocabularies, weights from ``init_parameters`` with seeds ``seed`` and
-    ``seed + 1``; the fine one uncalibrated (batch statistics, two
-    statistics rows a GNN BN)."""
+                fine_opts=None, width=WIDE_E):
+    """Coarse and fine models at embed_dim ``width`` (300) on the card,
+    the bench vocabularies, weights from ``init_parameters`` with seeds
+    ``seed`` and ``seed + 1``; the fine one uncalibrated (batch statistics,
+    two statistics rows a GNN BN)."""
     from text2pos_torch.models.cell_retrieval import CellRetrievalNetwork
     from text2pos_torch.models.matcher import SuperGlueMatch
     from text2pos_torch.train.state import init_parameters
 
     rows = lambda m: m.language_encoder.word_embedding.weight.shape[0]
-    coarse = CellRetrievalNetwork(rows(pipe.coarse), WIDE_E, dtype=dtype,
+    coarse = CellRetrievalNetwork(rows(pipe.coarse), width, dtype=dtype,
                                   **(coarse_opts or {}))
-    fine = SuperGlueMatch(rows(pipe.fine), WIDE_E, num_layers=6,
+    fine = SuperGlueMatch(rows(pipe.fine), width, num_layers=6,
                           sinkhorn_iters=50, dtype=dtype, stat_groups=2,
                           eval_batch_stats=True, **(fine_opts or {}))
     return (init_parameters(coarse, seed).to(pipe.device),
             init_parameters(fine, seed + 1).to(pipe.device))
 
 
-def wide_pipeline(pipe, bank, fx, dtype, pad=16, **opts):
-    """A calibrated serving pipeline of ``wide_models`` on the bench map:
-    the DB encode (launches read), then ``calibrated_for_serving`` on the
-    2048 queries' hints and the model's own top-10 cells, 128 cells.
+def wide_pipeline(pipe, bank, fx, dtype, pad=16, width=WIDE_E, **opts):
+    """A calibrated serving pipeline of ``wide_models`` at ``width`` and
+    ``pad`` on the map ``bank`` (the bench map, phase 14's dense one): the
+    DB encode (launches read), then ``calibrated_for_serving`` on the
+    queries' hints of ``fx`` and the model's own top-10 cells, 128 cells.
     Returns (pipeline, DB-encode launches, DB-encode s, calibration s)."""
     from text2pos_torch.config import ServeConfig
     from text2pos_torch.evaluation.pipeline import LocalizationPipeline
     from text2pos_torch.ops import _build
     from text2pos_torch.ops.retrieval import topk_retrieval
 
-    coarse, fine = wide_models(pipe, dtype, **opts)
+    coarse, fine = wide_models(pipe, dtype, width=width, **opts)
     base = LocalizationPipeline(coarse, fine, pipe.vocab, pipe.fine_vocab,
                                 cfg=ServeConfig(pad_size=pad))
     torch.cuda.synchronize()
@@ -4623,19 +4654,114 @@ def wide_serving(pipe_bf16, bank, fx, failures):
     return report, by_path, pipes
 
 
+def lstm_random_check(H, tokens, lengths, g, failures, tag):
+    """The LSTM kernel at hidden width H on seeded random tables and W_hh
+    over ``tokens`` [B, T] and ``lengths``, against its plain version, with
+    its time, the plain version's, cuDNN's bidirectional ``nn.LSTM`` (E =
+    H, packed) and its bound. Returns the readings; ``tag`` leads each log
+    line (the phase)."""
+    from text2pos_torch.ops.lstm import (CLUSTER_HIDDEN, _lstm_kernel,
+                                         kernel_width,
+                                         lstm_final_hidden_plain)
+
+    dev = tokens.device
+    B, T = tokens.shape
+    V = int(tokens.max()) + 1
+    tables = [torch.randn(V, 4 * H, device=dev, generator=g) * 0.3
+              for _ in range(2)]
+    w_hh = [(torch.rand(H, 4 * H, device=dev, generator=g) * 2 - 1)
+            / math.sqrt(H) for _ in range(2)]
+    form = "lstm_grid" if kernel_width(H) > CLUSTER_HIDDEN else "lstm"
+    with torch.inference_mode():
+        got = _lstm_kernel(tables, w_hh, tokens, lengths)
+        want = lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(f"{tag} {form} T={T} B={B} H={H} V={V} (random weights)", err,
+              TOL["lstm"], failures)
+        ms = cuda_ms(lambda: _lstm_kernel(tables, w_hh, tokens, lengths))
+        plain_ms = cuda_ms(lambda: lstm_final_hidden_plain(
+            tables, w_hh, tokens, lengths), reps=3, warmup=1)
+        x = torch.randn(B, T, H, device=dev, generator=g)
+        lib = torch.nn.LSTM(H, H, bidirectional=True).to(dev)
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x.transpose(0, 1), lengths.clamp(1, T).cpu(),
+            enforce_sorted=False)
+        lib_ms = cuda_ms(lambda: lib(packed))
+    steps = float(lengths.clamp(0, T).sum())
+    flops = 2 * 2.0 * steps * H * 4 * H
+    nbytes = 4.0 * (B * T + B + 2 * V * 4 * H + 2 * H * 4 * H + 2 * B * H)
+    bnd, by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
+    log(f"  {tag} {form} H={H}: kernel {ms:.3f} ms, bound {bnd:.4f} ms "
+        f"({by}), plain {plain_ms:.3f} ms, cuDNN nn.LSTM (bidirectional, "
+        f"packed, E=H, projections included) {lib_ms:.3f} ms")
+    return {"H": H, "form": form, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "max_abs_err": err}
+
+
+def gnn_random_check(E, T0, T1, d0, d1, label, failures, tag,
+                     blocks=WIDE_GNN_BLOCKS):
+    """The GNN kernel at (E, T0, T1) in ``label``'s dtype on descriptors d0,
+    d1 with seeded random weights of ``blocks`` blocks, against its plain
+    version within GNN_REL_TOL, its launch counted under ``any_plan``'s
+    route, with its time, the plain version's and its bound. Returns the
+    readings."""
+    from text2pos_torch.ops import _build
+    from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
+                                                  gnn_scores_plain,
+                                                  pack_gnn_params,
+                                                  random_folded_params)
+
+    dt = torch.bfloat16 if label == "bf16" else torch.float32
+    route = gnn_route(E, T0, T1, dt)[0]
+    N = len(d0)
+    packed = pack_gnn_params(random_folded_params(
+        blocks, seed=E + T0, width=E), dt, d0.device)
+    before = _build.LAUNCHES[route]
+    with torch.inference_mode():
+        got = _gnn_kernel(d0, d1, packed)
+        want = gnn_scores_plain(d0, d1, packed)
+        torch.cuda.synchronize()
+        if _build.LAUNCHES[route] != before + 1:
+            failures.append(f"{tag} GNN {label} at {E}, {T0}x{T1}: no launch "
+                            f"of {route}")
+        err = max_err(got, want)
+        scale = float(want.abs().max())
+        check(f"{tag} {route} {label} N={N} {T0}x{T1} E={E} blocks={blocks} "
+              f"(random weights; |scores| max {scale:.2f})", err,
+              GNN_REL_TOL[label] * scale, failures)
+        ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
+        plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
+                           reps=3, warmup=1)
+    bnd, by, tflop = gnn_bound(d0, d1, packed, label)
+    log(f"  {tag} {route} {label} E={E} T0={T0} T1={T1} N={N}: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"({'faster' if ms < plain_ms else 'SLOWER'} than plain), bound "
+        f"{bnd:.4f} ms ({by}, {tflop:.3f} TFLOP; {100 * bnd / ms:.1f}% of "
+        "the bound)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "max_abs_err": err, "route": route, "bound_share": bnd / ms}
+
+
+def random_descs(N, T0, T1, E, g, device="cuda"):
+    """L2-normalized seeded descriptors [N, T0, E] and [N, T1, E] on the
+    card, as the encoders give them."""
+    dev = torch.device(device)
+    d0 = torch.nn.functional.normalize(torch.randn(
+        N, T0, E, device=dev, generator=g), dim=-1)
+    d1 = torch.nn.functional.normalize(torch.randn(
+        N, T1, E, device=dev, generator=g), dim=-1)
+    return d0, d1
+
+
 def wide_kernel_checks(pipes, fx, failures):
     """12.1: the kernels on the E=300 serving path's inputs (``lstm_checks``
     and ``gnn_sinkhorn_checks`` on the wide pipelines), then at the other
     phase-12 shapes on random inputs from seeds: the LSTM at WIDE_LSTM
     beside cuDNN, the GNN at WIDE_GNN in bf16 and f32, FPS at WIDE_FPS."""
-    from text2pos_torch.ops import _build
     from text2pos_torch.ops.fps import (_fps_kernel,
                                         farthest_point_sampling_plain)
-    from text2pos_torch.ops.lstm import _lstm_kernel, lstm_final_hidden_plain
-    from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
-                                                  gnn_scores_plain,
-                                                  pack_gnn_params,
-                                                  random_folded_params)
 
     dev = torch.device("cuda")
     out = {"lstm": lstm_checks(pipes["bf16"], fx, failures),
@@ -4644,84 +4770,23 @@ def wide_kernel_checks(pipes, fx, failures):
            "lstm_widths": [], "gnn_shapes": [], "fps_widths": []}
     tokens = torch.as_tensor(fx["tokens"], device=dev)
     lengths = torch.as_tensor(fx["lengths"], device=dev)
-    B, T = tokens.shape
-    V = int(tokens.max()) + 1
     g = torch.Generator(device=dev).manual_seed(12)
     for H in WIDE_LSTM:
-        tables = [torch.randn(V, 4 * H, device=dev, generator=g) * 0.3
-                  for _ in range(2)]
-        w_hh = [(torch.rand(H, 4 * H, device=dev, generator=g) * 2 - 1)
-                / math.sqrt(H) for _ in range(2)]
-        with torch.inference_mode():
-            got = _lstm_kernel(tables, w_hh, tokens, lengths)
-            want = lstm_final_hidden_plain(tables, w_hh, tokens, lengths)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            check(f"12.1 lstm T={T} B={B} H={H} V={V} (random weights)", err,
-                  TOL["lstm"], failures)
-            ms = cuda_ms(lambda: _lstm_kernel(tables, w_hh, tokens, lengths))
-            plain_ms = cuda_ms(lambda: lstm_final_hidden_plain(
-                tables, w_hh, tokens, lengths), reps=3, warmup=1)
-            x = torch.randn(B, T, H, device=dev, generator=g)
-            lib = torch.nn.LSTM(H, H, bidirectional=True).to(dev)
-            packed = torch.nn.utils.rnn.pack_padded_sequence(
-                x.transpose(0, 1), lengths.clamp(1, T).cpu(),
-                enforce_sorted=False)
-            lib_ms = cuda_ms(lambda: lib(packed))
-        steps = float(lengths.clamp(0, T).sum())
-        flops = 2 * 2.0 * steps * H * 4 * H
-        nbytes = 4.0 * (B * T + B + 2 * V * 4 * H + 2 * H * 4 * H + 2 * B * H)
-        bnd, by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
-        log(f"  12.1 lstm H={H}: kernel {ms:.3f} ms, bound {bnd:.4f} ms "
-            f"({by}), plain {plain_ms:.3f} ms, cuDNN nn.LSTM "
-            f"(bidirectional, packed, E=H, projections included) "
-            f"{lib_ms:.3f} ms")
-        out["lstm_widths"].append({"H": H, "ms": ms, "plain_ms": plain_ms,
-                                   "bound_ms": bnd, "bound_by": by,
-                                   "library_ms": lib_ms, "max_abs_err": err})
+        out["lstm_widths"].append(lstm_random_check(H, tokens, lengths, g,
+                                                    failures, "12.1"))
     for E, T0, T1, N in WIDE_GNN + WIDE_GNN_WIDE:
-        d0 = torch.nn.functional.normalize(torch.randn(
-            N, T0, E, device=dev, generator=g), dim=-1)
-        d1 = torch.nn.functional.normalize(torch.randn(
-            N, T1, E, device=dev, generator=g), dim=-1)
+        d0, d1 = random_descs(N, T0, T1, E, g)
         row = {"E": E, "T0": T0, "T1": T1, "N": N}
         for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             route = gnn_route(E, T0, T1, dt)[0]
             if (E, T0, T1, N) in WIDE_GNN_WIDE and \
                     route != "superglue_gnn_any_wide":
                 continue
-            packed = pack_gnn_params(random_folded_params(
-                WIDE_GNN_BLOCKS, seed=E + T0, width=E), dt, dev)
-            before = _build.LAUNCHES[route]
-            with torch.inference_mode():
-                got = _gnn_kernel(d0, d1, packed)
-                want = gnn_scores_plain(d0, d1, packed)
-                torch.cuda.synchronize()
-                if _build.LAUNCHES[route] != before + 1:
-                    failures.append(f"12.1 GNN {label} at {E}, {T0}x{T1}: "
-                                    f"no launch of {route}")
-                if label == "bf16" and E <= 320 and \
-                        route != "superglue_gnn_any":
-                    failures.append(f"12.1 GNN bf16 at {E}, {T0}x{T1} ran "
-                                    f"{route}, not the tensor-core route")
-                err = max_err(got, want)
-                scale = float(want.abs().max())
-                check(f"12.1 {route} {label} N={N} {T0}x{T1} E={E} "
-                      f"blocks={WIDE_GNN_BLOCKS} (random weights; |scores| "
-                      f"max {scale:.2f})", err, GNN_REL_TOL[label] * scale,
-                      failures)
-                ms = cuda_ms(lambda: _gnn_kernel(d0, d1, packed), reps=5)
-                plain_ms = cuda_ms(lambda: gnn_scores_plain(d0, d1, packed),
-                                   reps=3, warmup=1)
-            bnd, by, tflop = gnn_bound(d0, d1, packed, label)
-            log(f"  12.1 {route} {label} E={E} T0={T0} T1={T1} N={N}: "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                f"({'faster' if ms < plain_ms else 'SLOWER'} than plain), "
-                f"bound {bnd:.4f} ms ({by}, {tflop:.3f} TFLOP; "
-                f"{100 * bnd / ms:.1f}% of the bound)")
-            row[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                          "bound_by": by, "max_abs_err": err,
-                          "route": route, "bound_share": bnd / ms}
+            if label == "bf16" and E <= 320 and route != "superglue_gnn_any":
+                failures.append(f"12.1 GNN bf16 at {E}, {T0}x{T1} ran "
+                                f"{route}, not the tensor-core route")
+            row[label] = gnn_random_check(E, T0, T1, d0, d1, label, failures,
+                                          "12.1")
         out["gnn_shapes"].append(row)
     for Bo, N, S in WIDE_FPS:
         base = torch.randn(Bo, 200, 3, device=dev, generator=g)
@@ -4959,14 +5024,18 @@ def widths_phase(pipe_bf16, bank, fx, failures):
     return by_path, kernels, report
 
 
-def gnn_routes(wide, by_path):
-    """The second form's routes: for each, every timing of phase 12.1 that
-    ran on it (the E=300 serving path's inputs, then the random shapes)
-    with its share of the bound, and its launches by path."""
+def gnn_routes(wide, by_path, widest):
+    """The second form's routes: for each, every timing of phases 12.1 and
+    14 that ran on it (the E=300 serving path's inputs, the random shapes,
+    the E=768 pad_size 48 path's inputs, phase 14's random shapes) with its
+    share of the bound, and its launches by path."""
     runs = [("E300 path", {"E": WIDE_E}, wide["gnn"])] + [
         ("E300 bf16 " + row["inputs"], row, row)
         for row in wide["gnn_pad_paths"]] + [
-        ("random", row, row) for row in wide["gnn_shapes"]]
+        ("random", row, row) for row in wide["gnn_shapes"]] + [
+        (f"E{WIDEST_E} pad_size {WIDEST_PAD} path", {"E": WIDEST_E},
+         widest["gnn"])] + [
+        ("widest random", row, row) for row in widest["gnn_shapes"]]
     routes = {}
     for what, shape, res in runs:
         for label in ("bf16", "f32"):
@@ -4977,7 +5046,8 @@ def gnn_routes(wide, by_path):
             entry["runs"].append(dict(
                 inputs=what, dtype=label, ms=r["ms"], bound_ms=r["bound_ms"],
                 bound_share=r["bound_share"], plain_ms=r["plain_ms"],
-                **{k: shape[k] for k in ("E", "T0", "T1", "N") if k in shape}))
+                **{k: shape[k] for k in ("E", "T0", "T1", "N") if k in shape},
+                **{k: r[k] for k in ("N",) if k in r}))
     for name, entry in routes.items():
         entry["launches_by_path"] = {p: n.get(name, 0)
                                      for p, n in by_path.items()
@@ -5764,6 +5834,198 @@ def last_modules_phase(bank, fx, headline_ms, failures, device="cuda"):
     return by_path, errs, report
 
 
+# Phase 14: widths past JAX's defaults. A model at embed_dim 768 (the
+# LSTM's grid form, H > 512; the GNN's second form on its wide route at
+# E = 768) and pad_size 48 (cells of up to 48 objects: the wide route past
+# 32 objects, Sinkhorn's wide form past 32 rows) from seeded generators, on
+# a seeded map dense enough that most cells fill the 48 slots (48 objects
+# an area: 180 of its 256 cells hold more than 48, at most 56), served at
+# top-10 on 128 of its poses' descriptions. The map is one scene of the
+# bench's 16 x 16 grid of 30 m cells, at 4x the bench's density.
+WIDEST_E = 768
+WIDEST_PAD = 48
+WIDEST_SEED = 768
+WIDEST_MAP = dict(seed=17, scene_name="9917", extent=480.0, cell_size=30.0,
+                  poses_per_cell=1, objects_per_cell_area=48)
+WIDEST_QUERIES = 128
+WIDEST_LSTM = (544, 768, 1024, 2048)
+# Random GNN shapes: E past 512 on the tensor-core route (516, 768 at 16
+# objects), E = 1024 with 64 objects, pad_size 48 and 64 at E = 300, 128
+# objects at the bench width; pairs by route (the wide one runs a CTA a
+# pair).
+WIDEST_GNN = ((516, 16, 6), (768, 16, 6), (1024, 64, 16), (300, 48, 6),
+              (300, 64, 64), (128, 128, 6))
+WIDEST_GNN_PAIRS = {"superglue_gnn_any": 4096, "superglue_gnn_any_wide": 512}
+# The path's launches of one serve_batch: both encoders on the LSTM's grid
+# form, the GNN on its wide route, Sinkhorn's wide form; no other form.
+WIDEST_LAUNCHES = {"lstm_grid": 2, "superglue_gnn_any_wide": 1,
+                   "sinkhorn_wide": 1}
+
+
+def widest_map(pipe):
+    """Phase 14's map and queries: the seeded dense scene (WIDEST_MAP), its
+    bank of WIDEST_PAD object slots (256 points an object, seed 0) and the
+    first WIDEST_QUERIES poses' descriptions tokenized as the server does
+    (``tokenize_queries``: the bench vocabularies). Returns (bank, query
+    arrays, objects a cell)."""
+    from text2pos_torch.data.dense import build_cell_bank
+    from text2pos_torch.data.hints import create_hint_description
+    from text2pos_torch.data.synthetic import make_synthetic_dataset
+
+    cells, poses = make_synthetic_dataset(**WIDEST_MAP)
+    bank = build_cell_bank(cells, WIDEST_PAD, 256, seed=0)
+    hints = [create_hint_description(p) for p in poses[:WIDEST_QUERIES]]
+    fx = dict(zip(("tokens", "lengths", "hint_tokens", "hint_lengths"),
+                  pipe.tokenize_queries(hints)))
+    return bank, fx, np.array([len(c.objects) for c in cells])
+
+
+def widest_lstm_f64(pipe, fx, pipe_bench, fx_bench, failures):
+    """14.2: the LSTM's grid form against the plain recurrence evaluated in
+    float64, the plain f32 version beside it, each within LSTM_F64_TOL: on
+    the phase-14 path's text and hints (H = 768) and on the bench coarse
+    text encoder (H = 256) zero-padded to 768 and 1024 over the 2048 bench
+    queries (the padded units stay 0 and add nothing to the real ones).
+    Returns {input: (kernel, plain f32) largest error}."""
+    from text2pos_torch.ops import lstm as m
+    from text2pos_torch.utils.float64 import float64_pins
+
+    dev = pipe.device
+    cases = {}
+    for label, enc, tok, ln in (
+            ("path text", pipe.coarse.language_encoder, fx["tokens"],
+             fx["lengths"]),
+            ("path hints", pipe.fine.language_encoder,
+             fx["hint_tokens"].reshape(-1, fx["hint_tokens"].shape[-1]),
+             fx["hint_lengths"].reshape(-1))):
+        with torch.inference_mode():
+            tables = enc.token_tables()
+            w_hh = [enc._params(d).w_hh for d in ("fwd", "bwd")]
+        cases[label] = (tables, w_hh, torch.as_tensor(tok, device=dev),
+                        torch.as_tensor(ln, device=dev), None)
+    enc = pipe_bench.coarse.language_encoder
+    with torch.inference_mode():
+        tables = enc.token_tables()
+        w_hh = [enc._params(d).w_hh for d in ("fwd", "bwd")]
+    H = w_hh[0].shape[0]
+    for width in (768, 1024):
+        cases[f"bench text padded from {H} to {width}"] = (
+            [m.pad_gates(t, H, width) for t in tables],
+            [m.pad_w_hh(w, H, width) for w in w_hh],
+            torch.as_tensor(fx_bench["tokens"], device=dev),
+            torch.as_tensor(fx_bench["lengths"], device=dev), H)
+    out = {}
+    for label, (tables, w_hh, tok, ln, real) in cases.items():
+        with torch.inference_mode():
+            with float64_pins():
+                ref = m.lstm_final_hidden_plain(
+                    [t.double() for t in tables], [w.double() for w in w_hh],
+                    tok, ln)[..., :real]
+            got = m._lstm_kernel(tables, w_hh, tok, ln)[..., :real]
+            plain = m.lstm_final_hidden_plain(tables, w_hh, tok,
+                                              ln)[..., :real]
+        err = float((got.double() - ref).abs().max())
+        perr = float((plain.double() - ref).abs().max())
+        check(f"14.2 lstm_grid H={w_hh[0].shape[0]} on {label} "
+              f"(B={len(tok)}, T={tok.shape[1]}) against float64 (plain "
+              f"f32 {perr:.3e})", err, LSTM_F64_TOL, failures)
+        out[label] = (err, perr)
+    return out
+
+
+def widest_phase(pipe_bf16, fx_bench, failures, device="cuda"):
+    """Phase 14 (see the module's docstring; ``device`` "cpu" and a bench
+    pipeline on the CPU for a dry run of its pieces). Returns ({path:
+    launches}, the kernel readings, the report)."""
+    from text2pos_torch.ops import _build
+
+    t0 = time.time()
+    bank, fx, counts = widest_map(pipe_bf16)
+    Q, T = fx["tokens"].shape
+    log(f"  14.1 map {WIDEST_MAP}: {bank.num_cells} cells, objects a cell "
+        f"median {np.median(counts):.0f}, most {counts.max()}, "
+        f"{int((counts > WIDEST_PAD).sum())} cells past {WIDEST_PAD} (cut to "
+        f"the pad), {int(bank.mask.sum())} objects in the bank; {Q} queries "
+        f"of {int(fx['lengths'].min())}-{int(fx['lengths'].max())} tokens, "
+        f"hints {fx['hint_tokens'].shape}; built in {time.time() - t0:.1f} s")
+    if counts.max() <= WIDEST_PAD:
+        failures.append(f"14.1 no cell of the map holds more than "
+                        f"{WIDEST_PAD} objects")
+    report, by_path, pipes, served = {}, {}, {}, {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        pipe, db, enc_s, cal_s = wide_pipeline(pipe_bf16, bank, fx, dtype,
+                                               pad=WIDEST_PAD,
+                                               width=WIDEST_E,
+                                               seed=WIDEST_SEED)
+        pipes[label] = pipe
+        by_path[f"widest_db_encode_{label}"] = db
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        ti, po, first_s = serve_all(pipe, fx, TOP_K)        # the path's run
+        launches = dict(_build.LAUNCHES)
+        by_path[f"widest_serve_{label}"] = launches
+        ti, po, sec = serve_all(pipe, fx, TOP_K, reps=2)
+        served[label] = ti
+        log(f"  14.1 E={WIDEST_E} pad_size {WIDEST_PAD} {label}: DB encode "
+            f"{enc_s:.3f} s (launches {db}), calibration {cal_s:.3f} s; "
+            f"{Q} queries x top-{TOP_K} in {sec * 1e3:.1f} ms = "
+            f"{Q / sec:.2f} q/s (first call {first_s * 1e3:.1f} ms); "
+            f"launches of one batch {launches}")
+        report[f"serve_{label}"] = {"ms": sec * 1e3, "qps": Q / sec,
+                                    "first_ms": first_s * 1e3,
+                                    "launches": launches,
+                                    "db_encode_s": enc_s,
+                                    "calibrate_s": cal_s}
+        if not np.isfinite(po).all() or ti.shape != (Q, TOP_K):
+            failures.append(f"14.1 serve {label}: malformed output")
+        if any(launches.get(k, 0) != n for k, n in WIDEST_LAUNCHES.items()) \
+                or any(launches.get(k, 0) for k in (
+                    "lstm", "sinkhorn", "superglue_gnn", "superglue_gnn_any")):
+            failures.append(f"14.1 serve {label}: launches {launches}, want "
+                            f"{WIDEST_LAUNCHES} and no other form")
+        if db.get("pointconv", 0) < 1 or db.get("fps", 0) < 1:
+            failures.append(f"14.1 DB encode {label}: launches {db}")
+    pipe = pipes["f32"]
+    with plain_kernels():
+        pti, ppo, psec = serve_all(pipe, fx, TOP_K)
+    ti, po, _ = serve_all(pipe, fx, TOP_K)
+    log(f"  14.1 f32 headline against the plain versions: kernels "
+        f"{report['serve_f32']['ms']:.1f} ms, plain versions "
+        f"{psec * 1e3:.1f} ms; positions max difference "
+        f"{float(np.abs(po - ppo).max()):.3e}")
+    report_swaps("widest f32 headline (\"JAX\" in the notes: the plain "
+                 "versions)", headline_swaps(pipe, fx, ti, pti), len(ti),
+                 failures, "the plain versions'")
+    report["f32_plain_ms"] = psec * 1e3
+
+    readings = {"lstm": lstm_checks(pipes["bf16"], fx, failures)}
+    readings["lstm_f64"] = widest_lstm_f64(pipes["bf16"], fx, pipe_bf16,
+                                           fx_bench, failures)
+    readings["gnn"] = gnn_sinkhorn_checks(pipes["bf16"], pipes["f32"], fx,
+                                          failures, top_idx=served["bf16"],
+                                          reps=1)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(14)
+    tokens = torch.as_tensor(fx_bench["tokens"], device=dev)
+    lengths = torch.as_tensor(fx_bench["lengths"], device=dev)
+    readings["lstm_widths"] = [
+        lstm_random_check(H, tokens, lengths, g, failures, "14.3")
+        for H in WIDEST_LSTM]
+    readings["gnn_shapes"] = []
+    for E, T0, T1 in WIDEST_GNN:
+        pairs = {label: WIDEST_GNN_PAIRS[gnn_route(E, T0, T1, dt)[0]]
+                 for label, dt in (("bf16", torch.bfloat16),
+                                   ("f32", torch.float32))}
+        d0, d1 = random_descs(max(pairs.values()), T0, T1, E, g, dev)
+        row = {"E": E, "T0": T0, "T1": T1}
+        for label, N in pairs.items():
+            row[label] = dict(gnn_random_check(
+                E, T0, T1, d0[:N].contiguous(), d1[:N].contiguous(), label,
+                failures, "14.3"), N=N)
+        readings["gnn_shapes"].append(row)
+    return by_path, readings, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5969,6 +6231,16 @@ def main() -> int:
     log(f"  phase 13 took {time.time() - t0:.1f} s; "
         f"{json.dumps(last_report, default=float)}")
 
+    log("phase 14 widths past JAX's defaults")
+    t0 = time.time()
+    widest_paths, widest, widest_report = widest_phase(pipe_bf16, fx,
+                                                       failures)
+    by_path.update(widest_paths)
+    for name in ("lstm_grid", "sinkhorn_wide"):
+        launches[name] = widest_paths["widest_serve_bf16"].get(name, 0)
+    log(f"  phase 14 took {time.time() - t0:.1f} s; "
+        f"{json.dumps(widest_report, default=float)}")
+
     gnn = dict(gs["bf16"], f32=gs["f32"], cascade_cheap_pass={
         k: {"ms": v["gnn_ms"], "bound_ms": v["gnn_bound_ms"],
             "dequant_ms": v["dequant_ms"]}
@@ -5987,10 +6259,14 @@ def main() -> int:
                    widths=wide["gnn_shapes"],
                    pad_paths=wide["gnn_pad_paths"],
                    sinkhorn_E300=wide["gnn"]["sinkhorn"],
-                   routes=gnn_routes(wide, by_path))
+                   routes=gnn_routes(wide, by_path, widest))
+    lstm_grid = dict(widest["lstm"], widths=widest["lstm_widths"],
+                     float64={k: {"max_abs_err": e, "plain_f32": p}
+                              for k, (e, p) in widest["lstm_f64"].items()})
     per_kernel = {"lstm": lstm, "sinkhorn": sinkhorn,
                   "superglue_gnn": gnn, "superglue_gnn_any": gnn_any,
-                  "pointconv": pointconv, "fps": fps}
+                  "pointconv": pointconv, "fps": fps, "lstm_grid": lstm_grid,
+                  "sinkhorn_wide": widest["gnn"]["sinkhorn"]}
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,

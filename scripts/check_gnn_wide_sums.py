@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""How the GNN second form's wide route (``csrc/superglue_gnn_any.cu``,
+namespace ``wide``) sums its products over K, measured where it serves:
+the source as it stands against a copy with the other summation, blocked
+(each group of 4 k-values summed in a register of its own, then added to
+the running sum) or chained (every product into the running sum), on
+chip_smoke phase 14's path inputs: the E = 768, pad_size 48 pipelines
+(``widest_map``, ``wide_pipeline``) of two model seeds, their 1,280
+pose-cell pairs of the bf16 headline's top-10 at (768, 48, 6), 12 blocks.
+Prints, for each build, the bf16 scores' ``depth_gate`` readings (median,
+99.9th percentile and largest per-pair error against the float64
+evaluation, beside the plain f32 version's, and the 2-block cut) and the
+f32 scores' largest error against the plain version and against float64,
+with each launch's wall time.
+
+    python3 scripts/check_gnn_wide_sums.py
+
+Needs a CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from text2pos_torch.evaluation.pipeline import LocalizationPipeline  # noqa: E402
+from text2pos_torch.ops import _build  # noqa: E402
+from text2pos_torch.ops import superglue_gnn as tgnn  # noqa: E402
+
+BLOCKED = """        float x[4], part[CT];
+        Vec<T>::load(xp + (size_t)i * ldx + k, x);
+#pragma unroll
+        for (int j = 0; j < CT; ++j) part[j] = x[0] * w[0][j];
+#pragma unroll
+        for (int kk = 1; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) part[j] = fmaf(x[kk], w[kk][j], part[j]);
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] += part[j];"""
+CHAIN = """        float x[4];
+        Vec<T>::load(xp + (size_t)i * ldx + k, x);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x[kk], w[kk][j], acc[i][j]);"""
+
+
+def libraries():
+    """{summation: library}: the source's own build and the other one."""
+    csrc = ROOT / "text2pos_torch" / "csrc"
+    src = (csrc / "superglue_gnn_any.cu").read_text()
+    own = "blocked" if BLOCKED in src else "chained"
+    if (BLOCKED if own == "blocked" else CHAIN) not in src:
+        raise RuntimeError("the wide route's product loop is neither form")
+    other = src.replace(*((BLOCKED, CHAIN) if own == "blocked"
+                          else (CHAIN, BLOCKED)))
+    tmp = tempfile.mkdtemp()
+    shutil.copy(csrc / "mma_bf16.cuh", tmp)
+    cu = os.path.join(tmp, "superglue_gnn_any.cu")
+    Path(cu).write_text(other)
+    so = os.path.join(tmp, "libother.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           cu], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(proc.stdout + proc.stderr)
+    return {f"{own} (the source)": _build.library("superglue_gnn_any"),
+            "chained" if own == "blocked" else "blocked": ctypes.CDLL(so)}
+
+
+def main() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.gpu_line())
+    _build.build_all()
+    libs = libraries()
+    own = _build.library("superglue_gnn_any")
+    fx = dict(np.load(cs.FIXTURE))
+    bench = LocalizationPipeline.from_checkpoints(
+        cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
+        device="cuda")
+    bank, qx, _ = cs.widest_map(bench)
+    dev = torch.device("cuda")
+    for seed in (cs.WIDEST_SEED, cs.WIDEST_SEED + 10):
+        pipes = {label: cs.wide_pipeline(bench, bank, qx, dt,
+                                         pad=cs.WIDEST_PAD,
+                                         width=cs.WIDEST_E, seed=seed)[0]
+                 for label, dt in (("bf16", torch.bfloat16), ("f32", None))}
+        ti = cs.serve_all(pipes["bf16"], qx, cs.TOP_K)[0]
+        idx = torch.as_tensor(ti, device=dev).reshape(-1)
+        with torch.inference_mode():
+            hints = pipes["bf16"].fine.encode_hints(
+                torch.as_tensor(qx["hint_tokens"], device=dev),
+                torch.as_tensor(qx["hint_lengths"], device=dev))
+        d1 = hints.repeat_interleave(cs.TOP_K, dim=0).contiguous()
+        d0 = pipes["bf16"].fine_bank_enc[idx].contiguous()
+        for label in ("bf16", "f32"):
+            packed = pipes[label].fine.superglue.packed_kernel_params()
+            cut = cs.first_blocks(packed)
+            with torch.inference_mode():
+                plain = tgnn.gnn_scores_plain(d0, d1, packed)
+                cut_plain = tgnn.gnn_scores_plain(d0, d1, cut)
+                ref = cs.f64_scores(d0, d1, packed)
+            for name, lib in libs.items():
+                # The wrapper launches whichever library the build cache
+                # holds under the source's name.
+                _build._LIBS["superglue_gnn_any"] = lib
+                with torch.inference_mode():
+                    t0 = time.time()
+                    got = tgnn._gnn_kernel(d0, d1, packed)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.time() - t0)
+                    if label == "bf16":
+                        cut_got = tgnn._gnn_kernel(d0, d1, cut)
+                        torch.cuda.synchronize()
+                _build._LIBS["superglue_gnn_any"] = own
+                if label == "bf16":
+                    ok, r = cs.depth_gate(got, plain, ref, cut_got, cut_plain)
+                    print(f"seed {seed} bf16 {name}: {ms:.0f} ms; depth gate "
+                          f"{'pass' if ok else 'FAIL'}: median "
+                          f"{r['median']:.4f} (plain {r['plain_median']:.4f}"
+                          f", ratio {r['median'] / r['plain_median']:.4f}), "
+                          f"p99.9 {r['p999']:.4f} (plain "
+                          f"{r['plain_p999']:.4f}), largest {r['max']:.3f} "
+                          f"(plain {r['plain_max']:.3f}), cut "
+                          f"{r['cut_max']:.3f}", flush=True)
+                    continue
+                tol = cs.GNN_REL_TOL["f32"]
+                e = float((got - plain).abs().max()) / (
+                    tol * float(plain.abs().max()))
+                e64, p64 = (float((x.double() - ref).abs().max()) / (
+                    tol * float(ref.abs().max())) for x in (got, plain))
+                print(f"seed {seed} f32 {name}: {ms:.0f} ms; from the plain "
+                      f"version {e:.3f} of GNN_REL_TOL, from float64 "
+                      f"{e64:.3f} (the plain version {p64:.3f})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -91,16 +91,19 @@ def test_lstm_kernel_generic_path(cuda):
 
 
 def test_lstm_kernel_rejects_unsupported_width(cuda):
+    """H = 0 is refused; H = 544, past the largest cluster, is taken by
+    the grid form (JAX takes any H)."""
     tables, w_hh, tokens, lengths = _lstm_case(3, 2, 0)
-    with pytest.raises(ValueError):        # H = 0
+    with pytest.raises(ValueError, match="at least 1"):     # H = 0
         tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
                                 [w.to(cuda) for w in w_hh], tokens.to(cuda),
                                 lengths.to(cuda))
     tables, w_hh, tokens, lengths = _lstm_case(3, 2, 544)
-    with pytest.raises(ValueError, match=r"\[1, 512\]"):   # over 512
-        tlstm.lstm_final_hidden([t.to(cuda) for t in tables],
-                                [w.to(cuda) for w in w_hh], tokens.to(cuda),
-                                lengths.to(cuda))
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm_grid", lambda: tlstm.lstm_final_hidden(*args))
+    torch.testing.assert_close(got, tlstm.lstm_final_hidden_plain(*args),
+                               atol=1e-5, rtol=1e-4)
 
 
 def test_lstm_kernel_rejects_bad_input(cuda):
@@ -157,13 +160,25 @@ def test_sinkhorn_kernel_fused_dustbins(cuda, B, M, N, iters):
 
 
 def test_sinkhorn_kernel_rejects_bad_input(cuda):
+    """33 rows and 17 columns go to the wide form (JAX takes any
+    coupling); marginals of another shape, no rows and f64 marginals are
+    refused."""
     z = torch.zeros(3, 33, 7, device=cuda)
-    with pytest.raises(ValueError):        # 33 rows
-        tsink.log_sinkhorn(z, torch.zeros(3, 33, device=cuda),
+    got = _launches("sinkhorn_wide", lambda: tsink.log_sinkhorn(
+        z, torch.zeros(3, 33, device=cuda), torch.zeros(3, 7, device=cuda),
+        5))
+    assert got.shape == (3, 33, 7)
+    got = _launches("sinkhorn_wide", lambda: tsink.log_optimal_transport(
+        torch.zeros(3, 16, 16, device=cuda), torch.tensor(1.0, device=cuda),
+        5))
+    assert got.shape == (3, 17, 17) and bool(torch.isfinite(got).all())
+    with pytest.raises(ValueError):        # marginals of another shape
+        tsink.log_sinkhorn(z, torch.zeros(3, 32, device=cuda),
                            torch.zeros(3, 7, device=cuda), 5)
-    with pytest.raises(ValueError):        # 16 x 16 scores: 17 columns
-        tsink.log_optimal_transport(torch.zeros(3, 16, 16, device=cuda),
-                                    torch.tensor(1.0, device=cuda), 5)
+    with pytest.raises(ValueError):        # no rows
+        tsink.log_sinkhorn(torch.zeros(3, 0, 7, device=cuda),
+                           torch.zeros(3, 0, device=cuda),
+                           torch.zeros(3, 7, device=cuda), 5)
     with pytest.raises(TypeError):         # f64 marginals
         tsink.log_sinkhorn(torch.zeros(3, 17, 7, device=cuda),
                            torch.zeros(3, 17, device=cuda).double(),

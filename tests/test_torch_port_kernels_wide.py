@@ -1,12 +1,17 @@
 """The kernels at the widths JAX's configurations give, against their plain
 PyTorch versions: the LSTM past 256 units (JAX's default embed_dim 300, up
-to 512), the second GNN form (``csrc/superglue_gnn_any.cu``) at any E a
-multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32 on each of its routes
-(``any_plan``: bf16 on the tensor cores and f32 on the CUDA cores, both
-``superglue_gnn_any``, and ``superglue_gnn_any_wide``), FPS past 256
-points; and both LSTM forms (W_hh in shared memory, and from L2 past 256
-units) against a float64 evaluation on long, sensitive text (the bench
-text encoder, zero-padded to the wider widths).
+to 512 in clusters, the grid form past 512: 544, 768, 1024, 2048, and
+several 32-unit slices a CTA), the second GNN form
+(``csrc/superglue_gnn_any.cu``) at any E a multiple of 4 and any
+1 <= T1 <= T0 on each of its routes (``any_plan``: bf16 on the tensor
+cores and f32 on the CUDA cores, both ``superglue_gnn_any``, and
+``superglue_gnn_any_wide``, which takes every shape past 32 objects and
+every pair whose rows pass shared memory), Sinkhorn's wide form past 32 x
+16 couplings, FPS past 256 points; every LSTM form (W_hh in shared memory,
+from L2 past 256 units, the grid form) against a float64 evaluation on
+long, sensitive text (the bench text encoder, zero-padded to the wider
+widths); and the four trainers built on the card at embed_dim and
+regressor_dim 768.
 
 Imports only torch and numpy, so it also runs on a card machine without JAX:
 
@@ -148,7 +153,8 @@ def _text_errors(cuda, H):
     args = ([tlstm.pad_gates(t, 256, H).to(cuda) for t in tables],
             [tlstm.pad_w_hh(w, 256, H).to(cuda) for w in w_hh],
             tokens.to(cuda), lengths.to(cuda))
-    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    form = "lstm" if H <= tlstm.CLUSTER_HIDDEN else "lstm_grid"
+    got = _launches(form, lambda: tlstm.lstm_final_hidden(*args))
     assert got.shape == (2, len(tokens), H)
     got = got[..., :256]
     plain = tlstm.lstm_final_hidden_plain(*args)[..., :256]
@@ -182,6 +188,110 @@ def test_lstm_l2_form_holds_float64_on_text(cuda, H):
     err64, err, plain64 = _text_errors(cuda, H)
     assert err64 <= 2e-5, (err64, plain64)
     assert err <= 1e-4
+
+
+@pytest.mark.parametrize("H", [768, 1024])
+def test_lstm_grid_form_holds_float64_on_text(cuda, H):
+    """The grid form (past 512 units), which runs the L2 form's step, on
+    the same text zero-padded to H: within 2e-5 of float64 and within 1e-4
+    of the plain f32 version."""
+    err64, err, plain64 = _text_errors(cuda, H)
+    assert err64 <= 2e-5, (err64, plain64)
+    assert err <= 1e-4
+
+
+@pytest.mark.parametrize("T,B,H,ctas", [
+    (12, 70, 544, 0),       # the first width past the largest cluster
+    (16, 300, 768, 0),      # 24 CTAs a group, ten tiles
+    (9, 33, 1024, 0),
+    (9, 33, 1024, 3),       # 3 CTAs a group: up to 11 slices a CTA
+    (12, 65, 2048, 0),      # W_hh 67 MB: past L2
+    (5, 1, 608, 0),         # one sequence, H = 600 padded
+])
+def test_lstm_grid_form_matches_plain(cuda, T, B, H, ctas):
+    """Both directions in one cooperative launch against the plain version;
+    lengths 1 to T, and a whole tile of empty sequences where B allows."""
+    tables, w_hh, tokens, lengths = _lstm_case(T, B, H, seed=H + B)
+    if B > 64:
+        lengths[32:64] = 0
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm_grid", lambda: tlstm._lstm_kernel(*args,
+                                                             ctas=ctas))
+    want = tlstm.lstm_final_hidden_plain(*args)
+    assert got.shape == (2, B, H)
+    if B > 64:
+        assert float(got[:, 32:64].abs().max()) == 0.0
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_lstm_grid_form_repeats_bit_for_bit(cuda):
+    """Two calls give the same bits (no atomics in the sums; the barrier
+    orders every exchange), and ``bilstm_final_hidden`` takes the form."""
+    tables, w_hh, tokens, lengths = _lstm_case(10, 97, 800, seed=5)
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    a = tlstm.lstm_final_hidden(*args)
+    b = tlstm.lstm_final_hidden(*args)
+    assert torch.equal(a, b)
+    g = torch.Generator().manual_seed(6)
+    B, T, E, H = 7, 6, 40, 576
+    x = torch.randn(B, T, E, generator=g)
+    ln = torch.randint(1, T + 1, (B,), generator=g)
+    params = [tlstm.LSTMParams(torch.randn(E, 4 * H, generator=g) / E ** 0.5,
+                               torch.randn(H, 4 * H, generator=g) / H ** 0.5,
+                               torch.randn(4 * H, generator=g))
+              for _ in range(2)]
+    want = tlstm.bilstm_final_hidden(x, ln, *params)
+    on_card = [tlstm.LSTMParams(*(t.to(cuda) for t in p)) for p in params]
+    got = _launches("lstm_grid", lambda: tlstm.bilstm_final_hidden(
+        x.to(cuda), ln.to(cuda), *on_card))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,M,N,iters", [
+    (1280, 49, 7, 50),      # pad_size 48, 6 hints: the phase-14 coupling
+    (37, 33, 7, 6),         # pad_size 32
+    (5, 17, 40, 10),        # 39 hints
+    (9, 130, 65, 7),
+    (3, 40, 5, 0),          # no iteration: the couplings less - norm
+])
+def test_sinkhorn_wide_form_matches_plain(cuda, B, M, N, iters):
+    """Couplings past 32 x 16 (dustbins included) on the wide form, scores
+    up to +-60, against the plain dustbin couplings + Sinkhorn - norm."""
+    import numpy as np
+    from text2pos_torch.ops import sinkhorn as tsink
+
+    rng = np.random.default_rng(M * N)
+    scores = torch.tensor(np.clip(20 * rng.standard_normal(
+        (B, M - 1, N - 1)), -60, 60), dtype=torch.float32).to(cuda)
+    alpha = torch.tensor(1.3, device=cuda)
+    got = _launches("sinkhorn_wide", lambda: tsink.log_optimal_transport(
+        scores, alpha, iters))
+    want = tsink.log_optimal_transport_plain(scores, alpha, iters)
+    assert got.shape == (B, M, N)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_trainers_take_widths_past_512(cuda):
+    """The four trainers build on the card at embed_dim (offsets:
+    regressor_dim) 768 and pad_size 48: nothing but JAX's own limits is
+    refused."""
+    from text2pos_torch.config import TrainConfig
+    from text2pos_torch.data.hints import Vocabulary
+    from text2pos_torch.train.coarse import CoarseTrainer
+    from text2pos_torch.train.fine import FineTrainer
+    from text2pos_torch.train.offsets import OffsetsTrainer
+    from text2pos_torch.train.transformer import TransformerTrainer
+
+    vocab = Vocabulary(["a", "b"])
+    for cls, kw in ((CoarseTrainer, dict(embed_dim=768)),
+                    (FineTrainer, dict(embed_dim=768, pad_size=48)),
+                    (TransformerTrainer, dict(embed_dim=768, pad_size=48)),
+                    (OffsetsTrainer, dict(regressor_dim=768, pad_size=48))):
+        trainer = cls(TrainConfig(dataset="SYNTHETIC", device="cuda", **kw),
+                      vocab)
+        assert trainer.device.type == "cuda"
 
 
 def _packed(E, dtype, device, L):
@@ -317,6 +427,42 @@ def test_gnn_any_kernel_takes_fragment_ordered_weights(cuda):
     want = tgnn.gnn_scores_plain(d0, d1, packed)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-2 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,T0,T1,N,L", [
+    (516, 16, 6, 9, 2),          # past 512: bf16 on the tensor cores
+    (768, 16, 6, 9, 2),          # f32 past shared memory: the wide route
+    (1024, 64, 16, 3, 2),
+    (300, 48, 6, 7, 2),          # pad_size 48: the wide route
+    (300, 64, 64, 3, 2),
+    (128, 128, 6, 3, 2),
+    (300, 33, 1, 4, 0),          # one object past the shared routes
+])
+def test_gnn_any_kernel_past_512_and_32(cuda, dtype, E, T0, T1, N, L):
+    """Shapes past E = 512 and past 32 objects, which JAX takes: each on
+    the route ``any_plan`` gives (the wide one past 32 objects)."""
+    route = _gnn_case(cuda, dtype, E, T0, T1, N, L)
+    if T0 > tgnn.MAX_SHARED_SET:
+        assert route == "superglue_gnn_any_wide"
+
+
+@pytest.mark.parametrize("T0,T1", [(48, 6), (40, 40)])
+def test_gnn_any_wide_route_keeps_exact_ties_and_ragged_counts(cuda, T0, T1):
+    """On the wide route, bf16: identical hints give bit-identical score
+    columns, and a pair's scores are the same bits in a batch of 1, 2 or
+    5 pairs."""
+    packed = _packed(300, torch.bfloat16, cuda, 2)
+    g = torch.Generator().manual_seed(T0 + T1)
+    d0 = torch.randn(5, T0, 300, generator=g).to(cuda)
+    d1 = torch.randn(5, T1, 300, generator=g).to(cuda)
+    d1[:, 4] = d1[:, 1]
+    s = tgnn.gnn_scores(d0, d1, packed)
+    torch.testing.assert_close(s[:, :, 4], s[:, :, 1], atol=0, rtol=0)
+    for n in (1, 2):
+        alone = tgnn.gnn_scores(d0[:n].contiguous(), d1[:n].contiguous(),
+                                packed)
+        torch.testing.assert_close(alone, s[:n], atol=0, rtol=0)
 
 
 def test_gnn_any_kernel_rejects_bad_input(cuda):

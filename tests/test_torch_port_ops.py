@@ -192,7 +192,7 @@ class TestSinkhorn:
     @pytest.mark.parametrize("B,M,N,iters,scale", [
         (33, 16, 6, 50, 60.0),     # the serving coupling, scores to +-60
         (4, 1, 1, 50, 5.0),        # the smallest
-        (3, 31, 15, 50, 10.0),     # the largest the kernel takes
+        (3, 31, 15, 50, 10.0),     # the largest register coupling
         (6, 16, 6, 0, 5.0), (6, 16, 6, 1, 5.0)])
     def test_fused_dustbin_plain_matches_jax(self, B, M, N, iters, scale):
         """The fused kernel's plain twin (dustbins, marginals and - norm

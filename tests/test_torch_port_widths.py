@@ -13,8 +13,9 @@ port at JAX's default embed_dim 300 against the JAX package on the CPU.
   and 1/√300), T0 = 24 and T0 = 32 against JAX's Pallas kernel in
   interpret mode, f32 within 1e-5 (as ``test_torch_port_ops``); the padded
   layout itself is ``test_torch_port_gnn_padded``'s.
-- The wrappers' range checks raise ``ValueError`` naming the range, before
-  any build.
+- The wrappers' range checks take every width JAX takes (the LSTM any
+  H >= 1, the GNN any E a positive multiple of 4 and 1 <= T1 <= T0) and
+  raise ``ValueError`` naming the range for the rest, before any build.
 - At embed_dim 300, pad_size 24: ``encode_text`` against JAX's, the
   kernel's plain twin against the module form of the calibrated matcher,
   and calibrated ``serve_batch`` against JAX's (identical ``top_idx`` and
@@ -74,7 +75,7 @@ def test_lstm_pad_gates_layout():
     assert w.shape == (5, 20) and float(w[3:].abs().sum()) == 0
 
 
-@pytest.mark.parametrize("H", [32, 64, 320])
+@pytest.mark.parametrize("H", [32, 64, 320, 544, 608, 2048])
 def test_w_hh_fragments_mirror_the_kernel_fill(H):
     """``w_hh_fragments`` against a loop that copies ``csrc/lstm.cu``'s fill
     of a CTA's shared-memory slice, CTA after CTA."""
@@ -95,28 +96,59 @@ def test_w_hh_fragments_mirror_the_kernel_fill(H):
     np.testing.assert_array_equal(got, want)
 
 
-def test_lstm_wrapper_range_checks_run_before_building():
-    tables = [torch.zeros(3, 4 * 513) for _ in range(2)]
-    w_hh = [torch.zeros(513, 4 * 513) for _ in range(2)]
-    with pytest.raises(ValueError, match=r"\[1, 512\]"):
-        tlstm._lstm_kernel(tables, w_hh, torch.zeros(2, 3, dtype=torch.int32),
-                           torch.ones(2, dtype=torch.int32))
+def test_lstm_wrapper_range_checks_run_before_building(monkeypatch):
+    """Any H of at least 1 is taken, as JAX takes it: H = 513 and 600 pass
+    the checks and reach the grid form's launch (recorded here instead of
+    built); H = 0 is refused, naming the range, before any build."""
+    launched = []
+    monkeypatch.setattr(tlstm, "_lstm_grid",
+                        lambda *args: launched.append(args[-2]))
+    for H in (513, 600):
+        tlstm.check_kernel_width(H)
+        tables = [torch.zeros(3, 4 * H) for _ in range(2)]
+        w_hh = [torch.zeros(H, 4 * H) for _ in range(2)]
+        out = tlstm._lstm_kernel(tables, w_hh,
+                                 torch.zeros(2, 3, dtype=torch.int32),
+                                 torch.ones(2, dtype=torch.int32))
+        assert out.shape == (2, 2, H)
+    assert launched == [544, 608]               # padded to 32·k
     tlstm.check_kernel_width(300)
-    with pytest.raises(ValueError, match=r"\[1, 512\]"):
-        tlstm.check_kernel_width(600)
+    with pytest.raises(ValueError, match="at least 1"):
+        tlstm._lstm_kernel([torch.zeros(3, 0)] * 2, [torch.zeros(0, 0)] * 2,
+                           torch.zeros(2, 3, dtype=torch.int32),
+                           torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="at least 1"):
+        tlstm.check_kernel_width(0)
 
 
-@pytest.mark.parametrize("shape0,shape1,match", [
-    ((2, 16, 302), (2, 6, 302), "multiple of 4"),     # E = 302
-    ((2, 16, 516), (2, 6, 516), "multiple of 4"),     # over 512
-    ((2, 16, 300), (2, 17, 300), "T1 <= T0"),
-    ((2, 33, 300), (2, 6, 300), "T1 <= T0 <= 32"),
+@pytest.mark.parametrize("taken,refused,match", [
+    (((2, 16, 516), (2, 6, 516)), ((2, 16, 302), (2, 6, 302)),
+     "positive multiple of 4"),                   # E = 516 past 512; E = 302
+    (((2, 16, 768), (2, 6, 768)), ((2, 16, 0), (2, 6, 0)),
+     "positive multiple of 4"),                   # E = 768; E = 0
+    (((2, 33, 300), (2, 6, 300)), ((2, 16, 300), (2, 17, 300)),
+     "1 <= T1 <= T0"),                            # T0 = 33; T1 > T0
+    (((2, 48, 300), (2, 48, 300)), ((2, 48, 300), (2, 49, 300)),
+     "1 <= T1 <= T0"),                            # T0 = T1 = 48; T1 > T0
 ])
-def test_gnn_wrapper_range_checks_run_before_building(shape0, shape1, match):
+def test_gnn_wrapper_range_checks_run_before_building(taken, refused, match):
+    """What JAX takes passes the wrapper's shape checks and gets a route
+    (E a positive multiple of 4, any 1 <= T1 <= T0); what JAX refuses
+    raises, naming the range, before any build."""
+    (N, T0, E), (_, T1, _) = taken
+    tgnn._check_any_shape(torch.zeros(taken[0]), torch.zeros(taken[1]))
+    packed = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=E),
+                                  torch.float32, "cpu")
+    assert tgnn._check_weights(packed, E, 1, torch.float32,
+                               torch.zeros(taken[0])) == \
+        tgnn.padded_width(E, torch.float32)
+    assert tgnn.any_plan(E, T0, T1, torch.float32).route in (
+        "superglue_gnn_any", "superglue_gnn_any_wide")
     packed = tgnn.pack_gnn_params(tgnn.random_folded_params(1, width=4),
                                   torch.float32, "cpu")
     with pytest.raises(ValueError, match=match):
-        tgnn._gnn_kernel(torch.zeros(shape0), torch.zeros(shape1), packed)
+        tgnn._gnn_kernel(torch.zeros(refused[0]), torch.zeros(refused[1]),
+                         packed)
 
 
 def test_fps_plain_past_256_points_matches_first_index_rule():

@@ -88,9 +88,39 @@
 // (ops/lstm.py w_hh_fragments), so the step's code is the same; shared
 // memory holds only the h buffers (80 KiB at Hp = 320, 128 at 512).
 //
-// Ablation builds for scripts/check_lstm_kernel.py (wrong results, timing
-// only): -DT2P_LSTM_NO_EXCHANGE sends no h between CTAs,
-// -DT2P_LSTM_NO_PRODUCT skips the recurrent product.
+// Widths past 512: the grid form (lstm_grid_kernel, launch name
+// "lstm_grid"). A cluster holds at most 16 CTAs, 512 units, so past that the
+// CTAs that share a batch tile exchange h through global memory instead:
+// - A persistent cooperative launch of as many CTAs as the card holds at
+//   once. They form groups of CS CTAs; a group takes (direction, tile of
+//   BT = 32 sequences) tasks in turn, and CTA r of a group owns the
+//   32-unit slices r, r + CS, ... of Hp / 32 (one slice a CTA wherever the
+//   card holds Hp / 32 CTAs at once, 8,448 units at two CTAs an SM; more
+//   slices a CTA past that, so no width is refused but by the card's
+//   memory).
+// - A step of a slice has the L2 form's arithmetic: the same
+//   fragment-ordered W_hh from L2 (w_hh_fragments), the same rounded 3xTF32
+//   products in the same order and the same cell update, so it keeps that
+//   form's distance from float64. h comes from the group's double buffer in global
+//   memory ([2][Hp/8][BT][8], read through L2 with ld.global.cg), c from a
+//   global [Hp][BT] slice that only its own thread reads and writes.
+// - One barrier a step for the group: each CTA adds one to the group's
+//   counter (release, after a __syncthreads) and waits until the counter
+//   reaches the step's target (acquire); a wait that never completes traps
+//   instead of hanging. The cooperative launch refuses a grid the card
+//   cannot hold at once, so every CTA a barrier waits for is resident. Step
+//   0 reads no h (it is 0), and a group passes one more barrier after a
+//   task, so that no CTA writes the buffers of its next task while another
+//   still reads them.
+// The wrapper sizes the workspace (t2p_lstm_grid_workspace: both h buffers,
+// c and the counters a group, zeroed) for the plan the launch computes
+// again. Bound: the recurrent products, as above, in three TF32 passes;
+// W_hh (16·H² bytes in f32: 9.4 MB at H = 768, 16.8 MB at 1024, both in L2;
+// 67 MB at 2048, past it) is read from L2 or memory by every task's steps.
+//
+// Ablation builds of the cluster forms for scripts/check_lstm_kernel.py
+// (wrong results, timing only): -DT2P_LSTM_NO_EXCHANGE sends no h between
+// CTAs, -DT2P_LSTM_NO_PRODUCT skips the recurrent product.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -394,6 +424,195 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
     }
 }
 
+// ------------------------------------------------------------------------
+// The grid form: any H a multiple of 32 (used past 512)
+// ------------------------------------------------------------------------
+
+struct GridArgs {
+  const float* table[2];   // per direction [V, 4H]
+  const float* wpack[2];   // per direction [H/32][H/8][2][4][32][4]
+  const int* tokens;       // [B, T]
+  const int* lengths;      // [B]
+  float* out;              // [2, B, H]
+  float* hbuf;             // [groups][2][H/8][BT][8]
+  float* cbuf;             // [groups][H][BT]
+  unsigned* count;         // [groups], zero at launch
+  int V, T, B, H, ctas;    // ctas: CTAs a group
+};
+
+// Every CTA of the group arrives; returns when all `target` arrivals of the
+// group's counter have happened. Writes before it are visible after it.
+__device__ __forceinline__ void group_sync(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(count) : "memory");
+    for (unsigned n = 0;; ++n) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(count) : "memory");
+      if (v >= target) break;
+      if (n > (1u << 26)) __trap();
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 2) lstm_grid_kernel(const GridArgs a) {
+  __shared__ int len_s[BT];
+  const int H = a.H, T = a.T, B = a.B, CS = a.ctas;
+  const int S = H / UNITS;                       // slices of 32 units
+  const int group = blockIdx.x / CS, rank = blockIdx.x % CS;
+  const int groups = gridDim.x / CS;
+  const int tiles = (B + BT - 1) / BT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tid = lane & 3;
+  const int ug = warp & 3, sh = warp >> 2;
+  const int HB = H * BT;                         // floats a buffer
+  // The group's buffers are addressed from the arguments and the sequence
+  // lengths read from len_s where they are used, and W's offset in the
+  // product is an int: so the product's two k-steps in flight fit the 128
+  // registers that two CTAs an SM allow (held pointers or a 64-bit offset
+  // spilled).
+  const size_t hbuf = (size_t)group * 2 * HB, cbuf = (size_t)group * HB;
+  unsigned epoch = 0;
+
+  for (int task = group; task < 2 * tiles; task += groups) {
+    const int dir = task & 1, b0 = (task >> 1) * BT;
+    const bool rev = dir == 1;
+    __syncthreads();                             // len_s of the last task read
+    if (threadIdx.x < BT) {
+      const int b = b0 + threadIdx.x;
+      len_s[threadIdx.x] = b < B ? min(max(a.lengths[b], 0), T) : 0;
+    }
+    __syncthreads();
+    int maxlen = 0;
+#pragma unroll
+    for (int q = 0; q < BT; ++q) maxlen = max(maxlen, len_s[q]);
+    int cur = 0;
+    for (int s = 0; s < maxlen; ++s) {
+      const int t = rev ? maxlen - 1 - s : s;
+      for (int sl = rank; sl < S; sl += CS) {
+        const int unit = sl * UNITS + ug * 8 + gid;
+        const float* table = (dir ? a.table[1] : a.table[0]) + unit;
+        // acc[mt][nt]: rows gid / gid+8 = gates (i, f) for mt 0, (g, o)
+        // for mt 1; columns 2*tid, 2*tid+1 = sequences e = 0, 1.
+        float acc[2][2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = sh * 16 + nt * 8 + 2 * tid + e;
+            float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (t < len_s[q]) {
+              const int tk = __ldg(a.tokens + (size_t)min(b0 + q, B - 1) * T + t);
+              if ((unsigned)tk < (unsigned)a.V) {
+                const float* row = table + (size_t)tk * 4 * H;
+#pragma unroll
+                for (int g = 0; g < 4; ++g) x[g] = __ldg(row + g * H);
+              } else {
+#pragma unroll
+                for (int g = 0; g < 4; ++g) x[g] = __int_as_float(0x7fc00000);
+              }
+            }
+            acc[0][nt][e] = x[0];
+            acc[0][nt][2 + e] = x[1];
+            acc[1][nt][e] = x[2];
+            acc[1][nt][2 + e] = x[3];
+          }
+        float acc2[2][2][4] = {};
+        if (s > 0) {                             // h = 0 before step 0
+          const float4* wa =
+              reinterpret_cast<const float4*>(dir ? a.wpack[1] : a.wpack[0]) +
+              (size_t)sl * H * UNITS + ug * 32 + lane;
+          const float* hs = a.hbuf + hbuf + cur * HB + (sh * 16 + gid) * 8 +
+                            2 * tid;
+#pragma unroll 2
+          for (int kk = 0; kk < H / 8; ++kk) {
+            unsigned abig[2][4], asml[2][4], bbig[2][2], bsml[2][2];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const float4 w = __ldg(wa + (kk * 2 + mt) * 4 * 32);
+              split(w.x, abig[mt][0], asml[mt][0]);
+              split(w.y, abig[mt][1], asml[mt][1]);
+              split(w.z, abig[mt][2], asml[mt][2]);
+              split(w.w, abig[mt][3], asml[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const float2 hv = __ldcg(
+                  reinterpret_cast<const float2*>(hs + (kk * BT + nt * 8) * 8));
+              split(hv.x, bbig[nt][0], bsml[nt][0]);
+              split(hv.y, bbig[nt][1], bsml[nt][1]);
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                mma(acc2[mt][nt], asml[mt], bbig[nt][0], bbig[nt][1]);
+                mma(acc2[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                mma(part, abig[mt], bbig[nt][0], bbig[nt][1]);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
+              }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[mt][nt][q] += acc2[mt][nt][q];
+
+        const float* hc = a.hbuf + hbuf + cur * HB;
+        float* hn = a.hbuf + hbuf + (cur ^ 1) * HB;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = sh * 16 + nt * 8 + 2 * tid + e;
+            float* cp = a.cbuf + cbuf + (size_t)unit * BT + q;
+            const int hp = hpos(unit) + q * 8;
+            const float c0 = s > 0 ? *cp : 0.0f;
+            const float h0 = s > 0 ? __ldcg(hc + hp) : 0.0f;
+            const float ig = sigmoid_f(acc[0][nt][e]);
+            const float fg = sigmoid_f(acc[0][nt][2 + e]);
+            const float gg = tanhf(acc[1][nt][e]);
+            const float og = sigmoid_f(acc[1][nt][2 + e]);
+            const float cn = fg * c0 + ig * gg;
+            const float hv = og * tanhf(cn);
+            const bool v = t < len_s[q];
+            const float c1 = v ? cn : c0, h1 = v ? hv : h0;
+            *cp = c1;
+            hn[hp] = h1;
+            const int b = b0 + q;
+            if (s + 1 == maxlen && b < B)
+              a.out[((size_t)dir * B + b) * H + unit] = h1;
+          }
+      }
+      // The group's h of this step is complete; after a task's last step
+      // the barrier keeps the next task's writes from the buffers others
+      // still read.
+      group_sync(a.count + group, ++epoch * (unsigned)CS);
+      cur ^= 1;
+    }
+    if (maxlen == 0) {
+      // No step: every sequence of the tile has length 0 and h = 0.
+      for (int sl = rank; sl < S; sl += CS)
+        for (int i = threadIdx.x; i < UNITS * BT; i += THREADS) {
+          const int b = b0 + i / UNITS;
+          if (b < B)
+            a.out[((size_t)dir * B + b) * H + sl * UNITS + i % UNITS] = 0.0f;
+        }
+    }
+  }
+}
+
 }  // namespace
 
 namespace {
@@ -445,6 +664,109 @@ extern "C" int t2p_lstm_max_active_clusters(int H, int B, int* out) {
   cudaLaunchConfig_t cfg = config(H, B, nullptr, attr);
   return (int)(wsmem ? cudaOccupancyMaxActiveClusters(out, lstm_kernel<true>, &cfg)
                      : cudaOccupancyMaxActiveClusters(out, lstm_kernel<false>, &cfg));
+}
+
+namespace {
+
+// The grid form's plan at width H (a multiple of 32) and B sequences:
+// CTAs a group (at most `ctas` where it is positive, for tests of several
+// slices a CTA), groups running at once, and the bytes of its workspace:
+// per group two h buffers and c of H·BT floats each, then the counters.
+struct GridPlan {
+  int ctas, groups;
+  long long bytes, hbuf, cbuf, count;
+};
+
+cudaError_t grid_plan(int H, int B, int ctas, GridPlan* p) {
+  if (H < UNITS || H % UNITS != 0 || B < 1 || ctas < 0)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      lstm_grid_kernel,
+                                                      THREADS, 0);
+  if (e != cudaSuccess) return e;
+  const int resident = sms * per_sm;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  int cs = H / UNITS;
+  if (ctas > 0 && ctas < cs) cs = ctas;
+  if (cs > resident) cs = resident;
+  const int tasks = 2 * ((B + BT - 1) / BT);
+  int groups = resident / cs;
+  if (groups > tasks) groups = tasks;
+  p->ctas = cs;
+  p->groups = groups;
+  const long long hb = (long long)H * BT * 4;    // bytes of one h buffer
+  p->hbuf = 0;
+  p->cbuf = (long long)groups * 2 * hb;
+  p->count = p->cbuf + (long long)groups * hb;
+  p->bytes = p->count + (long long)groups * 4;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Bytes of zeroed global workspace the grid form takes at width H (a
+// multiple of 32) for B sequences; ctas as for t2p_lstm_final_hidden_grid.
+// Returns a cudaError_t.
+extern "C" int t2p_lstm_grid_workspace(int H, int B, int ctas,
+                                       long long* bytes) {
+  GridPlan p;
+  const cudaError_t e = grid_plan(H, B, ctas, &p);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = p.bytes;
+  return 0;
+}
+
+// The grid form: both directions in one cooperative launch at any H a
+// multiple of 32 (the wrapper takes it past 512). wpack_f and wpack_b hold
+// W_hh in fragment order (ops/lstm.py w_hh_fragments); workspace as
+// t2p_lstm_grid_workspace sizes it, zeroed; ctas 0 lets each CTA own one
+// slice of 32 units where the card holds them all at once, a positive value
+// caps the CTAs a group. Returns a cudaError_t; 0 means the launch was
+// accepted.
+extern "C" int t2p_lstm_final_hidden_grid(const void* table_f,
+                                          const void* table_b,
+                                          const void* wpack_f,
+                                          const void* wpack_b,
+                                          const void* tokens,
+                                          const void* lengths, void* out,
+                                          void* workspace, int V, int T,
+                                          int B, int H, int ctas,
+                                          void* stream) {
+  if (T < 1 || V < 1 || wpack_f == nullptr || wpack_b == nullptr ||
+      workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GridPlan p;
+  cudaError_t e = grid_plan(H, B, ctas, &p);
+  if (e != cudaSuccess) return (int)e;
+  unsigned char* ws = (unsigned char*)workspace;
+  GridArgs args;
+  args.table[0] = (const float*)table_f;
+  args.table[1] = (const float*)table_b;
+  args.wpack[0] = (const float*)wpack_f;
+  args.wpack[1] = (const float*)wpack_b;
+  args.tokens = (const int*)tokens;
+  args.lengths = (const int*)lengths;
+  args.out = (float*)out;
+  args.hbuf = (float*)(ws + p.hbuf);
+  args.cbuf = (float*)(ws + p.cbuf);
+  args.count = (unsigned*)(ws + p.count);
+  args.V = V;
+  args.T = T;
+  args.B = B;
+  args.H = H;
+  args.ctas = p.ctas;
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel((const void*)lstm_grid_kernel,
+                                  dim3((unsigned)(p.groups * p.ctas)),
+                                  dim3(THREADS), params, 0,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // Both directions in one launch. H a multiple of 32 in [32, 512]; past 256

@@ -29,7 +29,15 @@
 // Shapes. Two instantiations: the serving 17x7 coupling at R = 1 (exact
 // unrolled loops) and a generic one for any coupling up to 32 x 16 (R = 4,
 // 8 rows a thread, masked). Padding rows and columns hold -inf and never
-// contribute.
+// contribute. Past 32 x 16 (pad_size 32 and more, or 16 hints and more,
+// which JAX's kernel takes as it takes any) the wide form,
+// sinkhorn_wide_kernel (launch name "sinkhorn_wide"): a warp a coupling,
+// which reads its scores from global memory (L1) at every pass instead of
+// keeping them in registers, and keeps its duals in a global workspace of
+// M + N floats a coupling that only its own warp touches, so no coupling
+// shape is refused. A lane takes rows i = lane, lane + 32, ... in the row
+// pass and columns in the column pass, each a loop over the other axis in
+// index order, with the same ex2/lg2 arithmetic as above.
 //
 // Bound. Per iteration and coupling 2·M·N exponentials and M + N
 // logarithms on the special-function units (16 a clock an SM on compute
@@ -186,17 +194,67 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+constexpr int WIDE_WARPS = 4;              // couplings a CTA, wide form
 
-// M x N is the coupling's shape, dustbins included. Returns a cudaError_t;
-// 0 means the launch was accepted.
-extern "C" int t2p_log_sinkhorn(const void* z, const void* log_mu,
-                                const void* log_nu, const void* alpha,
-                                void* out, int B, int M, int N, int iters,
-                                int bins, void* stream) {
-  if (M < 1 || M > 32 || N < 1 || N > 16 || B < 1 || iters < 0 ||
-      (bins && (M < 2 || N < 2)))
-    return (int)cudaErrorInvalidValue;
+// The wide form (see the header): coupling b on warp b of the grid; u and v
+// in duals[b] = [u (M) | v (N)].
+__global__ void __launch_bounds__(WIDE_WARPS * 32)
+sinkhorn_wide_kernel(const Args a, float* __restrict__ duals) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);
+  if (b >= a.B) return;                      // whole warps only
+  const int M = a.M, N = a.N;
+  const bool bins = a.bins != 0;
+  const int Mi = bins ? M - 1 : M, Ni = bins ? N - 1 : N;
+  const float* zb = a.z + (size_t)b * Mi * Ni;
+  const float alpha = bins ? __ldg(a.alpha) : 0.0f;
+  const float norm = bins ? -logf((float)(Mi + Ni)) : 0.0f;
+  float* u = duals + (size_t)b * (M + N);
+  float* v = u + M;
+  auto z = [&](int i, int j) -> float {
+    if (bins && (i == M - 1 || j == N - 1)) return alpha;
+    return __ldg(zb + (size_t)i * Ni + j);
+  };
+  auto mu = [&](int i) -> float {
+    if (bins) return i == M - 1 ? logf((float)Ni) + norm : norm;
+    return __ldg(a.log_mu + (size_t)b * M + i);
+  };
+  auto nu = [&](int j) -> float {
+    if (bins) return j == N - 1 ? logf((float)Mi) + norm : norm;
+    return __ldg(a.log_nu + (size_t)b * N + j);
+  };
+  for (int i = lane; i < M + N; i += 32) u[i] = 0.0f;
+  __syncwarp();
+  for (int it = 0; it < a.iters; ++it) {
+    // u_i = log_mu_i - logsumexp_j(z_ij + v_j)
+    for (int i = lane; i < M; i += 32) {
+      float m = -INFINITY;
+      for (int j = 0; j < N; ++j) m = fmaxf(m, z(i, j) + v[j]);
+      float s = 0.0f;
+      for (int j = 0; j < N; ++j) s += ex2((z(i, j) + v[j] - m) * LOG2E);
+      u[i] = mu(i) - (m + lg2(s) * LN2);
+    }
+    __syncwarp();
+    // v_j = log_nu_j - logsumexp_i(z_ij + u_i)
+    for (int j = lane; j < N; j += 32) {
+      float m = -INFINITY;
+      for (int i = 0; i < M; ++i) m = fmaxf(m, z(i, j) + u[i]);
+      float s = 0.0f;
+      for (int i = 0; i < M; ++i) s += ex2((z(i, j) + u[i] - m) * LOG2E);
+      v[j] = nu(j) - (m + lg2(s) * LN2);
+    }
+    __syncwarp();
+  }
+  float* dst = a.out + (size_t)b * M * N;
+  for (int k = lane; k < M * N; k += 32) {
+    const int i = k / N, j = k % N;
+    dst[k] = z(i, j) + u[i] + v[j] - norm;
+  }
+}
+
+Args make_args(const void* z, const void* log_mu, const void* log_nu,
+               const void* alpha, void* out, int B, int M, int N, int iters,
+               int bins) {
   Args a;
   a.z = (const float*)z;
   a.log_mu = (const float*)log_mu;
@@ -208,6 +266,40 @@ extern "C" int t2p_log_sinkhorn(const void* z, const void* log_mu,
   a.N = N;
   a.iters = iters;
   a.bins = bins;
+  return a;
+}
+
+}  // namespace
+
+// The wide form at any M x N (dustbins included): duals a float workspace
+// of B·(M + N), which the kernel initializes. Returns a cudaError_t; 0
+// means the launch was accepted.
+extern "C" int t2p_log_sinkhorn_wide(const void* z, const void* log_mu,
+                                     const void* log_nu, const void* alpha,
+                                     void* out, void* duals, int B, int M,
+                                     int N, int iters, int bins,
+                                     void* stream) {
+  if (M < 1 || N < 1 || B < 1 || iters < 0 || duals == nullptr ||
+      (bins && (M < 2 || N < 2)))
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(z, log_mu, log_nu, alpha, out, B, M, N, iters,
+                           bins);
+  sinkhorn_wide_kernel<<<(B + WIDE_WARPS - 1) / WIDE_WARPS, WIDE_WARPS * 32,
+                         0, (cudaStream_t)stream>>>(a, (float*)duals);
+  return (int)cudaGetLastError();
+}
+
+// M x N is the coupling's shape, dustbins included. Returns a cudaError_t;
+// 0 means the launch was accepted.
+extern "C" int t2p_log_sinkhorn(const void* z, const void* log_mu,
+                                const void* log_nu, const void* alpha,
+                                void* out, int B, int M, int N, int iters,
+                                int bins, void* stream) {
+  if (M < 1 || M > 32 || N < 1 || N > 16 || B < 1 || iters < 0 ||
+      (bins && (M < 2 || N < 2)))
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(z, log_mu, log_nu, alpha, out, B, M, N, iters,
+                           bins);
   cudaStream_t s = (cudaStream_t)stream;
   if (M == 17 && N == 7) return launch<17, 7, 1, true>(a, s);
   return launch<8, 16, 4, false>(a, s);

@@ -1,10 +1,11 @@
 // SuperGlue attention GNN in eval mode at any configured width and set
 // sizes: the second hand-written form of text2pos_torch/csrc/superglue_gnn.cu,
-// which is tuned for (E, T0, T1) = (128, 16, 6) alone. This one takes E a
-// multiple of 4 up to 512 (4 heads of E/4 channels, 75 at JAX's default
-// E = 300) and 1 <= T1 <= T0 <= 32 (pad_size and num_mentioned), with f32 or
-// bf16 weights: all 2·num_layers self/cross blocks, the final projection and
-// the [N, T0, T1] score matrix, one launch.
+// which is tuned for (E, T0, T1) = (128, 16, 6) alone. This one takes any E
+// a multiple of 4 (4 heads of E/4 channels, 75 at JAX's default E = 300,
+// 192 at 768) and any 1 <= T1 <= T0 (pad_size and num_mentioned), as the
+// Pallas kernel does, with f32 or bf16 weights: all 2·num_layers self/cross
+// blocks, the final projection and the [N, T0, T1] score matrix, one
+// launch.
 //
 // Replaces the TPU kernel text2pos_tpu/ops/superglue_gnn_pallas.py:253
 // (gnn_scores_pallas, which takes any N and E with T1 <= T0), at the shapes
@@ -125,10 +126,20 @@
 //
 // "superglue_gnn_any_wide" (namespace wide): the first form of this file,
 // kept for the shapes whose rows do not fit in shared memory even at G = 1
-// (f32 where T0 + T1 > 47 at E = 300; bf16 only at E > 448 with both sets
-// over 16): one CTA a pair, 8x4 register tiles, the rows in a global
-// workspace slice of a persistent CTA, weights read straight from global
-// memory (bf16 ones from fragment order, element by element).
+// (f32 where T0 + T1 > 47 at E = 300 and past E = 656 at (16, 6); bf16 at
+// E > 448 with both sets over 16 and past E = 896), and for every shape
+// past SHARED_MAX_T objects, whose attention the two shared routes keep in
+// registers: one CTA a pair, 8x4 register tiles, the rows in a global
+// workspace slice of a persistent CTA whose size follows T0, T1 and Ep
+// (layout), weights read straight from global memory (bf16 ones from
+// fragment order, element by element). None of its loops has a bound of
+// its own: a (row, head) of the attention loops over the source set's rows,
+// the messages over them, the products over K and N. Its products sum
+// each group of 4 k-values in a register of its own before adding it to the
+// running sum (blocked summation: K/4 roundings of the running sum instead
+// of K): at the widths where only this route runs it serves in bf16 at
+// full depth, where chip_smoke's depth gate holds it to drift from a
+// float64 evaluation no more than the plain version does.
 //
 // Bound. About 20·E²·(T0 + T1) operations a block a pair (the five
 // products), 0.48 GFLOP a pair at E = 300 with 12 blocks, against
@@ -156,8 +167,10 @@ namespace {
 constexpr int HEADS = 4;
 constexpr int NT = 256;          // threads a CTA, every route
 constexpr int WARPS = NT / 32;
-constexpr int MAX_E = 512;
-constexpr int MAX_T = 32;
+// The shared routes' attention keeps a query row's scores over the source
+// set in registers (tc: two 16-key chunks; f32: float s[SHARED_MAX_T]):
+// past this many objects every shape takes the wide route.
+constexpr int SHARED_MAX_T = 32;
 
 enum Route { SHARED = 0, WIDE = 1 };
 
@@ -931,13 +944,13 @@ __device__ __forceinline__ void attend(const float* Wb, float* A, int ldr,
     const float* q = Wb + r * ldr + hh * Dp;
     const float* k = Wb + kbase * ldr + Ep / 2 + hh * Dp;
     const float* v = Wb + kbase * ldr + Ep + hh * Dp;
-    float s[MAX_T];
+    float s[SHARED_MAX_T];
 #pragma unroll
-    for (int j = 0; j < MAX_T; ++j) s[j] = 0.0f;
+    for (int j = 0; j < SHARED_MAX_T; ++j) s[j] = 0.0f;
     for (int c = 0; c < Dp; c += 4) {
       const float4 a = ld4(q + c);
 #pragma unroll
-      for (int j = 0; j < MAX_T; ++j) {
+      for (int j = 0; j < SHARED_MAX_T; ++j) {
         if (j < nk) {
           const float4 b = ld4(k + j * ldr + c);
           float d = s[j];
@@ -951,26 +964,26 @@ __device__ __forceinline__ void attend(const float* Wb, float* A, int ldr,
     }
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < MAX_T; ++j)
+    for (int j = 0; j < SHARED_MAX_T; ++j)
       if (j < nk) {
         s[j] = s[j] / att_scale;
         mx = fmaxf(mx, s[j]);
       }
     float sum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < MAX_T; ++j)
+    for (int j = 0; j < SHARED_MAX_T; ++j)
       if (j < nk) {
         s[j] = expf(s[j] - mx);
         sum += s[j];
       }
 #pragma unroll
-    for (int j = 0; j < MAX_T; ++j)
+    for (int j = 0; j < SHARED_MAX_T; ++j)
       if (j < nk) s[j] = s[j] / sum;
     float* out = A + r * ldr + Ep + (2 * hp + hh) * Dp;
     for (int c = 0; c < Dp; c += 4) {
       float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-      for (int j = 0; j < MAX_T; ++j) {
+      for (int j = 0; j < SHARED_MAX_T; ++j) {
         if (j < nk) {
           const float4 b = ld4(v + j * ldr + c);
           m.x = fmaf(s[j], b.x, m.x);
@@ -1281,12 +1294,16 @@ __device__ __forceinline__ void matmul(const T* X, int ldx, int R, int K,
       for (int kk = 0; kk < 4; ++kk) Vec<T>::weight(W, K, N, k + kk, c, w[kk]);
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
-        float x[4];
+        float x[4], part[CT];
         Vec<T>::load(xp + (size_t)i * ldx + k, x);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int j = 0; j < CT; ++j) part[j] = x[0] * w[0][j];
 #pragma unroll
-          for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x[kk], w[kk][j], acc[i][j]);
+        for (int kk = 1; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) part[j] = fmaf(x[kk], w[kk][j], part[j]);
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] += part[j];
       }
     }
 #pragma unroll
@@ -1484,10 +1501,11 @@ int launch(const float* desc0, const float* desc1, const Weights<T>& wt,
 }  // namespace wide
 
 // What the kernels need of a shape: heads of whole 16-channel k-steps in
-// bf16 (Ep a multiple of 64) and of float4s in f32 (of 16).
+// bf16 (Ep a multiple of 64) and of float4s in f32 (of 16); no bound on E,
+// T0 or T1 but what the card's memory holds.
 bool shape_ok(int E, int Ep, int T0, int T1, int bf16) {
-  return E >= 4 && E % 4 == 0 && E <= Ep && Ep <= MAX_E &&
-         Ep % (bf16 ? 64 : 16) == 0 && T1 >= 1 && T1 <= T0 && T0 <= MAX_T;
+  return E >= 4 && E % 4 == 0 && E <= Ep && Ep % (bf16 ? 64 : 16) == 0 &&
+         T1 >= 1 && T1 <= T0;
 }
 
 // The shared route's rows at G pairs a CTA, in its layout: bf16 objects
@@ -1495,7 +1513,7 @@ bool shape_ok(int E, int Ep, int T0, int T1, int bf16) {
 // (any_plan) chooses G; a G whose rows no instantiation takes, or whose
 // shared memory the card refuses, fails the launch.
 int shared_rows(int T0, int T1, int bf16, int G) {
-  if (G < 1) return 0;
+  if (G < 1 || T0 > SHARED_MAX_T) return 0;
   return bf16 ? tc::rows(G, T0, T1) : G * (T0 + T1);
 }
 

@@ -12,12 +12,16 @@ steps with ``t >= length`` leave h and c unchanged, and the backward
 direction runs over the reversed padded sequence with reversed validity. All
 f32, as in JAX.
 
-The kernel takes H in [1, 512]. The wrapper pads H to a multiple of 32
-(``kernel_width``) with zero gate columns and zero W_hh rows, which keep
-the padded units at exactly 0 (``pad_gates``, ``pad_w_hh``), and cuts the
-padding off the result: JAX's default width 300 runs at 320. Past 256 it
-also hands the kernel W_hh in fragment order (``w_hh_fragments``), which
-that form reads from global memory each step.
+The kernel takes any H, as JAX's does. The wrapper pads H to a multiple
+of 32 (``kernel_width``) with zero gate columns and zero W_hh rows, which
+keep the padded units at exactly 0 (``pad_gates``, ``pad_w_hh``), and cuts
+the padding off the result: JAX's default width 300 runs at 320. Past 256
+it also hands the kernel W_hh in fragment order (``w_hh_fragments``), which
+the wider forms read from global memory each step. Up to
+``CLUSTER_HIDDEN`` units the CTAs of a batch tile form one thread-block
+cluster (launch ``lstm``); past it they exchange h through global memory in
+one cooperative launch (the grid form, launch ``lstm_grid``), on a zeroed
+workspace the wrapper allocates.
 
 On CPU tensors ``lstm_final_hidden`` runs its plain PyTorch version; on CUDA
 tensors it launches the kernel or raises. Where grad mode is on and the
@@ -34,10 +38,8 @@ Function, so gradients reach the embedding, W_ih and b through them.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -91,8 +93,8 @@ def lstm_final_hidden_plain(tables: Sequence[torch.Tensor],
         for d in (0, 1)])
 
 
-MAX_HIDDEN = 512     # a cluster of 16 CTAs of 32 units
-SMEM_HIDDEN = 256    # W_hh's slices in the cluster's shared memory up to here
+CLUSTER_HIDDEN = 512  # a cluster of 16 CTAs of 32 units; the grid form past
+SMEM_HIDDEN = 256     # W_hh's slices in the cluster's shared memory up to here
 
 
 def kernel_width(hidden: int) -> int:
@@ -103,11 +105,11 @@ def kernel_width(hidden: int) -> int:
 
 def check_kernel_width(hidden: int) -> None:
     """Raise ``ValueError`` unless the kernel takes hidden width ``hidden``:
-    [1, 512], run padded to a multiple of 32."""
-    if not 1 <= hidden <= MAX_HIDDEN:
+    any width of at least 1, run padded to a multiple of 32."""
+    if hidden < 1:
         raise ValueError(
-            f"the LSTM kernel takes a hidden width (embed_dim) in [1, "
-            f"{MAX_HIDDEN}], not {hidden}")
+            f"the LSTM kernel takes a hidden width (embed_dim) of at least "
+            f"1, not {hidden}")
 
 
 def pad_gates(x: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
@@ -126,33 +128,23 @@ def pad_w_hh(w: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
     return F.pad(pad_gates(w, hidden, width), (0, 0, 0, width - hidden))
 
 
-@functools.lru_cache(maxsize=None)
-def _fragment_perm(H: int) -> np.ndarray:
-    """Source index into W_hh ``[H, 4H]`` (flat) of each element of its
-    fragment order ``[H/32][H/8][2][4][32][4]``: the order in which
-    ``csrc/lstm.cu`` stores CTA r's slice in shared memory (its fill
-    loop), one slice after the other."""
-    k, gate, r, u = np.meshgrid(np.arange(H), np.arange(4), np.arange(H // 32),
-                                np.arange(32), indexing="ij")
-    row = 8 * (gate & 1) + (u & 7)
-    ln = 4 * (row & 7) + (k & 3)
-    j = 2 * ((k & 7) >> 2) + (row >> 3)
-    dest = r * H * 32 * 4 + (((((k >> 3) * 2 + (gate >> 1)) * 4 + (u >> 3))
-                              * 32 + ln) * 4 + j)
-    perm = np.empty(4 * H * H, np.int64)
-    perm[dest.ravel()] = (k * 4 * H + gate * H + r * 32 + u).ravel()
-    return perm
-
-
 def w_hh_fragments(w: torch.Tensor) -> torch.Tensor:
     """W_hh ``[H, 4H]`` (H a multiple of 32) in the kernel's A-fragment
-    order, flat: what the kernel reads from global memory past
-    ``SMEM_HIDDEN``."""
-    perm = torch.as_tensor(_fragment_perm(w.shape[0]), device=w.device)
-    return w.reshape(-1)[perm]
+    order ``[H/32][H/8][2][4][32][4]``, flat: the order in which
+    ``csrc/lstm.cu`` stores CTA r's slice in shared memory (its fill loop),
+    one slice after the other, and what the wider forms read from global
+    memory. One permutation of W_hh's axes, on W_hh's device: k = 8·k8 +
+    4·kh + kl and column gate·H + 32·r + 8·u8 + ul with gate = 2·mt + gl go
+    to [r][k8][mt][u8][lane = 4·ul + kl][2·kh + gl]."""
+    H = w.shape[0]
+    return (w.reshape(H // 8, 2, 4, 2, 2, H // 32, 4, 8)
+            .permute(5, 0, 3, 6, 7, 2, 1, 4).reshape(-1))
 
 
-def _lstm_kernel(tables, w_hh, tokens, lengths):
+def _lstm_kernel(tables, w_hh, tokens, lengths, ctas: int = 0):
+    """The kernel on CUDA tensors: the cluster forms up to
+    ``CLUSTER_HIDDEN`` units, the grid form past it (``ctas`` > 0 caps the
+    CTAs of its groups, so that a CTA owns several 32-unit slices)."""
     _build.refuse_grad("LSTM kernel", *tables, *w_hh)
     dev = tokens.device
     B, T = tokens.shape
@@ -166,16 +158,14 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
                              "different devices")
     if len(tables) != 2 or len(w_hh) != 2 or tables[1].shape != (V, H4) \
             or any(tuple(w.shape) != (H, H4) for w in w_hh) or H4 % 4 \
-            or not 1 <= H <= MAX_HIDDEN:
+            or H < 1:
         raise ValueError(
             f"LSTM kernel: unsupported tables {[tuple(t.shape) for t in tables]}"
-            f" / w_hh {[tuple(w.shape) for w in w_hh]} (two directions; H in "
-            f"[1, {MAX_HIDDEN}])")
+            f" / w_hh {[tuple(w.shape) for w in w_hh]} (two directions, "
+            f"[V, 4H] and [H, 4H], H of at least 1)")
     Hp = kernel_width(H)
     tables = [pad_gates(t, H, Hp).contiguous() for t in tables]
     w_hh = [pad_w_hh(w, H, Hp).contiguous() for w in w_hh]
-    wpack = ([w_hh_fragments(w) for w in w_hh] if Hp > SMEM_HIDDEN
-             else None)
     if tokens.dtype not in (torch.int32, torch.int64) or \
             tuple(lengths.shape) != (B,):
         raise ValueError("LSTM kernel: tokens must be [B, T] integers and "
@@ -186,6 +176,12 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
     tokens = tokens.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty(2, B, Hp, device=dev, dtype=torch.float32)
+    if Hp > CLUSTER_HIDDEN:
+        _lstm_grid(tables, [w_hh_fragments(w) for w in w_hh], tokens,
+                   lengths, out, V, T, B, Hp, ctas)
+        return out if Hp == H else out[..., :H]
+    wpack = ([w_hh_fragments(w) for w in w_hh] if Hp > SMEM_HIDDEN
+             else None)
     fn = _build.entry("lstm", "t2p_lstm_final_hidden",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
@@ -198,6 +194,27 @@ def _lstm_kernel(tables, w_hh, tokens, lengths):
                   B, Hp)
     _build.LAUNCHES["lstm"] += 1
     return out if Hp == H else out[..., :H]
+
+
+def _lstm_grid(tables, wpack, tokens, lengths, out, V, T, B, Hp, ctas):
+    """The grid form's launch, on a zeroed workspace of the size its plan
+    asks (h buffers, c and barrier counters of each group of CTAs)."""
+    dev = tokens.device
+    nbytes = ctypes.c_longlong(0)
+    size = _build.entry("lstm", "t2p_lstm_grid_workspace",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        _build.check(size(Hp, B, ctas, ctypes.byref(nbytes)),
+                     "lstm_grid workspace")
+    ws = torch.zeros(nbytes.value, dtype=torch.uint8, device=dev)
+    fn = _build.entry("lstm", "t2p_lstm_final_hidden_grid",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+    _build.launch(fn, dev, "lstm_grid", tables[0].data_ptr(),
+                  tables[1].data_ptr(), wpack[0].data_ptr(),
+                  wpack[1].data_ptr(), tokens.data_ptr(), lengths.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(), V, T, B, Hp, ctas)
+    _build.LAUNCHES["lstm_grid"] += 1
 
 
 class LSTMFinalHidden(torch.autograd.Function):

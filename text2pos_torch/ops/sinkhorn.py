@@ -7,8 +7,12 @@ the card all of it is one launch of the hand-written CUDA kernel
 ``csrc/sinkhorn.cu`` (replacing the Pallas kernel
 ``text2pos_tpu/ops/sinkhorn_pallas.py:51``), which reads the scores and
 builds the dustbins in registers; ``log_sinkhorn`` takes given couplings and
-marginals through the same kernel. ``extract_matches`` is plain PyTorch:
-mutual max, threshold, first index on argmax ties. All f32.
+marginals through the same kernel. Couplings up to ``MAX_ROWS`` x
+``MAX_COLS`` (dustbins included) stay in registers (launch ``sinkhorn``);
+larger ones, which JAX's kernel takes as it takes any, run the kernel's
+wide form (a warp a coupling, its duals in a workspace; launch
+``sinkhorn_wide``). ``extract_matches`` is plain PyTorch: mutual max,
+threshold, first index on argmax ties. All f32.
 
 Where grad mode is on and the scores or the dustbin score require grad (a
 training step), ``log_optimal_transport`` goes through
@@ -31,6 +35,10 @@ from torch.profiler import record_function
 
 from text2pos_torch.ops import _build
 
+# The register forms' largest coupling (csrc/sinkhorn.cu): pad_size 31 and
+# 15 hints, with the dustbins.
+MAX_ROWS, MAX_COLS = 32, 16
+
 
 def log_sinkhorn_plain(Z: torch.Tensor, log_mu: torch.Tensor,
                        log_nu: torch.Tensor, iters: int) -> torch.Tensor:
@@ -47,9 +55,9 @@ def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
     """One launch on ``z`` ([B, M, N] couplings, or [B, M-1, N-1] scores
     with ``bins``); returns [B, M, N]."""
     B = z.shape[0]
-    if not 1 <= M <= 32 or not 1 <= N <= 16:
-        raise ValueError(f"Sinkhorn kernel: [{M}, {N}] coupling exceeds "
-                         "32 rows x 16 columns")
+    if M < 1 or N < 1 or (bins and (M < 2 or N < 2)):
+        raise ValueError(f"Sinkhorn kernel: no [{M}, {N}] coupling"
+                         + (" with dustbins" if bins else ""))
     if iters < 0:
         raise ValueError("Sinkhorn kernel: negative iteration count")
     args = [t for t in (z, log_mu, log_nu, alpha) if t is not None]
@@ -63,6 +71,16 @@ def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
     if B == 0:
         return out
     ptr = [t if t is None else t.data_ptr() for t in (log_mu, log_nu, alpha)]
+    if M > MAX_ROWS or N > MAX_COLS:
+        duals = torch.empty(B, M + N, device=z.device, dtype=torch.float32)
+        fn = _build.entry("sinkhorn", "t2p_log_sinkhorn_wide",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+        _build.launch(fn, z.device, "sinkhorn_wide", z.data_ptr(), *ptr,
+                      out.data_ptr(), duals.data_ptr(), B, M, N, int(iters),
+                      int(bins))
+        _build.LAUNCHES["sinkhorn_wide"] += 1
+        return out
     fn = _build.entry("sinkhorn", "t2p_log_sinkhorn",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])

@@ -12,13 +12,14 @@ arithmetic, rounding included, in PyTorch.
 - ``csrc/superglue_gnn.cu``, tuned for ``KERNEL_SHAPE`` (E = 128, 16
   objects, 6 hints): bf16 on the tensor cores (``mma.sync`` m16n8k16, f32
   accumulation, ``TC_PAIRS`` pairs a CTA), f32 on the CUDA cores.
-- ``csrc/superglue_gnn_any.cu`` at every other shape JAX's configurations
-  give (E a multiple of 4 up to ``MAX_WIDTH``, 1 ≤ T1 ≤ T0 ≤ ``MAX_SET``:
-  JAX's default E = 300, ``pad_size`` 24 and 32). ``any_plan`` picks its
+- ``csrc/superglue_gnn_any.cu`` at every other shape JAX's kernel takes
+  (any E a multiple of 4 and 1 ≤ T1 ≤ T0, as the model asks: JAX's
+  default E = 300, ``pad_size`` 24, 32 and past). ``any_plan`` picks its
   route and the pairs a CTA holds: bf16 on the tensor cores, f32 on the
   CUDA cores with G pairs sharing each weight read (both counted as
-  ``superglue_gnn_any``), and ``superglue_gnn_any_wide`` where a pair's rows
-  do not fit in shared memory.
+  ``superglue_gnn_any``, up to ``MAX_SHARED_SET`` objects), and
+  ``superglue_gnn_any_wide`` where a pair's rows do not fit in shared
+  memory or a cell holds more objects.
 
 Operations bound the function on the H100 (about 20·E²·(T0 + T1) a block a
 pair against (T0 + T1)·E·4 bytes of descriptors). The layout the kernels
@@ -58,8 +59,10 @@ from text2pos_torch.ops import _build
 
 HEADS = 4
 KERNEL_SHAPE = (128, 16, 6)   # E, objects per cell, hints per query
-MAX_WIDTH = 512               # superglue_gnn_any.cu: E a multiple of 4
-MAX_SET = 32                  # and 1 <= T1 <= T0 <= MAX_SET
+# The second form's shared routes keep a query row's attention over the
+# source set in registers, up to this many objects (superglue_gnn_any.cu
+# SHARED_MAX_T); past it every shape takes the wide route.
+MAX_SHARED_SET = 32
 TC_PAIRS = 4                  # pairs per CTA of the tuned bf16 kernel
 SMEM_OPTIN = 232448           # an H100 CTA's dynamic shared memory, bytes
 MATMUL_WEIGHTS = ("wqkv", "wm", "w0", "w1", "wf")
@@ -316,10 +319,13 @@ def any_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
     then hints, each set padded to a multiple of 16, at most 64 rows of
     2·(2·Ep + 8) bf16; f32: G·(T0 + T1) rows of 2·(2·Ep + 4) floats, at
     most 64), or the wide route (a pair a CTA, its rows in global memory)
-    where not even one pair fits. The kernel computes its layout from G and
-    fails a launch whose rows it has no instantiation for."""
+    where not even one pair fits or T0 passes ``MAX_SHARED_SET``. The
+    kernel computes its layout from G and fails a launch whose rows it has
+    no instantiation for."""
     Ep = padded_width(E, dtype)
     bf16 = dtype == torch.bfloat16
+    if T0 > MAX_SHARED_SET:
+        return AnyPlan("superglue_gnn_any_wide", Ep, 1, T0 + T1, 0, None)
     if bf16:
         def rows(g):
             return 16 * (-(-g * T0 // 16) + -(-g * T1 // 16))
@@ -390,14 +396,17 @@ def gnn_scores_plain(desc0: torch.Tensor, desc1: torch.Tensor,
 
 
 def _check_any_shape(desc0, desc1) -> None:
+    """What JAX's kernel and model refuse: 4 heads of whole channels (E a
+    positive multiple of 4, ``d_model % num_heads``), T1 > T0 or empty
+    sets, mismatched batches or widths."""
     N, T0, E = desc0.shape
     T1 = desc1.shape[1]
-    if tuple(desc1.shape) != (N, T1, E) or E % 4 or not 4 <= E <= MAX_WIDTH \
-            or not 1 <= T1 <= T0 <= MAX_SET:
+    if tuple(desc1.shape) != (N, T1, E) or E % 4 or E < 4 \
+            or not 1 <= T1 <= T0:
         raise ValueError(
-            f"GNN kernel takes [N, T0, E] x [N, T1, E] with E a multiple of 4 "
-            f"in [4, {MAX_WIDTH}] and 1 <= T1 <= T0 <= {MAX_SET}, got "
-            f"{tuple(desc0.shape)} x {tuple(desc1.shape)}")
+            f"GNN kernel takes [N, T0, E] x [N, T1, E] with E a positive "
+            f"multiple of 4 and 1 <= T1 <= T0, got {tuple(desc0.shape)} x "
+            f"{tuple(desc1.shape)}")
 
 
 def _check_weights(packed, E, L, dt, desc0) -> int:
