@@ -5851,8 +5851,8 @@ WIDEST_QUERIES = 128
 WIDEST_LSTM = (544, 768, 1024, 2048)
 # Random GNN shapes: E past 512 on the tensor-core route (516, 768 at 16
 # objects), E = 1024 with 64 objects, pad_size 48 and 64 at E = 300, 128
-# objects at the bench width; pairs by route (the wide one runs a CTA a
-# pair).
+# objects at the bench width; pairs by route (the counts of PERF.md's
+# kernel-table rows).
 WIDEST_GNN = ((516, 16, 6), (768, 16, 6), (1024, 64, 16), (300, 48, 6),
               (300, 64, 64), (128, 128, 6))
 WIDEST_GNN_PAIRS = {"superglue_gnn_any": 4096, "superglue_gnn_any_wide": 512}
@@ -5860,6 +5860,10 @@ WIDEST_GNN_PAIRS = {"superglue_gnn_any": 4096, "superglue_gnn_any_wide": 512}
 # form, the GNN on its wide route, Sinkhorn's wide form; no other form.
 WIDEST_LAUNCHES = {"lstm_grid": 2, "superglue_gnn_any_wide": 1,
                    "sinkhorn_wide": 1}
+# The wide route's times before its redesign (a CTA a pair on scalar FMAs)
+# on the path's 1,280 pairs at 12 blocks, ms by dtype: PERF.md's kernel
+# table (this phase on an H100 80GB HBM3 at 700 W).
+WIDEST_PARENT_MS = {"bf16": 2821.0, "f32": 727.0}
 
 
 def widest_map(pipe):
@@ -5930,6 +5934,37 @@ def widest_lstm_f64(pipe, fx, pipe_bench, fx_bench, failures):
               f"(B={len(tok)}, T={tok.shape[1]}) against float64 (plain "
               f"f32 {perr:.3e})", err, LSTM_F64_TOL, failures)
         out[label] = (err, perr)
+    return out
+
+
+def widest_route_line(gnn, N, T1):
+    """14.2: the wide route on the path's N pose-cell pairs of T1 hints, by
+    dtype: its plan (pairs a CTA, rows), its workspace and the part of it
+    its CTAs re-read within a product, its time beside the plain
+    version's, its bound and the route's time before its redesign
+    (WIDEST_PARENT_MS)."""
+    from text2pos_torch.ops import superglue_gnn as tgnn
+
+    out = {}
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        plan = tgnn.any_plan(WIDEST_E, WIDEST_PAD, T1, dt)
+        r = gnn[label]
+        ws = tgnn.any_workspace_bytes(WIDEST_E, WIDEST_PAD, T1, plan, N,
+                                      int(dt == torch.bfloat16),
+                                      torch.device("cuda"))
+        hot = tgnn.wide_hot_bytes(plan.width, plan.rows, dt)
+        log(f"  14.2 {plan.route} {label} ({WIDEST_E}, {WIDEST_PAD}, {T1}), "
+            f"{N} pairs: {plan.pairs} pairs a CTA, {plan.rows} rows, "
+            f"workspace {ws / 1e6:.1f} MB ({hot / 1e6:.1f} MB re-read "
+            f"within a product); kernel {r['ms']:.2f} ms, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms "
+            f"({100 * r['bound_share']:.1f}%); before the redesign "
+            f"{WIDEST_PARENT_MS[label]:.1f} ms (PERF.md)")
+        out[label] = {"pairs": plan.pairs, "rows": plan.rows,
+                      "workspace_bytes": ws, "reread_bytes": hot,
+                      "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"],
+                      "parent_ms": WIDEST_PARENT_MS[label]}
     return out
 
 
@@ -6004,6 +6039,9 @@ def widest_phase(pipe_bf16, fx_bench, failures, device="cuda"):
     readings["gnn"] = gnn_sinkhorn_checks(pipes["bf16"], pipes["f32"], fx,
                                           failures, top_idx=served["bf16"],
                                           reps=1)
+    readings["gnn_wide"] = widest_route_line(readings["gnn"],
+                                             served["bf16"].size,
+                                             fx["hint_tokens"].shape[1])
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(14)
     tokens = torch.as_tensor(fx_bench["tokens"], device=dev)

@@ -27,7 +27,8 @@ PointConv at the DB encode's sa1 level (1024 objects, 256 -> 128 points,
 (``superglue_gnn.cu``) at the bench headline's 20,480 pairs of (128, 16, 6)
 in bf16 and f32, and the GNN's second form (``superglue_gnn_any.cu``) at
 the E = 300 headline's size in bf16 and f32 and at pad_size 24 in bf16
-(its CTAs hold 4 m-tiles) (12 blocks, seeded random
+(its CTAs hold 4 m-tiles), and its wide route at chip_smoke phase 14's
+path shape, 1,280 pairs of (768, 48, 6), in bf16 and f32 (12 blocks, seeded random
 weights; each side gets the weight layout its own source reads: the
 padded pack of ``pack_gnn_params``, or the unpadded row-major one of the
 form before it). Prints the
@@ -577,6 +578,10 @@ def main() -> int:
                        lambda L, d=dt: any_gnn_call(L, d))]
         cases += [("superglue_gnn_any bfloat16 N=20480 (300, 24, 6) L=12",
                    lambda L: any_gnn_call(L, torch.bfloat16, T0=24))]
+        cases += [(f"superglue_gnn_any_wide {str(dt)[6:]} N=1280 (768, 48, "
+                   "6) L=12", lambda L, d=dt: any_gnn_call(
+                       L, d, N=1280, E=768, T0=48))
+                  for dt in (torch.bfloat16, torch.float32)]
         print(f"# {gpu}; A = {_build.CSRC}, B = {other}")
         for k, v in sides.items():
             print(f"# ptxas lstm.cu {k}: " + " | ".join(v["lstm_ptxas"]))

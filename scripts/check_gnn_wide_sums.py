@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""How the GNN second form's wide route (``csrc/superglue_gnn_any.cu``,
-namespace ``wide``) sums its products over K, measured where it serves:
-the source as it stands against a copy with the other summation, blocked
-(each group of 4 k-values summed in a register of its own, then added to
-the running sum) or chained (every product into the running sum), on
-chip_smoke phase 14's path inputs: the E = 768, pad_size 48 pipelines
-(``widest_map``, ``wide_pipeline``) of two model seeds, their 1,280
-pose-cell pairs of the bf16 headline's top-10 at (768, 48, 6), 12 blocks.
-Prints, for each build, the bf16 scores' ``depth_gate`` readings (median,
-99.9th percentile and largest per-pair error against the float64
-evaluation, beside the plain f32 version's, and the 2-block cut) and the
-f32 scores' largest error against the plain version and against float64,
-with each launch's wall time.
+"""The GNN second form's wide route (``csrc/superglue_gnn_any.cu``,
+namespace ``wide``) against a float64 evaluation where it serves: chip_smoke
+phase 14's path inputs, the E = 768, pad_size 48 pipelines
+(``widest_map``, ``wide_pipeline``) of two model seeds (WIDEST_SEED and
+WIDEST_SEED + 10: 768, 778), their 1,280 pose-cell pairs of the bf16
+headline's top-10 at (768, 48, 6), 12 blocks. For this tree's build, and
+for another tree's ``csrc`` built beside it when one is given (the parent's,
+unpacked with ``git archive <commit> text2pos_torch/csrc``), prints the
+bf16 scores' ``depth_gate`` readings (a)-(d) (median, 99.9th percentile
+and largest per-pair error against the float64 evaluation, beside the
+plain f32 version's, and the 2-block cut against the plain version) and
+the f32 scores' largest error against the plain version and against
+float64, with each launch's wall time.
 
-    python3 scripts/check_gnn_wide_sums.py
+    python3 scripts/check_gnn_wide_sums.py [OTHER_CSRC]
 
-Needs a CUDA card and ``nvcc``.
+Needs a CUDA card and ``nvcc``; exits 1 if a gate of this tree's build
+fails.
 """
 
 from __future__ import annotations
@@ -40,58 +41,37 @@ from text2pos_torch.evaluation.pipeline import LocalizationPipeline  # noqa: E40
 from text2pos_torch.ops import _build  # noqa: E402
 from text2pos_torch.ops import superglue_gnn as tgnn  # noqa: E402
 
-BLOCKED = """        float x[4], part[CT];
-        Vec<T>::load(xp + (size_t)i * ldx + k, x);
-#pragma unroll
-        for (int j = 0; j < CT; ++j) part[j] = x[0] * w[0][j];
-#pragma unroll
-        for (int kk = 1; kk < 4; ++kk)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) part[j] = fmaf(x[kk], w[kk][j], part[j]);
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] += part[j];"""
-CHAIN = """        float x[4];
-        Vec<T>::load(xp + (size_t)i * ldx + k, x);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(x[kk], w[kk][j], acc[i][j]);"""
 
-
-def libraries():
-    """{summation: library}: the source's own build and the other one."""
-    csrc = ROOT / "text2pos_torch" / "csrc"
-    src = (csrc / "superglue_gnn_any.cu").read_text()
-    own = "blocked" if BLOCKED in src else "chained"
-    if (BLOCKED if own == "blocked" else CHAIN) not in src:
-        raise RuntimeError("the wide route's product loop is neither form")
-    other = src.replace(*((BLOCKED, CHAIN) if own == "blocked"
-                          else (CHAIN, BLOCKED)))
+def other_library(csrc: Path) -> ctypes.CDLL:
+    """``superglue_gnn_any.cu`` of another tree's ``csrc``, built as the
+    port builds its own."""
     tmp = tempfile.mkdtemp()
-    shutil.copy(csrc / "mma_bf16.cuh", tmp)
-    cu = os.path.join(tmp, "superglue_gnn_any.cu")
-    Path(cu).write_text(other)
+    for name in ("superglue_gnn_any.cu", "mma_bf16.cuh"):
+        shutil.copy(csrc / name, tmp)
     so = os.path.join(tmp, "libother.so")
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                           cu], capture_output=True, text=True)
+                           os.path.join(tmp, "superglue_gnn_any.cu")],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stdout + proc.stderr)
-    return {f"{own} (the source)": _build.library("superglue_gnn_any"),
-            "chained" if own == "blocked" else "blocked": ctypes.CDLL(so)}
+    return ctypes.CDLL(so)
 
 
-def main() -> int:
+def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_line())
     _build.build_all()
-    libs = libraries()
     own = _build.library("superglue_gnn_any")
+    libs = {"this tree": own}
+    if argv:
+        libs["other tree"] = other_library(Path(argv[0]))
     fx = dict(np.load(cs.FIXTURE))
     bench = LocalizationPipeline.from_checkpoints(
         cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
         device="cuda")
     bank, qx, _ = cs.widest_map(bench)
     dev = torch.device("cuda")
+    failed = []
     for seed in (cs.WIDEST_SEED, cs.WIDEST_SEED + 10):
         pipes = {label: cs.wide_pipeline(bench, bank, qx, dt,
                                          pad=cs.WIDEST_PAD,
@@ -128,13 +108,11 @@ def main() -> int:
                 if label == "bf16":
                     ok, r = cs.depth_gate(got, plain, ref, cut_got, cut_plain)
                     print(f"seed {seed} bf16 {name}: {ms:.0f} ms; depth gate "
-                          f"{'pass' if ok else 'FAIL'}: median "
-                          f"{r['median']:.4f} (plain {r['plain_median']:.4f}"
-                          f", ratio {r['median'] / r['plain_median']:.4f}), "
-                          f"p99.9 {r['p999']:.4f} (plain "
-                          f"{r['plain_p999']:.4f}), largest {r['max']:.3f} "
-                          f"(plain {r['plain_max']:.3f}), cut "
-                          f"{r['cut_max']:.3f}", flush=True)
+                          f"{'pass' if ok else 'FAIL'} (median ratio "
+                          f"{r['median'] / r['plain_median']:.4f}): "
+                          f"{cs.depth_gate_line(r)}", flush=True)
+                    if not ok and name == "this tree":
+                        failed.append(f"seed {seed} bf16")
                     continue
                 tol = cs.GNN_REL_TOL["f32"]
                 e = float((got - plain).abs().max()) / (
@@ -144,8 +122,11 @@ def main() -> int:
                 print(f"seed {seed} f32 {name}: {ms:.0f} ms; from the plain "
                       f"version {e:.3f} of GNN_REL_TOL, from float64 "
                       f"{e64:.3f} (the plain version {p64:.3f})", flush=True)
-    return 0
+                if e > 1 and name == "this tree":
+                    failed.append(f"seed {seed} f32")
+    print(f"gates failed: {failed or 'none'}")
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

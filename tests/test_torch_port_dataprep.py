@@ -14,6 +14,7 @@ import json
 import os
 import os.path as osp
 import pickle
+import shutil
 import sys
 import types
 
@@ -110,8 +111,29 @@ def test_ply_rejects_short_ascii_rows(tmp_path):
         read_ply(str(path))
 
 
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """JAX's own C++ library, built with its own Makefile into a private
+    directory, so that the parity tests compare with its C++ rather than
+    its quiet NumPy fallback. Its loader builds ``native/`` in place with
+    no lock and remembers a failed load: test workers that collect
+    ``tests/test_native.py`` at once race on that file, and one that loads
+    it half written gets no library."""
+    src = jnative._NATIVE_DIR
+    dst = tmp_path_factory.mktemp("jax_native")
+    for name in ("Makefile", "t2p_native.cpp"):
+        shutil.copy(osp.join(src, name), dst / name)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_NATIVE_DIR", str(dst))
+        mp.setattr(jnative, "_LIB_PATH", str(dst / "libt2p_native.so"))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_load_attempted", False)
+        assert jnative.get_lib() is not None, "JAX's native library"
+        yield jnative
+
+
 @pytest.mark.parametrize("voxel", [0.1, 0.25, 1.0])
-def test_voxel_native_numpy_and_jax_equal(voxel):
+def test_voxel_native_numpy_and_jax_equal(voxel, jax_native):
     rng = np.random.default_rng(1)
     pts = rng.uniform(-20, 20, (5000, 3))
     pts[::7] = pts[::7].round(1)       # points on voxel faces
@@ -123,7 +145,7 @@ def test_voxel_native_numpy_and_jax_equal(voxel):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_dbscan_labels_equal_jax_element_for_element(seed):
+def test_dbscan_labels_equal_jax_element_for_element(seed, jax_native):
     """The port's C++ and NumPy labels and JAX's (its ``auto``: its own C++
     library) are the same array; sklearn's is the same partition."""
     rng = np.random.default_rng(seed)
@@ -175,7 +197,7 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("n, s, start", [(1, 1, 0), (500, 64, 0),
                                          (777, 100, 13)])
-def test_host_fps_matches_jax(n, s, start):
+def test_host_fps_matches_jax(n, s, start, jax_native):
     rng = np.random.default_rng(n)
     pts = rng.normal(size=(n, 3))
     pts[n // 2:] = pts[: n - n // 2]           # duplicates: ties

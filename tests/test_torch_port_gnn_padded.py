@@ -257,7 +257,7 @@ def test_plan_takes_the_tensor_cores_in_bf16(E, T0, T1):
     (300, 16, 6, torch.float32, "superglue_gnn_any", 2),
     (300, 24, 6, torch.float32, "superglue_gnn_any", 1),
     (300, 32, 32, torch.float32, "superglue_gnn_any_wide", 1),
-    (512, 32, 32, torch.bfloat16, "superglue_gnn_any_wide", 1),
+    (512, 32, 32, torch.bfloat16, "superglue_gnn_any_wide", 2),
     (448, 32, 32, torch.bfloat16, "superglue_gnn_any", 1),
     (512, 16, 6, torch.bfloat16, "superglue_gnn_any", 2),
     (300, 24, 6, torch.bfloat16, "superglue_gnn_any", 2),   # 64 rows
@@ -272,12 +272,17 @@ def test_plan_routes(E, T0, T1, dtype, route, pairs):
 def test_plan_gives_the_first_hint_row(E, T0, T1):
     """On the tensor-core route the CTA's hints start at the first 16-row
     tile past its pairs' objects, and all of them fit in its rows; the f32
-    route keeps rows pair by pair and has no such row."""
+    shared route keeps rows pair by pair and has no such row, the wide
+    route is set-major in f32 too."""
     plan = tgnn.any_plan(E, T0, T1, torch.bfloat16)
     h = plan.hint_row
     assert h % 16 == 0 and h - 16 < plan.pairs * T0 <= h
     assert h + plan.pairs * T1 <= plan.rows
-    assert tgnn.any_plan(E, T0, T1, torch.float32).hint_row is None
+    f32 = tgnn.any_plan(E, T0, T1, torch.float32)
+    if f32.route == "superglue_gnn_any":
+        assert f32.hint_row is None
+    else:
+        assert f32.hint_row == 16 * -(-f32.pairs * T0 // 16)
 
 
 def test_hint_rows_of_the_tensor_core_route():

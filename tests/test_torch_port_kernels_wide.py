@@ -6,7 +6,8 @@ several 32-unit slices a CTA), the second GNN form
 1 <= T1 <= T0 on each of its routes (``any_plan``: bf16 on the tensor
 cores and f32 on the CUDA cores, both ``superglue_gnn_any``, and
 ``superglue_gnn_any_wide``, which takes every shape past 32 objects and
-every pair whose rows pass shared memory), Sinkhorn's wide form past 32 x
+every pair whose rows pass shared memory: G pairs a CTA, weight tiles in
+shared memory, bf16 products on the tensor cores), Sinkhorn's wide form past 32 x
 16 couplings, FPS past 256 points; every LSTM form (W_hh in shared memory,
 from L2 past 256 units, the grid form) against a float64 evaluation on
 long, sensitive text (the bench text encoder, zero-padded to the wider
@@ -463,6 +464,105 @@ def test_gnn_any_wide_route_keeps_exact_ties_and_ragged_counts(cuda, T0, T1):
         alone = tgnn.gnn_scores(d0[:n].contiguous(), d1[:n].contiguous(),
                                 packed)
         torch.testing.assert_close(alone, s[:n], atol=0, rtol=0)
+
+
+# The redesigned wide route: phase 14's path shape (one pair a CTA, 64
+# rows), 33 objects at E = 300 (2 pairs, 96 rows), 128 objects (two
+# m-chunks) and the smallest width (3 pairs, 128 rows).
+WIDE_SHAPES = [(768, 48, 6), (300, 33, 6), (128, 128, 6), (4, 33, 1)]
+
+
+def wide_workspace_bytes(T0, dtype, plan, n_pairs, sms=tgnn.H100_SMS):
+    """``t2p_superglue_gnn_any_workspace`` on the wide route, mirrored: a
+    slice for each persistent CTA (one an SM, at most one a unit of
+    ``plan.pairs`` pairs) of its rows' f32 residual (bf16 only), a | m,
+    q | k | v, the messages and the attention's scratch (bf16: 8 warps'
+    logits, 8 floats a lane a 16-key chunk; f32: the probabilities of 4
+    heads), each part aligned to 256 bytes."""
+    Ep, R = plan.width, plan.rows
+    bf16 = dtype == torch.bfloat16
+    s = 2 if bf16 else 4
+    parts = [R * Ep * 4 if bf16 else 0, R * 2 * Ep * s, R * 3 * Ep * s,
+             R * Ep * s,
+             8 * -(-T0 // 16) * 32 * 8 * 4 if bf16 else R * 4 * T0 * 4]
+    return min(-(-n_pairs // plan.pairs), sms) * sum(
+        -(-p // 256) * 256 for p in parts)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,T0,T1", WIDE_SHAPES)
+def test_gnn_wide_workspace_is_the_mirrored_formula(cuda, dtype, E, T0, T1):
+    """The C side's workspace on this card is ``wide_workspace_bytes`` at
+    its SM count, for a ragged and a full batch."""
+    plan = tgnn.any_plan(E, T0, T1, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in (2 * plan.pairs + 1, 1280):
+        assert tgnn.any_workspace_bytes(
+            E, T0, T1, plan, n, int(dtype == torch.bfloat16), cuda) == \
+            wide_workspace_bytes(T0, dtype, plan, n, sms)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,T0,T1", WIDE_SHAPES)
+def test_gnn_wide_route_matches_plain(cuda, dtype, E, T0, T1):
+    """G pairs a CTA, weight and row k-slices staged through shared memory,
+    bf16 products on the tensor cores: against the plain version on 2G + 1
+    pairs (the last CTA ragged), 2 blocks."""
+    plan = tgnn.any_plan(E, T0, T1, dtype)
+    assert plan.route == "superglue_gnn_any_wide"
+    _gnn_case(cuda, dtype, E, T0, T1, 2 * plan.pairs + 1, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,T0,T1", WIDE_SHAPES)
+def test_gnn_wide_route_ties_and_ragged_counts_bit_for_bit(cuda, monkeypatch,
+                                                           dtype, E, T0, T1):
+    """Identical hints (in every pair, so in every slot of a CTA) give
+    bit-identical score columns; a pair's scores are the same bits in a
+    batch of 1 .. G + 1 pairs and at one pair a CTA."""
+    packed = _packed(E, dtype, cuda, 2)
+    G = tgnn.any_plan(E, T0, T1, dtype).pairs
+    g = torch.Generator().manual_seed(E + T0)
+    N = 2 * G + 1
+    d0 = torch.randn(N, T0, E, generator=g).to(cuda)
+    d1 = torch.randn(N, T1, E, generator=g).to(cuda)
+    if T1 > 1:
+        d1[:, T1 - 1] = d1[:, 0]
+    s = _launches("superglue_gnn_any_wide",
+                  lambda: tgnn.gnn_scores(d0, d1, packed))
+    if T1 > 1:
+        torch.testing.assert_close(s[:, :, T1 - 1], s[:, :, 0], atol=0,
+                                   rtol=0)
+    for n in range(1, G + 2):
+        alone = tgnn.gnn_scores(d0[:n].contiguous(), d1[:n].contiguous(),
+                                packed)
+        torch.testing.assert_close(alone, s[:n], atol=0, rtol=0)
+    plan = tgnn.any_plan(E, T0, T1, dtype)
+    monkeypatch.setattr(tgnn, "any_plan",
+                        lambda *args: tgnn.wide_plan(*args)._replace(
+                            pairs=1, rows=tgnn.set_major_rows(1, T0, T1),
+                            hint_row=16 * -(-T0 // 16)))
+    one = tgnn.gnn_scores(d0, d1, packed)
+    torch.testing.assert_close(one, s, atol=0, rtol=0)
+    assert plan.pairs == G
+
+
+def test_gnn_wide_route_holds_float64_at_depth(cuda):
+    """Phase 14's shape at 12 blocks in bf16, 64 pairs: every score within
+    twice the bf16 tolerance (1% of the largest score) of the float64
+    evaluation at the same rounding points, the depth gate's bound on its
+    largest pair."""
+    packed = _packed(768, torch.bfloat16, cuda, 12)
+    g = torch.Generator().manual_seed(12)
+    d0 = torch.nn.functional.normalize(torch.randn(64, 48, 768, generator=g),
+                                       dim=-1).to(cuda)
+    d1 = torch.nn.functional.normalize(torch.randn(64, 6, 768, generator=g),
+                                       dim=-1).to(cuda)
+    got = _launches("superglue_gnn_any_wide",
+                    lambda: tgnn.gnn_scores(d0, d1, packed))
+    ref = tgnn.gnn_scores_plain(d0, d1, packed, acc=torch.float64)
+    err = float((got.double() - ref).abs().max())
+    assert err <= 2 * REL_TOL[torch.bfloat16] * float(ref.abs().max())
 
 
 def test_gnn_any_kernel_rejects_bad_input(cuda):

@@ -11,7 +11,10 @@ any T1 <= T0 (past 32 objects every shape) and Sinkhorn's wide form (past
   at (516, 16, 6), (768, 16, 6), (300, 40, 6) and (128, 48, 48), one block
   pair, f32 within 1e-5; the padded pack at E = 516, 768 and 1024 (zero pads,
   stripped back to the folded weights); ``any_plan``'s route at the new
-  shapes, and the parent's plan at every shape the parent took.
+  shapes, and the parent's plan at every shape the parent took on a
+  shared route; the wide route's plan (G pairs a CTA, set-major rows, the
+  first hint row) and its workspace formula, held to the L2 budget at
+  phase 14's shape.
 - Sinkhorn's plain version against JAX's ``log_optimal_transport`` at
   couplings past 32 x 16.
 - The slice: ``test_torch_port_calibration``'s pipelines at embed_dim 768,
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 import test_torch_port_gnn_padded as padded
+from test_torch_port_kernels_wide import wide_workspace_bytes
 from test_torch_port_calibration import TINY as CAL_TINY
 from test_torch_port_calibration import _bank_draws, _draws, make_tiny
 from test_torch_port_widths import _gnn_trees
@@ -122,28 +126,40 @@ def _parent_any_plan(E, T0, T1, dtype):
 
 @pytest.mark.parametrize("dtype", padded.DTYPES)
 def test_plan_unchanged_where_the_parent_took_the_shape(dtype):
-    """Every E a multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32."""
+    """Every E a multiple of 4 up to 512 and 1 <= T1 <= T0 <= 32: the
+    shared routes' plans as they were; where the parent took the wide
+    route, the wide route still, at the pairs a CTA ``wide_plan`` gives."""
     for E in range(4, 513, 4):
         for T0 in range(1, 33):
             for T1 in range(1, T0 + 1):
-                assert tgnn.any_plan(E, T0, T1, dtype) == \
-                    _parent_any_plan(E, T0, T1, dtype), (E, T0, T1)
+                got = tgnn.any_plan(E, T0, T1, dtype)
+                want = _parent_any_plan(E, T0, T1, dtype)
+                if want.route == "superglue_gnn_any_wide":
+                    assert got == tgnn.wide_plan(E, T0, T1, dtype), \
+                        (E, T0, T1)
+                else:
+                    assert got == want, (E, T0, T1)
 
 
-@pytest.mark.parametrize("E,T0,T1,dtype,route,pairs", [
+# (E, T0, T1, dtype, route, pairs a CTA): the wide route takes G pairs a
+# CTA, set-major, up to 128 rows and WIDE_L2_BUDGET of re-read rows.
+PLANS_PAST_512_AND_32 = [
     (768, 48, 6, torch.bfloat16, "superglue_gnn_any_wide", 1),  # phase 14
     (768, 48, 6, torch.float32, "superglue_gnn_any_wide", 1),
     (516, 16, 6, torch.bfloat16, "superglue_gnn_any", 2),
     (516, 16, 6, torch.float32, "superglue_gnn_any", 1),
     (768, 16, 6, torch.bfloat16, "superglue_gnn_any", 1),
-    (768, 16, 6, torch.float32, "superglue_gnn_any_wide", 1),
+    (768, 16, 6, torch.float32, "superglue_gnn_any_wide", 2),
     (896, 16, 6, torch.bfloat16, "superglue_gnn_any", 1),       # 32 rows
-    (960, 16, 6, torch.bfloat16, "superglue_gnn_any_wide", 1),
+    (960, 16, 6, torch.bfloat16, "superglue_gnn_any_wide", 2),
     (1024, 64, 16, torch.bfloat16, "superglue_gnn_any_wide", 1),
-    (300, 33, 6, torch.bfloat16, "superglue_gnn_any_wide", 1),  # 33 objects
-    (4, 33, 1, torch.float32, "superglue_gnn_any_wide", 1),
+    (300, 33, 6, torch.bfloat16, "superglue_gnn_any_wide", 2),  # 33 objects
+    (4, 33, 1, torch.float32, "superglue_gnn_any_wide", 3),
     (128, 128, 6, torch.bfloat16, "superglue_gnn_any_wide", 1),
-])
+]
+
+
+@pytest.mark.parametrize("E,T0,T1,dtype,route,pairs", PLANS_PAST_512_AND_32)
 def test_plan_routes_past_512_and_32(E, T0, T1, dtype, route, pairs):
     """Past SHARED_MAX_T objects every shape takes the wide route; past E =
     512 the shared routes take what fits in a CTA's shared memory."""
@@ -153,6 +169,50 @@ def test_plan_routes_past_512_and_32(E, T0, T1, dtype, route, pairs):
     if route == "superglue_gnn_any":
         assert plan.smem <= tgnn.SMEM_OPTIN
         assert T0 <= tgnn.MAX_SHARED_SET
+
+
+@pytest.mark.parametrize("E,T0,T1,dtype,route,pairs", [
+    p for p in PLANS_PAST_512_AND_32 if p[4] == "superglue_gnn_any_wide"])
+def test_wide_plan_rows_and_hint_row(E, T0, T1, dtype, route, pairs):
+    """The wide plan's G pairs are set-major in 16-row tiles (objects of
+    all G, then their hints from ``hint_row``), at most one m-chunk of
+    128 rows and WIDE_L2_BUDGET of re-read rows unless G = 1, and one more
+    pair would pass one of the two."""
+    plan = tgnn.any_plan(E, T0, T1, dtype)
+    G, Ep = plan.pairs, plan.width
+    assert plan.hint_row == 16 * -(-G * T0 // 16)
+    assert plan.rows == plan.hint_row + 16 * -(-G * T1 // 16)
+    assert plan.rows == tgnn.set_major_rows(G, T0, T1) and plan.rows % 16 == 0
+    assert plan.hint_row + G * T1 <= plan.rows
+    assert plan.smem == tgnn.WIDE_SMEM[dtype] <= tgnn.SMEM_OPTIN
+
+    def fits(g):
+        rows = tgnn.set_major_rows(g, T0, T1)
+        return rows <= tgnn.WIDE_MAX_ROWS and \
+            tgnn.wide_hot_bytes(Ep, rows, dtype) <= tgnn.WIDE_L2_BUDGET
+
+    assert G == 1 or fits(G)
+    assert not fits(G + 1)
+
+
+@pytest.mark.parametrize("dtype", padded.DTYPES)
+def test_wide_workspace_under_the_l2_budget_at_phase_14(dtype):
+    """At phase 14's (768, 48, 6) on an H100 the wide route runs a CTA an
+    SM (132) of 64 rows, one pair each; the rows its CTAs re-read within a
+    product stay under WIDE_L2_BUDGET in bf16 (26 MB of 107 MB of slices,
+    the card tests hold the C side to ``wide_workspace_bytes``); in f32 one
+    pair's rows already pass it (52 MB), and G stays 1."""
+    plan = tgnn.any_plan(768, 48, 6, dtype)
+    assert (plan.pairs, plan.rows) == (1, 64)
+    ws = wide_workspace_bytes(48, dtype, plan, 1280)
+    hot = tgnn.wide_hot_bytes(768, 64, dtype)
+    if dtype == torch.bfloat16:
+        assert ws == 132 * (64 * 768 * 16 + 8 * 3 * 1024)
+        assert hot == 132 * 64 * 1536 * 2 <= tgnn.WIDE_L2_BUDGET
+    else:
+        assert ws == 132 * (64 * 768 * 24 + 64 * 4 * 48 * 4)
+        assert hot == 132 * 64 * 1536 * 4 > tgnn.WIDE_L2_BUDGET
+    assert ws < 2 ** 28
 
 
 @pytest.mark.parametrize("B,M,N,iters", [(4, 48, 6, 50), (3, 32, 6, 20),

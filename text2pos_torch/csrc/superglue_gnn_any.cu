@@ -124,22 +124,48 @@
 // tiles (735-756); the build without weight loads of the 11x5 form ran
 // 443 ms: the FMA loop itself is at about 40% of the f32 rate.
 //
-// "superglue_gnn_any_wide" (namespace wide): the first form of this file,
-// kept for the shapes whose rows do not fit in shared memory even at G = 1
-// (f32 where T0 + T1 > 47 at E = 300 and past E = 656 at (16, 6); bf16 at
-// E > 448 with both sets over 16 and past E = 896), and for every shape
-// past SHARED_MAX_T objects, whose attention the two shared routes keep in
-// registers: one CTA a pair, 8x4 register tiles, the rows in a global
-// workspace slice of a persistent CTA whose size follows T0, T1 and Ep
-// (layout), weights read straight from global memory (bf16 ones from
-// fragment order, element by element). None of its loops has a bound of
-// its own: a (row, head) of the attention loops over the source set's rows,
-// the messages over them, the products over K and N. Its products sum
-// each group of 4 k-values in a register of its own before adding it to the
-// running sum (blocked summation: K/4 roundings of the running sum instead
-// of K): at the widths where only this route runs it serves in bf16 at
-// full depth, where chip_smoke's depth gate holds it to drift from a
-// float64 evaluation no more than the plain version does.
+// "superglue_gnn_any_wide" (namespace wide): the shapes whose rows do not
+// fit in shared memory even at G = 1 (f32 where T0 + T1 > 47 at E = 300
+// and past E = 656 at (16, 6); bf16 at E > 448 with both sets over 16 and
+// past E = 896), and every shape past SHARED_MAX_T objects, whose
+// attention the two shared routes keep in registers:
+//  - G pairs a CTA (wide_plan in ops/superglue_gnn.py), set-major in
+//    16-row tiles as on the tensor-core route, so that each weight k-slice
+//    a CTA reads serves all G pairs' rows. Persistent CTAs, one an SM; a
+//    CTA's rows live in a global workspace slice (layout): the f32
+//    residual, a | m, q | k | v (h1 and md reuse it), the messages and the
+//    attention's scratch, 12 KB a row at Ep = 768 in bf16. What a CTA
+//    re-reads is the current product's input rows (R x K, once per
+//    n-chunk), which the plan keeps under 40 MB over all CTAs (26 MB at
+//    (768, 48, 6), G = 1); the rest of a slice is written once and read
+//    once a block.
+//  - Products in output tiles of up to 128 rows x 256 / WM columns: per
+//    k-slice of 64 the rows and the weights' fragment-order tiles are
+//    copied by cp.async (16 bytes, coalesced) into a ring of 4 slots in
+//    shared memory (204,800 bytes in bf16), 3 ahead; WM warps down the
+//    rows, 8 / WM across, a warp's tile 4 x 4 m16n8 tiles.
+//  - bf16 products on the tensor cores, mma.sync m16n8k16 (mma_zero), the
+//    A fragments by ldmatrix, each k-step's 16 products summed in a zeroed
+//    accumulator and added to the running sum with a rounded f32 add, as
+//    on the tensor-core route. A full tile (every m-tile and n-tile of a
+//    warp real) runs without predicates, its A fragments and products in
+//    flight before the adds: predicated, each m-tile's products waited
+//    for the one before (the SASS showed WARPSYNC and a dependent add
+//    chain per m-tile), 40% longer at (768, 48, 6). The products are one
+//    called function (gemm_tc): inlined five times they spilled.
+//  - f32 products on the CUDA cores in the same structure (thread tiles
+//    of 8 rows x 8 columns, two float4s 128 apart; 64 x 256 a tile, 86,016
+//    bytes of ring; 8 x 4 tiles took 13% longer), each group of 4 k-values
+//    summed in a register of its own before it is added to the running
+//    sum (blocked summation, nearer float64 than a chained one).
+//  - bf16 attention a warp per (pair, head, query set, 16-row query tile):
+//    QK^T over key chunks of 16 on the tensor cores, the logits kept in the
+//    warp's scratch, the row maxima, then the sums of exp(s − max), then
+//    for each 64 channels the probabilities normalised in f32, rounded to
+//    bf16 and P·V: the plain version's rounding points for any number of
+//    keys. f32 attention a thread per (row, head) over the source set's
+//    rows. Spare query rows repeat the last real one and spare keys are
+//    masked, so duplicate hints keep bit-identical score columns.
 //
 // Bound. About 20·E²·(T0 + T1) operations a block a pair (the five
 // products), 0.48 GFLOP a pair at E = 300 with 12 blocks, against
@@ -148,12 +174,13 @@
 // headline's 20,480 pairs: 10 ms at 989 TFLOP/s. Padding adds (320/300)² =
 // 14% of operations in bf16, (304/300)² = 3% in f32.
 //
-// With -DT2P_STAGE_CLOCKS the shared routes add up, over all CTAs, the
-// clocks their first thread spends in each stage (a barrier closes a
-// stage); -DT2P_NO_WEIGHT_LOADS replaces their weight loads by register
+// With -DT2P_STAGE_CLOCKS every route adds up, over all CTAs, the clocks
+// its first thread spends in each stage (a barrier closes a stage);
+// -DT2P_NO_WEIGHT_LOADS replaces the shared routes' weight loads by register
 // values (wrong results, the same products), so that the difference of the
 // two builds' stage clocks is the time spent waiting for weights.
-// scripts/check_gnn_kernel.py builds and reads both.
+// scripts/check_gnn_kernel.py builds and reads both for the shared
+// routes, scripts/check_gnn_wide_route.py the stage clocks of the wide one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1176,324 +1203,841 @@ int launch(const float* desc0, const float* desc1, const Weights& wt,
 }  // namespace f32
 
 // ------------------------------------------------------------------------
-// The wide route: one CTA a pair, rows in a global workspace
+// The wide route: G pairs a CTA, rows in a global workspace slice, weight
+// and row k-slices staged through shared memory
 // ------------------------------------------------------------------------
 namespace wide {
 
-constexpr int RT = 8;   // rows of a thread's product tile
-constexpr int CT = 4;   // columns of a thread's product tile
+constexpr int STAGES = 4;      // k-slices in the ring, STAGES - 1 in flight
 
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
+__host__ __device__ inline size_t align256(size_t x) {
+  return (x + 255) & ~(size_t)255;
 }
 
-// Byte offsets of a pair's rows (R = T0 + T1 rounded up to 8), at the
-// padded width.
+// Rows of G pairs, set-major in 16-row tiles as on the tensor-core route:
+// the objects of all G pairs, then their hints.
+__host__ __device__ inline int rows(int G, int T0, int T1) {
+  return (G * T0 + 15) / 16 * 16 + (G * T1 + 15) / 16 * 16;
+}
+
+// Byte offsets of a CTA's slice of R rows at the padded width: the f32
+// residual (bf16 only; in f32 it is a itself), a | m (2Ep), q | k | v (3Ep,
+// which h1 and md reuse once the attention has read it), the messages (Ep)
+// and the attention's scratch (prob): in bf16 each warp's logits, in f32
+// the probabilities of each (row, head) over the source set.
 struct Layout {
   int R;
-  size_t res, a, q, prob, total;
+  size_t res, am, qkv, msg, prob, total;
 };
 
-__host__ __device__ inline Layout layout(int Ep, int T0, int T1, bool bf16) {
+// A warp's logits of one attention unit: 8 floats a lane a 16-key chunk,
+// for up to ceil(T0 / 16) chunks.
+__host__ __device__ inline size_t logit_bytes(int T0) {
+  return (size_t)WARPS * ((T0 + 15) / 16) * 32 * 8 * 4;
+}
+
+__host__ __device__ inline Layout layout(int Ep, int T0, int T1, int G,
+                                         bool bf16) {
   Layout l;
-  l.R = (T0 + T1 + RT - 1) / RT * RT;
-  const size_t s = bf16 ? 2 : 4;
+  l.R = rows(G, T0, T1);
+  const size_t s = bf16 ? 2 : 4, R = (size_t)l.R;
   l.res = 0;
-  l.a = bf16 ? align16((size_t)l.R * Ep * 4) : 0;   // f32: res = a's left half
-  l.q = l.a + align16((size_t)l.R * 2 * Ep * s);
-  l.prob = l.q + align16((size_t)l.R * 3 * Ep * s);
-  l.total = l.prob + align16((size_t)(T0 + T1) * HEADS * T0 * 4);
+  l.am = bf16 ? align256(R * Ep * 4) : 0;
+  l.qkv = l.am + align256(R * 2 * Ep * s);
+  l.msg = l.qkv + align256(R * 3 * Ep * s);
+  l.prob = l.msg + align256(R * Ep * s);
+  l.total = l.prob + align256(bf16 ? logit_bytes(T0)
+                                   : R * HEADS * (size_t)T0 * 4);
   return l;
 }
 
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  __device__ static void load(const float* p, float (&v)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  }
-  __device__ static void ldg(const float* p, float (&v)[4]) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  }
-  __device__ static void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  // Columns c .. c + 3 of row k of a row-major [K, N] weight.
-  __device__ static void weight(const float* W, int K, int N, int k, int c,
-                                float (&v)[4]) {
-    ldg(W + (size_t)k * N + c, v);
-  }
-  __device__ static float rnd(float x) { return x; }
-  __device__ static float get(const float* p) { return *p; }
-  __device__ static void put(float* p, float x) { *p = x; }
-};
-template <> struct Vec<__nv_bfloat16> {
-  __device__ static void unpack(uint2 u, float (&v)[4]) {
-    v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xffff0000u);
-    v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xffff0000u);
-  }
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[4]) {
-    unpack(*reinterpret_cast<const uint2*>(p), v);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[4]) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
-  }
-  // Columns c .. c + 3 of row k of a [K, N] weight in fragment order
-  // [N/8, K/16, 32 lanes, 4]: lane 4·g + t holds column g of its n-tile at
-  // k = 8·u + 2·t + v as element 2·u + v.
-  __device__ static void weight(const __nv_bfloat16* W, int K, int N, int k,
-                                int c, float (&v)[4]) {
-    const int kk = k & 15, u = kk >> 3, t = (kk & 7) >> 1;
-    const size_t base = ((size_t)(c >> 3) * (K / 16) + (k >> 4)) * 128 +
-                        t * 4 + u * 2 + (kk & 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      v[i] = __bfloat162float(W[base + ((c & 7) + i) * 16]);
-  }
-  __device__ static float rnd(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  __device__ static float get(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-  __device__ static void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// 16 bytes global -> shared through L2 only: a CTA reads back the rows its
+// own epilogues wrote, and no tile reads a row or weight twice.
+__device__ __forceinline__ void cp_async16_cg(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
+}
+
+// d = a·b for a 16x16 A tile and a 16x8 B tile, bf16 inputs, summed by the
+// tensor cores in a zeroed accumulator: mma_add in two steps, so that the
+// products of several tiles are in flight before their rounded adds.
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// Where a CTA's rows lie: the objects of pair g from g·T0, its hints from
+// objr + g·T1.
+struct Rows {
+  int G, T0, T1, objr;
+  __device__ __forceinline__ int obj(int g) const { return g * T0; }
+  __device__ __forceinline__ int hint(int g) const { return objr + g * T1; }
 };
 
-template <typename T>
-struct Weights {
-  const T* wqkv;      // [L, Ep, 3Ep]
-  const float* bqkv;  // [L, 3Ep]
-  const T* wm;        // [L, Ep, Ep]
-  const float* bm;    // [L, Ep]
-  const T* w0;        // [L, 2Ep, 2Ep]
-  const float* s0;    // [L, 2, 2Ep]
-  const float* t0;    // [L, 2, 2Ep]
-  const T* w1;        // [L, 2Ep, Ep]
-  const float* b1;    // [L, Ep]
-  const T* wf;        // [Ep, Ep]
-  const float* bf;    // [Ep]
-};
-
-// out[R, N] = X[R, K] (resident, row stride ldx) · W[K, N] (global);
-// epi(row, col, v[4]) takes columns col .. col + 3 of a row.
-template <typename T, typename Epi>
-__device__ __forceinline__ void matmul(const T* X, int ldx, int R, int K,
-                                       int N, const T* __restrict__ W,
-                                       Epi epi) {
-  const int ncg = N / CT, units = (R / RT) * ncg;
-  for (int u = threadIdx.x; u < units; u += NT) {
-    const int c = (u % ncg) * CT, r0 = (u / ncg) * RT;
-    float acc[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.0f;
-    const T* xp = X + (size_t)r0 * ldx;
-    for (int k = 0; k < K; k += 4) {
-      float w[4][CT];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) Vec<T>::weight(W, K, N, k + kk, c, w[kk]);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        float x[4], part[CT];
-        Vec<T>::load(xp + (size_t)i * ldx + k, x);
-#pragma unroll
-        for (int j = 0; j < CT; ++j) part[j] = x[0] * w[0][j];
-#pragma unroll
-        for (int kk = 1; kk < 4; ++kk)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) part[j] = fmaf(x[kk], w[kk][j], part[j]);
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] += part[j];
+// The pairs' objects, then their hints, as f32 x; zeros in the padding
+// rows, the padding channels and past the last pair. put(r, c, x) stores
+// channels c .. c + 3 of row r.
+template <typename Put>
+__device__ __forceinline__ void load_rows(const float* __restrict__ desc0,
+                                          const float* __restrict__ desc1,
+                                          int E, int Ep, int R, Rows rw,
+                                          int pair0, int n_pairs, Put put) {
+  for (int i = threadIdx.x; i < R * (Ep / 4); i += NT) {
+    const int r = i / (Ep / 4), c = (i % (Ep / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < E) {
+      const float* src = nullptr;
+      if (r < rw.objr) {
+        if (r < rw.G * rw.T0 && pair0 + r / rw.T0 < n_pairs)
+          src = desc0 + ((size_t)pair0 * rw.T0 + r) * E + c;
+      } else {
+        const int h = r - rw.objr;
+        if (h < rw.G * rw.T1 && pair0 + h / rw.T1 < n_pairs)
+          src = desc1 + ((size_t)pair0 * rw.T1 + h) * E + c;
       }
+      if (src) x = __ldg(reinterpret_cast<const float4*>(src));
     }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) epi(r0 + i, c, acc[i]);
+    put(r, c, x);
   }
 }
 
+// ---- bf16: mma.sync on the tensor cores ----------------------------------
+
+constexpr int MC = 128;                 // rows of an m-chunk: 8 m-tiles
+constexpr int KSL = 64;                 // k of a slice
+constexpr int KK = KSL / 16;            // its k-steps
+constexpr int ALD = KSL + 8;            // A row stride in a stage (144 B)
+constexpr int A_BYTES = MC * ALD * 2;   // 18,432
+constexpr int B_BYTES = 32 * KK * 256;  // 32 n-tiles x KK k-steps, fragments
+constexpr int TC_STAGE = A_BYTES + B_BYTES;
+constexpr int TC_SMEM = STAGES * TC_STAGE;   // 204,800 bytes
+
+// What a bf16 product does with its sums (epi_tc): QKV, MERGE and FINAL
+// add a bias and store rnd(v) to out (row stride ldo); W0 stores
+// rnd(relu(v · s0[set] + t0[set])) (s0, t0 the block's [2, 2Ep] rows); W1
+// adds rnd(v + b1) to the f32 residual and stores a = rnd(res) to out.
+enum Product { P_BIAS, P_W0, P_W1 };
+
+struct EpiTc {
+  Product kind;
+  const float* bias;   // P_BIAS, P_W1
+  const float* s0;     // P_W0
+  const float* t0;     // P_W0
+  float* res;          // P_W1: [R][Ep]
+  __nv_bfloat16* out;
+  int ldo, Ep, objr;
+};
+
+__device__ __forceinline__ void epi_tc(const EpiTc& e, int r, int c,
+                                       float v0, float v1) {
+  uint32_t* out =
+      reinterpret_cast<uint32_t*>(e.out + (size_t)r * e.ldo + c);
+  if (e.kind == P_W0) {
+    const int o = (r >= e.objr ? 2 * e.Ep : 0) + c;
+    const float2 s = __ldg(reinterpret_cast<const float2*>(e.s0 + o));
+    const float2 t = __ldg(reinterpret_cast<const float2*>(e.t0 + o));
+    *out = pack2(tc::bn_relu(v0, s.x, t.x), tc::bn_relu(v1, s.y, t.y));
+    return;
+  }
+  const float2 b = __ldg(reinterpret_cast<const float2*>(e.bias + c));
+  if (e.kind == P_BIAS) {
+    *out = pack2(v0 + b.x, v1 + b.y);
+    return;
+  }
+  float2* rp = reinterpret_cast<float2*>(e.res + (size_t)r * e.Ep + c);
+  float2 x = *rp;
+  x.x += rnd(v0 + b.x);
+  x.y += rnd(v1 + b.y);
+  *rp = x;
+  *out = pack2(x.x, x.y);
+}
+
+// One output tile of gemm_tc: rows m0 .. m0 + 16·mt, columns n0 .. n0 +
+// 8·ntc, WM warps down the rows (a warp's m-tiles wm, wm + WM, ...) and 8 /
+// WM across (4 n-tiles each, NC = 256 / WM columns). Per k-slice the rows
+// (16·mt x KSL) and the weight fragments (KSL x 8·ntc) are copied by
+// cp.async into a ring of STAGES slots, STAGES - 1 ahead. FULL: every
+// m-tile and n-tile of the warp is real, so that no instruction is
+// predicated and a k-step's A fragments and products are all in flight
+// before its rounded adds.
+template <int WM, bool FULL>
+__device__ __forceinline__ void tile_tc(const unsigned char* xs, int ldx,
+                                        int mt, int m0, int n0, int ntc,
+                                        int KS, int KT, const uint2* W,
+                                        unsigned char* smem, const EpiTc& e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  const unsigned char* ws =
+      reinterpret_cast<const unsigned char*>(W + (size_t)(n0 / 8) * KS * 32);
+  // 16-byte copies: A chunk i is part i % (KSL / 8) of row i / (KSL / 8),
+  // B chunk i part i % KSL of n-tile i / KSL (its k-steps' fragments, KK x
+  // 256 bytes).
+  auto stage = [&](int kt) {
+    unsigned char* st = smem + (kt % STAGES) * TC_STAGE;
+    for (int i = threadIdx.x; i < mt * 2 * KSL; i += NT)
+      cp_async16_cg(st + (i / (KSL / 8)) * (ALD * 2) + (i % (KSL / 8)) * 16,
+                    xs + (unsigned)((i / (KSL / 8)) * ldx * 2 + kt * KSL * 2 +
+                                    (i % (KSL / 8)) * 16));
+    for (int i = threadIdx.x; i < ntc * KSL; i += NT)
+      cp_async16_cg(st + A_BYTES + i * 16,
+                    ws + (unsigned)((i / KSL) * KS * 256 + kt * KK * 256 +
+                                    (i % KSL) * 16));
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait_ring();
+    __syncthreads();
+    if (kt + STAGES - 1 < KT) stage(kt + STAGES - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (kt % STAGES) * TC_STAGE;
+    const uint32_t a_addr = smem_addr(st) + (lane & 15) * (ALD * 2) +
+                            (lane >> 4) * 16 + wm * 16 * (ALD * 2);
+    const unsigned char* b_ptr = st + A_BYTES + wn * 4 * KK * 256 + lane * 8;
+    // Two k-steps at a time (239 registers; one at a time took 13% longer
+    // at (768, 48, 6)).
+#pragma unroll 2
+    for (int kk = 0; kk < KK; ++kk) {
+      uint2 b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const uint2*>(b_ptr + (j * KK + kk) * 256);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (FULL || wm + WM * i < mt)
+          ldmatrix_x4(a[i], a_addr + i * WM * 16 * (ALD * 2) + kk * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (FULL || wm + WM * i < mt) {
+          float d[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (FULL || wn * 4 + j < ntc) mma_zero(d[j], a[i], b[j].x, b[j].y);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (FULL || wn * 4 + j < ntc)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[i][j][q] += d[j][q];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = wm + WM * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (FULL || (m < mt && wn * 4 + j < ntc)) {
+        const int r = m0 + m * 16 + gid;
+        const int c = n0 + (wn * 4 + j) * 8 + 2 * tig;
+        epi_tc(e, r, c, acc[i][j][0], acc[i][j][1]);
+        epi_tc(e, r + 8, c, acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+  __syncthreads();   // the ring's slots and the outputs, for what follows
+}
+
+// out[R, N] = X[R, K] · W for the CTA's R rows (a multiple of 16): X bf16
+// rows of the workspace (row stride ldx), W bf16 in fragment order
+// [N/8, K/16, 32 lanes] uint2, the sums to epi_tc. The rows go in m-chunks
+// of up to 128 and the columns in n-chunks: up to 4 m-tiles the 8 warps
+// split the columns (NC = 256), past 4 they are 2 x 4 (NC = 128). Every
+// k-step's 16 products are summed by the tensor cores in a zeroed
+// accumulator and added to the running sum with rounded f32 adds, in k
+// order, so a row's sums do not depend on where it sits.
+__device__ __noinline__ void gemm_tc(const __nv_bfloat16* X, int ldx, int R,
+                                     int K, int N,
+                                     const uint2* __restrict__ W,
+                                     unsigned char* smem, EpiTc e) {
+  const int KS = K / 16, KT = K / KSL;
+  for (int m0 = 0; m0 < R; m0 += MC) {
+    const int mt = min(MC, R - m0) / 16;
+    const unsigned char* xs =
+        reinterpret_cast<const unsigned char*>(X + (size_t)m0 * ldx);
+    if (mt > 4) {
+      for (int n0 = 0; n0 < N; n0 += 128) {
+        const int ntc = min(128, N - n0) / 8;
+        if (mt == 8 && ntc == 16)
+          tile_tc<2, true>(xs, ldx, mt, m0, n0, ntc, KS, KT, W, smem, e);
+        else
+          tile_tc<2, false>(xs, ldx, mt, m0, n0, ntc, KS, KT, W, smem, e);
+      }
+    } else {
+      for (int n0 = 0; n0 < N; n0 += 256) {
+        const int ntc = min(256, N - n0) / 8;
+        if (mt == 4 && ntc == 32)
+          tile_tc<1, true>(xs, ldx, mt, m0, n0, ntc, KS, KT, W, smem, e);
+        else
+          tile_tc<1, false>(xs, ldx, mt, m0, n0, ntc, KS, KT, W, smem, e);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 of different rows as one register (p in the low half).
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
+                                            const __nv_bfloat16* q) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(p) |
+         ((uint32_t)*reinterpret_cast<const unsigned short*>(q) << 16);
+}
+
+// Logits of 16 query rows against keys 16·kc .. 16·kc + 15 (rows kr of
+// stride ld; keys past nk read the last one and are set to -inf): s[nt]
+// holds keys 8·nt + 2·tig + (i & 1) of rows gid (i < 2) and gid + 8.
+__device__ __forceinline__ void logits(const __nv_bfloat16* q0,
+                                       const __nv_bfloat16* q1,
+                                       const __nv_bfloat16* kr, int ld,
+                                       int kc, int nk, int Dp,
+                                       float att_scale, float (&s)[2][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.0f;
+  const __nv_bfloat16* k0 = kr + (size_t)min(16 * kc + gid, nk - 1) * ld;
+  const __nv_bfloat16* k1 = kr + (size_t)min(16 * kc + 8 + gid, nk - 1) * ld;
+  for (int c = 2 * tig; c < Dp; c += 16) {
+    const uint32_t a[4] = {ld_u32(q0 + c), ld_u32(q1 + c), ld_u32(q0 + c + 8),
+                           ld_u32(q1 + c + 8)};
+    float d[2][4];
+    mma_zero(d[0], a, ld_u32(k0 + c), ld_u32(k0 + c + 8));
+    mma_zero(d[1], a, ld_u32(k1 + c), ld_u32(k1 + c + 8));
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] += d[nt][i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = 16 * kc + 8 * nt + 2 * tig + (i & 1);
+      s[nt][i] = key < nk ? __fdiv_rn(s[nt][i], att_scale) : -INFINITY;
+    }
+}
+
+// The attention of every head on the warps, a unit (pair, head, query
+// set, 16-row query tile) a warp; q|k|v of row r at qkv + r·3Ep (head h at
+// h·Dp of each), the messages to msg + r·Ep + h·Dp. A first pass over the
+// key chunks computes the logits, keeps them in the warp's slice of the
+// workspace (lg: 8 floats a lane a chunk) and reads the row maxima; a
+// second sums exp(s − max); a third, for each block of 64 channels, rounds
+// the normalised probabilities to bf16 and sums P·V: the plain version's
+// rounding points for any number of keys, with the logits computed once.
+// Spare query rows repeat the last real one.
+__device__ __forceinline__ void attend_tc(const __nv_bfloat16* qkv,
+                                          __nv_bfloat16* msg, float* lg,
+                                          int Ep, int Dp, float att_scale,
+                                          Rows rw, bool cross) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int qt0 = (rw.T0 + 15) / 16, qt1 = (rw.T1 + 15) / 16;
+  const int per_head = qt0 + qt1, ld = 3 * Ep, NTD = Dp / 8;
+  float4* mine = reinterpret_cast<float4*>(lg) + (warp * qt0 * 32 + lane) * 2;
+  for (int u = warp; u < rw.G * HEADS * per_head; u += WARPS) {
+    const int g = u / (HEADS * per_head), v = u % (HEADS * per_head);
+    const int h = v / per_head, qv = v % per_head;
+    const bool hints = qv >= qt0;
+    const int qt = hints ? qv - qt0 : qv;
+    const int qbase = (hints ? rw.hint(g) : rw.obj(g)) + 16 * qt;
+    const int nq = min(16, (hints ? rw.T1 : rw.T0) - 16 * qt);
+    const bool khints = hints != cross;
+    const int kbase = khints ? rw.hint(g) : rw.obj(g);
+    const int nk = khints ? rw.T1 : rw.T0, nkc = (nk + 15) / 16;
+    const __nv_bfloat16* q0 =
+        qkv + (size_t)(qbase + min(gid, nq - 1)) * ld + h * Dp;
+    const __nv_bfloat16* q1 =
+        qkv + (size_t)(qbase + min(gid + 8, nq - 1)) * ld + h * Dp;
+    const __nv_bfloat16* kr = qkv + (size_t)kbase * ld + Ep + h * Dp;
+    const __nv_bfloat16* vr = qkv + (size_t)kbase * ld + 2 * Ep + h * Dp;
+
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+    float s[2][4];
+    for (int kc = 0; kc < nkc; ++kc) {
+      logits(q0, q1, kr, ld, kc, nk, Dp, att_scale, s);
+      mine[kc * 64] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+      mine[kc * 64 + 1] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+    }
+    auto load = [&](int kc) {
+      const float4 a = mine[kc * 64], b = mine[kc * 64 + 1];
+      s[0][0] = a.x, s[0][1] = a.y, s[0][2] = a.z, s[0][3] = a.w;
+      s[1][0] = b.x, s[1][1] = b.y, s[1][2] = b.z, s[1][3] = b.w;
+    };
+    for (int kc = 0; kc < nkc; ++kc) {
+      load(kc);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i >> 1] += expf(s[nt][i] - mx[i >> 1]);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 1);
+      sum[x] += __shfl_xor_sync(0xffffffffu, sum[x], 2);
+    }
+    for (int cb = 0; cb < NTD; cb += 8) {
+      float o[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[n][i] = 0.0f;
+      for (int kc = 0; kc < nkc; ++kc) {
+        load(kc);
+        float p[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            p[nt][i] = __fdiv_rn(expf(s[nt][i] - mx[i >> 1]), sum[i >> 1]);
+        const uint32_t pa[4] = {pack2(p[0][0], p[0][1]), pack2(p[0][2], p[0][3]),
+                                pack2(p[1][0], p[1][1]), pack2(p[1][2], p[1][3])};
+        const int key = 16 * kc + 2 * tig;
+        const __nv_bfloat16* v0 = vr + (size_t)min(key, nk - 1) * ld;
+        const __nv_bfloat16* v1 = vr + (size_t)min(key + 1, nk - 1) * ld;
+        const __nv_bfloat16* v8 = vr + (size_t)min(key + 8, nk - 1) * ld;
+        const __nv_bfloat16* v9 = vr + (size_t)min(key + 9, nk - 1) * ld;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          if (cb + n < NTD) {
+            const int ch = (cb + n) * 8 + gid;
+            float d[4];
+            mma_zero(d, pa, ld_pair(v0 + ch, v1 + ch),
+                     ld_pair(v8 + ch, v9 + ch));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[n][i] += d[i];
+          }
+        }
+      }
+      __nv_bfloat16* out = msg + (size_t)qbase * Ep + h * Dp + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (cb + n < NTD) {
+          __nv_bfloat16* po = out + (cb + n) * 8;
+          if (gid < nq)
+            *reinterpret_cast<uint32_t*>(po + (size_t)gid * Ep) =
+                pack2(o[n][0], o[n][1]);
+          if (gid + 8 < nq)
+            *reinterpret_cast<uint32_t*>(po + (size_t)(gid + 8) * Ep) =
+                pack2(o[n][2], o[n][3]);
+        }
+      }
+    }
+  }
+}
+
+// ---- f32: FMAs on the CUDA cores -----------------------------------------
+
+constexpr int FMC = 64;                 // rows of an m-chunk: 8 a warp
+constexpr int CTW = 2;                  // 4-column groups of a thread
+constexpr int FNC = 128 * CTW;          // columns of an n-chunk
+constexpr int FKSL = 16;                // k of a slice: 4 groups of 4
+constexpr int FALD = FKSL + 4;          // A row stride in a stage (80 B)
+constexpr int FA_BYTES = FMC * FALD * 4;     // 5,120
+constexpr int F_STAGE = FA_BYTES + FKSL * FNC * 4;
+constexpr int F_SMEM = STAGES * F_STAGE;     // 86,016 bytes
+
+// What an f32 product does with its sums, as epi_tc without the roundings:
+// W1 adds v + b1 to the residual, which is a itself (out).
+struct EpiF32 {
+  Product kind;
+  const float* bias;   // P_BIAS, P_W1
+  const float* s0;     // P_W0
+  const float* t0;     // P_W0
+  float* out;
+  int ldo, Ep, objr;
+};
+
+__device__ __forceinline__ void epi_f32(const EpiF32& e, int r, int c,
+                                        float4 v) {
+  float4* out = reinterpret_cast<float4*>(e.out + (size_t)r * e.ldo + c);
+  if (e.kind == P_W0) {
+    const int o = (r >= e.objr ? 2 * e.Ep : 0) + c;
+    const float4 s = __ldg(reinterpret_cast<const float4*>(e.s0 + o));
+    const float4 t = __ldg(reinterpret_cast<const float4*>(e.t0 + o));
+    *out = make_float4(tc::bn_relu(v.x, s.x, t.x), tc::bn_relu(v.y, s.y, t.y),
+                       tc::bn_relu(v.z, s.z, t.z), tc::bn_relu(v.w, s.w, t.w));
+    return;
+  }
+  const float4 b = __ldg(reinterpret_cast<const float4*>(e.bias + c));
+  if (e.kind == P_BIAS) {
+    *out = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+    return;
+  }
+  const float4 x = *out;
+  *out = make_float4(x.x + (v.x + b.x), x.y + (v.y + b.y), x.z + (v.z + b.z),
+                     x.w + (v.w + b.w));
+}
+
+// out[R, N] = X[R, K] · W[K, N] (row-major f32), the sums to epi_f32: the
+// structure of gemm_tc with thread tiles of 8 rows x CTW groups of 4
+// columns (warp w the rows 8w.., lane l the columns 4l + 128g; a warp's
+// row loads broadcast), each group of 4 k-values summed in a register of
+// its own before it is added to the running sum.
+__device__ __noinline__ void gemm_f32(const float* X, int ldx, int R, int K,
+                                      int N, const float* __restrict__ W,
+                                      unsigned char* smem, EpiF32 e) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int KT = K / FKSL;
+  for (int m0 = 0; m0 < R; m0 += FMC) {
+    const int mr = min(FMC, R - m0);
+    for (int n0 = 0; n0 < N; n0 += FNC) {
+      const int nc4 = min(FNC, N - n0) / 4;
+      auto stage = [&](int kt) {
+        unsigned char* st = smem + (kt % STAGES) * F_STAGE;
+        for (int i = threadIdx.x; i < mr * 4; i += NT) {
+          const int r = i >> 2, c = i & 3;
+          cp_async16_cg(st + r * (FALD * 4) + c * 16,
+                        X + (size_t)(m0 + r) * ldx + kt * FKSL + c * 4);
+        }
+        for (int i = threadIdx.x; i < FKSL * nc4; i += NT) {
+          const int k = i / nc4, c = i % nc4;
+          cp_async16_cg(st + FA_BYTES + k * (FNC * 4) + c * 16,
+                        W + (size_t)(kt * FKSL + k) * N + n0 + c * 4);
+        }
+      };
+      float acc[8][CTW][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int g = 0; g < CTW; ++g)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][g][j] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < KT) stage(s);
+        cp_async_commit();
+      }
+      for (int kt = 0; kt < KT; ++kt) {
+        cp_async_wait_ring();
+        __syncthreads();
+        if (kt + STAGES - 1 < KT) stage(kt + STAGES - 1);
+        cp_async_commit();
+        const unsigned char* st = smem + (kt % STAGES) * F_STAGE;
+        const float* xa = reinterpret_cast<const float*>(st) + warp * 8 * FALD;
+        const float* wa =
+            reinterpret_cast<const float*>(st + FA_BYTES) + lane * 4;
+#pragma unroll
+        for (int g4 = 0; g4 < FKSL / 4; ++g4) {
+          float4 w[4][CTW];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int g = 0; g < CTW; ++g)
+              w[kk][g] = *reinterpret_cast<const float4*>(
+                  wa + (4 * g4 + kk) * FNC + 128 * g);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(xa + i * FALD + 4 * g4);
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int g = 0; g < CTW; ++g) {
+              float part[4] = {xs[0] * w[0][g].x, xs[0] * w[0][g].y,
+                               xs[0] * w[0][g].z, xs[0] * w[0][g].w};
+#pragma unroll
+              for (int kk = 1; kk < 4; ++kk) {
+                part[0] = fmaf(xs[kk], w[kk][g].x, part[0]);
+                part[1] = fmaf(xs[kk], w[kk][g].y, part[1]);
+                part[2] = fmaf(xs[kk], w[kk][g].z, part[2]);
+                part[3] = fmaf(xs[kk], w[kk][g].w, part[3]);
+              }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][g][j] += part[j];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < CTW; ++g) {
+        if (lane + 32 * g < nc4) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (warp * 8 + i < mr)
+              epi_f32(e, m0 + warp * 8 + i, n0 + 128 * g + lane * 4,
+                      make_float4(acc[i][g][0], acc[i][g][1], acc[i][g][2],
+                                  acc[i][g][3]));
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The attention of every head, a thread per (real row, head): logits over
+// the source set's rows, softmax, probabilities to prob; then a thread per
+// (real row, channel) sums the messages.
+__device__ __forceinline__ void attend_f32(const float* qkv, float* msg,
+                                           float* prob, int Ep, int Dp,
+                                           float att_scale, Rows rw,
+                                           bool cross) {
+  const int n0 = rw.G * rw.T0, n = n0 + rw.G * rw.T1, ld = 3 * Ep;
+  auto row_of = [&](int q, int& kbase, int& nk) {
+    const bool hints = q >= n0;
+    const int g = hints ? (q - n0) / rw.T1 : q / rw.T0;
+    const bool khints = hints != cross;
+    kbase = khints ? rw.hint(g) : rw.obj(g);
+    nk = khints ? rw.T1 : rw.T0;
+    return hints ? rw.objr + (q - n0) : q;
+  };
+  for (int it = threadIdx.x; it < n * HEADS; it += NT) {
+    int kbase, nk;
+    const int r = row_of(it / HEADS, kbase, nk), h = it % HEADS;
+    const float* q = qkv + (size_t)r * ld + h * Dp;
+    float* pr = prob + ((size_t)r * HEADS + h) * rw.T0;
+    float mx = -INFINITY;
+    for (int j = 0; j < nk; ++j) {
+      const float* kr = qkv + (size_t)(kbase + j) * ld + Ep + h * Dp;
+      float dot = 0.0f;
+      for (int d = 0; d < Dp; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(q + d);
+        const float4 b = *reinterpret_cast<const float4*>(kr + d);
+        dot = fmaf(a.x, b.x, dot);
+        dot = fmaf(a.y, b.y, dot);
+        dot = fmaf(a.z, b.z, dot);
+        dot = fmaf(a.w, b.w, dot);
+      }
+      const float s = dot / att_scale;
+      pr[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    float sum = 0.0f;
+    for (int j = 0; j < nk; ++j) {
+      const float e = expf(pr[j] - mx);
+      pr[j] = e;
+      sum += e;
+    }
+    for (int j = 0; j < nk; ++j) pr[j] = pr[j] / sum;
+  }
+  __syncthreads();
+  for (int it = threadIdx.x; it < n * (Ep / 4); it += NT) {
+    int kbase, nk;
+    const int r = row_of(it / (Ep / 4), kbase, nk);
+    const int c = (it % (Ep / 4)) * 4, h = c / Dp;
+    const float* pr = prob + ((size_t)r * HEADS + h) * rw.T0;
+    const float* vc = qkv + (size_t)kbase * ld + 2 * Ep + c;
+    float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < nk; ++j) {
+      const float p = pr[j];
+      const float4 v = *reinterpret_cast<const float4*>(vc + (size_t)j * ld);
+      m.x = fmaf(p, v.x, m.x);
+      m.y = fmaf(p, v.y, m.y);
+      m.z = fmaf(p, v.z, m.z);
+      m.w = fmaf(p, v.w, m.w);
+    }
+    *reinterpret_cast<float4*>(msg + (size_t)r * Ep + c) = m;
+  }
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+template <bool BF16> struct Types;
+template <> struct Types<true> {
+  using T = __nv_bfloat16;
+  using Weights = tc::Weights;
+  static constexpr int SMEM = TC_SMEM;
+};
+template <> struct Types<false> {
+  using T = float;
+  using Weights = f32::Weights;
+  static constexpr int SMEM = F_SMEM;
+};
+
+// Scores of the CTA's pairs: md0_i · md1_j / sqrt(E) (the pads add zeros),
+// md rows of stride Ep.
 template <typename T>
+__device__ __forceinline__ void scores_of(const T* md, int Ep, Rows rw,
+                                          int pair0, int n_pairs,
+                                          float score_scale, float* scores) {
+  const int TT = rw.T0 * rw.T1;
+  for (int it = threadIdx.x; it < rw.G * TT; it += NT) {
+    const int g = it / TT, i = (it / rw.T1) % rw.T0, j = it % rw.T1;
+    if (pair0 + g >= n_pairs) continue;
+    const T* a = md + (size_t)(rw.obj(g) + i) * Ep;
+    const T* b = md + (size_t)(rw.hint(g) + j) * Ep;
+    float dot = 0.0f;
+    if constexpr (sizeof(T) == 2) {
+      for (int c = 0; c < Ep; c += 8) {
+        float x[8], y[8];
+        unpack8(*reinterpret_cast<const uint4*>(a + c), x);
+        unpack8(*reinterpret_cast<const uint4*>(b + c), y);
+#pragma unroll
+        for (int d = 0; d < 8; ++d) dot = fmaf(x[d], y[d], dot);
+      }
+    } else {
+      for (int c = 0; c < Ep; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(a + c);
+        const float4 y = *reinterpret_cast<const float4*>(b + c);
+        dot = fmaf(x.x, y.x, dot);
+        dot = fmaf(x.y, y.y, dot);
+        dot = fmaf(x.z, y.z, dot);
+        dot = fmaf(x.w, y.w, dot);
+      }
+    }
+    scores[(size_t)pair0 * TT + it] = dot / score_scale;
+  }
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 1)
 wide_kernel(const float* __restrict__ desc0,  // [N, T0, E]
             const float* __restrict__ desc1,  // [N, T1, E]
-            Weights<T> wt, int num_blocks, int E, int Ep, int T0, int T1,
+            typename Types<BF16>::Weights wt, int num_blocks, int E, int Ep,
+            int T0, int T1, int G,
             float* __restrict__ scores,       // [N, T0, T1]
             int n_pairs, unsigned char* workspace) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  const Layout lay = layout(Ep, T0, T1, BF16);
+  using T = typename Types<BF16>::T;
+  extern __shared__ uint4 smem_wide[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_wide);
+  const Layout lay = layout(Ep, T0, T1, G, BF16);
   unsigned char* base = workspace + (size_t)blockIdx.x * lay.total;
-  T* A = reinterpret_cast<T*>(base + lay.a);          // [R][2Ep]: a | m
-  T* Q = reinterpret_cast<T*>(base + lay.q);          // [R][3Ep]: q | k | v
-  float* prob = reinterpret_cast<float*>(base + lay.prob);  // [P][HEADS][T0]
-  // The f32 residual: its own rows in bf16, a's left half in f32.
-  float* res = reinterpret_cast<float*>(base + lay.res);
-  const int ldres = BF16 ? Ep : 2 * Ep;
-  const int R = lay.R, P = T0 + T1, Dp = Ep / HEADS;
-  const int tid = threadIdx.x;
-  const float att_scale = sqrtf((float)(E / HEADS)), score_scale = sqrtf((float)E);
+  float* res = reinterpret_cast<float*>(base + lay.res);   // bf16 only
+  T* am = reinterpret_cast<T*>(base + lay.am);     // [R][2Ep]: a | m
+  T* qkv = reinterpret_cast<T*>(base + lay.qkv);   // [R][3Ep]; h1, md
+  T* msg = reinterpret_cast<T*>(base + lay.msg);   // [R][Ep]
+  float* prob = reinterpret_cast<float*>(base + lay.prob);  // attention
+  const int R = lay.R, Dp = Ep / HEADS;
+  const Rows rw{G, T0, T1, (G * T0 + 15) / 16 * 16};
+  const float att_scale = sqrtf((float)(E / HEADS));
+  const float score_scale = sqrtf((float)E);
+  const int units = (n_pairs + G - 1) / G;
+  STAGE_BEGIN
 
-  for (int n = blockIdx.x; n < n_pairs; n += gridDim.x) {
-    // Objects, then hints, then zero rows; zeros in the padding channels.
-    for (int i = tid; i < R * (Ep / 4); i += NT) {
-      const int r = i / (Ep / 4), c = (i % (Ep / 4)) * 4;
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (c < E && r < T0)
-        Vec<float>::ldg(desc0 + ((size_t)n * T0 + r) * E + c, v);
-      else if (c < E && r < P)
-        Vec<float>::ldg(desc1 + ((size_t)n * T1 + (r - T0)) * E + c, v);
-      if (BF16) Vec<float>::store(res + (size_t)r * ldres + c, v);
-      Vec<T>::store(A + (size_t)r * 2 * Ep + c, v);
-    }
-    __syncthreads();
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int pair0 = unit * G;
+    load_rows(desc0, desc1, E, Ep, R, rw, pair0, n_pairs,
+              [&](int r, int c, float4 x) {
+      if constexpr (BF16) {
+        *reinterpret_cast<float4*>(res + (size_t)r * Ep + c) = x;
+        *reinterpret_cast<uint2*>(am + (size_t)r * 2 * Ep + c) =
+            make_uint2(pack2(x.x, x.y), pack2(x.z, x.w));
+      } else {
+        *reinterpret_cast<float4*>(am + (size_t)r * 2 * Ep + c) = x;
+      }
+    });
+    BARRIER(S_LOAD)
 
     for (int l = 0; l < num_blocks; ++l) {
       const bool cross = (l & 1) == 1;
-      // q|k|v of every row.
-      {
-        const float* b = wt.bqkv + (size_t)l * 3 * Ep;
-        matmul<T>(A, 2 * Ep, R, Ep, 3 * Ep, wt.wqkv + (size_t)l * Ep * 3 * Ep,
-                  [&](int r, int c, float (&v)[4]) {
-          float bb[4], o[4];
-          Vec<float>::ldg(b + c, bb);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = v[j] + bb[j];
-          Vec<T>::store(Q + (size_t)r * 3 * Ep + c, o);
-        });
+      const size_t wl = (size_t)l;
+      // The epilogues index the biases and BN affines from wl themselves:
+      // pointers held across the products cost registers.
+      if constexpr (BF16) {
+        // q|k|v = rnd(a·Wqkv + b).
+        gemm_tc(am, 2 * Ep, R, Ep, 3 * Ep, wt.wqkv + wl * (Ep * 3 * Ep / 4),
+                smem, EpiTc{P_BIAS, wt.bqkv + wl * 3 * Ep, nullptr, nullptr,
+                            nullptr, qkv, 3 * Ep, Ep, rw.objr});
+        BARRIER(S_QKV)
+        attend_tc(qkv, msg, prob, Ep, Dp, att_scale, rw, cross);
+        BARRIER(S_ATTN)
+        // m = rnd(msg·Wm + bm) into a | m.
+        gemm_tc(msg, Ep, R, Ep, Ep, wt.wm + wl * (Ep * Ep / 4), smem,
+                EpiTc{P_BIAS, wt.bm + wl * Ep, nullptr, nullptr, nullptr,
+                      am + Ep, 2 * Ep, Ep, rw.objr});
+        BARRIER(S_MERGE)
+        // h1 = rnd(relu(([a | m]·W0) * s0[set] + t0[set])) over q|k.
+        gemm_tc(am, 2 * Ep, R, 2 * Ep, 2 * Ep, wt.w0 + wl * (Ep * Ep), smem,
+                EpiTc{P_W0, nullptr, wt.s0 + wl * 4 * Ep,
+                      wt.t0 + wl * 4 * Ep, nullptr, qkv, 2 * Ep, Ep,
+                      rw.objr});
+        BARRIER(S_W0)
+        // res += rnd(h1·W1 + b1); a gets rnd(res).
+        gemm_tc(qkv, 2 * Ep, R, 2 * Ep, Ep, wt.w1 + wl * (Ep * Ep / 2), smem,
+                EpiTc{P_W1, wt.b1 + wl * Ep, nullptr, nullptr, res, am,
+                      2 * Ep, Ep, rw.objr});
+        BARRIER(S_W1)
+      } else {
+        gemm_f32(am, 2 * Ep, R, Ep, 3 * Ep, wt.wqkv + wl * 3 * Ep * Ep, smem,
+                 EpiF32{P_BIAS, wt.bqkv + wl * 3 * Ep, nullptr, nullptr, qkv,
+                        3 * Ep, Ep, rw.objr});
+        BARRIER(S_QKV)
+        attend_f32(qkv, msg, prob, Ep, Dp, att_scale, rw, cross);
+        BARRIER(S_ATTN)
+        gemm_f32(msg, Ep, R, Ep, Ep, wt.wm + wl * Ep * Ep, smem,
+                 EpiF32{P_BIAS, wt.bm + wl * Ep, nullptr, nullptr, am + Ep,
+                        2 * Ep, Ep, rw.objr});
+        BARRIER(S_MERGE)
+        gemm_f32(am, 2 * Ep, R, 2 * Ep, 2 * Ep, wt.w0 + wl * 4 * Ep * Ep,
+                 smem, EpiF32{P_W0, nullptr, wt.s0 + wl * 4 * Ep,
+                              wt.t0 + wl * 4 * Ep, qkv, 2 * Ep, Ep, rw.objr});
+        BARRIER(S_W0)
+        gemm_f32(qkv, 2 * Ep, R, 2 * Ep, Ep, wt.w1 + wl * 2 * Ep * Ep, smem,
+                 EpiF32{P_W1, wt.b1 + wl * Ep, nullptr, nullptr, am, 2 * Ep,
+                        Ep, rw.objr});
+        BARRIER(S_W1)
       }
-      __syncthreads();
-
-      // Probabilities of each (row, head) over the source set's rows.
-      for (int it = tid; it < P * HEADS; it += NT) {
-        const int r = it / HEADS, h = it % HEADS;
-        const bool own = r >= T0;
-        const bool src = cross ? !own : own;
-        const int kbase = src ? T0 : 0, nk = src ? T1 : T0;
-        const T* q = Q + (size_t)r * 3 * Ep + h * Dp;
-        float* pr = prob + (size_t)it * T0;
-        float mx = -INFINITY;
-        for (int j = 0; j < nk; ++j) {
-          const T* kr = Q + (size_t)(kbase + j) * 3 * Ep + Ep + h * Dp;
-          float dot = 0.0f;
-          for (int d = 0; d < Dp; ++d)
-            dot = fmaf(Vec<T>::get(q + d), Vec<T>::get(kr + d), dot);
-          const float s = dot / att_scale;
-          pr[j] = s;
-          mx = fmaxf(mx, s);
-        }
-        float sum = 0.0f;
-        for (int j = 0; j < nk; ++j) {
-          const float e = expf(pr[j] - mx);
-          pr[j] = e;
-          sum += e;
-        }
-        for (int j = 0; j < nk; ++j) pr[j] = Vec<T>::rnd(pr[j] / sum);
-      }
-      __syncthreads();
-
-      // Messages over q: msg[r, c] = Σ_j p[r, head(c), j] · v[j, c].
-      for (int it = tid; it < P * Ep; it += NT) {
-        const int r = it / Ep, c = it % Ep, h = c / Dp;
-        const bool own = r >= T0;
-        const bool src = cross ? !own : own;
-        const int kbase = src ? T0 : 0, nk = src ? T1 : T0;
-        const float* pr = prob + (size_t)(r * HEADS + h) * T0;
-        const T* vc = Q + (size_t)kbase * 3 * Ep + 2 * Ep + c;
-        float m = 0.0f;
-        for (int j = 0; j < nk; ++j)
-          m = fmaf(pr[j], Vec<T>::get(vc + (size_t)j * 3 * Ep), m);
-        Vec<T>::put(Q + (size_t)r * 3 * Ep + c, m);
-      }
-      __syncthreads();
-
-      // m = msg·Wm + bm into a's right half.
-      {
-        const float* b = wt.bm + (size_t)l * Ep;
-        matmul<T>(Q, 3 * Ep, R, Ep, Ep, wt.wm + (size_t)l * Ep * Ep,
-                  [&](int r, int c, float (&v)[4]) {
-          float bb[4], o[4];
-          Vec<float>::ldg(b + c, bb);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = v[j] + bb[j];
-          Vec<T>::store(A + (size_t)r * 2 * Ep + Ep + c, o);
-        });
-      }
-      __syncthreads();
-
-      // h1 = relu(([a | m]·W0) * s0[set] + t0[set]) over q|k.
-      {
-        const float* s0 = wt.s0 + (size_t)l * 4 * Ep;
-        const float* t0 = wt.t0 + (size_t)l * 4 * Ep;
-        matmul<T>(A, 2 * Ep, R, 2 * Ep, 2 * Ep, wt.w0 + (size_t)l * 4 * Ep * Ep,
-                  [&](int r, int c, float (&v)[4]) {
-          const int set = r >= T0 ? 1 : 0;
-          float s[4], t[4], o[4];
-          Vec<float>::ldg(s0 + set * 2 * Ep + c, s);
-          Vec<float>::ldg(t0 + set * 2 * Ep + c, t);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = fmaxf(fmaf(v[j], s[j], t[j]), 0.0f);
-          Vec<T>::store(Q + (size_t)r * 3 * Ep + c, o);
-        });
-      }
-      __syncthreads();
-
-      // res += rnd(h1·W1 + b1); a's left half gets rnd(res).
-      {
-        const float* b = wt.b1 + (size_t)l * Ep;
-        matmul<T>(Q, 3 * Ep, R, 2 * Ep, Ep, wt.w1 + (size_t)l * 2 * Ep * Ep,
-                  [&](int r, int c, float (&v)[4]) {
-          float bb[4], x[4];
-          Vec<float>::ldg(b + c, bb);
-          float* rp = res + (size_t)r * ldres + c;
-          Vec<float>::load(rp, x);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) x[j] += Vec<T>::rnd(v[j] + bb[j]);
-          Vec<float>::store(rp, x);
-          if (BF16) Vec<T>::store(A + (size_t)r * 2 * Ep + c, x);
-        });
-      }
-      __syncthreads();
     }
 
-    // md = rnd(rnd(res)·Wf + bf) over q.
-    matmul<T>(A, 2 * Ep, R, Ep, Ep, wt.wf, [&](int r, int c, float (&v)[4]) {
-      float bb[4], o[4];
-      Vec<float>::ldg(wt.bf + c, bb);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = v[j] + bb[j];
-      Vec<T>::store(Q + (size_t)r * 3 * Ep + c, o);
-    });
-    __syncthreads();
-
-    for (int it = tid; it < T0 * T1; it += NT) {
-      const int i = it / T1, j = it % T1;
-      const T* a = Q + (size_t)i * 3 * Ep;
-      const T* b = Q + (size_t)(T0 + j) * 3 * Ep;
-      float dot = 0.0f;
-      for (int c = 0; c < Ep; c += 4) {
-        float x[4], y[4];
-        Vec<T>::load(a + c, x);
-        Vec<T>::load(b + c, y);
-#pragma unroll
-        for (int d = 0; d < 4; ++d) dot = fmaf(x[d], y[d], dot);
-      }
-      scores[(size_t)n * T0 * T1 + it] = dot / score_scale;
+    // md = rnd(a·Wf + bf) over q|k|v, then the scores.
+    if constexpr (BF16) {
+      gemm_tc(am, 2 * Ep, R, Ep, Ep, wt.wf, smem,
+              EpiTc{P_BIAS, wt.bf, nullptr, nullptr, nullptr, qkv, Ep, Ep,
+                    rw.objr});
+    } else {
+      gemm_f32(am, 2 * Ep, R, Ep, Ep, wt.wf, smem,
+               EpiF32{P_BIAS, wt.bf, nullptr, nullptr, qkv, Ep, Ep, rw.objr});
     }
-    __syncthreads();   // the next pair overwrites the rows
+    BARRIER(S_FINAL)
+    scores_of(qkv, Ep, rw, pair0, n_pairs, score_scale, scores);
+    BARRIER(S_SCORES)   // the next unit overwrites the rows
   }
 }
 
-int ctas(int n_pairs) {
+// Persistent CTAs, one an SM (at most one a unit): the workspace holds a
+// slice for each.
+int ctas(int units) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return n_pairs < 4 * sms ? n_pairs : 4 * sms;
+  return units < sms ? units : sms;
 }
 
-template <typename T>
-int launch(const float* desc0, const float* desc1, const Weights<T>& wt,
-           int num_blocks, int E, int Ep, int T0, int T1, float* scores,
-           int n_pairs, unsigned char* workspace, cudaStream_t stream) {
-  wide_kernel<T><<<ctas(n_pairs), NT, 0, stream>>>(
-      desc0, desc1, wt, num_blocks, E, Ep, T0, T1, scores, n_pairs,
+template <bool BF16>
+int launch(const float* desc0, const float* desc1,
+           const typename Types<BF16>::Weights& wt, int num_blocks, int E,
+           int Ep, int T0, int T1, int G, float* scores, int n_pairs,
+           unsigned char* workspace, cudaStream_t stream) {
+  constexpr int smem = Types<BF16>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      wide_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  wide_kernel<BF16><<<ctas((n_pairs + G - 1) / G), NT, smem, stream>>>(
+      desc0, desc1, wt, num_blocks, E, Ep, T0, T1, G, scores, n_pairs,
       workspace);
   return (int)cudaGetLastError();
 }
@@ -1540,8 +2084,11 @@ extern "C" int t2p_superglue_gnn_any_workspace(int E, int Ep, int T0, int T1,
     return (int)cudaErrorInvalidValue;
   *bytes = 0;
   if (route == WIDE) {
-    *bytes = (long long)wide::ctas(n_pairs) *
-             (long long)wide::layout(Ep, T0, T1, bf16 != 0).total;
+    if (pairs_per_cta < 1) return (int)cudaErrorInvalidValue;
+    const int units = (n_pairs + pairs_per_cta - 1) / pairs_per_cta;
+    *bytes = (long long)wide::ctas(units) *
+             (long long)wide::layout(Ep, T0, T1, pairs_per_cta, bf16 != 0)
+                 .total;
     return 0;
   }
   const int R = shared_rows(T0, T1, bf16, pairs_per_cta);
@@ -1575,25 +2122,23 @@ extern "C" int t2p_superglue_gnn_any(
   float* out = (float*)scores;
   cudaStream_t st = (cudaStream_t)stream;
   if (route == WIDE) {
-    if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+    if (workspace == nullptr || pairs_per_cta < 1)
+      return (int)cudaErrorInvalidValue;
     unsigned char* ws = (unsigned char*)workspace;
     if (bf16) {
-      using T = __nv_bfloat16;
-      wide::Weights<T> wt{(const T*)wqkv, (const float*)bqkv, (const T*)wm,
-                          (const float*)bm, (const T*)w0, (const float*)s0,
-                          (const float*)t0, (const T*)w1, (const float*)b1,
-                          (const T*)wf, (const float*)bf};
-      return wide::launch<T>(d0, d1, wt, num_blocks, E, Ep, T0, T1, out,
-                             n_pairs, ws, st);
+      tc::Weights wt{(const uint2*)wqkv, (const float*)bqkv, (const uint2*)wm,
+                     (const float*)bm, (const uint2*)w0, (const float*)s0,
+                     (const float*)t0, (const uint2*)w1, (const float*)b1,
+                     (const uint2*)wf, (const float*)bf};
+      return wide::launch<true>(d0, d1, wt, num_blocks, E, Ep, T0, T1,
+                                pairs_per_cta, out, n_pairs, ws, st);
     }
-    wide::Weights<float> wt{(const float*)wqkv, (const float*)bqkv,
-                            (const float*)wm, (const float*)bm,
-                            (const float*)w0, (const float*)s0,
-                            (const float*)t0, (const float*)w1,
-                            (const float*)b1, (const float*)wf,
-                            (const float*)bf};
-    return wide::launch<float>(d0, d1, wt, num_blocks, E, Ep, T0, T1, out,
-                               n_pairs, ws, st);
+    f32::Weights wt{(const float*)wqkv, (const float*)bqkv, (const float*)wm,
+                    (const float*)bm, (const float*)w0, (const float*)s0,
+                    (const float*)t0, (const float*)w1, (const float*)b1,
+                    (const float*)wf, (const float*)bf};
+    return wide::launch<false>(d0, d1, wt, num_blocks, E, Ep, T0, T1,
+                               pairs_per_cta, out, n_pairs, ws, st);
   }
   const int R = shared_rows(T0, T1, bf16, pairs_per_cta);
   if (route != SHARED || R == 0) return (int)cudaErrorInvalidValue;

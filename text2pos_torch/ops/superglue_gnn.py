@@ -19,7 +19,9 @@ arithmetic, rounding included, in PyTorch.
   CUDA cores with G pairs sharing each weight read (both counted as
   ``superglue_gnn_any``, up to ``MAX_SHARED_SET`` objects), and
   ``superglue_gnn_any_wide`` where a pair's rows do not fit in shared
-  memory or a cell holds more objects.
+  memory or a cell holds more objects: G pairs a CTA, their rows in a
+  global workspace, weight k-slices staged through shared memory, bf16
+  products on the tensor cores (``wide_plan``).
 
 Operations bound the function on the H100 (about 20·E²·(T0 + T1) a block a
 pair against (T0 + T1)·E·4 bytes of descriptors). The layout the kernels
@@ -297,10 +299,10 @@ def matmul_weights(packed: Dict[str, torch.Tensor]
 class AnyPlan(NamedTuple):
     """How ``csrc/superglue_gnn_any.cu`` runs a shape: the route (also the
     launch's name), the padded width, the pairs a CTA holds, its rows, its
-    shared memory in bytes (0 on the wide route), and the row of the CTA's
-    first hint on the tensor-core route, whose rows are set-major (objects
-    of all its pairs, then their hints; ``None`` where rows go pair by
-    pair)."""
+    shared memory in bytes, and the row of the CTA's first hint where its
+    rows are set-major (the tensor-core route and the wide route: objects
+    of all its pairs, then their hints, each set in 16-row tiles; ``None``
+    on the f32 shared route, whose rows go pair by pair)."""
     route: str
     width: int
     pairs: int
@@ -311,6 +313,44 @@ class AnyPlan(NamedTuple):
 
 MAX_TC_ROWS = 64    # 4 m-tiles: the tensor-core route's accumulators
 MAX_F32_ROWS = 64   # 8 row lanes of 8 rows: the f32 route's thread tiles
+# The wide route (superglue_gnn_any.cu, namespace wide): one persistent CTA
+# an SM of an H100; its rows in a global workspace slice, at most one
+# m-chunk of 128 rows, so that each weight k-slice it stages serves all of
+# them; its stages' shared memory by dtype.
+H100_SMS = 132
+WIDE_MAX_ROWS = 128
+WIDE_SMEM = {torch.bfloat16: 204800, torch.float32: 86016}
+# What the wide route's CTAs re-read from L2 within a product (its input
+# rows, R x K, read again for every n-chunk of columns) is held under this
+# many bytes over all resident CTAs at the largest K, 2·Ep: H100's L2
+# holds 50 MB, and the weights stream through it beside the rows.
+WIDE_L2_BUDGET = 40_000_000
+
+
+def set_major_rows(G: int, T0: int, T1: int) -> int:
+    """Rows of G pairs set-major: their objects, then their hints, each set
+    padded to a multiple of 16."""
+    return 16 * (-(-G * T0 // 16) + -(-G * T1 // 16))
+
+
+def wide_hot_bytes(Ep: int, rows: int, dtype: torch.dtype) -> int:
+    """Bytes the wide route's resident CTAs (one an SM) re-read from L2
+    within a product: every CTA's rows at K = 2·Ep."""
+    return H100_SMS * rows * 2 * Ep * (2 if dtype == torch.bfloat16 else 4)
+
+
+def wide_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
+    """The wide route's plan: the most pairs G whose set-major rows fit in
+    one m-chunk (``WIDE_MAX_ROWS``) and whose re-read rows stay within
+    ``WIDE_L2_BUDGET`` (``wide_hot_bytes``), and at least one."""
+    Ep = padded_width(E, dtype)
+    g = 1
+    while set_major_rows(g + 1, T0, T1) <= WIDE_MAX_ROWS and wide_hot_bytes(
+            Ep, set_major_rows(g + 1, T0, T1), dtype) <= WIDE_L2_BUDGET:
+        g += 1
+    return AnyPlan("superglue_gnn_any_wide", Ep, g,
+                   set_major_rows(g, T0, T1), WIDE_SMEM[dtype],
+                   16 * -(-g * T0 // 16))
 
 
 def any_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
@@ -318,17 +358,17 @@ def any_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
     fit in a CTA's rows and in an H100 CTA's shared memory (bf16: objects
     then hints, each set padded to a multiple of 16, at most 64 rows of
     2·(2·Ep + 8) bf16; f32: G·(T0 + T1) rows of 2·(2·Ep + 4) floats, at
-    most 64), or the wide route (a pair a CTA, its rows in global memory)
-    where not even one pair fits or T0 passes ``MAX_SHARED_SET``. The
-    kernel computes its layout from G and fails a launch whose rows it has
-    no instantiation for."""
+    most 64), or the wide route (``wide_plan``: G pairs a CTA, their rows
+    in global memory) where not even one pair fits or T0 passes
+    ``MAX_SHARED_SET``. The kernel computes its layout from G and fails a
+    launch whose rows it has no instantiation for."""
     Ep = padded_width(E, dtype)
     bf16 = dtype == torch.bfloat16
     if T0 > MAX_SHARED_SET:
-        return AnyPlan("superglue_gnn_any_wide", Ep, 1, T0 + T1, 0, None)
+        return wide_plan(E, T0, T1, dtype)
     if bf16:
         def rows(g):
-            return 16 * (-(-g * T0 // 16) + -(-g * T1 // 16))
+            return set_major_rows(g, T0, T1)
         cap, row_bytes = MAX_TC_ROWS, 2 * (2 * Ep + 8) * 2
     else:
         def rows(g):
@@ -338,7 +378,7 @@ def any_plan(E: int, T0: int, T1: int, dtype: torch.dtype) -> AnyPlan:
     while rows(g + 1) <= cap and rows(g + 1) * row_bytes <= SMEM_OPTIN:
         g += 1
     if g == 0:
-        return AnyPlan("superglue_gnn_any_wide", Ep, 1, T0 + T1, 0, None)
+        return wide_plan(E, T0, T1, dtype)
     return AnyPlan("superglue_gnn_any", Ep, g, rows(g), rows(g) * row_bytes,
                    16 * -(-g * T0 // 16) if bf16 else None)
 
@@ -442,6 +482,21 @@ def _check_weights(packed, E, L, dt, desc0) -> int:
     return Ep
 
 
+def any_workspace_bytes(E: int, T0: int, T1: int, plan: AnyPlan,
+                        n_pairs: int, bf16: int, device) -> int:
+    """``t2p_superglue_gnn_any_workspace``: the bytes of global workspace a
+    launch of ``plan`` on ``n_pairs`` pairs needs on the card ``device``."""
+    nbytes = ctypes.c_longlong(0)
+    size = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any_workspace",
+                        [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        _build.check(size(E, plan.width, T0, T1, bf16,
+                          int(plan.route == "superglue_gnn_any_wide"),
+                          plan.pairs, n_pairs, ctypes.byref(nbytes)),
+                     f"{plan.route} workspace")
+    return nbytes.value
+
+
 def _gnn_any_kernel(desc0, desc1, packed):
     """``csrc/superglue_gnn_any.cu``: any shape ``_check_any_shape`` takes,
     on the route ``any_plan`` gives; the launch is counted under the
@@ -465,15 +520,9 @@ def _gnn_any_kernel(desc0, desc1, packed):
     plan = any_plan(E, T0, T1, dt)
     bf16 = int(dt == torch.bfloat16)
     route = int(plan.route == "superglue_gnn_any_wide")
-    nbytes = ctypes.c_longlong(0)
-    size = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any_workspace",
-                        [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    with torch.cuda.device(desc0.device):
-        _build.check(size(E, Ep, T0, T1, bf16, route, plan.pairs, N,
-                          ctypes.byref(nbytes)),
-                     f"{plan.route} workspace")
-    ws = (torch.empty(nbytes.value, dtype=torch.uint8, device=desc0.device)
-          if nbytes.value else None)
+    nbytes = any_workspace_bytes(E, T0, T1, plan, N, bf16, desc0.device)
+    ws = (torch.empty(nbytes, dtype=torch.uint8, device=desc0.device)
+          if nbytes else None)
     fn = _build.entry("superglue_gnn_any", "t2p_superglue_gnn_any",
                       [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p] * 3)
