@@ -246,10 +246,13 @@ Phases, each reported on its own ``#`` lines; any failure exits non-zero:
    beside cuDNN and, with the bench text encoder zero-padded to 768 and
    1024, within LSTM_F64_TOL of float64; the GNN at (768, 48, 6) in bf16
    through ``depth_gate`` with ragged counts bit for bit and ties, in f32
-   within GNN_REL_TOL; Sinkhorn on [N, 49, 7]. 14.3: seeded random inputs:
-   the LSTM at H in {544, 768, 1024, 2048} (2048 queries x 64 tokens)
-   beside cuDNN, the GNN at (516, 16, 6), (768, 16, 6), (1024, 64, 16),
-   (300, 48, 6), (300, 64, 64) and (128, 128, 6) in both dtypes.
+   within GNN_REL_TOL, and ``depth_gate`` again on at least
+   WIDEST_GATE_PAIRS pairs (every pose of the map against its top cells);
+   Sinkhorn on [N, 49, 7] beside its time before the redesign and its
+   plan's route. 14.3: seeded random inputs: the LSTM at H in {544, 768,
+   1024, 2048} (2048 queries x 64 tokens) beside cuDNN, the GNN at (516,
+   16, 6), (768, 16, 6), (1024, 64, 16), (300, 48, 6), (300, 64, 64) and
+   (128, 128, 6) in both dtypes.
 
 Needs the repository checkout (the package, ``checkpoints/`` and the
 fixtures) and a CUDA device; imports nothing of JAX.
@@ -265,6 +268,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -399,6 +403,17 @@ def graph_ms(fn, launches: int = 50, reps: int = 5) -> float:
         for _ in range(launches):
             fn()
     return cuda_ms(g.replay, reps=reps) / launches
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's own name in its mangled entry name, with its template
+    arguments as mangled (``lstm_grid_kernel<Li2ELb0>``: 2, false)."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end():m.end() + int(m.group())]
+        if name.endswith("kernel") and len(name) == int(m.group()):
+            args = re.match(r"I(\w*?)EE", mangled[m.end() + len(name):])
+            return name + (f"<{args.group(1)}>" if args else "")
+    return mangled
 
 
 def bound_ms(flops_by_rate, nbytes: float, overlap: bool = False):
@@ -566,6 +581,22 @@ def sinkhorn_bound(B: int, M: int, N: int, iters: int):
                     nbytes, overlap=True)
 
 
+def pair_descriptors(pipe, fx, top):
+    """The GNN's inputs for the pose-cell pairs of ``top`` [Q, K] (cell
+    indices of each query's candidates): the cells' descriptors d0 [Q·K,
+    T0, E] from ``pipe``'s fine bank and the queries' hint encodings d1
+    [Q·K, T1, E], each repeated K times, as ``serve_batch`` pairs them."""
+    dev = pipe.device
+    idx = torch.as_tensor(top.astype("int64"), device=dev).reshape(-1)
+    with torch.inference_mode():
+        hint_enc = pipe.fine.encode_hints(
+            torch.as_tensor(fx["hint_tokens"], device=dev),
+            torch.as_tensor(fx["hint_lengths"], device=dev))
+        d1 = hint_enc.repeat_interleave(top.shape[1], dim=0).contiguous()
+        d0 = pipe.fine_bank_enc[idx].contiguous()
+    return d0, d1
+
+
 def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures, top_idx=None,
                         reps=5):
     """Kernel vs plain for the GNN (bf16 and f32) and Sinkhorn at the
@@ -579,16 +610,8 @@ def gnn_sinkhorn_checks(pipe_bf16, pipe_f32, fx, failures, top_idx=None,
     from text2pos_torch.ops.superglue_gnn import (_gnn_kernel,
                                                   gnn_scores_plain)
 
-    dev = pipe_bf16.device
     top = fx["jax_top_idx"] if top_idx is None else top_idx
-    idx = torch.as_tensor(top.astype("int64"), device=dev).reshape(-1)
-    K = top.shape[1]
-    with torch.inference_mode():
-        hint_enc = pipe_bf16.fine.encode_hints(
-            torch.as_tensor(fx["hint_tokens"], device=dev),
-            torch.as_tensor(fx["hint_lengths"], device=dev))
-        d1 = hint_enc.repeat_interleave(K, dim=0).contiguous()
-        d0 = pipe_bf16.fine_bank_enc[idx].contiguous()
+    d0, d1 = pair_descriptors(pipe_bf16, fx, top)
     N, T0, E = d0.shape
     T1 = d1.shape[1]
     results = {}
@@ -663,6 +686,7 @@ def sinkhorn_checks(pipe, scores, failures):
         check(f"sinkhorn B={B} {M}x{N} iters={iters} dustbins in the kernel",
               err, TOL["sinkhorn"], failures)
         ms = cuda_ms(lambda: _lot_kernel(scores, alpha, iters), reps=20)
+        device_ms = graph_ms(lambda: _lot_kernel(scores, alpha, iters))
         plain_ms = cuda_ms(lambda: log_optimal_transport_plain(
             scores, alpha, iters), reps=5)
     bnd, by = sinkhorn_bound(B, M, N, iters)
@@ -670,13 +694,15 @@ def sinkhorn_checks(pipe, scores, failures):
     # f32 rate, couplings and marginals in.
     old, _ = bound_ms([(10.0 * iters * B * M * N, PEAK_F32)],
                       4.0 * (2 * B * M * N + B * (M + N)))
-    log(f"  sinkhorn (fused dustbins): kernel {ms:.3f} ms, plain "
+    log(f"  sinkhorn (fused dustbins): kernel {ms:.3f} ms (device "
+        f"{device_ms:.4f} ms in a CUDA graph), plain "
         f"{plain_ms:.3f} ms, bound {bnd:.4f} ms "
         f"({float(iters) * B * (2 * M * N + M + N):.3g} SFU "
         f"operations at {PEAK_SFU / 1e12:.2f}e12/s; by the earlier all-f32 "
         f"formula {old:.4f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": None, "max_abs_err": err, "bound_ms_all_f32": old}
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "max_abs_err": err, "bound_ms_all_f32": old}
 
 
 def depth_gate(got, plain, ref64, cut_got, cut_plain):
@@ -5848,6 +5874,10 @@ WIDEST_SEED = 768
 WIDEST_MAP = dict(seed=17, scene_name="9917", extent=480.0, cell_size=30.0,
                   poses_per_cell=1, objects_per_cell_area=48)
 WIDEST_QUERIES = 128
+# The larger depth gate (``widest_gate``): every pose of the map (253)
+# against enough of its top cells for at least this many pose-cell pairs
+# (41 cells: 10,373 pairs).
+WIDEST_GATE_PAIRS = 10240
 WIDEST_LSTM = (544, 768, 1024, 2048)
 # Random GNN shapes: E past 512 on the tensor-core route (516, 768 at 16
 # objects), E = 1024 with 64 objects, pad_size 48 and 64 at E = 300, 128
@@ -5864,24 +5894,73 @@ WIDEST_LAUNCHES = {"lstm_grid": 2, "superglue_gnn_any_wide": 1,
 # on the path's 1,280 pairs at 12 blocks, ms by dtype: PERF.md's kernel
 # table (this phase on an H100 80GB HBM3 at 700 W).
 WIDEST_PARENT_MS = {"bf16": 2821.0, "f32": 727.0}
+# Sinkhorn's wide form on the path's couplings before its redesign (a warp
+# a coupling re-reading its scores, its duals in global memory), ms a call:
+# PERF.md's kernel table (this phase on an H100 80GB HBM3 at 700 W). Only
+# the log line reads it.
+SINKHORN_WIDE_PARENT_MS = 0.394
 
 
 def widest_map(pipe):
     """Phase 14's map and queries: the seeded dense scene (WIDEST_MAP), its
-    bank of WIDEST_PAD object slots (256 points an object, seed 0) and the
-    first WIDEST_QUERIES poses' descriptions tokenized as the server does
-    (``tokenize_queries``: the bench vocabularies). Returns (bank, query
-    arrays, objects a cell)."""
+    bank of WIDEST_PAD object slots (256 points an object, seed 0) and its
+    poses' descriptions tokenized as the server does (``tokenize_queries``:
+    the bench vocabularies, fixed widths). Returns (bank, the first
+    WIDEST_QUERIES poses' query arrays, objects a cell, every pose's query
+    arrays)."""
     from text2pos_torch.data.dense import build_cell_bank
     from text2pos_torch.data.hints import create_hint_description
     from text2pos_torch.data.synthetic import make_synthetic_dataset
 
     cells, poses = make_synthetic_dataset(**WIDEST_MAP)
     bank = build_cell_bank(cells, WIDEST_PAD, 256, seed=0)
-    hints = [create_hint_description(p) for p in poses[:WIDEST_QUERIES]]
-    fx = dict(zip(("tokens", "lengths", "hint_tokens", "hint_lengths"),
-                  pipe.tokenize_queries(hints)))
-    return bank, fx, np.array([len(c.objects) for c in cells])
+    hints = [create_hint_description(p) for p in poses]
+    every = dict(zip(("tokens", "lengths", "hint_tokens", "hint_lengths"),
+                     pipe.tokenize_queries(hints)))
+    fx = {k: v[:WIDEST_QUERIES] for k, v in every.items()}
+    return bank, fx, np.array([len(c.objects) for c in cells]), every
+
+
+def widest_gate_pairs(pipe, every):
+    """The larger depth gate's inputs: every pose of phase 14's map against
+    its top-K cells of ``pipe``'s retrieval, K the fewest that give
+    WIDEST_GATE_PAIRS pairs (``serve_batch`` at top-K: each cell at most
+    once a pose), as ``pair_descriptors`` pairs them. Returns (d0, d1,
+    top_idx [poses, K])."""
+    K = -(-WIDEST_GATE_PAIRS // len(every["tokens"]))
+    top = serve_all(pipe, every, K)[0]
+    if any(len(set(row)) != K for row in top.tolist()):
+        raise AssertionError("a pose's top cells repeat a cell")
+    return (*pair_descriptors(pipe, every, top), top)
+
+
+def widest_gate(pipe, every, failures):
+    """14.2: ``depth_gate`` of the wide route's bf16 scores at 12 blocks on
+    the top cells of every pose of the map (``widest_gate_pairs``: at least
+    WIDEST_GATE_PAIRS pairs, where the 1,280 pairs of the served batch
+    leave the 99.9th percentile to the two largest pairs), beside the gate
+    on the served pairs. Returns its readings with the pairs and the
+    seconds the reading took."""
+    from text2pos_torch.ops.superglue_gnn import _gnn_kernel
+
+    t0 = time.time()
+    d0, d1, top = widest_gate_pairs(pipe, every)
+    packed = pipe.fine.superglue.packed_kernel_params()
+    N, T0, E = d0.shape
+    route = gnn_route(E, T0, d1.shape[1], packed["wqkv"].dtype)[0]
+    with torch.inference_mode():
+        got = _gnn_kernel(d0, d1, packed)
+    gate = gnn_depth_check(
+        f"14.2 {route} bf16 every pose x top-{top.shape[1]} N={N} "
+        f"{T0}x{d1.shape[1]} E={E} blocks={packed['wqkv'].shape[0]}", got,
+        d0, d1, packed, failures)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    log(f"  14.2 the gate on {N} pairs took {sec:.1f} s (serving the "
+        f"{len(every['tokens'])} poses at top-{top.shape[1]}, the kernel "
+        f"at 12 and {DEPTH_CUT_BLOCKS} blocks, the plain version and the "
+        f"float64 evaluation in chunks of 4096 pairs)")
+    return dict(gate, pairs=N, seconds=sec)
 
 
 def widest_lstm_f64(pipe, fx, pipe_bench, fx_bench, failures):
@@ -5937,6 +6016,24 @@ def widest_lstm_f64(pipe, fx, pipe_bench, fx_bench, failures):
     return out
 
 
+def widest_sinkhorn_line(r, B, M, N):
+    """14.2: ``sinkhorn_wide`` on the path's B couplings of M x N beside its
+    time before the redesign, its bound and the plain version's, with its
+    plan's route."""
+    from text2pos_torch.ops.sinkhorn import wide_plan
+
+    p = wide_plan(M, N)
+    before = SINKHORN_WIDE_PARENT_MS
+    log(f"  14.2 sinkhorn_wide [{B}, {M}, {N}]: {r['ms']:.4f} ms a call "
+        f"({r['device_ms']:.4f} ms of device in a CUDA graph) against "
+        f"{before:.3f} a call before the redesign (PERF.md; "
+        f"{before / r['ms']:.1f}x), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain {r['plain_ms']:.3f} "
+        f"ms; route {p.route}, {p.couplings} couplings a CTA, {p.smem} B of "
+        "shared memory")
+
+
 def widest_route_line(gnn, N, T1):
     """14.2: the wide route on the path's N pose-cell pairs of T1 hints, by
     dtype: its plan (pairs a CTA, rows), its workspace and the part of it
@@ -5975,7 +6072,7 @@ def widest_phase(pipe_bf16, fx_bench, failures, device="cuda"):
     from text2pos_torch.ops import _build
 
     t0 = time.time()
-    bank, fx, counts = widest_map(pipe_bf16)
+    bank, fx, counts, every = widest_map(pipe_bf16)
     Q, T = fx["tokens"].shape
     log(f"  14.1 map {WIDEST_MAP}: {bank.num_cells} cells, objects a cell "
         f"median {np.median(counts):.0f}, most {counts.max()}, "
@@ -6042,6 +6139,10 @@ def widest_phase(pipe_bf16, fx_bench, failures, device="cuda"):
     readings["gnn_wide"] = widest_route_line(readings["gnn"],
                                              served["bf16"].size,
                                              fx["hint_tokens"].shape[1])
+    readings["gnn_gate"] = widest_gate(pipes["bf16"], every, failures)
+    widest_sinkhorn_line(readings["gnn"]["sinkhorn"],
+                         served["bf16"].size, WIDEST_PAD + 1,
+                         fx["hint_tokens"].shape[1] + 1)
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(14)
     tokens = torch.as_tensor(fx_bench["tokens"], device=dev)
@@ -6104,13 +6205,17 @@ def main() -> int:
         f" s ({', '.join(f'{k} {v:.1f}s' for k, v in took.items())}) into "
         f"{_build.build_dir()}")
     for name in _build.SOURCES:
+        kernel = ""
         for line in _build.build_log(name).splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                kernel = kernel_name(found.group(1))
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
                 if "spill" in line and \
                         "0 bytes spill stores, 0 bytes spill loads" not in line:
-                    failures.append(f"ptxas reports spills in {name}: "
-                                    f"{line.strip()}")
+                    failures.append(f"ptxas reports spills in {name} "
+                                    f"{kernel}: {line.strip()}")
 
     fx = dict(np.load(FIXTURE))
     t0 = time.time()

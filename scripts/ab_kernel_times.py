@@ -21,7 +21,13 @@ FPS at the six levels of a DB-encode step (1024 and 787 objects at 256,
 level (``t2p_fps``), then a forward's three levels as the model runs them:
 one ``t2p_fps_levels`` launch where the side has it, else three
 ``t2p_fps`` launches, each on the last one's centroids; Sinkhorn at the
-headline's 20,480 pairs (16 x 6 scores, dustbins, 50 iterations);
+headline's 20,480 pairs (16 x 6 scores, dustbins, 50 iterations); the
+LSTM's grid form (H > 512) at chip_smoke phase 14's two launches (128
+texts of 64 tokens, 768 hints of 16, H = 768, the bench fixture's
+lengths) and at 2048 x 64 for H = 768, 1024 and 2048; Sinkhorn's
+wide form on phase 14's 1,280 couplings of 48 x 6 scores (dustbins, 50
+iterations; also 0 and 1 iterations, and 50 on 128 and 5,120 couplings),
+with whether the two sides' outputs are bit-identical;
 PointConv at the DB encode's sa1 level (1024 objects, 256 -> 128 points,
 32 -> 64 channels) in bf16 and f32; the tuned GNN
 (``superglue_gnn.cu``) at the bench headline's 20,480 pairs of (128, 16, 6)
@@ -56,7 +62,9 @@ largest error against the plain f32 version (over GNN_REL_TOL of its
 largest score, the earlier ``gnn_sinkhorn_checks`` rule), and for each
 side the verdict of chip_smoke's ``depth_gate`` (the second form's bf16
 gate at serving depth) with the conditions that fail and its reading at
-the cut depth. With ``--drift`` only these readings run. Each LSTM case
+the cut depth. With ``--drift`` only these readings run, with
+``--no-drift`` all but these; ``--only=PREFIX[,PREFIX...]`` keeps the
+kernel cases whose label starts so (no headlines). Each LSTM case
 also says whether the two sides' outputs are bit-identical, and the
 header prints each side's ``ptxas`` lines of ``lstm.cu`` (registers,
 spills).
@@ -73,6 +81,7 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -180,6 +189,47 @@ def lstm_call(libs, B, T, H, V=512, seed=0):
     return call
 
 
+def lstm_grid_call(libs, B, T, H, lengths=None, V=512, seed=0):
+    """A launch of the grid form (H > 512, a multiple of 32) on seeded
+    random weights, run as the port's wrapper runs it (W_hh in fragment
+    order, a zeroed workspace). ``lengths`` (numpy) default to random ones
+    in [T/2, T]."""
+    from text2pos_torch.ops import lstm as tlstm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tables = [torch.randn(V, 4 * H, device="cuda", generator=g) * 0.3
+              for _ in range(2)]
+    w_hh = [(torch.rand(H, 4 * H, device="cuda", generator=g) * 2 - 1)
+            / H ** 0.5 for _ in range(2)]
+    tokens = torch.randint(0, V, (B, T), device="cuda", generator=g,
+                           dtype=torch.int32)
+    lengths = (torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g,
+                             dtype=torch.int32) if lengths is None else
+               torch.as_tensor(lengths, dtype=torch.int32, device="cuda"))
+    lib = libs["lstm"]
+    wpack = [tlstm.w_hh_fragments(w) for w in w_hh]
+    out = torch.empty(2, B, H, device="cuda")
+    size = lib.t2p_lstm_grid_workspace
+    size.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    n = ctypes.c_longlong(0)
+    _build.check(size(H, B, 0, ctypes.byref(n)), "lstm_grid workspace")
+    ws = torch.zeros(n.value, dtype=torch.uint8, device="cuda")
+    fn = lib.t2p_lstm_final_hidden_grid
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    args = [t.data_ptr() for t in (*tables, *wpack, tokens, lengths, out,
+                                   ws)] + [V, T, B, H, 0]
+
+    def call():
+        ws.zero_()
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"lstm_grid launch: CUDA error {err}")
+    call.keep = (wpack, out, ws)
+    call.inputs, call.out = (tables, w_hh, tokens, lengths), out
+    return call
+
+
 def lstm_f64_errors(calls):
     """Each side's final h (its last launch) and the plain f32 version's
     largest error against the plain version evaluated in float64 on the
@@ -274,6 +324,30 @@ def sinkhorn_call(libs, B=20480, M=16, N=6, iters=50, seed=0):
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"sinkhorn launch: CUDA error {err}")
+    return call
+
+
+def sinkhorn_wide_call(libs, B=1280, M=48, N=6, iters=50, seed=0):
+    """The wide form on phase 14's couplings: [B, M, N] scores, dustbins
+    (an [M+1, N+1] coupling), 50 iterations; a workspace of duals for
+    whichever side reads one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.randn(B, M, N, device="cuda", generator=g) * 5
+    alpha = torch.ones(1, device="cuda")
+    out = torch.empty(B, M + 1, N + 1, device="cuda")
+    duals = torch.empty(B, M + N + 2, device="cuda")
+    fn = libs["sinkhorn"].t2p_log_sinkhorn_wide
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+
+    def call():
+        err = fn(scores.data_ptr(), None, None, alpha.data_ptr(),
+                 out.data_ptr(), duals.data_ptr(), B, M + 1, N + 1, iters, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sinkhorn_wide launch: CUDA error {err}")
+    call.keep = (scores, alpha, duals)
+    call.out = out
     return call
 
 
@@ -546,7 +620,10 @@ def headline_ms(sides):
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--drift"]
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    args = [a for a in sys.argv[1:] if a not in ("--drift", "--no-drift")
+            and not a.startswith("--only=")]
     if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -566,7 +643,25 @@ def main() -> int:
                   for B in (1024, 787) for N in (256, 128, 64)]
         cases += [(f"fps three levels B={B} N=256",
                    lambda L, b=B: fps_levels_call(L, b)) for B in (1024, 787)]
+        fx = np.load(ROOT / "text2pos_torch" / "fixtures"
+                     / "bench_queries.npz")
+        text, hints = fx["lengths"], fx["hint_lengths"].reshape(-1)
+        cases += [(f"lstm_grid B={B} T={T} H={H}{note}",
+                   lambda L, a=(B, T, H, ln): lstm_grid_call(L, *a))
+                  for B, T, H, ln, note in (
+                      (128, 64, 768, text[:128], " (phase 14's text)"),
+                      (768, 16, 768, hints[:768], " (phase 14's hints)"),
+                      (2048, 64, 768, text, ""), (2048, 64, 1024, text, ""),
+                      (2048, 64, 2048, text, ""))]
         cases += [("sinkhorn N=20480 (16, 6) 50 iterations", sinkhorn_call)]
+        # Phase 14's couplings, then what sets their time: the copy in and
+        # out alone (0 iterations), one iteration, and the 50 iterations on
+        # a tenth of the couplings (a warp on 132 SMs' 528 sub-partitions
+        # at most: the chain's latency) and on four times as many.
+        cases += [(f"sinkhorn_wide N={B} (48, 6) {n} iterations",
+                   lambda L, b=B, n=n: sinkhorn_wide_call(L, B=b, iters=n))
+                  for B, n in ((1280, 50), (1280, 0), (1280, 1), (128, 50),
+                               (5120, 50))]
         cases += [(f"pointconv {str(dt)[6:]} B=1024 sa1",
                    lambda L, d=dt: pointconv_call(L, d))
                   for dt in (torch.bfloat16, torch.float32)]
@@ -587,6 +682,8 @@ def main() -> int:
             print(f"# ptxas lstm.cu {k}: " + " | ".join(v["lstm_ptxas"]))
         if "--drift" in sys.argv:
             cases = []
+        if only:
+            cases = [c for c in cases if c[0].startswith(tuple(only[0]))]
         for label, make in cases:
             calls = {k: make(v) for k, v in sides.items()}
             ms = {k: [] for k in calls}
@@ -604,18 +701,24 @@ def main() -> int:
                     f"{k} {e:.3e}" for k, e in lstm_f64_errors(calls).items())
                     + "; A and B bit-identical: "
                     + str(torch.equal(calls["A"].out, calls["B"].out)))
+            if label.startswith("sinkhorn_wide"):
+                d = float((calls["A"].out - calls["B"].out).abs().max())
+                print(f"  A and B bit-identical: "
+                      f"{torch.equal(calls['A'].out, calls['B'].out)} "
+                      f"(largest difference {d:.3e})")
             if slow:
                 errs = f64_errors(calls)
                 print("  against the float64 evaluation (largest error "
                       "over the tolerance, pairs past it): " + ", ".join(
                           f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
-        if cases:
+        if cases and not only:
             for what, ms in headline_ms(sides).items():
                 print(f"{what} bf16 headline (2048 queries, top-10) with "
                       "each side's LSTM: " + ", ".join(
                           f"{k} {v[0]:.3f} {v[1]:.3f} ms"
                           for k, v in ms.items()))
-        drift_readings(sides)
+        if "--no-drift" not in sys.argv:
+            drift_readings(sides)
     return 0
 
 

@@ -3,15 +3,20 @@
 namespace ``wide``) against a float64 evaluation where it serves: chip_smoke
 phase 14's path inputs, the E = 768, pad_size 48 pipelines
 (``widest_map``, ``wide_pipeline``) of two model seeds (WIDEST_SEED and
-WIDEST_SEED + 10: 768, 778), their 1,280 pose-cell pairs of the bf16
-headline's top-10 at (768, 48, 6), 12 blocks. For this tree's build, and
+WIDEST_SEED + 10: 768, 778), at (768, 48, 6), 12 blocks, on two sets of
+pose-cell pairs: the 1,280 of the bf16 headline's top-10 (128 poses), and
+10,373: every pose of the map (253) against its top-41 cells of the bf16
+pipeline's retrieval (``widest_gate_pairs``, phase 14's larger gate),
+where the 99.9th percentile of the per-pair errors no longer rests on the
+two largest pairs. For this tree's build, and
 for another tree's ``csrc`` built beside it when one is given (the parent's,
 unpacked with ``git archive <commit> text2pos_torch/csrc``), prints the
 bf16 scores' ``depth_gate`` readings (a)-(d) (median, 99.9th percentile
 and largest per-pair error against the float64 evaluation, beside the
 plain f32 version's, and the 2-block cut against the plain version) and
 the f32 scores' largest error against the plain version and against
-float64, with each launch's wall time.
+float64, with each launch's wall time and each reading's (inputs, the
+kernel, the plain version and the float64 evaluation in chunks).
 
     python3 scripts/check_gnn_wide_sums.py [OTHER_CSRC]
 
@@ -30,7 +35,6 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,6 +61,55 @@ def other_library(csrc: Path) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
+def readings(seed, d0, d1, pipes, libs, own, t0):
+    """Prints the bf16 depth gate and the f32 errors on the pairs d0, d1
+    for each library; returns the gates of this tree's build that fail."""
+    failed = []
+    N = len(d0)
+    for label in ("bf16", "f32"):
+        packed = pipes[label].fine.superglue.packed_kernel_params()
+        cut = cs.first_blocks(packed)
+        with torch.inference_mode():
+            plain = tgnn.gnn_scores_plain(d0, d1, packed)
+            cut_plain = tgnn.gnn_scores_plain(d0, d1, cut)
+            ref = cs.f64_scores(d0, d1, packed)
+        for name, lib in libs.items():
+            # The wrapper launches whichever library the build cache
+            # holds under the source's name.
+            _build._LIBS["superglue_gnn_any"] = lib
+            with torch.inference_mode():
+                t1 = time.time()
+                got = tgnn._gnn_kernel(d0, d1, packed)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.time() - t1)
+                if label == "bf16":
+                    cut_got = tgnn._gnn_kernel(d0, d1, cut)
+                    torch.cuda.synchronize()
+            _build._LIBS["superglue_gnn_any"] = own
+            took = time.time() - t0
+            if label == "bf16":
+                ok, r = cs.depth_gate(got, plain, ref, cut_got, cut_plain)
+                print(f"seed {seed}, {N} pairs, bf16 {name}: {ms:.0f} ms; "
+                      f"depth gate {'pass' if ok else 'FAIL'} (median ratio "
+                      f"{r['median'] / r['plain_median']:.4f}; reading "
+                      f"{took:.1f} s): {cs.depth_gate_line(r)}", flush=True)
+                if not ok and name == "this tree":
+                    failed.append(f"seed {seed} {N} pairs bf16")
+                continue
+            tol = cs.GNN_REL_TOL["f32"]
+            e = float((got - plain).abs().max()) / (
+                tol * float(plain.abs().max()))
+            e64, p64 = (float((x.double() - ref).abs().max()) / (
+                tol * float(ref.abs().max())) for x in (got, plain))
+            print(f"seed {seed}, {N} pairs, f32 {name}: {ms:.0f} ms; from "
+                  f"the plain version {e:.3f} of GNN_REL_TOL, from float64 "
+                  f"{e64:.3f} (the plain version {p64:.3f}; reading "
+                  f"{took:.1f} s)", flush=True)
+            if e > 1 and name == "this tree":
+                failed.append(f"seed {seed} {N} pairs f32")
+    return failed
+
+
 def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_line())
@@ -65,65 +118,24 @@ def main(argv) -> int:
     libs = {"this tree": own}
     if argv:
         libs["other tree"] = other_library(Path(argv[0]))
-    fx = dict(np.load(cs.FIXTURE))
     bench = LocalizationPipeline.from_checkpoints(
         cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="bfloat16",
         device="cuda")
-    bank, qx, _ = cs.widest_map(bench)
-    dev = torch.device("cuda")
+    bank, qx, _, every = cs.widest_map(bench)
     failed = []
     for seed in (cs.WIDEST_SEED, cs.WIDEST_SEED + 10):
         pipes = {label: cs.wide_pipeline(bench, bank, qx, dt,
                                          pad=cs.WIDEST_PAD,
                                          width=cs.WIDEST_E, seed=seed)[0]
                  for label, dt in (("bf16", torch.bfloat16), ("f32", None))}
-        ti = cs.serve_all(pipes["bf16"], qx, cs.TOP_K)[0]
-        idx = torch.as_tensor(ti, device=dev).reshape(-1)
-        with torch.inference_mode():
-            hints = pipes["bf16"].fine.encode_hints(
-                torch.as_tensor(qx["hint_tokens"], device=dev),
-                torch.as_tensor(qx["hint_lengths"], device=dev))
-        d1 = hints.repeat_interleave(cs.TOP_K, dim=0).contiguous()
-        d0 = pipes["bf16"].fine_bank_enc[idx].contiguous()
-        for label in ("bf16", "f32"):
-            packed = pipes[label].fine.superglue.packed_kernel_params()
-            cut = cs.first_blocks(packed)
-            with torch.inference_mode():
-                plain = tgnn.gnn_scores_plain(d0, d1, packed)
-                cut_plain = tgnn.gnn_scores_plain(d0, d1, cut)
-                ref = cs.f64_scores(d0, d1, packed)
-            for name, lib in libs.items():
-                # The wrapper launches whichever library the build cache
-                # holds under the source's name.
-                _build._LIBS["superglue_gnn_any"] = lib
-                with torch.inference_mode():
-                    t0 = time.time()
-                    got = tgnn._gnn_kernel(d0, d1, packed)
-                    torch.cuda.synchronize()
-                    ms = 1e3 * (time.time() - t0)
-                    if label == "bf16":
-                        cut_got = tgnn._gnn_kernel(d0, d1, cut)
-                        torch.cuda.synchronize()
-                _build._LIBS["superglue_gnn_any"] = own
-                if label == "bf16":
-                    ok, r = cs.depth_gate(got, plain, ref, cut_got, cut_plain)
-                    print(f"seed {seed} bf16 {name}: {ms:.0f} ms; depth gate "
-                          f"{'pass' if ok else 'FAIL'} (median ratio "
-                          f"{r['median'] / r['plain_median']:.4f}): "
-                          f"{cs.depth_gate_line(r)}", flush=True)
-                    if not ok and name == "this tree":
-                        failed.append(f"seed {seed} bf16")
-                    continue
-                tol = cs.GNN_REL_TOL["f32"]
-                e = float((got - plain).abs().max()) / (
-                    tol * float(plain.abs().max()))
-                e64, p64 = (float((x.double() - ref).abs().max()) / (
-                    tol * float(ref.abs().max())) for x in (got, plain))
-                print(f"seed {seed} f32 {name}: {ms:.0f} ms; from the plain "
-                      f"version {e:.3f} of GNN_REL_TOL, from float64 "
-                      f"{e64:.3f} (the plain version {p64:.3f})", flush=True)
-                if e > 1 and name == "this tree":
-                    failed.append(f"seed {seed} f32")
+        for count in ("served", "every pose"):
+            t0 = time.time()
+            if count == "served":
+                top = cs.serve_all(pipes["bf16"], qx, cs.TOP_K)[0]
+                d0, d1 = cs.pair_descriptors(pipes["bf16"], qx, top)
+            else:
+                d0, d1, _ = cs.widest_gate_pairs(pipes["bf16"], every)
+            failed += readings(seed, d0, d1, pipes, libs, own, t0)
     print(f"gates failed: {failed or 'none'}")
     return 1 if failed else 0
 

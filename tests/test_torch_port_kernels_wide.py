@@ -8,7 +8,8 @@ cores and f32 on the CUDA cores, both ``superglue_gnn_any``, and
 ``superglue_gnn_any_wide``, which takes every shape past 32 objects and
 every pair whose rows pass shared memory: G pairs a CTA, weight tiles in
 shared memory, bf16 products on the tensor cores), Sinkhorn's wide form past 32 x
-16 couplings, FPS past 256 points; every LSTM form (W_hh in shared memory,
+16 couplings (copied into shared memory, or past it read from global
+memory), FPS past 256 points; every LSTM form (W_hh in shared memory,
 from L2 past 256 units, the grid form) against a float64 evaluation on
 long, sensitive text (the bench text encoder, zero-padded to the wider
 widths); and the four trainers built on the card at embed_dim and
@@ -191,11 +192,12 @@ def test_lstm_l2_form_holds_float64_on_text(cuda, H):
     assert err <= 1e-4
 
 
-@pytest.mark.parametrize("H", [768, 1024])
+@pytest.mark.parametrize("H", [768, 1024, 2048])
 def test_lstm_grid_form_holds_float64_on_text(cuda, H):
     """The grid form (past 512 units), which runs the L2 form's step, on
-    the same text zero-padded to H: within 2e-5 of float64 and within 1e-4
-    of the plain f32 version."""
+    the same text zero-padded to H (W_hh in L2 at 768 and 1024, past it at
+    2048): within 2e-5 of float64 and within 1e-4 of the plain f32
+    version."""
     err64, err, plain64 = _text_errors(cuda, H)
     assert err64 <= 2e-5, (err64, plain64)
     assert err <= 1e-4
@@ -250,12 +252,56 @@ def test_lstm_grid_form_repeats_bit_for_bit(cuda):
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
 
 
+# Grid-form cases off its 32-sequence tile: (H, B, T, CTAs a group; 0 lets
+# the plan choose).
+GRID_RAGGED_CASES = [(544, 130, 9, 0), (768, 257, 12, 0), (608, 37, 7, 0),
+                     (1024, 300, 10, 3), (2048, 131, 6, 0)]
+
+
+@pytest.mark.parametrize("H,B,T,ctas", GRID_RAGGED_CASES)
+def test_lstm_grid_form_ragged_with_a_nan_token(cuda, H, B, T, ctas):
+    """The grid form against the plain version with ragged lengths that
+    include 0 and T, B not a multiple of the tile, and a token outside
+    [0, V) that makes its sequence's gates NaN from its step on (both
+    directions read it) and no other sequence's; a second launch repeats
+    the first bit for bit."""
+    tables, w_hh, tokens, lengths = _lstm_case(T, B, H, seed=ctas * H + B)
+    lengths[1], lengths[2], lengths[-2] = 0, T, 0
+    lengths[5] = T
+    tokens[5, T // 2] = 1000                        # past V = 29
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm_grid", lambda: tlstm._lstm_kernel(*args,
+                                                             ctas=ctas))
+    assert got.shape == (2, B, H)
+    assert bool(torch.isnan(got[:, 5]).all())
+    keep = torch.arange(B) != 5
+    tok = tokens.clone()
+    tok[5, T // 2] = 0
+    want = tlstm.lstm_final_hidden_plain(args[0], args[1], tok.to(cuda),
+                                         args[3])
+    torch.testing.assert_close(got[:, keep], want[:, keep], atol=1e-5,
+                               rtol=1e-4)
+    assert float(got[:, 1].abs().max()) == 0.0
+    assert float(got[:, -2].abs().max()) == 0.0
+    again = tlstm._lstm_kernel(*args, ctas=ctas)
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(again))
+
+
 @pytest.mark.parametrize("B,M,N,iters", [
     (1280, 49, 7, 50),      # pad_size 48, 6 hints: the phase-14 coupling
     (37, 33, 7, 6),         # pad_size 32
     (5, 17, 40, 10),        # 39 hints
     (9, 130, 65, 7),
     (3, 40, 5, 0),          # no iteration: the couplings less - norm
+    (1281, 49, 7, 1),       # B not a multiple of the 4 couplings a CTA
+    (1279, 49, 7, 0),
+    (6, 65, 17, 50),        # pad_size 64, 16 hints
+    (7, 65, 17, 1),
+    (5, 33, 33, 50),        # 32 objects, 32 hints: 1 lane a row and column
+    (3, 33, 33, 0),
+    (2, 300, 300, 3),       # past shared memory: the workspace route
+    (3, 201, 200, 2),       # one coupling a CTA
 ])
 def test_sinkhorn_wide_form_matches_plain(cuda, B, M, N, iters):
     """Couplings past 32 x 16 (dustbins included) on the wide form, scores
@@ -272,6 +318,25 @@ def test_sinkhorn_wide_form_matches_plain(cuda, B, M, N, iters):
     want = tsink.log_optimal_transport_plain(scores, alpha, iters)
     assert got.shape == (B, M, N)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    again = tsink.log_optimal_transport(scores, alpha, iters)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M,N", [(49, 7), (65, 17), (33, 33), (300, 300),
+                                 (201, 200), (120, 120)])
+def test_sinkhorn_wide_plan_matches_the_mirror(cuda, M, N):
+    """The C side's plan on this card (``t2p_sinkhorn_wide_plan``) is
+    ``wide_plan`` with the card's shared memory."""
+    import ctypes
+    from text2pos_torch.ops import sinkhorn as tsink
+
+    fn = _build.entry("sinkhorn", "t2p_sinkhorn_wide_plan",
+                      [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 3)()
+    assert fn(M, N, out) == 0
+    p = tsink.wide_plan(M, N, torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin)
+    assert list(out) == [int(p.route == "smem"), p.couplings, p.smem]
 
 
 def test_trainers_take_widths_past_512(cuda):

@@ -51,7 +51,7 @@ WIDEST = dict(CAL_TINY, embed_dim=768, num_layers=1, pad_size=48,
 TOP_K, Q = 3, 8
 
 
-@pytest.mark.parametrize("H", [544, 768])
+@pytest.mark.parametrize("H", [544, 768, 1024, 2048])
 def test_lstm_plain_matches_jax_past_512(H):
     """Both directions' mean over embedded tokens: the port's
     ``bilstm_final_hidden`` (x·W_ih + b as a table, then the plain
@@ -216,7 +216,10 @@ def test_wide_workspace_under_the_l2_budget_at_phase_14(dtype):
 
 
 @pytest.mark.parametrize("B,M,N,iters", [(4, 48, 6, 50), (3, 32, 6, 20),
-                                         (2, 64, 40, 10), (2, 16, 16, 5)])
+                                         (2, 64, 40, 10), (2, 16, 16, 5),
+                                         (4, 48, 6, 0), (4, 48, 6, 1),
+                                         (3, 64, 16, 50), (2, 32, 32, 50),
+                                         (2, 32, 32, 1)])
 def test_sinkhorn_plain_matches_jax_past_32_by_16(B, M, N, iters):
     """Dustbins, marginals and - norm around the plain Sinkhorn (what the
     wide form computes) against JAX's XLA loop, scores [B, M, N] to +-30."""

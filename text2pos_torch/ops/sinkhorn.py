@@ -10,8 +10,10 @@ builds the dustbins in registers; ``log_sinkhorn`` takes given couplings and
 marginals through the same kernel. Couplings up to ``MAX_ROWS`` x
 ``MAX_COLS`` (dustbins included) stay in registers (launch ``sinkhorn``);
 larger ones, which JAX's kernel takes as it takes any, run the kernel's
-wide form (a warp a coupling, its duals in a workspace; launch
-``sinkhorn_wide``). ``extract_matches`` is plain PyTorch: mutual max,
+wide form (launch ``sinkhorn_wide``): a warp a coupling, copied into shared
+memory with its duals, every lane of the warp in both passes; a coupling
+too large for shared memory keeps its duals in a workspace the wrapper
+allocates (``wide_plan``). ``extract_matches`` is plain PyTorch: mutual max,
 threshold, first index on argmax ties. All f32.
 
 Where grad mode is on and the scores or the dustbin score require grad (a
@@ -27,8 +29,9 @@ of its own, and JAX trains through its XLA loop
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -38,6 +41,33 @@ from text2pos_torch.ops import _build
 # The register forms' largest coupling (csrc/sinkhorn.cu): pad_size 31 and
 # 15 hints, with the dustbins.
 MAX_ROWS, MAX_COLS = 32, 16
+WIDE_WARPS = 4          # couplings a CTA of the wide form at most
+SMEM_OPTIN = 232448     # shared memory a CTA may take on the H100
+
+
+class WidePlan(NamedTuple):
+    """The wide form's plan: ``route`` ("smem": the couplings copied into
+    shared memory; "workspace": read from global memory, duals in a
+    workspace), ``couplings`` a CTA and ``smem`` bytes a CTA."""
+
+    route: str
+    couplings: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(M: int, N: int, smem_max: int = SMEM_OPTIN) -> WidePlan:
+    """The wide form's plan for an M x N coupling, dustbins included
+    (``t2p_sinkhorn_wide_plan`` mirrored): Z at a row stride of N | 1, u,
+    v and the marginals in shared memory, WIDE_WARPS couplings a CTA,
+    halved until they fit ``smem_max`` bytes, else the workspace route."""
+    per = 4 * (M * (N | 1) + 2 * (M + N))
+    w = WIDE_WARPS
+    while w > 1 and w * per > smem_max:
+        w //= 2
+    if w * per > smem_max:
+        return WidePlan("workspace", WIDE_WARPS, 0)
+    return WidePlan("smem", w, w * per)
 
 
 def log_sinkhorn_plain(Z: torch.Tensor, log_mu: torch.Tensor,
@@ -72,13 +102,16 @@ def _sinkhorn_launch(z, log_mu, log_nu, alpha, M, N, iters, bins):
         return out
     ptr = [t if t is None else t.data_ptr() for t in (log_mu, log_nu, alpha)]
     if M > MAX_ROWS or N > MAX_COLS:
-        duals = torch.empty(B, M + N, device=z.device, dtype=torch.float32)
+        optin = torch.cuda.get_device_properties(
+            z.device).shared_memory_per_block_optin
+        duals = (torch.empty(B, M + N, device=z.device, dtype=torch.float32)
+                 if wide_plan(M, N, optin).route == "workspace" else None)
         fn = _build.entry("sinkhorn", "t2p_log_sinkhorn_wide",
                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                           + [ctypes.c_void_p])
         _build.launch(fn, z.device, "sinkhorn_wide", z.data_ptr(), *ptr,
-                      out.data_ptr(), duals.data_ptr(), B, M, N, int(iters),
-                      int(bins))
+                      out.data_ptr(), duals if duals is None
+                      else duals.data_ptr(), B, M, N, int(iters), int(bins))
         _build.LAUNCHES["sinkhorn_wide"] += 1
         return out
     fn = _build.entry("sinkhorn", "t2p_log_sinkhorn",
