@@ -4718,10 +4718,12 @@ def lstm_random_check(H, tokens, lengths, g, failures, tag):
     flops = 2 * 2.0 * steps * H * 4 * H
     nbytes = 4.0 * (B * T + B + 2 * V * 4 * H + 2 * H * 4 * H + 2 * B * H)
     bnd, by = bound_ms([(3 * flops, PEAK_TF32)], nbytes)
-    log(f"  {tag} {form} H={H}: kernel {ms:.3f} ms, bound {bnd:.4f} ms "
-        f"({by}), plain {plain_ms:.3f} ms, cuDNN nn.LSTM (bidirectional, "
-        f"packed, E=H, projections included) {lib_ms:.3f} ms")
-    return {"H": H, "form": form, "ms": ms, "plain_ms": plain_ms,
+    log(f"  {tag} {form} H={H} B={B} T={T}: kernel {ms:.3f} ms, bound "
+        f"{bnd:.4f} ms ({by}), plain {plain_ms:.3f} ms, cuDNN nn.LSTM "
+        f"(bidirectional, packed, E=H, projections included) {lib_ms:.3f} ms "
+        f"({'faster' if ms < lib_ms else 'SLOWER'} than cuDNN)")
+    return {"H": H, "B": B, "T": T, "form": form, "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
             "max_abs_err": err}
 
@@ -4785,7 +4787,8 @@ def wide_kernel_checks(pipes, fx, failures):
     """12.1: the kernels on the E=300 serving path's inputs (``lstm_checks``
     and ``gnn_sinkhorn_checks`` on the wide pipelines), then at the other
     phase-12 shapes on random inputs from seeds: the LSTM at WIDE_LSTM
-    beside cuDNN, the GNN at WIDE_GNN in bf16 and f32, FPS at WIDE_FPS."""
+    on the bench text and at WIDE_E on its hints beside cuDNN, the GNN at
+    WIDE_GNN in bf16 and f32, FPS at WIDE_FPS."""
     from text2pos_torch.ops.fps import (_fps_kernel,
                                         farthest_point_sampling_plain)
 
@@ -4800,6 +4803,12 @@ def wide_kernel_checks(pipes, fx, failures):
     for H in WIDE_LSTM:
         out["lstm_widths"].append(lstm_random_check(H, tokens, lengths, g,
                                                     failures, "12.1"))
+    # The E = 300 headline's hint launch (12,288 hints of 16 tokens), the
+    # L2 form's slowest serving shape.
+    out["lstm_widths"].append(lstm_random_check(
+        WIDE_E, torch.as_tensor(fx["hint_tokens"], device=dev).flatten(0, 1),
+        torch.as_tensor(fx["hint_lengths"], device=dev).flatten(), g,
+        failures, "12.1"))
     for E, T0, T1, N in WIDE_GNN + WIDE_GNN_WIDE:
         d0, d1 = random_descs(N, T0, T1, E, g)
         row = {"E": E, "T0": T0, "T1": T1, "N": N}

@@ -9,9 +9,10 @@ example the parent commit's ``text2pos_torch/csrc``, unpacked with
 ``git archive``). Each side's ``csrc/*.cu`` are built with the port's
 ``nvcc`` flags. Shapes: the LSTM at the bench serving encoders'
 (2048 queries x 64 tokens at H = 256; 12,288 hints x 16 tokens at H = 128;
-both at H = 300, JAX's default width, where W_hh is read from L2, and the
-queries at H = 384 and 512;
-seeded random weights, the bench's lengths are not needed for a timing;
+both at H = 300, JAX's default width, where W_hh is read from L2 (the L2
+form), with the bench fixture's lengths (the E = 300 serving path's
+steps) and with random ones, and the queries at H = 288, 320, 384, 416
+and 512; seeded random weights and, but where named, lengths;
 each side's error and the plain f32 version's against a float64
 evaluation), and the bench's bf16 headline and the E = 300 one
 (chip_smoke's ``wide_pipeline``) with each side's LSTM (the other kernels
@@ -150,11 +151,12 @@ def graph_timed(fn, reps=10, launches=20):
     return timed(g.replay, reps, 1) / launches
 
 
-def lstm_call(libs, B, T, H, V=512, seed=0):
+def lstm_call(libs, B, T, H, lengths=None, V=512, seed=0):
     """A launch at hidden width H, run as the port's wrapper runs it:
     padded to a multiple of 32 and, past 256, W_hh also in fragment order
-    for the L2 form. ``call.inputs`` and ``call.out`` (its [2, B, H]
-    view) for ``lstm_f64_errors``."""
+    for the L2 form. ``lengths`` (numpy) default to random ones in [T/2,
+    T]. ``call.inputs`` and ``call.out`` (its [2, B, H] view) for
+    ``lstm_f64_errors``."""
     from text2pos_torch.ops import lstm as tlstm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -164,8 +166,9 @@ def lstm_call(libs, B, T, H, V=512, seed=0):
             / H ** 0.5 for _ in range(2)]
     tokens = torch.randint(0, V, (B, T), device="cuda", generator=g,
                            dtype=torch.int32)
-    lengths = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g,
-                            dtype=torch.int32)
+    lengths = (torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g,
+                             dtype=torch.int32) if lengths is None else
+               torch.as_tensor(lengths, dtype=torch.int32, device="cuda"))
     Hp = tlstm.kernel_width(H)
     ptab = [tlstm.pad_gates(t, H, Hp).contiguous() for t in tables]
     pw = [tlstm.pad_w_hh(w, H, Hp).contiguous() for w in w_hh]
@@ -634,18 +637,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         sides = {"A": build(_build.CSRC, Path(d), "A"),
                  "B": build(other, Path(d), "B")}
-        cases = [(f"lstm B={B} T={T} H={H}", lambda L, a=(B, T, H):
-                  lstm_call(L, *a))
-                 for B, T, H in ((2048, 64, 256), (12288, 16, 128),
-                                 (2048, 64, 300), (12288, 16, 300),
-                                 (2048, 64, 384), (2048, 64, 512))]
+        fx = np.load(ROOT / "text2pos_torch" / "fixtures"
+                     / "bench_queries.npz")
+        text, hints = fx["lengths"], fx["hint_lengths"].reshape(-1)
+        cases = [(f"lstm B={B} T={T} H={H}{note}",
+                  lambda L, a=(B, T, H, ln): lstm_call(L, *a))
+                 for B, T, H, ln, note in (
+                     (2048, 64, 256, None, ""), (12288, 16, 128, None, ""),
+                     (2048, 64, 300, text, " (the E = 300 text's lengths)"),
+                     (12288, 16, 300, hints, " (its hints' lengths)"),
+                     (2048, 64, 300, None, ""), (12288, 16, 300, None, ""),
+                     (2048, 64, 288, None, ""), (2048, 64, 320, None, ""),
+                     (2048, 64, 384, None, ""), (2048, 64, 416, None, ""),
+                     (2048, 64, 512, None, ""))]
         cases += [(f"fps B={B} N={N}", lambda L, a=(B, N): fps_call(L, *a))
                   for B in (1024, 787) for N in (256, 128, 64)]
         cases += [(f"fps three levels B={B} N=256",
                    lambda L, b=B: fps_levels_call(L, b)) for B in (1024, 787)]
-        fx = np.load(ROOT / "text2pos_torch" / "fixtures"
-                     / "bench_queries.npz")
-        text, hints = fx["lengths"], fx["hint_lengths"].reshape(-1)
         cases += [(f"lstm_grid B={B} T={T} H={H}{note}",
                    lambda L, a=(B, T, H, ln): lstm_grid_call(L, *a))
                   for B, T, H, ln, note in (

@@ -67,6 +67,8 @@ def _lstm_case(T, B, H, V=29, seed=0):
     (12, 40, 512),      # the largest cluster, 16 CTAs
     (7, 35, 100),       # padded to 128, W_hh on chip
     (5, 3, 288),        # the first width past the on-chip form
+    (11, 65, 416),      # 13 CTAs, three tiles
+    (8, 96, 480),       # 15 CTAs
 ])
 def test_lstm_kernel_wide_matches_plain(cuda, T, B, H):
     """Both directions in one launch against the plain version at the
@@ -100,15 +102,43 @@ def test_lstm_kernel_wide_generic_path(cuda):
 
 def test_lstm_kernel_wide_clusters_resident(cuda):
     """The non-portable cluster sizes are accepted: at least one cluster of
-    each form fits on the card."""
+    each form fits on the card, the C side's plan is ``cluster_plan``'s,
+    and the L2 form holds more CTAs at once than the card has SMs at every
+    width (three an SM; its earlier form held one an SM past 448)."""
     import ctypes
     fn = _build.entry("lstm", "t2p_lstm_max_active_clusters",
                       [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)])
-    for H in (256, 320, 512):
+    plan = _build.entry("lstm", "t2p_lstm_cluster_plan",
+                        [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for H in (128, 256, 288, 320, 384, 416, 448, 480, 512):
         n = ctypes.c_int(0)
         assert fn(H, 2048, ctypes.byref(n)) == 0
         assert n.value >= 1, H
+        got = (ctypes.c_int * 2)()
+        assert plan(H, got) == 0
+        assert tuple(got) == tlstm.cluster_plan(H), H
+        if H > tlstm.SMEM_HIDDEN:
+            assert n.value * (H // 32) > sms, (H, n.value)
+
+
+@pytest.mark.parametrize("H", [288, 300, 416, 512])
+def test_lstm_l2_form_ragged_repeats_bit_for_bit(cuda, H):
+    """The L2 form on ragged lengths with zero-length sequences and a tile
+    of them only (no step), B not a multiple of 32: against the plain
+    version, and bit for bit from one launch to the next."""
+    T, B = 9, 77
+    tables, w_hh, tokens, lengths = _lstm_case(T, B, H, seed=H + 7)
+    lengths[3] = 0
+    lengths[32:64] = 0
+    args = ([t.to(cuda) for t in tables], [w.to(cuda) for w in w_hh],
+            tokens.to(cuda), lengths.to(cuda))
+    got = _launches("lstm", lambda: tlstm.lstm_final_hidden(*args))
+    want = tlstm.lstm_final_hidden_plain(*args)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    assert bool((got[:, 32:64] == 0).all()) and bool((got[:, 3] == 0).all())
+    assert torch.equal(got, tlstm.lstm_final_hidden(*args))
 
 
 def _bench_text():

@@ -78,15 +78,31 @@
 // to Hp = 32·ceil(H/32) with zero gate columns and zero W_hh rows, which
 // keep every padded unit at exactly 0 (g = tanh(0) = 0, so c = 0 and
 // h = σ(0)·tanh(0) = 0) and leave the real units' sums unchanged. Up to
-// Hp = 256 the kernel above runs as it is. From 288 to 512 a cluster has
-// CS = Hp/32 = 9..16 CTAs, above the portable 8 (the launch allows the
-// non-portable size; H100 takes 16), and a CTA's W_hh slice (Hp·512 B,
-// 160 KiB at Hp = 320) no longer fits beside the h buffers at BT = 32. That
-// form (WSMEM = false) reads the slice's A fragments from global memory
-// (L2: both directions' W_hh are 0.8-4 MiB) each step instead, packed by
-// the wrapper in the same fragment order the smem form builds on chip
-// (ops/lstm.py w_hh_fragments), so the step's code is the same; shared
-// memory holds only the h buffers (80 KiB at Hp = 320, 128 at 512).
+// Hp = 256 the kernel above runs as it is. From 288 to 512 (the L2 form,
+// lstm_l2_kernel) a cluster has CS = Hp/32 = 9..16 CTAs, above the portable
+// 8 (the launch allows the non-portable size; H100 takes 16), and a CTA's
+// W_hh slice (Hp·512 B, 160 KiB at Hp = 320) no longer fits beside h. So:
+// - W's A fragments come from global memory (L2: both directions' W_hh are
+//   0.8-4 MiB), packed by the wrapper in the order the shared form builds
+//   on chip (ops/lstm.py w_hh_fragments), the next k-step's in flight
+//   while a k-step computes; W does not depend on h, so the stream runs on
+//   from a step's last k-step into the next step's first.
+// - A warp takes 8 units and all 32 sequences (4 n-tiles), 4 warps a CTA,
+//   so each fragment is loaded and split once a CTA and its split serves
+//   four n-tiles (the shared form's 8 warps load and split it twice).
+// - One h buffer (Hp·BT·4 B: 40 KiB at Hp = 320, 64 at 512) instead of two,
+//   c in shared memory and the last h of a unit read back from its place
+//   in that buffer, so three CTAs share an SM at every width (162
+//   registers, no spill): each thread arrives on the cluster barrier once
+//   it has read the step's h, and waits on it after the cell update and
+//   the next gate inputs' loads, before it writes h; then the h blocks go
+//   out by bulk copy, a thread a peer, as above.
+// The arithmetic is the shared form's, term for term and in the same order,
+// so the outputs are bit-identical to the earlier L2 form (8 warps and two
+// h buffers a CTA). It takes 0.80x that form's time on the E = 300
+// serving path's text and hints, 0.69-0.81x at 2048 x 64 for H = 288-416
+// and 0.55x at 512, where that form held one CTA an SM
+// (scripts/ab_kernel_times.py; H100 80GB HBM3, 700.00 W; PERF.md §6).
 //
 // Widths past 512: the grid form (lstm_grid_kernel, launch name
 // "lstm_grid"). A cluster holds at most 16 CTAs, 512 units, so past that the
@@ -120,7 +136,11 @@
 //
 // Ablation builds of the cluster forms for scripts/check_lstm_kernel.py
 // (wrong results, timing only): -DT2P_LSTM_NO_EXCHANGE sends no h between
-// CTAs, -DT2P_LSTM_NO_PRODUCT skips the recurrent product.
+// CTAs, -DT2P_LSTM_NO_PRODUCT skips the recurrent product; in the L2 form
+// -DT2P_LSTM_W_SMEM reads every k-step's W fragments from a shared-memory
+// copy of the first four (W_hh's loads from L2 dropped, its splits and the
+// product kept) and -DT2P_LSTM_NO_WSPLIT hands the loaded W values to the
+// tensor cores as both parts (W's splits dropped).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -192,9 +212,7 @@ __device__ __forceinline__ int hpos(int u) {
   return ((u >> 3) * BT) * 8 + 2 * (u & 3) + ((u >> 2) & 1);
 }
 
-// WSMEM: W_hh's slice in shared memory (H <= 256), else read from the
-// wrapper's fragment-ordered copy in global memory each step.
-template <bool WSMEM>
+// The shared form (H <= 256): W_hh's slice in shared memory.
 __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   __shared__ int len_s[BT];
@@ -213,14 +231,14 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
   const int unit = rank * UNITS + ug * 8 + gid;
 
   float* wf = reinterpret_cast<float*>(smem4);           // [H/8][2][4][32][4]
-  float* hbuf = wf + (WSMEM ? (size_t)H * UNITS * 4 : 0);  // [2][H/8][BT][8]
+  float* hbuf = wf + (size_t)H * UNITS * 4;               // [2][H/8][BT][8]
   const int HB = H * BT;                                  // floats a buffer
 
   const float* whh = dir ? a.whh[1] : a.whh[0];
   // Read in global order (u fastest: coalesced), store in A-fragment order
   // [k/8][mt][u/8][lane][4]: lane = 4·(row & 7) + (k & 3), element
   // 2·((k & 7) >> 2) + (row >> 3), row = 8·(gate & 1) + (u & 7).
-  for (int i = threadIdx.x; WSMEM && i < H * 4 * UNITS; i += THREADS) {
+  for (int i = threadIdx.x; i < H * 4 * UNITS; i += THREADS) {
     const int u = i % UNITS, gate = (i / UNITS) & 3, k = i / (4 * UNITS);
     const int row = 8 * (gate & 1) + (u & 7);
     const int ln = 4 * (row & 7) + (k & 3);
@@ -290,10 +308,7 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
     for (int e = 0; e < 2; ++e) c[nt][e] = h[nt][e] = 0.0f;
   if (maxlen > 0) gather(rev ? maxlen - 1 : 0);
 
-  const float4* wa =
-      (WSMEM ? reinterpret_cast<const float4*>(wf)
-             : reinterpret_cast<const float4*>(a.wpack[dir]) +
-                   (size_t)rank * H * UNITS) + ug * 32 + lane;
+  const float4* wa = reinterpret_cast<const float4*>(wf) + ug * 32 + lane;
   int cur = 0;
   for (int s = 0; s < maxlen; ++s) {
     const int t = rev ? maxlen - 1 - s : s;
@@ -314,16 +329,12 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
 
     const float* hs = hbuf + cur * HB + (sh * 16 + gid) * 8 + 2 * tid;
 #ifndef T2P_LSTM_NO_PRODUCT
-    // Two k-steps in flight: at 4 the rounded split and f32 adds, with the
-    // global-memory form's addresses and loads, pass the 128 registers that
-    // two CTAs an SM allow.
 #pragma unroll 2
     for (int kk = 0; kk < H / 8; ++kk) {
       unsigned abig[2][4], asml[2][4], bbig[2][2], bsml[2][2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const float4 w = WSMEM ? wa[(kk * 2 + mt) * 4 * 32]
-                               : __ldg(wa + (kk * 2 + mt) * 4 * 32);
+        const float4 w = wa[(kk * 2 + mt) * 4 * 32];
         split(w.x, abig[mt][0], asml[mt][0]);
         split(w.y, abig[mt][1], asml[mt][1]);
         split(w.z, abig[mt][2], asml[mt][2]);
@@ -422,6 +433,257 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_kernel(const Args a) {
       const int b = b0 + sh * 16 + nt * 8 + 2 * tid + e;
       if (b < B) a.out[((size_t)dir * B + b) * H + unit] = h[nt][e];
     }
+}
+
+// ------------------------------------------------------------------------
+// The L2 form: 256 < H <= 512
+// ------------------------------------------------------------------------
+
+// A warp takes 8 units and all 32 sequences of the tile (4 n-tiles), so a
+// CTA of 4 warps loads and splits each W fragment once and its split serves
+// four n-tiles. Three CTAs share an SM at every width (162 registers).
+constexpr int L2_WARPS = 4;
+constexpr int L2_THREADS = L2_WARPS * 32;
+constexpr int L2_BLOCKS = 3;
+constexpr int NT = BT / 8;                 // n-tiles a warp
+constexpr int C_FLOATS = UNITS * BT;       // c of the CTA's units, in smem
+
+#ifdef T2P_LSTM_W_SMEM
+constexpr int W_ABL = 4 * 2 * 4 * 32 * 4;  // floats: four k-steps' fragments
+#else
+constexpr int W_ABL = 0;
+#endif
+
+__global__ void __launch_bounds__(L2_THREADS, L2_BLOCKS)
+    lstm_l2_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  __shared__ int len_s[BT];
+  // full completes when the other CTAs' blocks of h have arrived.
+  __shared__ __align__(8) unsigned long long full;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int H = a.H, T = a.T, B = a.B;
+  const int CS = H / UNITS, K = H / 8;
+  const int rank = (int)cluster.block_rank();
+  const int dir = blockIdx.z;
+  const int b0 = blockIdx.y * BT;
+  const int lane = threadIdx.x & 31, ug = threadIdx.x >> 5;
+  const int gid = lane >> 2, tid = lane & 3;
+  const int unit = rank * UNITS + ug * 8 + gid;
+
+  // [W_ABL] ablation copy, then h [H/8][BT][8], then c [UNITS][BT].
+  float* hbuf = reinterpret_cast<float*>(smem4) + W_ABL;
+  float* cst = hbuf + H * BT + (ug * 8 + gid) * BT + 2 * tid;
+  const float4* wa = reinterpret_cast<const float4*>(a.wpack[dir]) +
+                     (size_t)rank * H * UNITS + ug * 32 + lane;
+  for (int i = threadIdx.x; i < H * BT; i += L2_THREADS) hbuf[i] = 0.0f;
+#ifdef T2P_LSTM_W_SMEM
+  for (int i = threadIdx.x; i < W_ABL; i += L2_THREADS)
+    reinterpret_cast<float*>(smem4)[i] =
+        a.wpack[dir][(size_t)rank * H * UNITS * 4 + i];
+#endif
+  if (threadIdx.x < BT) {
+    const int b = b0 + threadIdx.x;
+    len_s[threadIdx.x] = b < B ? min(max(a.lengths[b], 0), T) : 0;
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_addr(&full)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();
+  unsigned phase = 0;
+
+  int maxlen = 0;
+#pragma unroll
+  for (int q = 0; q < BT; ++q) maxlen = max(maxlen, len_s[q]);
+
+  const float* table = (dir ? a.table[1] : a.table[0]) + unit;
+  const int H4 = 4 * H, V = a.V;
+  const bool rev = dir == 1;
+  // This thread's sequences: nt*8 + 2*tid + e. The gate inputs of the next
+  // step are loaded after the product, while the cell update runs.
+  float xin[NT][2][4];   // [nt][e][gate]
+  auto gather = [&](int t) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = nt * 8 + 2 * tid + e;
+        if (t < len_s[q]) {
+          const int tk = __ldg(a.tokens + (size_t)min(b0 + q, B - 1) * T + t);
+          if ((unsigned)tk < (unsigned)V) {
+            const float* row = table + (size_t)tk * H4;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xin[nt][e][g] = __ldg(row + g * H);
+          } else {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xin[nt][e][g] = __int_as_float(0x7fc00000);
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) xin[nt][e][g] = 0.0f;
+        }
+      }
+  };
+  for (int i = threadIdx.x; i < C_FLOATS; i += L2_THREADS)
+    hbuf[H * BT + i] = 0.0f;
+  __syncthreads();
+  float h[NT][2];
+  if (maxlen > 0) gather(rev ? maxlen - 1 : 0);
+
+  // W's fragments of the next k-step: W does not depend on h, so the
+  // stream runs on from a step's last k-step into the next step's first.
+  auto wload = [&](int k, int mt) {
+#ifdef T2P_LSTM_W_SMEM
+    return reinterpret_cast<const float4*>(smem4)[((k & 3) * 2 + mt) * 4 * 32 +
+                                                  ug * 32 + lane];
+#else
+    return __ldg(wa + (k * 2 + mt) * 4 * 32);
+#endif
+  };
+  float4 wn[2] = {wload(0, 0), wload(0, 1)};
+
+  const float* hs = hbuf + gid * 8 + 2 * tid;
+  for (int s = 0; s < maxlen; ++s) {
+    const int t = rev ? maxlen - 1 - s : s;
+    // acc[mt][nt]: rows gid / gid+8 = gates (i, f) for mt 0, (g, o) for
+    // mt 1; columns 2*tid, 2*tid+1 = sequences e = 0, 1.
+    float acc[2][NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[0][nt][e] = xin[nt][e][0];
+        acc[0][nt][2 + e] = xin[nt][e][1];
+        acc[1][nt][e] = xin[nt][e][2];
+        acc[1][nt][2 + e] = xin[nt][e][3];
+      }
+    float acc2[2][NT][4] = {};
+#ifndef T2P_LSTM_NO_PRODUCT
+    for (int k = 0; k < K; ++k) {
+      unsigned abig[2][4], asml[2][4], bbig[NT][2], bsml[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float4 w = wn[mt];
+#ifdef T2P_LSTM_NO_WSPLIT
+        abig[mt][0] = asml[mt][0] = __float_as_uint(w.x);
+        abig[mt][1] = asml[mt][1] = __float_as_uint(w.y);
+        abig[mt][2] = asml[mt][2] = __float_as_uint(w.z);
+        abig[mt][3] = asml[mt][3] = __float_as_uint(w.w);
+#else
+        split(w.x, abig[mt][0], asml[mt][0]);
+        split(w.y, abig[mt][1], asml[mt][1]);
+        split(w.z, abig[mt][2], asml[mt][2]);
+        split(w.w, abig[mt][3], asml[mt][3]);
+#endif
+      }
+      const int nk = k + 1 < K ? k + 1 : 0;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) wn[mt] = wload(nk, mt);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 hv = *reinterpret_cast<const float2*>(hs + (k * BT + nt * 8) * 8);
+        split(hv.x, bbig[nt][0], bsml[nt][0]);
+        split(hv.y, bbig[nt][1], bsml[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma(acc2[mt][nt], asml[mt], bbig[nt][0], bbig[nt][1]);
+          mma(acc2[mt][nt], abig[mt], bsml[nt][0], bsml[nt][1]);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma(part, abig[mt], bbig[nt][0], bbig[nt][1]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
+        }
+    }
+#endif
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[mt][nt][q] += acc2[mt][nt][q];
+
+    // One h buffer: every CTA of the cluster has read this step's h once
+    // all have arrived; the wait comes after the cell update and the next
+    // gate inputs' loads. c lives in shared memory and the last h of a
+    // unit in its place in the h buffer (registers for the product).
+    const bool more = s + 1 < maxlen;
+    if (more) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (more) gather(rev ? t - 1 : t + 1);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = nt * 8 + 2 * tid + e;
+        const float ig = sigmoid_f(acc[0][nt][e]);
+        const float fg = sigmoid_f(acc[0][nt][2 + e]);
+        const float gg = tanhf(acc[1][nt][e]);
+        const float og = sigmoid_f(acc[1][nt][2 + e]);
+        const float c0 = cst[nt * 8 + e];
+        const float cn = fg * c0 + ig * gg;
+        const float hv = og * tanhf(cn);
+        const bool v = t < len_s[q];
+        cst[nt * 8 + e] = v ? cn : c0;
+        h[nt][e] = v ? hv : hbuf[hpos(unit) + q * 8];
+      }
+    if (!more)   // the last step: the final h
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = b0 + nt * 8 + 2 * tid + e;
+          if (b < B) a.out[((size_t)dir * B + b) * H + unit] = h[nt][e];
+        }
+    if (more) {
+      asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          hbuf[hpos(unit) + (nt * 8 + 2 * tid + e) * 8] = h[nt][e];
+      // This CTA's units are k-steps 4·rank … 4·rank+3 of h: one contiguous
+      // block of 4·BT·8 floats, sent by bulk copy to every other CTA of the
+      // cluster (a thread a peer), completing on the receiver's mbarrier.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+#ifndef T2P_LSTM_NO_EXCHANGE
+      const unsigned bar = smem_addr(&full);
+      const unsigned bytes = 4 * BT * 8 * 4;
+      if (threadIdx.x == 0)
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(bar), "r"(bytes * (CS - 1)) : "memory");
+      if (threadIdx.x < CS - 1) {
+        const int r = threadIdx.x < rank ? threadIdx.x : threadIdx.x + 1;
+        const unsigned src = smem_addr(hbuf + rank * 4 * BT * 8);
+        unsigned dst, rbar;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(dst) : "r"(src), "r"(r));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(r));
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            :: "r"(dst), "r"(src), "r"(bytes), "r"(rbar) : "memory");
+      }
+      mbar_wait(bar, phase);
+      phase ^= 1u;
+#else
+      __syncthreads();
+#endif
+    }
+  }
+  // No CTA leaves while a copy from or into its shared memory may run.
+  cluster.sync();
+
+  if (maxlen == 0)   // no step: h = 0
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = b0 + nt * 8 + 2 * tid + e;
+        if (b < B) a.out[((size_t)dir * B + b) * H + unit] = 0.0f;
+      }
 }
 
 // ------------------------------------------------------------------------
@@ -617,30 +879,35 @@ __global__ void __launch_bounds__(THREADS, 2) lstm_grid_kernel(const GridArgs a)
 
 namespace {
 
-// Shared memory a CTA takes at width H: its W_hh slice (H <= 256) and two
-// h buffers.
-int smem_bytes(int H) {
-  return (H <= SMEM_MAX_H ? H * UNITS * 16 : 0) + 2 * H * BT * 4;
+// The cluster forms' plan at width H (a multiple of 32, at most 512):
+// threads and shared memory a CTA (ops/lstm.py cluster_plan mirrors it).
+struct ClusterPlan {
+  int threads, smem;
+};
+
+ClusterPlan cluster_plan(int H) {
+  if (H <= SMEM_MAX_H)   // W_hh's slice and two h buffers
+    return {THREADS, H * UNITS * 16 + 2 * H * BT * 4};
+  return {L2_THREADS, (W_ABL + H * BT + C_FLOATS) * 4};  // one h buffer, c
 }
 
-template <bool WSMEM>
-cudaError_t set_attributes(int H) {
+template <typename F>
+cudaError_t set_attributes(F kernel, int H, int smem) {
   cudaError_t e = cudaFuncSetAttribute(
-      lstm_kernel<WSMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(H));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && H / UNITS > 8)
-    e = cudaFuncSetAttribute(lstm_kernel<WSMEM>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-cudaLaunchConfig_t config(int H, int B, cudaStream_t stream,
-                          cudaLaunchAttribute (&attr)[1]) {
+cudaLaunchConfig_t config(int H, int B, const ClusterPlan& p,
+                          cudaStream_t stream, cudaLaunchAttribute (&attr)[1]) {
   const unsigned cs = (unsigned)(H / UNITS);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs, (unsigned)((B + BT - 1) / BT), 2);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem_bytes(H);
+  cfg.blockDim = dim3((unsigned)p.threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -651,19 +918,39 @@ cudaLaunchConfig_t config(int H, int B, cudaStream_t stream,
   return cfg;
 }
 
+// Calls f(kernel) with the cluster form of width H, its attributes set.
+template <typename F>
+cudaError_t with_kernel(int H, const ClusterPlan& p, F f) {
+  const auto kernel = H <= SMEM_MAX_H ? lstm_kernel : lstm_l2_kernel;
+  const cudaError_t e = set_attributes(kernel, H, p.smem);
+  return e == cudaSuccess ? f(kernel) : e;
+}
+
+bool cluster_width(int H) {
+  return H >= UNITS && H <= MAX_H && H % UNITS == 0;
+}
+
 }  // namespace
+
+// The cluster forms' plan at width H: out = {threads, shared-memory bytes}
+// a CTA. Returns a cudaError_t.
+extern "C" int t2p_lstm_cluster_plan(int H, int* out) {
+  if (!cluster_width(H)) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(H);
+  out[0] = p.threads;
+  out[1] = p.smem;
+  return 0;
+}
 
 // How many clusters of the kernel at width H the card holds at once.
 extern "C" int t2p_lstm_max_active_clusters(int H, int B, int* out) {
-  if (H < UNITS || H > MAX_H || H % UNITS != 0)
-    return (int)cudaErrorInvalidValue;
-  const bool wsmem = H <= SMEM_MAX_H;
-  cudaError_t e = wsmem ? set_attributes<true>(H) : set_attributes<false>(H);
-  if (e != cudaSuccess) return (int)e;
+  if (!cluster_width(H)) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(H);
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(H, B, nullptr, attr);
-  return (int)(wsmem ? cudaOccupancyMaxActiveClusters(out, lstm_kernel<true>, &cfg)
-                     : cudaOccupancyMaxActiveClusters(out, lstm_kernel<false>, &cfg));
+  cudaLaunchConfig_t cfg = config(H, B, p, nullptr, attr);
+  return (int)with_kernel(H, p, [&](auto kernel) {
+    return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  });
 }
 
 namespace {
@@ -778,13 +1065,11 @@ extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
                                      const void* tokens, const void* lengths,
                                      void* out, int V, int T, int B, int H,
                                      void* stream) {
-  const bool wsmem = H <= SMEM_MAX_H;
-  if (H < UNITS || H > MAX_H || H % UNITS != 0 || T < 1 || B < 1 ||
-      V < 1 || (B + BT - 1) / BT > 65535 ||
-      (!wsmem && (wpack_f == nullptr || wpack_b == nullptr)))
+  if (!cluster_width(H) || T < 1 || B < 1 || V < 1 ||
+      (B + BT - 1) / BT > 65535 ||
+      (H > SMEM_MAX_H && (wpack_f == nullptr || wpack_b == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = wsmem ? set_attributes<true>(H) : set_attributes<false>(H);
-  if (e != cudaSuccess) return (int)e;
+  const ClusterPlan p = cluster_plan(H);
 
   Args args;
   args.table[0] = (const float*)table_f;
@@ -802,9 +1087,10 @@ extern "C" int t2p_lstm_final_hidden(const void* table_f, const void* table_b,
   args.H = H;
 
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(H, B, (cudaStream_t)stream, attr);
-  e = wsmem ? cudaLaunchKernelEx(&cfg, lstm_kernel<true>, args)
-            : cudaLaunchKernelEx(&cfg, lstm_kernel<false>, args);
+  cudaLaunchConfig_t cfg = config(H, B, p, (cudaStream_t)stream, attr);
+  const cudaError_t e = with_kernel(H, p, [&](auto kernel) {
+    return cudaLaunchKernelEx(&cfg, kernel, args);
+  });
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

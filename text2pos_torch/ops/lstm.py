@@ -19,9 +19,11 @@ the padding off the result: JAX's default width 300 runs at 320. Past 256
 it also hands the kernel W_hh in fragment order (``w_hh_fragments``), which
 the wider forms read from global memory each step. Up to
 ``CLUSTER_HIDDEN`` units the CTAs of a batch tile form one thread-block
-cluster (launch ``lstm``); past it they exchange h through global memory in
-one cooperative launch (the grid form, launch ``lstm_grid``), on a zeroed
-workspace the wrapper allocates.
+cluster (launch ``lstm``: the shared form up to ``SMEM_HIDDEN``, the L2
+form past it; ``cluster_plan`` gives their CTAs' threads and shared
+memory); past it they exchange h through global memory in one cooperative
+launch (the grid form, launch ``lstm_grid``), on a zeroed workspace the
+wrapper allocates.
 
 On CPU tensors ``lstm_final_hidden`` runs its plain PyTorch version; on CUDA
 tensors it launches the kernel or raises. Where grad mode is on and the
@@ -95,6 +97,24 @@ def lstm_final_hidden_plain(tables: Sequence[torch.Tensor],
 
 CLUSTER_HIDDEN = 512  # a cluster of 16 CTAs of 32 units; the grid form past
 SMEM_HIDDEN = 256     # W_hh's slices in the cluster's shared memory up to here
+CTA_UNITS = 32        # hidden units a CTA of the cluster forms
+TILE = 32             # sequences a cluster
+
+
+def cluster_plan(width: int) -> tuple:
+    """A CTA of the cluster forms at kernel width ``width`` (a multiple of
+    32 up to ``CLUSTER_HIDDEN``): (threads, bytes of dynamic shared memory),
+    as ``csrc/lstm.cu``'s ``cluster_plan`` computes them. The shared form
+    (up to ``SMEM_HIDDEN``): 8 warps, its W_hh slice and two h buffers. The
+    L2 form: 4 warps (a warp takes 8 units and all 32 sequences), one h
+    buffer and the cell states of its 32 units, so three CTAs share an
+    H100 SM at every width."""
+    if width % 32 or not 32 <= width <= CLUSTER_HIDDEN:
+        raise ValueError(f"the cluster forms take widths 32..512 in steps "
+                         f"of 32, not {width}")
+    if width <= SMEM_HIDDEN:
+        return 256, width * CTA_UNITS * 16 + 2 * width * TILE * 4
+    return 128, (width * TILE + CTA_UNITS * TILE) * 4
 
 
 def kernel_width(hidden: int) -> int:
