@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The earlier paths of two source trees, held against each other on one
-card: the bench bf16 headline and the E = 300 bf16 headline (chip_smoke's
+card: the bench bf16 and f32 headlines and the E = 300 bf16 headline (chip_smoke's
 ``serve_all`` after a warm-up, the median of 5 synchronized
 ``serve_batch`` calls of the 2048 bench queries at top-10; the E = 300
 pipeline is chip_smoke's ``wide_pipeline``) and the LSTM kernel's cluster
@@ -13,11 +13,11 @@ bench queries' tokens.
 The first form runs in the root of a tree (this checkout, or another
 commit's ``text2pos_torch`` and ``chip_smoke.py`` unpacked with ``git
 archive``, with its ``checkpoints`` linked to this one's): it builds that
-tree's kernels, prints one JSON line with the build's seconds and both
+tree's kernels, prints one JSON line with the build's seconds and the
 headlines' ms, and saves the outputs to ``OUTDIR/ab_TAG.pt``. Run it for
 the two trees in turns (A, B, B, A) in one process each on one card. The
 second form compares every saved run with the first by name: whether the
-LSTM outputs and both headlines' ``top_idx`` and positions are
+LSTM outputs and the headlines' ``top_idx`` and positions are
 bit-identical.
 
 Needs a CUDA card and ``nvcc``.
@@ -71,6 +71,15 @@ def run(tag: str, outdir: str) -> None:
     res["bench_bf16_ms"] = sec * 1e3
     saved["bench_top_idx"], saved["bench_pos"] = (torch.as_tensor(ti),
                                                   torch.as_tensor(po))
+    pipe32 = LocalizationPipeline.from_checkpoints(
+        cs.CKPT_COARSE, cs.CKPT_FINE, cs.DB_CACHE, dtype="float32",
+        device="cuda")
+    cs.serve_all(pipe32, fx, cs.TOP_K)
+    ti, po, sec = cs.serve_all(pipe32, fx, cs.TOP_K, reps=5)
+    res["bench_f32_ms"] = sec * 1e3
+    saved["bench_f32_top_idx"], saved["bench_f32_pos"] = (
+        torch.as_tensor(ti), torch.as_tensor(po))
+    del pipe32
     cells, _ = make_bench_dataset()
     wide = cs.wide_pipeline(pipe, bench_cell_bank(cells), fx,
                             torch.bfloat16)[0]

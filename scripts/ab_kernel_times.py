@@ -354,11 +354,16 @@ def sinkhorn_wide_call(libs, B=1280, M=48, N=6, iters=50, seed=0):
     return call
 
 
+POINTCONV_LEVELS = (("sa1", (256, 128, 32, 64, 0.2)),
+                    ("sa2", (128, 64, 128, 128, 0.3)),
+                    ("sa3", (64, 32, 256, 256, 0.4)))
+
+
 def pointconv_call(libs, dtype, B=1024, N=256, S=128, C1=32, C2=64,
                    radius=0.2, seed=0):
-    """One sa1 level: resampled points (duplicates), the first S as
-    centroids, random projections and BN affines; bf16 W2 in fragment
-    order, as both sides' sources read it."""
+    """One SA level (sa1's by default): resampled points (duplicates), the
+    first S as centroids, random projections and BN affines; bf16 W2 in
+    fragment order, as both sides' sources read it."""
     from text2pos_torch.ops.pointconv import w2_fragments
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -387,6 +392,7 @@ def pointconv_call(libs, dtype, B=1024, N=256, S=128, C1=32, C2=64,
         if err:
             raise RuntimeError(f"pointconv launch: CUDA error {err}")
     call.keep = (a, pos, c, cent, w2, vecs, out)
+    call.out = out
     return call
 
 
@@ -416,6 +422,7 @@ def tuned_gnn_call(libs, dtype, N=20480, L=12):
         if err:
             raise RuntimeError(f"superglue_gnn launch: CUDA error {err}")
     call.keep = (d0, d1, packed, out)
+    call.out = out
     return call
 
 
@@ -673,12 +680,24 @@ def main() -> int:
         cases += [(f"pointconv {str(dt)[6:]} B=1024 sa1",
                    lambda L, d=dt: pointconv_call(L, d))
                   for dt in (torch.bfloat16, torch.float32)]
+        # The f32 route at the other levels of a DB-encode step (fine 1024
+        # objects, coarse 787; sa1, sa2, sa3), summed over the six below.
+        cases += [(f"pointconv float32 B={B} {lvl}", lambda L, a=(
+                    B, *shape): pointconv_call(L, torch.float32, *a))
+                  for B in (1024, 787) for lvl, shape in POINTCONV_LEVELS
+                  if (B, lvl) != (1024, "sa1")]
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt)[6:]
             cases += [(f"superglue_gnn {name} N=20480 (128, 16, 6) L=12",
                        lambda L, d=dt: tuned_gnn_call(L, d)),
                       (f"superglue_gnn_any {name} N=20480 (300, 16, 6) L=12",
                        lambda L, d=dt: any_gnn_call(L, d))]
+        # The tuned f32 route at the cascade's cheap pass, the evaluator's
+        # chunk and the card tests' ragged size.
+        cases += [(f"superglue_gnn float32 N={N} (128, 16, 6) L={L}",
+                   lambda lib, a=(N, L): tuned_gnn_call(lib, torch.float32,
+                                                        *a))
+                  for N, L in ((262144, 2), (80, 12), (37, 4))]
         cases += [("superglue_gnn_any bfloat16 N=20480 (300, 24, 6) L=12",
                    lambda L: any_gnn_call(L, torch.bfloat16, T0=24))]
         cases += [(f"superglue_gnn_any_wide {str(dt)[6:]} N=1280 (768, 48, "
@@ -692,10 +711,11 @@ def main() -> int:
             cases = []
         if only:
             cases = [c for c in cases if c[0].startswith(tuple(only[0]))]
+        step = {"A": 0.0, "B": 0.0}
         for label, make in cases:
             calls = {k: make(v) for k, v in sides.items()}
             ms = {k: [] for k in calls}
-            slow = label.startswith("superglue_gnn_any")
+            slow = label.startswith("superglue_gnn_any") or "262144" in label
             how = graph_timed if label.startswith("fps") else timed
             for k in ("A", "B", "B", "A"):
                 ms[k].append(how(calls[k], reps=3 if slow else 10,
@@ -709,16 +729,25 @@ def main() -> int:
                     f"{k} {e:.3e}" for k, e in lstm_f64_errors(calls).items())
                     + "; A and B bit-identical: "
                     + str(torch.equal(calls["A"].out, calls["B"].out)))
-            if label.startswith("sinkhorn_wide"):
-                d = float((calls["A"].out - calls["B"].out).abs().max())
+            if label.startswith("pointconv float32"):
+                for k in step:
+                    step[k] += statistics.mean(ms[k])
+            if label.startswith(("sinkhorn_wide", "superglue_gnn ",
+                                 "pointconv")):
+                d = float((calls["A"].out.float()
+                           - calls["B"].out.float()).abs().max())
                 print(f"  A and B bit-identical: "
                       f"{torch.equal(calls['A'].out, calls['B'].out)} "
                       f"(largest difference {d:.3e})")
-            if slow:
+            if label.startswith("superglue_gnn_any"):
                 errs = f64_errors(calls)
                 print("  against the float64 evaluation (largest error "
                       "over the tolerance, pairs past it): " + ", ".join(
                           f"{k} {e:.3f} ({n})" for k, (e, n) in errs.items()))
+        if step["B"]:
+            print(f"pointconv float32, the six levels summed: A "
+                  f"{step['A']:.4f} ms, B {step['B']:.4f} ms, A/B "
+                  f"{step['A'] / step['B']:.4f}")
         if cases and not only:
             for what, ms in headline_ms(sides).items():
                 print(f"{what} bf16 headline (2048 queries, top-10) with "

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """What the card's tools cannot say of the SuperGlue-GNN kernels.
 
-    python3 scripts/check_gnn_kernel.py
+    python3 scripts/check_gnn_kernel.py [--f32]
 
 Needs one NVIDIA GPU and ``nvcc``; random weights and descriptors from a
-seed, no checkpoint. It builds ``csrc/superglue_gnn.cu`` three times (as
-the port builds it, with ``-DT2P_EXACT_SOFTMAX`` and with
-``-DT2P_STAGE_CLOCKS``) and the second form ``csrc/superglue_gnn_any.cu``
-twice more (``-DT2P_STAGE_CLOCKS``, and that with
-``-DT2P_NO_WEIGHT_LOADS``), all at once, and prints what neither
+seed, no checkpoint. It builds ``csrc/superglue_gnn.cu`` as the port
+builds it, with ``-DT2P_EXACT_SOFTMAX``, with ``-DT2P_STAGE_CLOCKS`` and as
+the f32 route's timing-only builds below, and the second form
+``csrc/superglue_gnn_any.cu`` twice more (``-DT2P_STAGE_CLOCKS``, and that
+with ``-DT2P_NO_WEIGHT_LOADS``), all at once, and prints what neither
 ``tests/test_torch_port_kernels*.py`` nor ``chip_smoke.py`` gives:
 
 - **Error at full depth.** At 12 blocks, 37 and 512 pairs, the largest
@@ -35,7 +35,18 @@ twice more (``-DT2P_STAGE_CLOCKS``, and that with
   so its stage clocks subtracted from the instrumented build's are the
   clocks spent waiting for weights from L2.
 
-About two minutes, most of it the builds.
+- **The f32 route's split.** At the headline's 20,480 pairs x 12 blocks,
+  the cascade's cheap pass (262,144 x 2) and the evaluator's chunk (80 x
+  12): the port's build, the build with ``-DT2P_STAGE_CLOCKS`` and two
+  timing-only ablations (``-DT2P_GNN_W_SMEM``: the weights read from a
+  tile already in shared memory, no L2 or L1 weight reads;
+  ``-DT2P_GNN_NO_ATTENTION``: no attention), and the share of the clocks
+  in each stage; beside the port's build, which picks its pairs a CTA by
+  the launch's size, the timing-only builds with each form forced
+  (``-DT2P_GNN_F32_PAIRS=1``, ``2``, ``4``).
+
+About two minutes, most of it the builds; with ``--f32`` only the error
+readings and the f32 route's split (the second form is not built).
 """
 
 from __future__ import annotations
@@ -59,28 +70,41 @@ ANY_BUILDS = {"T2P_STAGE_CLOCKS": ("-DT2P_STAGE_CLOCKS",),
               "T2P_NO_WEIGHT_LOADS": ("-DT2P_STAGE_CLOCKS",
                                       "-DT2P_NO_WEIGHT_LOADS")}
 WIDE_E = 300
+# Timing-only builds of the f32 route (wrong results, the same products):
+# its weights read from a tile already in shared memory instead of from L2,
+# and no attention.
+F32_ABLATIONS = ("T2P_GNN_W_SMEM", "T2P_GNN_NO_ATTENTION")
+# Builds of the f32 route with its pairs a CTA forced at every size (for
+# timing; the scores do not depend on it).
+F32_FORMS = tuple(f"T2P_GNN_F32_PAIRS={g}" for g in (1, 2, 4))
+# The f32 route's shapes: the bench headline, the cascade's cheap pass and
+# the evaluator's chunk (pairs, blocks).
+F32_SHAPES = ((20480, 12), (262144, 2), (80, 12))
 WEIGHTS = ("wqkv", "bqkv", "wm", "bm", "w0", "s0", "t0", "w1", "b1", "wf",
            "bf")
 
 
-def build_variants():
+def build_variants(f32_only=False):
     """The port's own libraries and the diagnostic builds, compiled side
     by side; returns {define or "": CDLL} for ``superglue_gnn.cu`` and
-    {"any " + define: CDLL} for the second form."""
+    {"any " + define: CDLL} for the second form (not with ``f32_only``)."""
     out_dir = _build.build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {define: ("superglue_gnn", (f"-D{define}",))
-            for define in ("T2P_EXACT_SOFTMAX", "T2P_STAGE_CLOCKS")}
-    jobs.update({f"any {k}": ("superglue_gnn_any", v)
-                 for k, v in ANY_BUILDS.items()})
+            for define in ("T2P_EXACT_SOFTMAX", "T2P_STAGE_CLOCKS")
+            + F32_ABLATIONS + F32_FORMS}
+    if not f32_only:
+        jobs.update({f"any {k}": ("superglue_gnn_any", v)
+                     for k, v in ANY_BUILDS.items()})
     procs = {}
     for key, (name, flags) in jobs.items():
-        so = out_dir / f"lib{name}_{key.split()[-1]}.so"
+        so = out_dir / f"lib{name}_{key.split()[-1].replace('=', '')}.so"
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags,
                "-o", str(so), str(_build.CSRC / f"{name}.cu")]
         procs[key] = (so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    _build.build_all(("superglue_gnn", "superglue_gnn_any"))
+    _build.build_all(("superglue_gnn",) if f32_only
+                     else ("superglue_gnn", "superglue_gnn_any"))
     libs = {"": _build.library("superglue_gnn")}
     for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
@@ -217,6 +241,41 @@ def stage_clocks(libs, dev, pairs=20480, blocks=12):
                       for k, v in zip(STAGES, buf)))
 
 
+def f32_split(libs, dev, pairs, blocks):
+    """The tuned f32 route at ``pairs`` x ``blocks``: the time of the
+    port's build, the instrumented build and each ablation, and the share
+    of the clocks in each stage (a unit: a CTA's pairs)."""
+    d0, d1 = descs(pairs, dev, 7)
+    packed = tgnn.pack_gnn_params(tgnn.random_folded_params(blocks),
+                                  torch.float32, dev)
+    reps = 3 if pairs * blocks > 100000 else 10
+    ms = {k: cuda_ms(lambda lib=libs[k]: launch(lib, d0, d1, packed),
+                     reps=reps)
+          for k in ("", "T2P_STAGE_CLOCKS") + F32_ABLATIONS}
+    lib = libs["T2P_STAGE_CLOCKS"]
+    clocks = lib.t2p_superglue_gnn_f32_stage_clocks
+    clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    clocks.restype = ctypes.c_int
+    _build.check(clocks(None, 1), "stage clocks reset")
+    launch(lib, d0, d1, packed)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * len(STAGES))()
+    _build.check(clocks(buf, 0), "stage clocks read")
+    total = float(sum(buf))
+    ctas = -(-pairs // tgnn.f32_pairs(pairs))
+    forced = [cuda_ms(lambda lib=libs[k]: launch(lib, d0, d1, packed),
+                      reps=reps) for k in F32_FORMS]
+    print(f"f32 kernel N={pairs} L={blocks}: {ms['']:.3f} ms ("
+          f"{tgnn.f32_pairs(pairs)} pairs a CTA; with 1, 2, 4: "
+          + ", ".join(f"{v:.3f}" for v in forced)
+          + f" ms), with stage clocks {ms['T2P_STAGE_CLOCKS']:.3f} ms, "
+          + ", ".join(f"{k[8:].lower()} {ms[k]:.3f} ms ({ms[k] / ms[''] - 1:+.1%})"
+                      for k in F32_ABLATIONS)
+          + f"; {total / ctas:.0f} clocks a CTA: "
+          + ", ".join(f"{k} {100 * v / total:.1f}%"
+                      for k, v in zip(STAGES, buf)))
+
+
 def any_depth_readings(dev, blocks=12):
     """The second form at E = 300 and 12 blocks against the plain version
     on the card (and the plain version on the CPU); returns the failures
@@ -299,8 +358,17 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    libs = build_variants()
+    f32_only = "--f32" in sys.argv[1:]
+    libs = build_variants(f32_only)
     failures = depth_readings(libs, dev)
+    for pairs, blocks in F32_SHAPES:
+        f32_split(libs, dev, pairs, blocks)
+    if f32_only:
+        if failures:
+            print("FAILURES:", failures, file=sys.stderr)
+            return 1
+        print("ok")
+        return 0
     stage_clocks(libs, dev)
     failures += any_depth_readings(dev)
     for dtype in (torch.bfloat16, torch.float32):

@@ -231,26 +231,83 @@ def test_gnn_kernel_cut_depth_from_sliced_stacks(cuda, dtype, rel_tol, L, N):
                                atol=rel_tol * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def _f32_form_pairs(cuda, G, offset=0):
+    """A pair count at which the tuned f32 kernel takes G pairs a CTA:
+    ``offset`` past a multiple of 4 that leaves no SM idle at G (1: one
+    pair an SM; 2: past one wave of single pairs; 4: past one of two)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = {1: 0, 2: 4 * -(-sms // 4), 4: 4 * -(-(2 * sms + 4) // 4)}[G] + offset
+    assert tgnn.f32_pairs(n, cuda) == G
+    return n
+
+
+@pytest.mark.parametrize("dtype,form", [(torch.bfloat16, None)] + [
+    (torch.float32, g) for g in (1, 2, 4)])
 @pytest.mark.parametrize("equal", [
     (1, 4),       # within one 16-row tile of the bf16 kernel's layout
     (3, 4),       # in two tiles for a CTA's third pair (pairs 2 and 6 here)
     (0, 3, 4),    # three equal hints
 ])
-def test_gnn_kernel_keeps_exact_ties(cuda, dtype, equal):
+def test_gnn_kernel_keeps_exact_ties(cuda, dtype, form, equal):
     """Identical hints must give bit-identical score columns (mutual-max
     extraction then takes the first, as JAX does), wherever their rows lie
-    in the kernel's tiles."""
+    in the kernel's tiles; in f32 also with each pairs-a-CTA form, reached
+    by the launch's size (hint rows in either of a pair's two 11-row
+    thread tiles)."""
     packed = _packed(dtype, cuda)
+    n = 8 if form is None else _f32_form_pairs(cuda, form, 8)
     g = torch.Generator().manual_seed(3)
-    d0 = torch.randn(8, 16, 128, generator=g).to(cuda)
-    d1 = torch.randn(8, 6, 128, generator=g).to(cuda)
+    d0 = torch.randn(n, 16, 128, generator=g).to(cuda)
+    d1 = torch.randn(n, 6, 128, generator=g).to(cuda)
     for j in equal[1:]:
         d1[:, j] = d1[:, equal[0]]
     s = tgnn.gnn_scores(d0, d1, packed)
     for j in equal[1:]:
         torch.testing.assert_close(s[:, :, j], s[:, :, equal[0]], atol=0,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("form", (1, 2, 4))
+@pytest.mark.parametrize("offset", [1, 3, 4, 5, 37])
+def test_gnn_f32_kernel_pairs_a_cta(cuda, form, offset):
+    """Each pairs-a-CTA form of the f32 kernel, reached by the launch's
+    size, with its last CTA holding 1, G − 1, G or G + 1 (mod G) pairs
+    and ragged: within 1e-5 of the plain version, bit-identical to a
+    second run and to the same pairs launched in another form (a pair's
+    sums do not depend on its CTA's other pairs): the first 8 in one pair
+    a CTA, or all of them at the head of a launch in four."""
+    packed = _packed(torch.float32, cuda)
+    n = _f32_form_pairs(cuda, form, offset)
+    g = torch.Generator().manual_seed(40 + n)
+    d0 = torch.randn(n, 16, 128, generator=g).to(cuda)
+    d1 = torch.randn(n, 6, 128, generator=g).to(cuda)
+    got = tgnn.gnn_scores(d0, d1, packed)
+    want = tgnn.gnn_scores_plain(d0, d1, packed)
+    assert got.shape == (n, 16, 6) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, tgnn.gnn_scores(d0, d1, packed))
+    if form == 4:
+        k = min(n, 8)
+        assert torch.equal(got[:k], tgnn.gnn_scores(d0[:k], d1[:k], packed))
+    else:
+        m = _f32_form_pairs(cuda, 4, 8)
+        pad = torch.randn(m, 22, 128, generator=g).to(cuda)
+        whole = tgnn.gnn_scores(torch.cat([d0, pad[:m - n, :16]]),
+                                torch.cat([d1, pad[:m - n, 16:]]), packed)
+        assert torch.equal(got, whole[:n])
+
+
+def test_gnn_f32_kernel_chooses_pairs_by_size(cuda):
+    """Few pairs take one a CTA (every pair its own SM), two past one wave
+    of those, four past one wave of pairs, the headline's 20,480 four; the
+    choice never falls as the pairs grow past a wave."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tgnn.f32_pairs(1) == 1 and tgnn.f32_pairs(sms) == 1
+    assert tgnn.f32_pairs(sms + 1) == 2 and tgnn.f32_pairs(2 * sms) == 2
+    assert tgnn.f32_pairs(2 * sms + 1) == 4
+    assert tgnn.f32_pairs(20480) == 4 and tgnn.f32_pairs(262144) == 4
+    assert all(tgnn.f32_pairs(n) in (1, 2, 4) for n in range(1, 4 * sms + 3))
 
 
 def test_gnn_kernel_layout_constants(cuda):
@@ -396,12 +453,18 @@ def _counted_case(device, dtype, B, S, C1, C2, seed):
 @pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
                                            (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("B,S,C1,C2", [
-    (6, 13, 32, 64), (3, 11, 128, 128), (5, 9, 256, 256)])
+    (6, 13, 32, 64), (3, 11, 128, 128), (5, 9, 256, 256),
+    # Around the f32 route's CTA of 8 centroids (31 and 32 of them: a
+    # partial and a full fourth CTA), and C2 not a multiple of 128 (two
+    # consecutive columns a lane).
+    (1, 31, 32, 64), (1, 32, 128, 128), (3, 11, 256, 256),
+    (5, 13, 128, 192)])
 def test_pointconv_kernel_neighbour_counts(cuda, dtype, rel_tol, B, S, C1,
                                            C2):
     """0, 1, 16, 17, exactly 32 and more than 32 neighbours (one or two
-    16-row tiles of the bf16 kernel, a partial and a full last tile) at the
-    model's three widths, S not a multiple of a CTA's warps."""
+    16-row tiles of the bf16 kernel, a partial and a full last tile; 0-4
+    8-row tiles of the f32 kernel) at the model's three widths, S not a
+    multiple of a CTA's warps; a second run is bit-identical."""
     args, counts = _counted_case(cuda, dtype, B, S, C1, C2, B * S)
     _, valid = tpc.ball_neighbors(args[1], args[3], 0.5, 32)
     assert valid.sum(-1).cpu().equal(counts.clamp(max=32).expand(B, S))
@@ -410,6 +473,7 @@ def test_pointconv_kernel_neighbour_counts(cuda, dtype, rel_tol, B, S, C1,
     assert bool((got[:, counts == 0] == 0).all())
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=rel_tol * float(want.float().abs().max()))
+    assert torch.equal(got, tpc.pointconv_max(*args, 0.5, 32))
 
 
 def test_pointconv_kernel_takes_rows_off_16_byte_boundaries(cuda):

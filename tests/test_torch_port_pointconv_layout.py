@@ -125,6 +125,17 @@ def test_kernel_wrapper_rejects_bf16_widths_before_building(C1, C2):
         tpc._pointconv_kernel(*args, 0.2, 32)
 
 
+@pytest.mark.parametrize("C1,C2", [(516, 64), (30, 64), (32, 96),
+                                   (32, 1088)])
+def test_kernel_wrapper_rejects_f32_widths_before_building(C1, C2):
+    """Widths the f32 kernel does not take (C1 past 512 or not a multiple
+    of 4, C2 not a multiple of 64 or past 1024, whose rows of W2 it reads
+    in 16-byte pieces) raise in the wrapper, before any build or launch."""
+    args = _level(9, B=1, N=8, S=2, C1=C1, C2=C2)
+    with pytest.raises(ValueError):
+        tpc._pointconv_kernel(*args, 0.2, 32)
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "layout"])
 def test_kernel_wrapper_rejects_a_bad_packed_w2(bad):
     """A packed W2 that is not ``w2_fragments(w2)``'s shape, dtype or

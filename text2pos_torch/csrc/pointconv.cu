@@ -66,12 +66,27 @@
 //  (W2 at most 128 KB, so at least 5 warps of rows fit beside it).
 //
 // f32 (namespace f32): f32 FMAs on the CUDA cores, one CTA of 8 warps per
-// (object, tile of 8 centroids). The warp builds its rows eight at a time in
-// shared memory; each lane computes 8 rows x J output columns (J = 4, or 2
-// when C2 is not a multiple of 128), W2 a coalesced read through L1 that the
-// CTA's 8 warps share (W2 of sa3 is 256 KB in f32). BN1, ReLU and the
-// running max over rows finish each column tile in registers. It is the
-// path held to the JAX package at 1e-4.
+// (object, tile of 8 centroids), a warp a centroid. It is the path held to
+// the JAX package at 1e-4. Every output is one fmaf chain over C1 from 0,
+// then bias, BN1, ReLU and the running max over rows (exact in any order),
+// so the outputs are bit-identical to the form before this one's.
+//  - Selection: ball_query<4>. Rows in 8-row tiles in the warp's shared
+//    memory; the 2-column form builds them from 16-byte pieces, two a lane
+//    in flight; the 4-column form with W2 up to 64 KB closes a centroid
+//    with a 4-row tile where at most 4 rows remain (17.9-23.3 a centroid).
+//  - Each lane computes 8 (or 4) rows x J consecutive output columns (J =
+//    4, or 2 when C2 is not a multiple of 128), W2 one 16- or 8-byte load
+//    through L1 a row of k that the CTA's 8 warps share (W2 of sa3 is 256
+//    KB in f32). BN1, ReLU and the running max finish each column pass.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W;
+// scripts/check_pointconv_kernel.py --f32, the DB step's six levels): 9.86
+// ms against 10.89 before (bound 3.70); clocks at sa3 88% the product with
+// its epilogue, 11% rows; at sa1 56%, 26%, 16% selection; W2 from shared
+// memory saves at most 6%. Its CTAs keep W2 and the object's rows of a in
+// L1 (two to three CTAs an SM at 64-93 registers); tried and slower
+// (PERF.md §6): persistent CTAs holding a 128-column slice of W2 in
+// shared memory over 64-row tiles of 32 centroids' rows (12.84 ms: one CTA
+// an SM and the rows' gathers from L2), and this form with 171 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,9 +113,8 @@ __device__ __forceinline__ float dot3(float x1, float y1, float z1, float x2,
 // The first k_cap in-ball points of centroid cp by index into the warp's
 // nbr[32]; returns their count (the same in every lane). U ballots of 32
 // points a pass: their loads and distances do not depend on each other, so
-// they overlap; the warp stops after the pass that finds k_cap points. The
-// bf16 kernel takes U = 4 (a third less time in its selection); the f32
-// kernel U = 1, where the registers of U = 4 cost it an SM's third CTA.
+// they overlap; the warp stops after the pass that finds k_cap points. Both
+// kernels take U = 4 (a third less time in the bf16 kernel's selection).
 template <int U>
 __device__ __forceinline__ int ball_query(const float* __restrict__ pb,
                                           const float* __restrict__ cp, int N,
@@ -485,7 +499,174 @@ namespace f32 {
 constexpr int WARPS = 8;   // centroids per CTA
 constexpr int ROWS = 8;    // neighbour rows per register tile
 
+// The 4-column form (C2 a multiple of 128) closes a centroid's rows with a
+// 4-row tile where at most 4 remain, while W2 is at most this many values
+// (64 KB: past it W2's reads from L2 outweigh the FMAs saved, and the
+// 4-row code alone, never run, slowed sa3's kernel by 5%).
+constexpr int REM_MAX_W2 = 16384;
+
+// With -DT2P_STAGE_CLOCKS every warp adds up the clocks it spends in each
+// stage, as the bf16 kernel's do (selection, rows, the product with its
+// epilogue, the output).
+#ifdef T2P_STAGE_CLOCKS
+constexpr int N_STAGES = 4;
+__device__ unsigned long long g_stage_clocks[N_STAGES];
+struct StageClocks {
+  long long t0;
+  unsigned long long sum[N_STAGES];
+  __device__ StageClocks() {
+    t0 = clock64();
+    for (int i = 0; i < N_STAGES; ++i) sum[i] = 0;
+  }
+  __device__ void mark(int i) {
+    __syncwarp();
+    const long long t = clock64();
+    sum[i] += (unsigned long long)(t - t0);
+    t0 = t;
+  }
+  __device__ void flush() const {
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < N_STAGES; ++i) atomicAdd(&g_stage_clocks[i], sum[i]);
+  }
+};
+#else
+struct StageClocks {
+  __device__ void mark(int) {}
+  __device__ void flush() const {}
+};
+#endif
+
+// W2 row k at a lane's J consecutive columns from ct + lane·J, one vector
+// load: from L2 through L1, or (the timing build) from shared memory.
 template <int J>
+__device__ __forceinline__ void ldw(const float* w2, const float* smem, int k,
+                                    int C2, int ct, int lane, float (&w)[J]) {
+#ifdef T2P_PC_W2_SMEM
+  const float* src = smem + ((k * C2 + ct + lane * J) & 2047);
+#pragma unroll
+  for (int j = 0; j < J; ++j) w[j] = src[j];
+#else
+  const float* src = w2 + (size_t)k * C2 + ct + lane * J;
+  if constexpr (J == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+    w[0] = v.x, w[1] = v.y;
+  }
+#endif
+}
+
+// One column pass of an R-row tile: the product of H's R rows (C1 wide)
+// with W2's pass columns, each an fmaf chain over C1 from 0, and the
+// epilogue of its nrows valid rows into the running max.
+template <int J, int R>
+__device__ __forceinline__ void tile_pass(
+    const float* H, const float* __restrict__ w2, const float* smem, int C1,
+    int C2, int ct, int nrows, const float* __restrict__ b2,
+    const float* __restrict__ s1, const float* __restrict__ t1,
+    float* runmax, int lane) {
+  float acc[R][J];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[r][j] = 0.0f;
+  for (int ch = 0; ch < C1; ch += 4) {
+    float4 hv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      hv[r] = *reinterpret_cast<const float4*>(H + r * C1 + ch);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float w[J];
+      ldw<J>(w2, smem, ch + q, C2, ct, lane, w);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float hq = q == 0 ? hv[r].x : q == 1 ? hv[r].y
+                       : q == 2 ? hv[r].z : hv[r].w;
+#pragma unroll
+        for (int j = 0; j < J; ++j) acc[r][j] = __fmaf_rn(hq, w[j], acc[r][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int col = ct + lane * J + j;
+    const float bj = b2[col], sj = s1[col], tj = t1[col];
+    float m = runmax[col];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nrows) {
+        const float z = __fadd_rn(acc[r][j], bj);
+        const float y = __fadd_rn(__fmul_rn(z, sj), tj);
+        m = fmaxf(m, fmaxf(y, 0.0f));
+      }
+    }
+    runmax[col] = m;
+  }
+}
+
+// A tile's R rows h = relu(BN0(a_n - c_s)) of the neighbours nbr[0 ..
+// nrows) into H; rows from nrows on are zero. The 2-column form takes them
+// in 16-byte pieces, two a lane in flight at once; in the 4-column form
+// that cost registers (115 a thread) and time at sa3, so it takes a
+// channel a lane.
+template <int J>
+__device__ __forceinline__ void build_rows(
+    float* H, const float* __restrict__ ab_, const float* __restrict__ crow,
+    const float* __restrict__ s0, const float* __restrict__ t0,
+    const int* nbr, int C1, int R, int nrows, int lane) {
+  if constexpr (J == 2) {
+    const int quads = C1 / 4;
+    for (int it0 = lane; it0 < R * quads; it0 += 2 * 32) {
+      float4 av[2], cv[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int it = it0 + 32 * u, r = it / quads, k = 4 * (it - r * quads);
+        if (it < R * quads && r < nrows) {
+          av[u] = __ldg(reinterpret_cast<const float4*>(
+              ab_ + (size_t)nbr[r] * C1 + k));
+          cv[u] = __ldg(reinterpret_cast<const float4*>(crow + k));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int it = it0 + 32 * u, r = it / quads, k = 4 * (it - r * quads);
+        if (it < R * quads) {
+          float4 h = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (r < nrows) {
+            const float4 sv = __ldg(reinterpret_cast<const float4*>(s0 + k));
+            const float4 tv = __ldg(reinterpret_cast<const float4*>(t0 + k));
+            h.x = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(av[u].x, cv[u].x),
+                                            sv.x), tv.x), 0.0f);
+            h.y = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(av[u].y, cv[u].y),
+                                            sv.y), tv.y), 0.0f);
+            h.z = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(av[u].z, cv[u].z),
+                                            sv.z), tv.z), 0.0f);
+            h.w = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(av[u].w, cv[u].w),
+                                            sv.w), tv.w), 0.0f);
+          }
+          *reinterpret_cast<float4*>(H + r * C1 + k) = h;
+        }
+      }
+    }
+  } else {
+    for (int r = 0; r < R; ++r) {
+      float* hr = H + r * C1;
+      if (r < nrows) {
+        const float* arow = ab_ + (size_t)nbr[r] * C1;
+        for (int ch = lane; ch < C1; ch += 32) {
+          const float d = __fsub_rn(arow[ch], crow[ch]);
+          hr[ch] = fmaxf(__fadd_rn(__fmul_rn(d, s0[ch]), t0[ch]), 0.0f);
+        }
+      } else {
+        for (int ch = lane; ch < C1; ch += 32) hr[ch] = 0.0f;
+      }
+    }
+  }
+}
+
+template <int J, bool REM>
 __global__ void __launch_bounds__(WARPS * 32)
 pointconv_kernel(const float* __restrict__ a,     // [B, N, C1]
                  const float* __restrict__ pos,   // [B, N, 3]
@@ -505,87 +686,52 @@ pointconv_kernel(const float* __restrict__ a,     // [B, N, C1]
   const int b = blockIdx.y;
   const int s = blockIdx.x * WARPS + warp;
   if (s >= S) return;  // whole warp; no CTA-wide barrier follows
+  StageClocks clk;
 
   float* H = smem + warp * ROWS * C1;                       // [ROWS][C1]
   float* runmax = smem + WARPS * ROWS * C1 + warp * C2;     // [C2]
   int* nbr = reinterpret_cast<int*>(smem + WARPS * ROWS * C1 + WARPS * C2)
              + warp * 32;                                   // [32]
 
-  const int cnt = ball_query<1>(pos + (size_t)b * N * 3,
+  const int cnt = ball_query<4>(pos + (size_t)b * N * 3,
                                 cent + ((size_t)b * S + s) * 3, N, r2, k_cap,
                                 nbr);
   for (int j = lane; j < C2; j += 32) runmax[j] = -INFINITY;
   __syncwarp();
+  clk.mark(0);
 
   const float* crow = c + ((size_t)b * S + s) * C1;
   const float* ab_ = a + (size_t)b * N * C1;
   for (int r0 = 0; r0 < cnt; r0 += ROWS) {
     const int nrows = min(ROWS, cnt - r0);
-    // Rows h = relu(BN0(a_n - c_s)); rows past the count are zero.
-    for (int r = 0; r < ROWS; ++r) {
-      float* hr = H + r * C1;
-      if (r < nrows) {
-        const float* arow = ab_ + (size_t)nbr[r0 + r] * C1;
-        for (int ch = lane; ch < C1; ch += 32) {
-          const float d = __fsub_rn(arow[ch], crow[ch]);
-          hr[ch] = fmaxf(__fadd_rn(__fmul_rn(d, s0[ch]), t0[ch]), 0.0f);
-        }
-      } else {
-        for (int ch = lane; ch < C1; ch += 32) hr[ch] = 0.0f;
-      }
-    }
+    const int R = REM && nrows <= 4 ? 4 : ROWS;
+    build_rows<J>(H, ab_, crow, s0, t0, nbr + r0, C1, R, nrows, lane);
     __syncwarp();
+    clk.mark(1);
 
     for (int ct = 0; ct < C2; ct += 32 * J) {
-      float acc[ROWS][J];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc[r][j] = 0.0f;
-      const float* wcol = w2 + ct + lane;
-      for (int ch = 0; ch < C1; ch += 4) {
-        float4 hv[ROWS];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          hv[r] = *reinterpret_cast<const float4*>(H + r * C1 + ch);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float w[J];
-#pragma unroll
-          for (int j = 0; j < J; ++j) w[j] = wcol[(size_t)(ch + q) * C2 + 32 * j];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float hq = q == 0 ? hv[r].x : q == 1 ? hv[r].y
-                           : q == 2 ? hv[r].z : hv[r].w;
-#pragma unroll
-            for (int j = 0; j < J; ++j) acc[r][j] = __fmaf_rn(hq, w[j], acc[r][j]);
-          }
+      if constexpr (REM) {
+        if (R == 4) {
+          tile_pass<J, 4>(H, w2, smem, C1, C2, ct, nrows, b2, s1, t1, runmax,
+                          lane);
+          clk.mark(2);
+          continue;
         }
       }
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int col = ct + lane + 32 * j;
-        const float bj = b2[col], sj = s1[col], tj = t1[col];
-        float m = runmax[col];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r < nrows) {
-            const float z = __fadd_rn(acc[r][j], bj);
-            const float y = __fadd_rn(__fmul_rn(z, sj), tj);
-            m = fmaxf(m, fmaxf(y, 0.0f));
-          }
-        }
-        runmax[col] = m;
-      }
+      tile_pass<J, ROWS>(H, w2, smem, C1, C2, ct, nrows, b2, s1, t1, runmax,
+                         lane);
+      clk.mark(2);
     }
     __syncwarp();
   }
 
   float* orow = out + ((size_t)b * S + s) * C2;
   for (int j = lane; j < C2; j += 32) orow[j] = cnt > 0 ? runmax[j] : 0.0f;
+  clk.mark(3);
+  clk.flush();
 }
 
-template <int J>
+template <int J, bool REM>
 int launch(const void* a, const void* pos, const void* c, const void* cent,
            const void* s0, const void* t0, const void* w2, const void* b2,
            const void* s1, const void* t1, void* out, int B, int N, int S,
@@ -594,11 +740,11 @@ int launch(const void* a, const void* pos, const void* c, const void* cent,
                                        + (size_t)WARPS * C2)
                       + sizeof(int) * WARPS * 32;
   cudaError_t err = cudaFuncSetAttribute(
-      pointconv_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pointconv_kernel<J, REM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + WARPS - 1) / WARPS, B);
-  pointconv_kernel<J><<<grid, WARPS * 32, smem, stream>>>(
+  pointconv_kernel<J, REM><<<grid, WARPS * 32, smem, stream>>>(
       (const float*)a, (const float*)pos, (const float*)c, (const float*)cent,
       (const float*)s0, (const float*)t0, (const float*)w2, (const float*)b2,
       (const float*)s1, (const float*)t1, (float*)out, N, S, C1, C2, r2, k_cap);
@@ -611,9 +757,9 @@ int launch(const void* a, const void* pos, const void* c, const void* cent,
 
 // Returns a cudaError_t; 0 means the launch was accepted. k_cap in [1, 32],
 // B up to 65535 objects. f32: C1 a multiple of 4 up to 512, C2 a multiple
-// of 64 up to 1024, W2 row-major [C1, C2]. bf16: C1 one of 16, 32, 64, 128,
-// 256, C2 a multiple of 64 up to 1024 with C1 . C2 <= 65536, W2 in fragment
-// order (see the header).
+// of 64 up to 1024, W2 row-major [C1, C2], a, c, s0, t0 and W2 16-byte
+// aligned. bf16: C1 one of 16, 32, 64, 128, 256, C2 a multiple of 64 up to
+// 1024 with C1 . C2 <= 65536, W2 in fragment order (see the header).
 #ifdef T2P_STAGE_CLOCKS
 // Copies the bf16 kernel's summed stage clocks to out[5] (reset == 0) or
 // sets them to zero. Synchronizes the device.
@@ -625,6 +771,17 @@ extern "C" int t2p_pointconv_stage_clocks(unsigned long long* out,
   }
   return (int)cudaMemcpyFromSymbol(out, tc::g_stage_clocks,
                                    tc::N_STAGES * sizeof(unsigned long long));
+}
+
+// The same for the f32 kernel's stages (out[4]).
+extern "C" int t2p_pointconv_f32_stage_clocks(unsigned long long* out,
+                                              int reset) {
+  if (reset) {
+    const unsigned long long zero[f32::N_STAGES] = {};
+    return (int)cudaMemcpyToSymbol(f32::g_stage_clocks, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, f32::g_stage_clocks,
+                                   f32::N_STAGES * sizeof(unsigned long long));
 }
 #endif
 
@@ -642,9 +799,12 @@ extern "C" int t2p_pointconv_max(const void* a, const void* pos, const void* c,
   if (bf16)
     return tc::run(a, pos, c, cent, s0, t0, w2, b2, s1, t1, out, B, N, S, C1,
                    C2, r2, k_cap, st);
-  return C2 % 128 == 0
-             ? f32::launch<4>(a, pos, c, cent, s0, t0, w2, b2, s1, t1, out, B,
-                              N, S, C1, C2, r2, k_cap, st)
-             : f32::launch<2>(a, pos, c, cent, s0, t0, w2, b2, s1, t1, out, B,
-                              N, S, C1, C2, r2, k_cap, st);
+  if (C2 % 128)
+    return f32::launch<2, false>(a, pos, c, cent, s0, t0, w2, b2, s1, t1, out,
+                                 B, N, S, C1, C2, r2, k_cap, st);
+  return C1 * C2 <= f32::REM_MAX_W2
+             ? f32::launch<4, true>(a, pos, c, cent, s0, t0, w2, b2, s1, t1,
+                                    out, B, N, S, C1, C2, r2, k_cap, st)
+             : f32::launch<4, false>(a, pos, c, cent, s0, t0, w2, b2, s1, t1,
+                                     out, B, N, S, C1, C2, r2, k_cap, st);
 }

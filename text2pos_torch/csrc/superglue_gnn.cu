@@ -67,9 +67,30 @@
 // pipe about as long as the MMAs take the tensor cores), and five barriers
 // a block with only two warps a scheduler to hide them.
 //
-// f32: f32 FMAs on the CUDA cores, G=2 pairs (44 rows) a CTA, weights
-// streamed from L2 row-major. It is the path whose top-k equals the JAX
-// package's exactly; TF32 would break that.
+// f32 (namespace f32): f32 FMAs on the CUDA cores. It is the path whose
+// top-k equals the JAX package's exactly; TF32 would break that. Every
+// product output is one fmaf chain over k from 0 in ascending order, then
+// its epilogue, and the attention keeps the plain version's dot, softmax
+// and message chains, so no layout choice below moves a score by a bit.
+//  - G = 4 pairs a CTA (88 rows, 256 threads), or 2 or 1 where fewer pairs
+//    would leave SMs idle (pairs_per_cta: the evaluator's 80-pair chunks
+//    take one a CTA). A row holds no second copy of the residual: [residual
+//    | k, then m | q, then the messages, h1, the final projection | v, then
+//    h1's second half], 516 floats, 181,632 bytes at G = 4.
+//  - A thread owns 11 rows (half a pair) x G columns of each 128-column
+//    pass, 44 accumulators at G = 4; a row's next 4 k-values are loaded as
+//    soon as the current ones are taken.
+//  - Each warp's 16 weight columns stream from L2 by cp.async into a ring
+//    of 8 k-groups in shared memory of its own, 7 ahead, ordered by
+//    __syncwarp alone, so the copies run on across the CTA's barriers.
+//  - Attention: a thread per (head, query row), messages written over q.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W; scripts/check_gnn_kernel.py
+// --f32 and ab_kernel_times.py against the form before it): 52.24 ms at
+// 20,480 pairs x 12 blocks (before: 79.25; bound 27.13, 52%), 117.64 at
+// 262,144 x 2 (182.61), 0.624 at 80 x 12 (1.040); clocks q|k|v 26.8%,
+// attention 7.4%, merge 9.2%, W0 36.5%, W1 18.7%; weights from a tile
+// already in shared memory -7.1%, no attention -7.3%. 230 registers at G =
+// 4, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -543,23 +564,34 @@ int launch(const float* desc0, const float* desc1, const Weights& wt,
 // ------------------------------------------------------------------------
 namespace f32 {
 
-constexpr int P = T0 + T1;   // token rows per pair
-constexpr int G = 2;         // pairs per CTA
-constexpr int R = G * P;     // token rows per CTA (44)
-constexpr int NT = 512;      // threads per CTA
-constexpr int COL_THREADS = 128;
-constexpr int ROW_GROUPS = NT / COL_THREADS;  // 4
-constexpr int ROWS = R / ROW_GROUPS;          // 11 rows per thread
-static_assert(R % ROW_GROUPS == 0, "rows must split evenly");
+constexpr int P = T0 + T1;      // token rows a pair (22)
+constexpr int NT = 256;         // threads a CTA
+constexpr int RT = P / 2;       // rows of a thread tile: half a pair (11)
+constexpr int RING = 8;         // k-groups of 4 in a warp's weight ring
+// A row, by offset: the residual; k, then m; q, then the messages, then
+// the first half of h1, then the final projection; v, then h1's second
+// half. So [residual | m] is W0's input and h1 W1's, each contiguous.
+constexpr int RES = 0, KM = E, QO = 2 * E, VO = 3 * E;
+constexpr int LDR = 4 * E + 4;  // 516 floats: consecutive rows 4 banks apart
+static_assert(P % 2 == 0 && RT * 2 == P, "a pair is two thread tiles");
 
-// Shared-memory row strides (floats). A pad of 4 keeps rows 16-byte aligned
-// and puts consecutive rows 4 banks apart, so per-row float4 reads in the
-// attention step are free of bank conflicts.
-constexpr int LDRES = E;          // residual stream
-constexpr int LDA = 2 * E + 4;    // [residual | merge output]
-constexpr int LDB = 3 * E + 4;    // q|k|v, then h1, then the final projection
-constexpr int LDC = E + 4;        // attention messages
-constexpr int SMEM_FLOATS = R * (LDRES + LDA + LDB + LDC);
+// The rows, then each warp's weight ring (RING x 4 k-rows x 16 columns).
+__host__ __device__ constexpr size_t row_bytes(int G) {
+  return (size_t)G * P * LDR * sizeof(float);
+}
+__host__ __device__ constexpr size_t smem_bytes(int G) {
+  return row_bytes(G) + (size_t)(NT / 32) * RING * 64 * sizeof(float);
+}
+
+// With -DT2P_STAGE_CLOCKS the kernel adds up its stages' clocks as the
+// bf16 kernel does (t2p_superglue_gnn_f32_stage_clocks reads them). Two
+// timing-only builds (wrong scores, the same products):
+// -DT2P_GNN_W_SMEM reads the weights from the ring without copying them
+// there, -DT2P_GNN_NO_ATTENTION leaves the attention out.
+// scripts/check_gnn_kernel.py --f32 builds and reads all three.
+#ifdef T2P_STAGE_CLOCKS
+__device__ unsigned long long g_stage_clocks[tc::N_STAGES];
+#endif
 
 struct Weights {
   const float* wqkv;  // [L, E, 3E]
@@ -575,201 +607,333 @@ struct Weights {
   const float* bf;    // [E]
 };
 
-// acc = X[R, K] (shared, row stride ldx) · W[K, N] (global, row-major),
-// N = COLS·128; thread (row group rg, column thread tc) owns rows
-// rg·ROWS … and columns tc + 128·cc; epi(row, col, acc) stores.
-template <int COLS, typename Epi>
-__device__ __forceinline__ void matmul(const float* X, int ldx, int K,
-                                       const float* W, Epi epi) {
-  constexpr int N = COLS * COL_THREADS;
-  const int tc = threadIdx.x % COL_THREADS;
-  const int r0 = (threadIdx.x / COL_THREADS) * ROWS;
-  float acc[ROWS][COLS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int cc = 0; cc < COLS; ++cc) acc[r][cc] = 0.0f;
-
-  for (int k = 0; k < K; k += 4) {
-    float w[4][COLS];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc)
-        w[kk][cc] = __ldg(W + (size_t)(k + kk) * N + tc + COL_THREADS * cc);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(X + (r0 + r) * ldx + k);
-#pragma unroll
-      for (int cc = 0; cc < COLS; ++cc) {
-        float a = acc[r][cc];
-        a = fmaf(x.x, w[0][cc], a);
-        a = fmaf(x.y, w[1][cc], a);
-        a = fmaf(x.z, w[2][cc], a);
-        a = fmaf(x.w, w[3][cc], a);
-        acc[r][cc] = a;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int cc = 0; cc < COLS; ++cc)
-      epi(r0 + r, tc + COL_THREADS * cc, acc[r][cc]);
+// G consecutive f32 values, G = 1, 2 or 4, as one store.
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[1]) {
+  p[0] = v[0];
+}
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// A warp's 16 weight columns of a product (lane (rg, cl) takes G of them),
+// 4 k-rows at a time over all its passes of 128 columns, copied from L2
+// (row-major W, row length N) by cp.async into the warp's own ring of RING
+// groups in shared memory, RING − 1 groups ahead: a group is 4 x 64
+// contiguous bytes, 16 lanes' copies. Only the warp reads its ring, so a
+// __syncwarp, not a barrier, orders the copies and the reads, and the
+// copies run on across the CTA's barriers.
+__device__ __forceinline__ void cp_async16_cg(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(RING - 2) : "memory");
+}
+
+template <int G, int K>
+struct Loader {
+  static constexpr int CL = 16 / G, K4 = K / 4;
+  const float* W;
+  float* ring;   // the warp's [RING][4][16] floats
+  int N, passes;
+
+  __device__ __forceinline__ Loader(const float* w, int n, int p, float* r)
+      : W(w + 16 * (threadIdx.x >> 5)), ring(r + (threadIdx.x >> 5) * RING * 64),
+        N(n), passes(p) {}
+
+  // This thread's first column of pass 0.
+  __device__ __forceinline__ int col() const {
+    return ((threadIdx.x >> 5) * CL + (threadIdx.x & 31) % CL) * G;
+  }
+  // Copies of group t (lanes 0-15: k-row lane / 4, 16 bytes lane % 4); every
+  // lane commits a group, empty past the last.
+  __device__ __forceinline__ void issue(int t) const {
+    const int lane = threadIdx.x & 31;
+#ifndef T2P_GNN_W_SMEM
+    if (t < passes * K4 && lane < 16) {
+      const int p = t / K4, kg = t % K4, kk = lane >> 2, q = (lane & 3) * 4;
+      cp_async16_cg(ring + (t % RING) * 64 + kk * 16 + q,
+                    W + (size_t)(4 * kg + kk) * N + 128 * p + q);
+    }
+    cp_async_commit();
+#endif
+  }
+  // The first RING − 1 groups, issued before the barrier that releases the
+  // product's input, so that their latency overlaps the stage before.
+  __device__ __forceinline__ void prefetch() const {
+    __syncwarp();   // every lane is past its reads of the last product
+    for (int t = 0; t < RING - 1; ++t) issue(t);
+  }
+  // Group t's 4 k-rows of this thread's G columns, after it has landed;
+  // then the copy of group t + RING − 1 into the slot read at step t − 1.
+  // With -DT2P_GNN_W_SMEM (timing only) no copy is made and the reads take
+  // whatever the ring holds.
+  __device__ __forceinline__ void next(int t, float (&w)[4][G]) const {
+#ifndef T2P_GNN_W_SMEM
+    cp_async_wait_ring();
+#endif
+    __syncwarp();
+    const float* src = ring + (t % RING) * 64 + ((threadIdx.x & 31) % CL) * G;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (G == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src + kk * 16);
+        w[kk][0] = v.x, w[kk][1] = v.y, w[kk][2] = v.z, w[kk][3] = v.w;
+      } else if constexpr (G == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(src + kk * 16);
+        w[kk][0] = v.x, w[kk][1] = v.y;
+      } else {
+        w[kk][0] = src[kk * 16];
+      }
+    }
+    issue(t + RING - 1);
+  }
+};
+
+// out[G·P, 128·passes] = X[G·P, K] (shared, row stride LDR) · W, pass by
+// pass. Thread (warp w, lane l) owns rows RT·rg .. RT·rg + RT − 1, rg = l /
+// CL, and the loader's G columns of each pass: RT·G accumulators, each an
+// fmaf chain over k from 0 in ascending order. A warp's RG row lanes read
+// 16-byte pieces of RG rows 4·RT banks apart (one wavefront); its CL column
+// lanes share them. A row's next 4 k-values are loaded as soon as its
+// current ones are taken, a k-group ahead of their FMAs. epi(row, column,
+// acc[G]).
+template <int G, int K, typename Epi>
+__device__ __forceinline__ void gemm(const float* X, const Loader<G, K>& ld,
+                                     Epi epi) {
+  constexpr int K4 = K / 4, CL = Loader<G, K>::CL;
+  const int rg = (threadIdx.x & 31) / CL;
+  const float* xr = X + RT * rg * LDR;
+  float4 x[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+    x[i] = *reinterpret_cast<const float4*>(xr + i * LDR);
+  for (int p = 0; p < ld.passes; ++p) {
+    float acc[RT][G];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[i][j] = 0.0f;
+#pragma unroll 2
+    for (int kg = 0; kg < K4; ++kg) {
+      float w[4][G];
+      ld.next(p * K4 + kg, w);
+      // The next group's k (the first of the next pass after the last).
+      const int kn = kg + 1 < K4 ? 4 * (kg + 1) : 0;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+        x[i] = *reinterpret_cast<const float4*>(xr + i * LDR + kn);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            acc[i][j] = fmaf(xs[kk], w[kk][j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) epi(RT * rg + i, ld.col() + 128 * p, acc[i]);
+  }
+}
+
+// A thread per (head, query row): logits over the source set, softmax,
+// the message written over the row's q (its own q is read before).
+template <int G>
+__device__ __forceinline__ void attend(float* rows, bool cross) {
+  constexpr int R = G * P;
+  for (int it = threadIdx.x; it < HEADS * R; it += NT) {
+    const int h = it / R, r = it % R;
+    const int p = r / P, set = (r % P) >= T0 ? 1 : 0;
+    const int kset = cross ? 1 - set : set;
+    const int kbase = p * P + (kset ? T0 : 0);
+    const int nk = kset ? T1 : T0;
+    float* q = rows + r * LDR + QO + h * D;
+    float s[T0];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < T0; ++j) {
+      if (j < nk) {
+        const float* kr = rows + (kbase + j) * LDR + KM + h * D;
+        float dot = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(q + d);
+          const float4 b = *reinterpret_cast<const float4*>(kr + d);
+          dot = fmaf(a.x, b.x, dot);
+          dot = fmaf(a.y, b.y, dot);
+          dot = fmaf(a.z, b.z, dot);
+          dot = fmaf(a.w, b.w, dot);
+        }
+        s[j] = dot / sqrtf((float)D);
+        mx = fmaxf(mx, s[j]);
+      }
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < T0; ++j) {
+      if (j < nk) {
+        s[j] = expf(s[j] - mx);
+        sum += s[j];
+      }
+    }
+    float msg[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) msg[d] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < T0; ++j) {
+      if (j < nk) {
+        const float pj = s[j] / sum;
+        const float* vr = rows + (kbase + j) * LDR + VO + h * D;
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(vr + d);
+          msg[d] = fmaf(pj, v.x, msg[d]);
+          msg[d + 1] = fmaf(pj, v.y, msg[d + 1]);
+          msg[d + 2] = fmaf(pj, v.z, msg[d + 2]);
+          msg[d + 3] = fmaf(pj, v.w, msg[d + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < D; d += 4)
+      *reinterpret_cast<float4*>(q + d) =
+          make_float4(msg[d], msg[d + 1], msg[d + 2], msg[d + 3]);
+  }
+}
+
+template <int G>
 __global__ void __launch_bounds__(NT, 1)
 superglue_gnn_f32_kernel(const float* __restrict__ desc0,  // [N, T0, E]
                          const float* __restrict__ desc1,  // [N, T1, E]
                          Weights wt, int num_blocks,
                          float* __restrict__ scores,       // [N, T0, T1]
                          int n_pairs) {
+  constexpr int R = G * P;
   extern __shared__ float4 smem4[];
-  float* res = reinterpret_cast<float*>(smem4);
-  float* A = res + R * LDRES;
-  float* Bq = A + R * LDA;
-  float* C = Bq + R * LDB;
+  float* rows = reinterpret_cast<float*>(smem4);
+  float* ring = rows + row_bytes(G) / sizeof(float);
   const int tid = threadIdx.x;
   const int pair0 = blockIdx.x * G;
+  STAGE_BEGIN
 
-  // Load both descriptor sets of the CTA's pairs (zeros past the end).
-  for (int i = tid; i < R * E; i += NT) {
-    const int r = i / E, c = i % E;
+  // Both descriptor sets of the CTA's pairs, pair by pair (zeros past the
+  // last pair).
+  for (int i = tid; i < R * (E / 4); i += NT) {
+    const int r = i / (E / 4), c = (i % (E / 4)) * 4;
     const int p = r / P, loc = r % P, n = pair0 + p;
-    float x = 0.0f;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (n < n_pairs)
-      x = loc < T0 ? desc0[((size_t)n * T0 + loc) * E + c]
-                   : desc1[((size_t)n * T1 + (loc - T0)) * E + c];
-    res[r * LDRES + c] = x;
-    A[r * LDA + c] = x;
+      x = __ldg(reinterpret_cast<const float4*>(
+          loc < T0 ? desc0 + ((size_t)n * T0 + loc) * E + c
+                   : desc1 + ((size_t)n * T1 + (loc - T0)) * E + c));
+    *reinterpret_cast<float4*>(rows + r * LDR + RES + c) = x;
   }
-  __syncthreads();
+  STAGE(0)
 
   for (int l = 0; l < num_blocks; ++l) {
     const bool cross = (l & 1) == 1;
     const size_t wl = (size_t)l;
 
-    // q|k|v of every row.
+    // q|k|v of every row: q over QO, k over KM, v over VO.
     {
-      const float* bqkv = wt.bqkv + wl * 3 * E;
-      matmul<3>(A, LDA, E, wt.wqkv + wl * E * 3 * E,
-                [&](int r, int c, float acc) {
-        Bq[r * LDB + c] = acc + __ldg(bqkv + c);
+      const Loader<G, E> ld(wt.wqkv + wl * E * 3 * E, 3 * E, 3, ring);
+      const float* b = wt.bqkv + wl * 3 * E;
+      ld.prefetch();
+      __syncthreads();
+      gemm(rows + RES, ld, [&](int r, int c, const float (&a)[G]) {
+        float v[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) v[j] = a[j] + __ldg(b + c + j);
+        st_cols(rows + r * LDR + (c < E ? QO + c : c < 2 * E ? c : c + E),
+                v);
       });
     }
+    STAGE(1)
     __syncthreads();
+#ifndef T2P_GNN_NO_ATTENTION
+    attend<G>(rows, cross);
+#endif
+    STAGE(2)
 
-    // Per (head, query row): softmax over the source set, then the message.
-    for (int it = tid; it < HEADS * R; it += NT) {
-      const int h = it / R, r = it % R;
-      const int p = r / P, set = (r % P) >= T0 ? 1 : 0;
-      const int kset = cross ? 1 - set : set;
-      const int kbase = p * P + (kset ? T0 : 0);
-      const int nk = kset ? T1 : T0;
-      const float* q = Bq + r * LDB + h * D;
-      float s[T0];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < T0; ++j) {
-        if (j < nk) {
-          const float* kr = Bq + (kbase + j) * LDB + E + h * D;
-          float dot = 0.0f;
-#pragma unroll
-          for (int d = 0; d < D; d += 4) {
-            const float4 a = *reinterpret_cast<const float4*>(q + d);
-            const float4 b = *reinterpret_cast<const float4*>(kr + d);
-            dot = fmaf(a.x, b.x, dot);
-            dot = fmaf(a.y, b.y, dot);
-            dot = fmaf(a.z, b.z, dot);
-            dot = fmaf(a.w, b.w, dot);
-          }
-          s[j] = dot / sqrtf((float)D);
-          mx = fmaxf(mx, s[j]);
-        }
-      }
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < T0; ++j) {
-        if (j < nk) {
-          s[j] = expf(s[j] - mx);
-          sum += s[j];
-        }
-      }
-      float msg[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) msg[d] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < T0; ++j) {
-        if (j < nk) {
-          const float pj = s[j] / sum;
-          const float* vr = Bq + (kbase + j) * LDB + 2 * E + h * D;
-#pragma unroll
-          for (int d = 0; d < D; d += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(vr + d);
-            msg[d] = fmaf(pj, v.x, msg[d]);
-            msg[d + 1] = fmaf(pj, v.y, msg[d + 1]);
-            msg[d + 2] = fmaf(pj, v.z, msg[d + 2]);
-            msg[d + 3] = fmaf(pj, v.w, msg[d + 3]);
-          }
-        }
-      }
-      float* out = C + r * LDC + h * D;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        *reinterpret_cast<float4*>(out + d) =
-            make_float4(msg[d], msg[d + 1], msg[d + 2], msg[d + 3]);
-      }
-    }
-    __syncthreads();
-
-    // m = msg·Wm + bm, into the right half of A.
+    // m = msg·Wm + bm, over k.
     {
-      const float* bm = wt.bm + wl * E;
-      matmul<1>(C, LDC, E, wt.wm + wl * E * E, [&](int r, int c, float acc) {
-        A[r * LDA + E + c] = acc + __ldg(bm + c);
+      const Loader<G, E> ld(wt.wm + wl * E * E, E, 1, ring);
+      const float* b = wt.bm + wl * E;
+      ld.prefetch();
+      __syncthreads();
+      gemm(rows + QO, ld, [&](int r, int c, const float (&a)[G]) {
+        float v[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) v[j] = a[j] + __ldg(b + c + j);
+        st_cols(rows + r * LDR + KM + c, v);
       });
     }
-    __syncthreads();
+    STAGE(3)
 
-    // h1 = relu(([a | m]·W0) * s0[set] + t0[set]).
+    // h1 = relu(([a | m]·W0) * s0[set] + t0[set]), over q|v.
     {
-      const float* s0 = wt.s0 + wl * 2 * 2 * E;
-      const float* t0 = wt.t0 + wl * 2 * 2 * E;
-      matmul<2>(A, LDA, 2 * E, wt.w0 + wl * 4 * E * E,
-                [&](int r, int c, float acc) {
-        const int g = (r % P) >= T0 ? 1 : 0;
-        const float y = fmaf(acc, __ldg(s0 + g * 2 * E + c), __ldg(t0 + g * 2 * E + c));
-        Bq[r * LDB + c] = fmaxf(y, 0.0f);
+      const Loader<G, 2 * E> ld(wt.w0 + wl * 4 * E * E, 2 * E, 2, ring);
+      const float* s0 = wt.s0 + wl * 4 * E;
+      const float* t0 = wt.t0 + wl * 4 * E;
+      ld.prefetch();
+      __syncthreads();
+      gemm(rows + RES, ld, [&](int r, int c, const float (&a)[G]) {
+        const int g = (r % P) >= T0 ? 2 * E : 0;
+        float v[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          v[j] = fmaxf(fmaf(a[j], __ldg(s0 + g + c + j),
+                            __ldg(t0 + g + c + j)), 0.0f);
+        st_cols(rows + r * LDR + QO + c, v);
       });
     }
-    __syncthreads();
+    STAGE(4)
 
-    // res += h1·W1 + b1; A's left half follows the residual.
+    // res += h1·W1 + b1.
     {
-      const float* b1 = wt.b1 + wl * E;
-      matmul<1>(Bq, LDB, 2 * E, wt.w1 + wl * 2 * E * E,
-                [&](int r, int c, float acc) {
-        const float x = res[r * LDRES + c] + (acc + __ldg(b1 + c));
-        res[r * LDRES + c] = x;
-        A[r * LDA + c] = x;
+      const Loader<G, 2 * E> ld(wt.w1 + wl * 2 * E * E, E, 1, ring);
+      const float* b = wt.b1 + wl * E;
+      ld.prefetch();
+      __syncthreads();
+      gemm(rows + QO, ld, [&](int r, int c, const float (&a)[G]) {
+        float* x = rows + r * LDR + RES + c;
+        float v[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) v[j] = x[j] + (a[j] + __ldg(b + c + j));
+        st_cols(x, v);
       });
     }
-    __syncthreads();
+    STAGE(5)
   }
 
-  // Final projection of both sets.
-  matmul<1>(A, LDA, E, wt.wf, [&](int r, int c, float acc) {
-    Bq[r * LDB + c] = acc + __ldg(wt.bf + c);
-  });
+  // Final projection of both sets, over q.
+  {
+    const Loader<G, E> ld(wt.wf, E, 1, ring);
+    ld.prefetch();
+    __syncthreads();
+    gemm(rows + RES, ld, [&](int r, int c, const float (&a)[G]) {
+      float v[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) v[j] = a[j] + __ldg(wt.bf + c + j);
+      st_cols(rows + r * LDR + QO + c, v);
+    });
+  }
   __syncthreads();
+  STAGE(6)
 
   // scores[n, i, j] = md0_i · md1_j / sqrt(E).
   for (int it = tid; it < G * T0 * T1; it += NT) {
     const int p = it / (T0 * T1), i = (it / T1) % T0, j = it % T1;
     const int n = pair0 + p;
     if (n >= n_pairs) continue;
-    const float* a = Bq + (p * P + i) * LDB;
-    const float* b = Bq + (p * P + T0 + j) * LDB;
+    const float* a = rows + (p * P + i) * LDR + QO;
+    const float* b = rows + (p * P + T0 + j) * LDR + QO;
     float dot = 0.0f;
 #pragma unroll 8
     for (int c = 0; c < E; c += 4) {
@@ -782,19 +946,76 @@ superglue_gnn_f32_kernel(const float* __restrict__ desc0,  // [N, T0, E]
     }
     scores[((size_t)n * T0 + i) * T1 + j] = dot / sqrtf((float)E);
   }
+  STAGE(7)
+}
+
+// The pairs a CTA for n_pairs pairs on a card of `sms` SMs: the G of 1, 2
+// and 4 with the least time, a CTA's time taken as G times a pair's cost
+// in it (10, 12 and 18 for G = 4, 2, 1: on an H100 a pair costs 1, 1.17
+// and 1.81-1.85 times as much with G = 4, 2, 1, both at 20,480 pairs and at
+// 80, scripts/check_gnn_kernel.py --f32) and CTAs in waves of one an SM;
+// ties to the larger G. A build with -DT2P_GNN_F32_PAIRS=G takes G pairs
+// a CTA at every size (timing only: check_gnn_kernel.py --f32 times each
+// form); the scores do not depend on G.
+__host__ __device__ inline int pairs_per_cta(int n_pairs, int sms) {
+#ifdef T2P_GNN_F32_PAIRS
+  return T2P_GNN_F32_PAIRS;
+#else
+  int best = 4;
+  long long best_cost = -1;
+  for (int g = 4; g >= 1; g /= 2) {
+    const long long ctas = (n_pairs + g - 1) / g;
+    const long long waves = (ctas + sms - 1) / sms;
+    const long long cost = waves * g * (g == 4 ? 10 : g == 2 ? 12 : 18);
+    if (best_cost < 0 || cost < best_cost) best = g, best_cost = cost;
+  }
+  return best;
+#endif
+}
+
+int device_sms(int* sms) {
+  static int known[64] = {};
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && known[dev]) {
+    *sms = known[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64) known[dev] = *sms;
+  return 0;
+}
+
+template <int G>
+int launch_g(const float* desc0, const float* desc1, const Weights& wt,
+             int num_blocks, float* scores, int n_pairs, cudaStream_t stream) {
+  const size_t smem = smem_bytes(G);
+  cudaError_t e = cudaFuncSetAttribute(
+      superglue_gnn_f32_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (n_pairs + G - 1) / G;
+  superglue_gnn_f32_kernel<G><<<grid, NT, smem, stream>>>(
+      desc0, desc1, wt, num_blocks, scores, n_pairs);
+  return (int)cudaGetLastError();
 }
 
 int launch(const float* desc0, const float* desc1, const Weights& wt,
            int num_blocks, float* scores, int n_pairs, cudaStream_t stream) {
-  const size_t smem = (size_t)SMEM_FLOATS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      superglue_gnn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (n_pairs + G - 1) / G;
-  superglue_gnn_f32_kernel<<<grid, NT, smem, stream>>>(
-      desc0, desc1, wt, num_blocks, scores, n_pairs);
-  return (int)cudaGetLastError();
+  int sms;
+  const int err = device_sms(&sms);
+  if (err) return err;
+  switch (pairs_per_cta(n_pairs, sms)) {
+    case 4: return launch_g<4>(desc0, desc1, wt, num_blocks, scores, n_pairs,
+                               stream);
+    case 2: return launch_g<2>(desc0, desc1, wt, num_blocks, scores, n_pairs,
+                               stream);
+    case 1: return launch_g<1>(desc0, desc1, wt, num_blocks, scores,
+                               n_pairs, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace f32
@@ -803,8 +1024,9 @@ int launch(const float* desc0, const float* desc1, const Weights& wt,
 
 // desc0 [N, 16, 128] f32, desc1 [N, 6, 128] f32, scores [N, 16, 6] f32.
 // bf16 != 0: matmul weights are bf16 in fragment order (tensor-core kernel);
-// else f32 row-major (CUDA-core kernel). Vectors are f32 either way.
-// Returns a cudaError_t; 0 means the launch was accepted.
+// else f32 row-major (CUDA-core kernel, its pairs a CTA by the launch's
+// size: t2p_superglue_gnn_f32_pairs). Vectors are f32 either way. Returns
+// a cudaError_t; 0 means the launch was accepted.
 extern "C" int t2p_superglue_gnn(const void* desc0, const void* desc1,
                                  const void* wqkv, const void* bqkv,
                                  const void* wm, const void* bm,
@@ -842,6 +1064,16 @@ extern "C" int t2p_superglue_gnn_shape(int* e, int* t0, int* t1, int* g) {
   return 0;
 }
 
+// The pairs a CTA of the f32 kernel for a launch on n_pairs pairs on the
+// current device (1, 2 or 4; f32::pairs_per_cta).
+extern "C" int t2p_superglue_gnn_f32_pairs(int n_pairs, int* g) {
+  int sms;
+  const int err = f32::device_sms(&sms);
+  if (err) return err;
+  *g = f32::pairs_per_cta(n_pairs, sms);
+  return 0;
+}
+
 #ifdef T2P_STAGE_CLOCKS
 // Copies the bf16 kernel's summed stage clocks to out[8] (reset == 0) or
 // sets them to zero. Synchronizes the device.
@@ -852,6 +1084,17 @@ extern "C" int t2p_superglue_gnn_stage_clocks(unsigned long long* out,
     return (int)cudaMemcpyToSymbol(tc::g_stage_clocks, zero, sizeof(zero));
   }
   return (int)cudaMemcpyFromSymbol(out, tc::g_stage_clocks,
+                                   tc::N_STAGES * sizeof(unsigned long long));
+}
+
+// The same for the f32 kernel's stages.
+extern "C" int t2p_superglue_gnn_f32_stage_clocks(unsigned long long* out,
+                                                  int reset) {
+  if (reset) {
+    const unsigned long long zero[tc::N_STAGES] = {};
+    return (int)cudaMemcpyToSymbol(f32::g_stage_clocks, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(out, f32::g_stage_clocks,
                                    tc::N_STAGES * sizeof(unsigned long long));
 }
 #endif

@@ -136,11 +136,14 @@ def _pointconv_kernel(a, pos, c, cent, bn0, w2, b2, bn1, radius, k_cap,
         raise ValueError(f"PointConv kernel: k_cap {k_cap} not in [1, 32]")
     a, pos, c, cent = (x.contiguous() for x in (a, pos, c, cent))
     vecs = [x.contiguous() for x in (bn0[0], bn0[1], b2, bn1[0], bn1[1])]
-    if bf16:   # vector loads: rows of a and c, pairs of b2 and BN1 columns
-        a, c, *vecs = (x if x.data_ptr() % 16 == 0 else x.clone()
-                       for x in (a, c, *vecs))
+    # Vector loads: rows of a and c, BN0's columns, pairs of b2 and BN1
+    # columns (bf16), f32 W2's rows.
+    a, c, *vecs = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (a, c, *vecs))
     if not bf16:
         w2 = w2.contiguous()
+        if w2.data_ptr() % 16:
+            w2 = w2.clone()
     elif w2f is None:
         w2 = w2_fragments(w2)
     else:

@@ -11,7 +11,8 @@ arithmetic, rounding included, in PyTorch.
 
 - ``csrc/superglue_gnn.cu``, tuned for ``KERNEL_SHAPE`` (E = 128, 16
   objects, 6 hints): bf16 on the tensor cores (``mma.sync`` m16n8k16, f32
-  accumulation, ``TC_PAIRS`` pairs a CTA), f32 on the CUDA cores.
+  accumulation, ``TC_PAIRS`` pairs a CTA), f32 on the CUDA cores (1, 2 or 4
+  pairs a CTA by the launch's size, ``f32_pairs``).
 - ``csrc/superglue_gnn_any.cu`` at every other shape JAX's kernel takes
   (any E a multiple of 4 and 1 ≤ T1 ≤ T0, as the model asks: JAX's
   default E = 300, ``pad_size`` 24, 32 and past). ``any_plan`` picks its
@@ -576,6 +577,19 @@ def _gnn_kernel(desc0, desc1, packed):
                   int(dt == torch.bfloat16), out.data_ptr())
     _build.LAUNCHES["superglue_gnn"] += 1
     return out
+
+
+def f32_pairs(n_pairs: int, device=None) -> int:
+    """The pairs a CTA of the tuned f32 kernel for a launch on ``n_pairs``
+    pairs on the card ``device`` (the kernel's own rule,
+    ``t2p_superglue_gnn_f32_pairs``: 4, or 2 or 1 where 4 would leave SMs
+    idle)."""
+    g = ctypes.c_int(0)
+    fn = _build.entry("superglue_gnn", "t2p_superglue_gnn_f32_pairs",
+                      [ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        _build.check(fn(n_pairs, ctypes.byref(g)), "superglue_gnn f32 pairs")
+    return g.value
 
 
 def gnn_scores(desc0: torch.Tensor, desc1: torch.Tensor,
